@@ -1,4 +1,5 @@
-"""Drive the PyTorch/H100 port's serving path on one NVIDIA card.
+"""Drive the PyTorch/H100 port's serving and training paths on one NVIDIA
+card.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -21,8 +22,23 @@ Phases, in order; any failure exits non-zero:
    the port's plain path on the CPU for the same weights;
 5. server: ``JsonModelServer`` on localhost answering POST /predict, each
    answer held against ``net.output``;
-6. summary: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
+6. kernel-bwd against plain: K2 (the affine-epilogue backward) against its
+   plain PyTorch version at the same 10 shapes, 7 activations, float32 and
+   bfloat16, with and without ``scale``: ``dx``, ``dscale`` and
+   ``dshift``, a second run bitwise equal, and CUDA-event times beside
+   the memory bound;
+7. train: a full-width ResNet-50 (224x224x3, 1000 classes, float32, seed
+   0, the zoo's Adam(1e-3), TF32 off): one batch-4 step's loss, every
+   parameter gradient and the new BN running statistics on the card
+   against the port's plain path on the CPU; then ``fit`` on one fixed
+   batch of 32 for 12 steps with exactly 53 K1 and 53 K2 launches each, a
+   finite and falling loss, the step time, and a ``torch.profiler`` split
+   of three steps (device time, K1 and K2 time);
+8. summary: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
    power limit, and last ``{"ok": true, "device": {...}}``.
+
+The serving path (phases 4-5) and the training path (phase 7) are each
+driven with the launch counts set to 0 just before and read just after.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -54,6 +70,28 @@ CPU_REL_TOL = 1e-3
 #: server answer vs net.output on the same card: the same float32 values
 #: through JSON (exact round trip), at most another bucket's algorithms
 SERVER_REL_TOL = 1e-5
+#: K2's dscale/dshift against the plain version, per channel, relative to
+#: the sum over rows of |term|: float32 sums of up to 401,408 terms in two
+#: different orders (either order's rounding error stays below about
+#: 2e-5 of that sum)
+K2_SUM_TOL = 1e-4
+TRAIN_STEPS = 12
+TRAIN_BATCH = 32
+PARITY_BATCH = 4
+#: card vs the port's CPU plain path, one batch-4 training step from the
+#: same weights, TF32 off: the loss within 1e-4 relative and every new BN
+#: running statistic within 1e-3 relative as a whole-tensor norm (cuDNN
+#: and the CPU sum each convolution in other orders, over 53 layers).
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+#: The parameter gradients of this net are ill-conditioned in float32: on
+#: the CPU, float32 and float64 runs of the same code differ by about 2%
+#: (whole-tensor, median over the parameters) and two float32 runs with
+#: other thread counts by up to 1.8%. So each card gradient is held
+#: against the CPU's float64 gradient: its error there must be within
+#: 1e-3, or within GRAD_NOISE_FACTOR times the CPU float32 gradient's own
+#: error there (the card is as accurate as float32 on the CPU allows).
+GRAD_NOISE_FACTOR = 2.0
 
 
 def log(msg: str) -> None:
@@ -93,6 +131,19 @@ def rel_err(a, b) -> float:
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def tree_max_rel(a: dict, b: dict):
+    """(max relative error, its key) over two trees of tensors keyed by
+    vertex, then by name."""
+    worst = (0.0, "")
+    for v, leaves in b.items():
+        for k, want in leaves.items():
+            e = rel_err(a[v][k].detach().cpu().numpy(),
+                        want.detach().cpu().numpy())
+            if e >= worst[0]:
+                worst = (e, f"{v}/{k}")
+    return worst
 
 
 def phase_toolchain(build) -> None:
@@ -201,8 +252,9 @@ def phase_serve(k1, fe, env, models, graph) -> dict:
     eng.warmup(BUCKETS)
     log(f"[serve] warmup {list(BUCKETS)}: {time.perf_counter() - t0:.1f} s")
 
-    # ---- the main path: counts from 0, read after the server phase ----
+    # ---- the serving path: counts from 0, read after the server phase ----
     k1.launches = 0
+    k1.bwd_launches = 0
     fe.reset_counters()
     forwards = 0
     rng = np.random.default_rng(0)
@@ -288,6 +340,229 @@ def phase_server(k1, server_mod, net) -> int:
     return forwards
 
 
+def phase_kernel_bwd(k1) -> dict:
+    """K2 against its plain version, twice per case for determinism;
+    returns float32 times {(rows, cols, act): (ms, plain_ms)} and errors."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    times = {}
+    err = {"dx_float32": 0.0, "dx_bfloat16": 0.0, "dscale_dshift": 0.0,
+           "dscale_dshift_rel": 0.0}
+    cases = 0
+    for rows, cols in SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(rows, cols, generator=gen, device=dev).to(dtype)
+            dy = torch.randn(rows, cols, generator=gen, device=dev).to(dtype)
+            scale = torch.rand(cols, generator=gen, device=dev) + 0.5
+            shift = torch.randn(cols, generator=gen, device=dev)
+            atol, rtol = k1.ulp_tolerance(dtype)
+            for act in k1.ACTS:
+                for s in (scale, None):
+                    got = k1.affine_act_bwd(x, s, shift, dy, act)
+                    again = k1.affine_act_bwd(x, s, shift, dy, act)
+                    torch.cuda.synchronize()
+                    for a, b in zip(got, again):
+                        if a is not None and not torch.equal(a, b):
+                            raise AssertionError(
+                                f"K2 {act} {dtype} ({rows}, {cols}) is not "
+                                "deterministic")
+                    want = k1.affine_act_bwd_reference(x, s, shift, dy, act)
+                    where = f"K2 {act} {dtype} ({rows}, {cols}) " \
+                            f"scale={s is not None}"
+                    e = (got[0].float() - want[0].float()).abs()
+                    if bool((e > atol + rtol * want[0].float().abs()).any()):
+                        raise AssertionError(f"{where}: dx disagrees, max "
+                                             f"abs err {float(e.max())}")
+                    key = "dx_" + str(dtype)[6:]
+                    err[key] = max(err[key], float(e.max()))
+                    # per-channel sums of |term|: the scale of each sum
+                    xf = x.float()
+                    z = xf * s + shift if s is not None else xf + shift
+                    dz = (dy.float() * k1.act_grad(act, z)).abs()
+                    scales = [dz.sum(0)] + ([] if s is None
+                                            else [(dz * xf.abs()).sum(0)])
+                    pairs = [(got[2], want[2])] + (
+                        [] if s is None else [(got[1], want[1])])
+                    for (g, w), mag in zip(pairs, scales):
+                        d = (g - w).abs()
+                        if bool((d > K2_SUM_TOL * mag + 1e-6).any()):
+                            raise AssertionError(
+                                f"{where}: a column sum disagrees, max abs "
+                                f"err {float(d.max())}")
+                        err["dscale_dshift"] = max(err["dscale_dshift"],
+                                                   float(d.max()))
+                        err["dscale_dshift_rel"] = max(
+                            err["dscale_dshift_rel"],
+                            float((d / (mag + 1e-30)).max()))
+                    cases += 1
+            itemsize = x.element_size()
+            for act in ("identity", "relu"):
+                bound = k1.bound_ms_bwd(rows, cols, itemsize, act)
+                ms, host = time_ms(
+                    lambda: k1.affine_act_bwd(x, scale, shift, dy, act))
+                plain, _ = time_ms(
+                    lambda: k1.affine_act_bwd_reference(x, scale, shift, dy,
+                                                        act))
+                if dtype == torch.float32:
+                    times[(rows, cols, act)] = (ms, plain, host)
+                log(f"[kernel-bwd] K2 {str(dtype)[6:]:8s} act={act:8s} "
+                    f"rows={rows:6d} C={cols:4d} ms={ms:.5f} "
+                    f"plain_ms={plain:.5f} bound_ms={bound:.5f} "
+                    f"library_ms=null host_ms={host:.5f}")
+            del x, dy
+    log(f"[kernel-bwd] K2 matches its plain version and repeats bit for "
+        f"bit: {cases} cases (10 shapes x 7 activations x (float32, "
+        f"bfloat16) x (scale, no scale)); max abs err dx float32 "
+        f"{err['dx_float32']:.3g}, bfloat16 {err['dx_bfloat16']:.3g}; "
+        f"dscale/dshift {err['dscale_dshift']:.3g} (at most "
+        f"{err['dscale_dshift_rel']:.3g} of the column's sum of |term|, "
+        f"tolerance {K2_SUM_TOL})")
+    return {"times": times, "max_err": err}
+
+
+def _batch(rng, n):
+    x = rng.standard_normal((n, 224, 224, 3), dtype=np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, n)]
+    return x, y
+
+
+def phase_train(k1, fe, env, models, graph) -> dict:
+    from deeplearning4j_tpu_torch.tools.profile_serving import device_us
+    env.Environment.instance().f32_matmul_precision = "highest"
+    rng = np.random.default_rng(2)
+    net = models.resnet50(seed=0).init(device="cuda")
+
+    # ---- parity: one batch-4 step on the card vs the CPU plain path ----
+    def cpu_copy(dtype, cast):
+        conf = graph.ComputationGraphConfiguration.from_json(json.dumps(
+            {**json.loads(net.conf.to_json()), "dtype": dtype}))
+        m = graph.ComputationGraph(conf).init(device="cpu")
+        m.params = {v: {k: cast(t.cpu()) for k, t in p.items()}
+                    for v, p in net.params.items()}
+        m.state = {v: {k: cast(t.cpu()) for k, t in p.items()}
+                   for v, p in net.state.items()}
+        return m
+
+    x4, y4 = _batch(rng, PARITY_BATCH)
+
+    def loss_grads(m):
+        with env.precision(m.device):
+            return m._value_and_grad((m._tensor(x4),), (m._tensor(y4),),
+                                     (None,), (None,))
+
+    t0 = time.perf_counter()
+    loss_g, grads_g, bn_g = loss_grads(net)
+    torch.cuda.synchronize()
+    loss_c, grads_c, bn_c = loss_grads(cpu_copy("FLOAT", lambda t: t))
+    _, grads_64, _ = loss_grads(cpu_copy("DOUBLE", lambda t: t.double()))
+    e_loss = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    e_bn, at_bn = tree_max_rel(bn_g, bn_c)
+    e_grad, at_grad = tree_max_rel(grads_g, grads_c)
+    worst, bad = (0.0, "", 0.0, 0.0), []
+    for v, leaves in grads_64.items():
+        for k, g64 in leaves.items():
+            want = g64.numpy()
+            e_card = rel_err(grads_g[v][k].cpu().numpy(), want)
+            e_cpu = rel_err(grads_c[v][k].numpy(), want)
+            allowed = max(TRAIN_GRAD_TOL, GRAD_NOISE_FACTOR * e_cpu)
+            if e_card / allowed >= worst[0]:
+                worst = (e_card / allowed, f"{v}/{k}", e_card, e_cpu)
+            if e_card > allowed:
+                bad.append(f"{v}/{k}")
+    log(f"[train] card vs CPU plain path, one batch-{PARITY_BATCH} step "
+        f"({time.perf_counter() - t0:.1f} s): loss {float(loss_g):.6f} vs "
+        f"{float(loss_c):.6f} (rel err {e_loss:.3g}, tolerance "
+        f"{TRAIN_LOSS_TOL}); max BN running-stat rel err {e_bn:.3g} at "
+        f"{at_bn} (tolerance {TRAIN_GRAD_TOL}); max gradient rel err card "
+        f"vs CPU float32 {e_grad:.3g} at {at_grad}; against the CPU "
+        f"float64 gradient the worst card/allowed ratio is {worst[0]:.3g} "
+        f"at {worst[1]} (card {worst[2]:.3g}, CPU float32 {worst[3]:.3g}; "
+        f"allowed max({TRAIN_GRAD_TOL}, {GRAD_NOISE_FACTOR} x CPU float32)); "
+        f"{len(grads_c)} vertices with parameters")
+    if not (e_loss <= TRAIN_LOSS_TOL and e_bn <= TRAIN_GRAD_TOL) or bad:
+        raise AssertionError(f"training on the card disagrees with the CPU "
+                             f"plain path (gradients out of bounds: {bad})")
+    del grads_g, grads_c, grads_64, bn_g, bn_c
+
+    # ---- the main path: counts from 0, read after the last fit ----
+    x, y = _batch(rng, TRAIN_BATCH)
+    k1.launches = 0
+    k1.bwd_launches = 0
+    fe.reset_counters()
+    steps = 0
+
+    def step():
+        nonlocal steps
+        before = (k1.launches, k1.bwd_launches)
+        net.fit(x, y)
+        steps += 1
+        got = (k1.launches - before[0], k1.bwd_launches - before[1])
+        if got != (LAUNCHES_PER_FORWARD, LAUNCHES_PER_FORWARD):
+            raise AssertionError(f"training step {steps}: {got} K1/K2 "
+                                 f"launches, expected "
+                                 f"{LAUNCHES_PER_FORWARD} each")
+
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(net.score())
+    log(f"[train] fit, batch {TRAIN_BATCH}, {TRAIN_STEPS} steps: losses "
+        + " ".join(f"{v:.4f}" for v in losses))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss not finite and falling: "
+                             f"{losses}")
+    median = statistics.median(step_ms[1:])
+
+    # device split of three steps (after one profiled step that pays the
+    # tracer's start-up)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        step()
+    reps = 3
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and device_us(e) > 0]
+    dev_ms = sum(device_us(e) for e in kernels) / 1e3 / reps
+    k2_ms = sum(device_us(e) for e in kernels
+                if "affine_act_bwd" in e.key) / 1e3 / reps
+    k1_ms = sum(device_us(e) for e in kernels
+                if "affine_act_kernel" in e.key) / 1e3 / reps
+    top = sorted(kernels, key=device_us, reverse=True)[:6]
+
+    launches = (k1.launches, k1.bwd_launches)
+    copies, decisions = fe.dy_copies, fe.counters()
+    sentinel = net.resilience_counters()
+    if launches != (steps * LAUNCHES_PER_FORWARD,) * 2:
+        raise AssertionError(f"main path: {launches} K1/K2 launches for "
+                             f"{steps} training steps")
+    if decisions["fused"] != launches[0] or decisions["fallback_act"] \
+            or sentinel["bad_total"]:
+        raise AssertionError(f"training decisions {decisions}, sentinel "
+                             f"{sentinel}")
+    log(f"[train] step {median:.3f} ms median of {TRAIN_STEPS - 1} "
+        f"({TRAIN_BATCH * 1e3 / median:.1f} images/s); device "
+        f"{dev_ms:.3f} ms per step (busy share {dev_ms / median:.3f}), K1 "
+        f"{k1_ms:.3f} ms + K2 {k2_ms:.3f} ms; {LAUNCHES_PER_FORWARD} K1 + "
+        f"{LAUNCHES_PER_FORWARD} K2 launches in each of {steps} steps; "
+        f"{copies / steps:.2f} dy copies per step; sentinel {sentinel}")
+    log("[train] top kernels (ms per step): " + "; ".join(
+        f"{e.key[:60]} {device_us(e) / 1e3 / reps:.3f} x{e.count // reps}"
+        for e in top))
+    return {"net": net, "steps": steps, "launches": launches,
+            "losses": losses, "step_ms": median, "device_ms": dev_ms,
+            "k1_ms": k1_ms, "k2_ms": k2_ms, "dy_copies": copies / steps,
+            "parity": (e_loss, e_grad, e_bn)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -305,20 +580,27 @@ def main() -> int:
     phase_toolchain(build)
     phase_build(build)
     kern = phase_kernel(k1)
+    kbwd = phase_kernel_bwd(k1)
     served = phase_serve(k1, fe, env, models, graph)
     forwards = served["forwards"] + phase_server(k1, server_mod,
                                                  served["net"])
-    launches = k1.launches
-    if launches == 0 or launches != forwards * LAUNCHES_PER_FORWARD:
-        raise AssertionError(f"main path: {launches} K1 launches for "
-                             f"{forwards} forwards")
+    serve_launches = k1.launches
+    if serve_launches == 0 or \
+            serve_launches != forwards * LAUNCHES_PER_FORWARD:
+        raise AssertionError(f"serving path: {serve_launches} K1 launches "
+                             f"for {forwards} forwards")
     # every decision on the card launched K1 (the CPU reference forwards
-    # count as fallback_platform, by design)
-    if fe.counters()["fused"] != launches or fe.counters()["fallback_act"]:
-        raise AssertionError(f"main path decisions: {fe.counters()}")
+    # count as fallback_platform, by design); serving runs no backward
+    if fe.counters()["fused"] != serve_launches or \
+            fe.counters()["fallback_act"] or k1.bwd_launches:
+        raise AssertionError(f"serving path decisions: {fe.counters()}, "
+                             f"{k1.bwd_launches} K2 launches")
+    del served
+    trained = phase_train(k1, fe, env, models, graph)
 
-    # one batch-32 forward's 53 K1 calls, timed per (rows, C, act) above
-    calls = k1_path_calls(served["net"], 32)
+    # one batch-32 forward's (training step's) 53 K1 (K2) calls, timed per
+    # (rows, C, act) in phases 3 and 6
+    calls = k1_path_calls(trained["net"], 32)
     t = kern["times"]
     ms = sum(t[c][0] for c in calls)
     plain = sum(t[c][1] for c in calls)
@@ -328,14 +610,27 @@ def main() -> int:
     t_bytes = sum(k1.bytes_moved(r, c, 4) for r, c, _ in calls)
     t_ops = sum(k1.flops(r, c, a) for r, c, a in calls) * (
         k1.H100_BYTES_PER_S / k1.H100_F32_FLOPS_PER_S)
+    tb = kbwd["times"]
+    ms2 = sum(tb[c][0] for c in calls)
+    plain2 = sum(tb[c][1] for c in calls)
+    host2 = sum(tb[c][2] for c in calls)
+    bound2 = sum(k1.bound_ms_bwd(r, c, 4, a) for r, c, a in calls)
+    b_bytes = sum(k1.bytes_moved_bwd(r, c, 4) for r, c, _ in calls)
+    b_ops = sum(k1.flops_bwd(r, c, a) for r, c, a in calls) * (
+        k1.H100_BYTES_PER_S / k1.H100_F32_FLOPS_PER_S)
     log(f"[summary] one batch-32 float32 forward: {len(calls)} K1 calls, "
         f"{ms:.4f} ms on the device (plain {plain:.4f}, addcmul {lib:.4f}, "
         f"bound {bound:.4f}); host enqueue {host:.4f} ms")
+    log(f"[summary] one batch-32 float32 training step: {len(calls)} K2 "
+        f"calls, {ms2:.4f} ms on the device (plain {plain2:.4f}, bound "
+        f"{bound2:.4f}); host enqueue {host2:.4f} ms")
     print(json.dumps({"kernels": [{
         "name": "K1 affine_act", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/affine_act.cu",
         "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:167",
-        "launches": launches,
+        "launches": serve_launches + trained["launches"][0],
+        "launches_by_path": {"serve": serve_launches,
+                             "train": trained["launches"][0]},
         "max_abs_err": max(kern["max_err"].values()),
         "max_abs_err_float32": kern["max_err"][torch.float32],
         "max_abs_err_bfloat16": kern["max_err"][torch.bfloat16],
@@ -346,6 +641,27 @@ def main() -> int:
                     "float32 ResNet-50 forward; library_ms is torch.addcmul "
                     "(the affine alone) at the same shapes; host_ms is the "
                     "wrapper's enqueue time over the same calls",
+    }, {
+        "name": "K2 affine_act_bwd", "checked": True, "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/affine_act_bwd.cu",
+        "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:179",
+        "launches": trained["launches"][1],
+        "launches_by_path": {"serve": 0, "train": trained["launches"][1]},
+        "max_abs_err": max(kbwd["max_err"]["dx_float32"],
+                           kbwd["max_err"]["dx_bfloat16"],
+                           kbwd["max_err"]["dscale_dshift"]),
+        "max_abs_err_dx_float32": kbwd["max_err"]["dx_float32"],
+        "max_abs_err_dx_bfloat16": kbwd["max_err"]["dx_bfloat16"],
+        "max_abs_err_dscale_dshift": kbwd["max_err"]["dscale_dshift"],
+        "deterministic": True,
+        "ms": ms2, "plain_ms": plain2, "bound_ms": bound2,
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "library_ms": None, "host_ms": host2,
+        "dy_copies_per_step": trained["dy_copies"],
+        "timed_as": "device time summed over the 53 calls of one batch-32 "
+                    "float32 ResNet-50 training step; no single PyTorch "
+                    "call computes (dx, dscale, dshift), so library_ms is "
+                    "null",
     }]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

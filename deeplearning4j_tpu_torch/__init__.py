@@ -5,15 +5,17 @@ module layout (``nn/graph.py``, ``ops/fused_epilogues.py``, ...) so every
 port module has an obvious counterpart. It imports ``torch`` and numpy and
 nothing of JAX or of the JAX package.
 
-Entry points (``ComputationGraph.init``, ``load_model``, the serving
-fronts) run on ``cuda`` unless the caller passes ``device="cpu"``; without
-a CUDA device and without that explicit request they raise.
+Entry points (``ComputationGraph.init``, ``fit`` on an uninitialized
+net, ``load_model``, the serving fronts) run on ``cuda`` unless the caller
+passes ``device="cpu"``; without a CUDA device and without that explicit
+request they raise.
 
 Every TPU kernel on a ported path is a hand-written Hopper kernel under
 ``csrc/`` with its plain PyTorch version beside its wrapper in
-``kernels/``. This first slice serves ResNet through
-``ComputationGraph.output``; its one kernel is the BN-affine + activation
-epilogue (``kernels/affine_act.py``).
+``kernels/``. The ported paths serve ResNet through
+``ComputationGraph.output`` and train it through ``ComputationGraph.fit``;
+their kernels are the BN-affine + activation epilogue (K1) and its
+backward (K2), both in ``kernels/affine_act.py``.
 """
 
 __version__ = "0.1.0"

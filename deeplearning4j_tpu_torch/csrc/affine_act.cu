@@ -19,57 +19,18 @@
 // rounds to x's dtype once. The loop bound masks the ragged tail, so any
 // row count works (the TPU kernel needed rows to tile its row blocks).
 //
-// nvcc contracts x*scale + shift into one fused multiply-add, so f32
-// results may differ from a CPU computation (multiply, then add) by about
-// one ulp.
+// z = x*scale + shift is a rounded product and a rounded sum (affine() in
+// epilogue_act.cuh, no fused multiply-add), as in the plain version; the
+// activations' tanhf/expf/erff differ from PyTorch's by an ulp or two.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "epilogue_act.cuh"
+
 namespace {
 
-// The order matches ACTS in kernels/affine_act.py.
-enum Act { IDENTITY = 0, RELU, RELU6, TANH, SIGMOID, GELU, GELU_EXACT };
-
-template <int ACT>
-__device__ __forceinline__ float act_fn(float z) {
-  if constexpr (ACT == IDENTITY) {
-    return z;
-  } else if constexpr (ACT == RELU) {
-    return fmaxf(z, 0.0f);
-  } else if constexpr (ACT == RELU6) {
-    return fminf(fmaxf(z, 0.0f), 6.0f);
-  } else if constexpr (ACT == TANH) {
-    return tanhf(z);
-  } else if constexpr (ACT == SIGMOID) {
-    return 1.0f / (1.0f + expf(-z));
-  } else if constexpr (ACT == GELU) {  // tanh approximation (DL4J GELU)
-    const float u = 0.7978845608028654f * (z + 0.044715f * z * z * z);
-    return 0.5f * z * (1.0f + tanhf(u));
-  } else {  // GELU_EXACT: erf form (ONNX Gelu)
-    return 0.5f * z * (1.0f + erff(z * 0.7071067811865476f));
-  }
-}
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <> __device__ __forceinline__ float to_f32<__half>(__half v) {
-  return __half2float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half(v);  // round to nearest even
-}
+using namespace dl4j;
 
 // VEC elements per step: 16 / sizeof(T) on the vector path, else 1.
 template <typename T, int ACT, int VEC>
@@ -94,7 +55,7 @@ __global__ void affine_act_kernel(const T* __restrict__ x,
     for (int j = 0; j < VEC; ++j) {
       const float b = __ldg(shift + c0 + j);
       const float z = scale != nullptr
-                          ? to_f32<T>(in[j]) * __ldg(scale + c0 + j) + b
+                          ? affine(to_f32<T>(in[j]), __ldg(scale + c0 + j), b)
                           : to_f32<T>(in[j]) + b;
       out[j] = from_f32<T>(act_fn<ACT>(z));
     }

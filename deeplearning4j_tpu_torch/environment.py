@@ -2,7 +2,11 @@
 
 Port of ``deeplearning4j_tpu/environment.py``. Nothing here changes a
 process-wide torch setting at import time; the precision policy is applied
-around each forward by :func:`precision` and restored afterwards.
+around each forward, and around each whole training step (forward,
+backward and update), by :func:`precision` and restored afterwards. A
+backward run after the context has exited would run its cuDNN/cuBLAS
+kernels under whatever the global switches are (cuDNN's TF32 defaults to
+on), so the training step keeps its backward inside the context.
 
 Precision (``DL4J_TPU_F32_MATMUL_PRECISION`` or
 ``Environment.instance().f32_matmul_precision``):
@@ -60,8 +64,8 @@ def allow_tf32(device) -> bool:
 
 @contextlib.contextmanager
 def precision(device):
-    """Apply the precision policy for one forward on ``device``; both TF32
-    switches are restored on exit."""
+    """Apply the precision policy for one forward or one training step on
+    ``device``; both TF32 switches are restored on exit."""
     tf32 = allow_tf32(device)
     old = (torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32)

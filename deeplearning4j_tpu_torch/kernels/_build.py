@@ -2,8 +2,9 @@
 
 Every ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, ``build/lib<name>-<digest>.so``,
-and loaded with ctypes. The digest covers the source and the flags, so an
-edited source builds anew and an unchanged one is reused. Builds run at
+and loaded with ctypes. The digest covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source builds anew and an
+unchanged one is reused. Builds run at
 first use (or all together through :func:`build_all`, one ``nvcc`` per
 source started at once); nothing is built or loaded at import time.
 
@@ -55,10 +56,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = sources()[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path; its digest covers the source, every shared
+    header (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256(sources()[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:

@@ -8,14 +8,15 @@ weights, He/ReLU weight init and BN decay 0.9, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
-from ..nn.config import InputType, NeuralNetConfiguration, adam
+from ..nn.config import InputType, NeuralNetConfiguration
 from ..nn.graph import ComputationGraph, GraphBuilder
 from ..nn.layers.conv import (BatchNormalization, ConvolutionLayer,
                               GlobalPoolingLayer, SubsamplingLayer)
 from ..nn.layers.conv_extra import SpaceToDepthStemConv
 from ..nn.layers.core import ActivationLayer, OutputLayer
+from ..nn.updaters import Adam
 from ..nn.vertices import ElementWiseVertex
 
 # (block counts, bottleneck?) per standard depth
@@ -84,18 +85,18 @@ def _basic(g: GraphBuilder, name: str, inp: str, channels: int,
 
 def resnet(depth: int = 50, *, num_classes: int = 1000,
            input_shape: Tuple[int, int, int] = (224, 224, 3),
-           updater: Optional[dict] = None, seed: int = 1234,
+           updater=None, seed: int = 1234,
            dtype: str = "FLOAT", s2d_stem: bool = True) -> ComputationGraph:
     """Build a ResNet ComputationGraph (not yet initialized; call
     ``init(device=...)``). ``input_shape`` is NHWC-style (H, W, C);
-    ``updater`` is a serialized updater dict (default Adam, 1e-3)."""
+    ``updater`` defaults to the zoo's ``Adam(learning_rate=1e-3)``."""
     if depth not in _SPECS:
         raise ValueError(f"depth must be one of {sorted(_SPECS)}")
     blocks, bottleneck = _SPECS[depth]
     h, w, c = input_shape
 
     base = (NeuralNetConfiguration.builder().seed(seed).data_type(dtype)
-            .updater(updater or adam(learning_rate=1e-3)))
+            .updater(updater or Adam(learning_rate=1e-3)))
     g = (base.graph_builder()
          .add_inputs("in")
          .set_input_types(InputType.convolutional(c, h, w,

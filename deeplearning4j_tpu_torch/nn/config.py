@@ -1,15 +1,17 @@
 """Network configuration DSL: ``InputType`` and the builder.
 
 Port of the parts of ``deeplearning4j_tpu/nn/config.py`` that the
-ComputationGraph path uses. The updater is kept as its serialized dict
-(``{"kind": "adam", "learning_rate": ...}``) until the training slice
-ports the updaters, so a ``configuration.json`` written by the JAX
-package round-trips unchanged.
+ComputationGraph path uses. The updater is an ``nn.updaters.Updater``
+(the builder also takes an updater's name, or its serialized dict as a
+JAX ``configuration.json`` holds it).
 """
 
 from __future__ import annotations
 
 from typing import Tuple
+
+from . import gradnorm as _gn
+from . import updaters as _upd
 
 
 class InputType:
@@ -23,28 +25,26 @@ class InputType:
                (height, width, channels)
 
 
-def adam(learning_rate: float = 1e-3, beta1: float = 0.9,
-         beta2: float = 0.999, epsilon: float = 1e-8) -> dict:
-    """The serialized form of the JAX package's ``Adam`` updater."""
-    return {"kind": "adam", "learning_rate": learning_rate, "beta1": beta1,
-            "beta2": beta2, "epsilon": epsilon}
-
-
-def sgd(learning_rate: float = 0.1) -> dict:
-    """The serialized form of the JAX package's ``Sgd`` updater."""
-    return {"kind": "sgd", "learning_rate": learning_rate}
-
-
 class NeuralNetConfiguration:
     """Builder (DL4J ``new NeuralNetConfiguration.Builder()``), the subset a
-    ComputationGraph needs: seed, data type, updater and l1/l2."""
+    ComputationGraph needs: seed, data type, updater, l1/l2, gradient
+    normalization and clipping, constraints, ``tbptt_length`` and
+    ``workspace_mode`` (the last two are refused by ``fit`` in this
+    slice)."""
 
     def __init__(self):
         self._seed = 1234
         self._dtype = "FLOAT"
-        self._updater = sgd()
+        self._updater = _upd.Sgd(learning_rate=0.1)
         self._l1 = 0.0
         self._l2 = 0.0
+        self._clip_value = None
+        self._clip_l2 = None
+        self._grad_norm = None
+        self._grad_norm_threshold = 1.0
+        self._tbptt = None
+        self._constraints = []
+        self._workspace_mode = "none"
 
     @staticmethod
     def builder() -> "NeuralNetConfiguration":
@@ -58,13 +58,12 @@ class NeuralNetConfiguration:
         self._dtype = dtype
         return self
 
-    def updater(self, u: dict):
-        """``u``: an updater's serialized dict (see :func:`adam`)."""
-        if not isinstance(u, dict) or "kind" not in u:
-            raise TypeError("updater must be a serialized updater dict with "
-                            "a 'kind' key (the updaters come with the "
-                            "training slice)")
-        self._updater = dict(u)
+    def updater(self, u):
+        """An :class:`~.updaters.Updater`, an updater's name, or its
+        serialized dict (``{"kind": "adam", ...}``)."""
+        if isinstance(u, dict):
+            u = _upd.Updater.from_dict(u)
+        self._updater = _upd.get(u)
         return self
 
     def l1(self, v: float):
@@ -73,6 +72,44 @@ class NeuralNetConfiguration:
 
     def l2(self, v: float):
         self._l2 = v
+        return self
+
+    def gradient_clip_value(self, v: float):
+        self._clip_value = v
+        return self
+
+    def gradient_clip_l2(self, v: float):
+        self._clip_l2 = v
+        return self
+
+    def gradient_normalization(self, mode: str, threshold: float = 1.0):
+        """A DL4J GradientNormalization mode (``gradnorm.MODES``);
+        ``threshold`` feeds the Clip* modes."""
+        _gn.validate(mode)
+        self._grad_norm = mode
+        self._grad_norm_threshold = float(threshold)
+        return self
+
+    def tbptt_length(self, n: int):
+        self._tbptt = n
+        return self
+
+    def workspace_mode(self, mode: str):
+        self._workspace_mode = str(mode).strip().lower()
+        return self
+
+    def constrain_weights(self, *cs):
+        """Constraints on the weight params after every update (DL4J
+        ``constrainWeights``)."""
+        self._constraints.extend((c, "weights") for c in cs)
+        return self
+
+    def constrain_bias(self, *cs):
+        self._constraints.extend((c, "bias") for c in cs)
+        return self
+
+    def constrain_all_parameters(self, *cs):
+        self._constraints.extend((c, "all") for c in cs)
         return self
 
     def graph_builder(self):

@@ -1,15 +1,30 @@
-"""ComputationGraph: the DAG network engine (inference).
+"""ComputationGraph: the DAG network engine.
 
 Port of ``deeplearning4j_tpu/nn/graph.py``: the configuration with its JSON
 round-trip, the builder, and the engine's ``init``, eager topological
-forward walk with the BN + activation fold plan, ``feed_forward``,
-``output`` (through the bucketed :class:`InferenceEngine`), ``predict`` and
-``save``/``load``. Training (``fit``, the loss and the updater step) comes
-with the training slice; ``train=True`` raises until then.
+forward walk with the BN + activation fold plan (the same plan in
+training and inference), ``feed_forward``, ``output`` (through the
+bucketed :class:`InferenceEngine`), ``predict``, ``fit``, ``score`` and
+``save``/``load`` with the updater state.
 
 Parameters and state are dicts of tensors keyed by vertex name and then by
 parameter name, exactly as the JAX package keys ``net.params`` and
-``net.state``, so its ``coefficients.npz`` loads unchanged.
+``net.state``, so its ``coefficients.npz`` loads unchanged; the updater
+state is keyed by slot, then the same way (``updaterState.npz``).
+
+A training step (``fit``) runs eagerly inside one
+``environment.precision(device)`` context: the forward with batch
+statistics, the loss, ``torch.autograd.grad`` (K2 is the backward of every
+BN epilogue), l1/l2, gradient normalization and clipping, the divergence
+sentinel (one host sync for its verdict), the updater and the
+constraints. A bad step leaves params, updater state and BN state as
+they were.
+
+Not in this slice (each raises ``NotImplementedError`` when asked for):
+``workspace_mode`` rematerialization, 16-bit (mixed-precision) training
+and the fused master-cast updater, ``tbptt_length``, the resilience
+policy of ``fit`` and listeners; ``fit_on_device`` and micro-batch
+accumulation are not ported (``ROADMAP.md`` Queue 1).
 """
 
 from __future__ import annotations
@@ -22,20 +37,32 @@ import torch
 
 from .. import dtypes as _dt
 from .. import environment as _env
+from ..data.dataset import (DataSet, DataSetIterator, MultiDataSet,
+                            MultiDataSetIterator, NumpyMultiDataSetIterator)
+from ..ops import losses as _loss
+from ..runtime import sentinel as _sent
+from ..utils import tree as _tree
+from . import constraints as _constraints
+from . import gradnorm as _gn
+from . import updaters as _upd
+from .layers.core import _BaseOutput
 from .vertices import GraphVertex, LayerVertex
+
+#: slices of the port that bring what this one leaves out
+_LATER = "a later slice of the port (ROADMAP.md Queue 1)"
 
 
 class ComputationGraphConfiguration:
     """Immutable DAG description (the thing that serializes).
 
-    ``updater`` and ``constraints`` are carried as their serialized JSON
-    values until the training slice ports them."""
+    ``updater`` is an :class:`~.updaters.Updater` (a serialized dict is
+    accepted too); ``constraints`` a list of ``(constraint, scope)``."""
 
     def __init__(self, *, inputs: List[str], outputs: List[str],
                  vertices: List[Tuple[str, GraphVertex, List[str]]],
                  input_shapes: Optional[Dict[str, Tuple[int, ...]]] = None,
                  seed: int = 1234, dtype: str = "FLOAT",
-                 updater: Optional[dict] = None, l1: float = 0.0,
+                 updater: Any = None, l1: float = 0.0,
                  l2: float = 0.0, gradient_clip_value: Optional[float] = None,
                  gradient_clip_l2: Optional[float] = None,
                  gradient_normalization: Optional[str] = None,
@@ -49,11 +76,13 @@ class ComputationGraphConfiguration:
         self.input_shapes = dict(input_shapes or {})
         self.seed = seed
         self.dtype = dtype
-        self.updater = updater
+        self.updater = _upd.Updater.from_dict(updater) \
+            if isinstance(updater, dict) else updater
         self.l1 = l1
         self.l2 = l2
         self.gradient_clip_value = gradient_clip_value
         self.gradient_clip_l2 = gradient_clip_l2
+        _gn.validate(gradient_normalization)
         self.gradient_normalization = gradient_normalization
         self.gradient_normalization_threshold = \
             gradient_normalization_threshold
@@ -107,7 +136,7 @@ class ComputationGraphConfiguration:
             "model_class": "ComputationGraph",
             "seed": self.seed,
             "dtype": self.dtype,
-            "updater": self.updater,
+            "updater": self.updater.to_dict() if self.updater else None,
             "l1": self.l1, "l2": self.l2,
             "gradient_clip_value": self.gradient_clip_value,
             "gradient_clip_l2": self.gradient_clip_l2,
@@ -115,7 +144,8 @@ class ComputationGraphConfiguration:
             "gradient_normalization_threshold":
                 self.gradient_normalization_threshold,
             "tbptt_length": self.tbptt_length,
-            "constraints": self.constraints,
+            "constraints": _constraints.encode_constraints(
+                self.constraints),
             "workspace_mode": self.workspace_mode,
             "network_inputs": self.inputs,
             "network_outputs": self.outputs,
@@ -144,7 +174,8 @@ class ComputationGraphConfiguration:
             gradient_normalization_threshold=d.get(
                 "gradient_normalization_threshold", 1.0),
             tbptt_length=d.get("tbptt_length"),
-            constraints=d.get("constraints"),
+            constraints=_constraints.decode_constraints(
+                d.get("constraints")),
             workspace_mode=d.get("workspace_mode", "none"))
 
 
@@ -194,11 +225,19 @@ class GraphBuilder:
             seed=b._seed if b else 1234,
             dtype=b._dtype if b else "FLOAT",
             updater=b._updater if b else None,
-            l1=b._l1 if b else 0.0, l2=b._l2 if b else 0.0)
+            l1=b._l1 if b else 0.0, l2=b._l2 if b else 0.0,
+            gradient_clip_value=b._clip_value if b else None,
+            gradient_clip_l2=b._clip_l2 if b else None,
+            gradient_normalization=b._grad_norm if b else None,
+            gradient_normalization_threshold=(
+                b._grad_norm_threshold if b else 1.0),
+            tbptt_length=b._tbptt if b else None,
+            constraints=(b._constraints or None) if b else None,
+            workspace_mode=b._workspace_mode if b else "none")
 
 
 class ComputationGraph:
-    """DAG network engine (DL4J ``ComputationGraph``), inference only."""
+    """DAG network engine (DL4J ``ComputationGraph``)."""
 
     def __init__(self, conf: ComputationGraphConfiguration):
         self.conf = conf
@@ -207,19 +246,28 @@ class ComputationGraph:
         self._topo = conf.topo_order()
         self.params: Dict[str, Dict[str, torch.Tensor]] = {}
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.updater_state: dict = {}
         self.iteration = 0
         self.epoch = 0
         self.device: Optional[torch.device] = None
         self._shapes: Dict[str, Tuple[int, ...]] = {}
         self._inference_engine = None
         self._epilogue_fold = None
+        self._score = float("nan")
+        self._sentinel = _sent.Sentinel()
+        # the loss heads of the network outputs
+        self._out_layers = {
+            o: self._vertex_map[o][0].layer for o in conf.outputs
+            if isinstance(self._vertex_map[o][0], LayerVertex)
+            and isinstance(self._vertex_map[o][0].layer, _BaseOutput)}
 
     # ------------------------------------------------------------------ init
     def init(self, device=None) -> "ComputationGraph":
         """Draw the parameters from ``conf.seed`` onto ``device`` (``cuda``
-        unless the caller asks for ``cpu``; raises without CUDA). The draws
-        come from one CPU ``torch.Generator``, so a seed gives the same
-        weights on every device (not the JAX package's threefry values)."""
+        unless the caller asks for ``cpu``; raises without CUDA), and zero
+        the updater state. The draws come from one CPU
+        ``torch.Generator``, so a seed gives the same weights on every
+        device (not the JAX package's threefry values)."""
         device = _env.resolve_device(device)
         if set(self.conf.input_shapes) != set(self.conf.inputs):
             missing = set(self.conf.inputs) - set(self.conf.input_shapes)
@@ -243,6 +291,8 @@ class ComputationGraph:
             shapes[name] = tuple(out_shape)
         self.params = params
         self.state = state
+        self.updater_state = self.conf.updater.init_state(params) \
+            if self.conf.updater else {}
         self._shapes = shapes
         self.device = device
         self._inference_engine = None
@@ -256,11 +306,11 @@ class ComputationGraph:
     def _forward(self, params, inputs: Dict[str, torch.Tensor], state, *,
                  train=False, masks: Optional[Dict[str, Any]] = None,
                  fold_epilogues=True):
-        """Eager topological walk. Returns ({vertex: activation}, state,
-        {vertex: mask}); the network inputs are in the activations too."""
-        if train:
-            raise NotImplementedError(
-                "training forward comes with the training slice of the port")
+        """Eager topological walk. Returns ({vertex: activation},
+        new_state, {vertex: mask}); the network inputs are in the
+        activations too. In training, BN vertices normalize with batch
+        statistics and ``new_state`` holds their new running statistics
+        (``state`` itself is not modified)."""
         dt = _dt.resolve(self.conf.dtype)
         if dt.is_floating_point:
             inputs = {k: (v.to(dt) if v.is_floating_point() and v.dtype != dt
@@ -269,6 +319,7 @@ class ComputationGraph:
             params = _dt.cast_floating(params, dt)
         acts: Dict[str, torch.Tensor] = dict(inputs)
         mks: Dict[str, Any] = dict(masks or {})
+        new_state = dict(state)
         fold, skip = self._epilogue_fold_plan() if fold_epilogues \
             else ({}, frozenset())
         for name in self._topo:
@@ -278,12 +329,15 @@ class ComputationGraph:
                 mks[name] = mks.get(ins[0])
                 continue
             kw = {"fold_act": fold[name]} if name in fold else {}
-            y, _, m = v.apply(params.get(name, {}), [acts[i] for i in ins],
-                              state.get(name, {}), train=False,
-                              masks=[mks.get(i) for i in ins], **kw)
+            y, s_new, m = v.apply(params.get(name, {}),
+                                  [acts[i] for i in ins],
+                                  state.get(name, {}), train=train,
+                                  masks=[mks.get(i) for i in ins], **kw)
             acts[name] = y
             mks[name] = m
-        return acts, state, mks
+            if s_new:
+                new_state[name] = s_new
+        return acts, new_state, mks
 
     def _epilogue_fold_plan(self):
         """Static BN + activation fold plan over the vertex graph: a
@@ -322,14 +376,193 @@ class ComputationGraph:
         self._epilogue_fold = (fold, frozenset(skip))
         return self._epilogue_fold
 
+    def _tensor(self, a) -> torch.Tensor:
+        """An input array as a tensor on the model's device. float64 comes
+        in as float32 unless the network is ``DOUBLE``, as in the JAX
+        package (64-bit values need its x64 mode, which a ``DOUBLE``
+        network needs anyway)."""
+        t = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
+        if t.dtype == torch.float64 and \
+                _dt.resolve(self.conf.dtype) != torch.float64:
+            t = t.float()
+        return t.to(self.device)
+
     def _as_inputs(self, inputs) -> Dict[str, torch.Tensor]:
         if len(inputs) != len(self.conf.inputs):
             raise ValueError(
                 f"the graph takes {len(self.conf.inputs)} inputs "
                 f"({self.conf.inputs}), got {len(inputs)}")
-        return {n: torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
-                                   else x).to(self.device)
-                for n, x in zip(self.conf.inputs, inputs)}
+        return {n: self._tensor(x) for n, x in zip(self.conf.inputs, inputs)}
+
+    # -------------------------------------------------------------- training
+    def _regularization(self, params):
+        """The l1/l2 penalty over every layer's ``W`` (the layer's own
+        coefficient, else the network's)."""
+        total = 0.0
+        for name in self._topo:
+            v, _ = self._vertex_map[name]
+            lyr = v.layer if isinstance(v, LayerVertex) else None
+            l1 = (getattr(lyr, "l1", 0.0) or self.conf.l1) if lyr \
+                else self.conf.l1
+            l2 = (getattr(lyr, "l2", 0.0) or self.conf.l2) if lyr \
+                else self.conf.l2
+            if not (l1 or l2):
+                continue
+            w = params.get(name, {}).get("W")
+            if w is None:
+                continue
+            if l1:
+                total = total + l1 * torch.sum(torch.abs(w))
+            if l2:
+                total = total + 0.5 * l2 * torch.sum(torch.square(w))
+        return total
+
+    def _clip(self, grads):
+        """Gradient normalization and clipping: ``(grads, clip_events)``."""
+        return _gn.clip_with_events(
+            self.conf.gradient_normalization,
+            self.conf.gradient_normalization_threshold,
+            self.conf.gradient_clip_value, self.conf.gradient_clip_l2, grads)
+
+    def _check_trainable(self):
+        """Raise for what ``fit`` cannot do in this slice."""
+        if set(self._out_layers) != set(self.conf.outputs):
+            bad = sorted(set(self.conf.outputs) - set(self._out_layers))
+            raise ValueError(
+                f"output vertices {bad} are not Output/Loss layers; fit() "
+                "needs a loss head on every network output")
+        if self.conf.updater is None:
+            raise ValueError("fit() needs an updater in the configuration")
+        if self.conf.workspace_mode not in ("none", ""):
+            raise NotImplementedError(
+                f"workspace_mode={self.conf.workspace_mode!r} "
+                f"(rematerialization) comes with {_LATER}")
+        if _dt.is_mixed(self.conf.dtype):
+            raise NotImplementedError(
+                f"training a {self.conf.dtype} network (mixed precision, "
+                f"the fused master-cast updater) comes with {_LATER}")
+        if self.conf.tbptt_length:
+            raise NotImplementedError(
+                f"tbptt_length (recurrent training) comes with {_LATER}")
+
+    def _loss(self, params, state, xs, ys, fms, lms):
+        """``(loss, new BN state)`` of one batch: the training forward, the
+        loss heads' losses summed over the outputs, plus l1/l2."""
+        inputs = dict(zip(self.conf.inputs, xs))
+        masks = {n: m for n, m in zip(self.conf.inputs, fms)
+                 if m is not None}
+        acts, new_state, mks = self._forward(params, inputs, state,
+                                             train=True, masks=masks)
+        total = 0.0
+        for o, y, lm in zip(self.conf.outputs, ys, lms):
+            layer = self._out_layers[o]
+            m = _loss.combine_masks(lm, mks.get(o))
+            total = total + layer.loss_value(acts[o], y, mask=m,
+                                             weights=layer.loss_weights)
+        return total + self._regularization(params), new_state
+
+    def _value_and_grad(self, xs, ys, fms, lms):
+        """``(loss, grads, new BN state)`` at the current params: one
+        training forward and ``torch.autograd.grad``. ``grads`` is keyed
+        like ``params``; a param the loss does not reach gets zeros."""
+        leaves = []
+
+        def track(t):
+            t = t.detach()
+            if t.is_floating_point():
+                t.requires_grad_(True)
+                leaves.append(t)
+            return t
+
+        params = _tree.tmap(track, self.params)
+        loss, new_state = self._loss(params, self.state, xs, ys, fms, lms)
+        found = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+
+        def grad_of(t):
+            if not t.is_floating_point():
+                return torch.zeros_like(t)
+            g = next(found)
+            return torch.zeros_like(t) if g is None else g
+
+        grads = _tree.tmap(grad_of, params)
+        return loss.detach(), grads, new_state
+
+    def _train_step(self, xs, ys, fms, lms):
+        """One step, inside one precision context. Returns the loss (a
+        device tensor)."""
+        with _env.precision(self.device):
+            loss, grads, new_state = self._value_and_grad(xs, ys, fms, lms)
+            with torch.no_grad():
+                grads, clip_events = self._clip(grads)
+                # a bad step leaves params, updater state and BN state as
+                # they were
+                if self._sentinel.verdict(loss, grads, clip_events):
+                    params, self.updater_state = _upd.apply_leafwise(
+                        self.conf.updater, grads, self.updater_state,
+                        self.params, self.iteration)
+                    self.params = _constraints.apply_constraints(
+                        self.conf.constraints, params)
+                    self.state = new_state
+        return loss
+
+    def fit(self, data, labels=None, epochs: int = 1,
+            resilience=None) -> "ComputationGraph":
+        """Train on a MultiDataSetIterator, MultiDataSet, DataSetIterator,
+        DataSet, or (features, labels) arrays, for ``epochs`` passes. An
+        uninitialized net is initialized on ``cuda`` first."""
+        if resilience is not None:
+            raise NotImplementedError(
+                f"fit(resilience=...) comes with {_LATER}")
+        self._check_trainable()
+        if not self.params and not self.state:
+            self.init()
+        it = _as_multi_iterator(data, labels)
+        for _ in range(epochs):
+            for mds in it:
+                xs = tuple(self._tensor(f) for f in mds.features)
+                ys = tuple(self._tensor(y) for y in mds.labels)
+                fms = tuple(None if m is None else self._tensor(m)
+                            for m in mds.features_masks)
+                lms = tuple(None if m is None else self._tensor(m)
+                            for m in mds.labels_masks)
+                self._score = self._train_step(xs, ys, fms, lms)
+                self.iteration += 1
+            self.epoch += 1
+            it = _as_multi_iterator(data, labels)
+        return self
+
+    def score(self, data=None) -> float:
+        """The loss of the last ``fit`` batch, or of the given (Multi)
+        DataSet (with batch statistics, as DL4J scores); both include the
+        l1/l2 term."""
+        if data is None:
+            if torch.is_tensor(self._score):
+                self._score = float(self._score)
+            return self._score
+        self._require_init()
+        mds = data if isinstance(data, MultiDataSet) else \
+            MultiDataSet.from_dataset(data)
+        with torch.no_grad(), _env.precision(self.device):
+            loss, _ = self._loss(
+                self.params, self.state,
+                tuple(self._tensor(f) for f in mds.features),
+                tuple(self._tensor(y) for y in mds.labels),
+                tuple(None if m is None else self._tensor(m)
+                      for m in mds.features_masks),
+                tuple(None if m is None else self._tensor(m)
+                      for m in mds.labels_masks))
+        return float(loss)
+
+    def resilience_counters(self) -> dict:
+        """The divergence sentinel's counters (skipped steps in total and
+        in a row, clip events)."""
+        return self._sentinel.to_host()
+
+    def set_listeners(self, *listeners):
+        raise NotImplementedError(f"training listeners come with {_LATER}")
+
+    def add_listener(self, listener):
+        raise NotImplementedError(f"training listeners come with {_LATER}")
 
     # ------------------------------------------------------------- inference
     def feed_forward(self, *inputs, train: bool = False):
@@ -364,7 +597,7 @@ class ComputationGraph:
         Ragged batch sizes pad to the engine's power-of-two buckets."""
         if train:
             raise NotImplementedError(
-                "training-mode output comes with the training slice")
+                f"training-mode output comes with {_LATER}")
         return self.inference_engine().output(*inputs)
 
     def predict(self, *inputs):
@@ -378,11 +611,59 @@ class ComputationGraph:
             raise RuntimeError("call init() (or load a model) first")
 
     # ------------------------------------------------------------------ serde
-    def save(self, path):
+    def save(self, path, save_updater: bool = True):
         from ..utils.serializer import save_model
-        save_model(self, path)
+        save_model(self, path, save_updater=save_updater)
 
     @staticmethod
-    def load(path, device=None) -> "ComputationGraph":
+    def load(path, device=None, load_updater: bool = True
+             ) -> "ComputationGraph":
         from ..utils.serializer import load_model
-        return load_model(path, device=device)
+        return load_model(path, device=device, load_updater=load_updater)
+
+
+def _as_multi_iterator(data, labels=None) -> MultiDataSetIterator:
+    if isinstance(data, MultiDataSetIterator):
+        return data
+    if isinstance(data, MultiDataSet):
+        return _SingleMultiIterator(data)
+    if isinstance(data, DataSet):
+        return _SingleMultiIterator(MultiDataSet.from_dataset(data))
+    if isinstance(data, DataSetIterator):
+        return _DataSetIteratorAdapter(data)
+    if labels is not None:
+        f = [np.asarray(a) for a in (data if isinstance(data, (list, tuple))
+                                     else [data])]
+        lab = [np.asarray(a) for a in (labels
+                                       if isinstance(labels, (list, tuple))
+                                       else [labels])]
+        return NumpyMultiDataSetIterator(f, lab, batch_size=f[0].shape[0])
+    raise TypeError(f"cannot make a MultiDataSetIterator from {type(data)}")
+
+
+class _SingleMultiIterator(MultiDataSetIterator):
+    def __init__(self, mds: MultiDataSet):
+        self._mds = mds
+
+    def batch_size(self):
+        return self._mds.num_examples()
+
+    def __iter__(self):
+        yield self._mds
+
+
+class _DataSetIteratorAdapter(MultiDataSetIterator):
+    """DL4J MultiDataSetIteratorAdapter: DataSetIterator -> MultiDataSet."""
+
+    def __init__(self, it: DataSetIterator):
+        self._it = it
+
+    def batch_size(self):
+        return self._it.batch_size()
+
+    def reset(self):
+        self._it.reset()
+
+    def __iter__(self):
+        for ds in self._it:
+            yield MultiDataSet.from_dataset(ds)

@@ -5,4 +5,5 @@ from .base import LAYERS, Layer, layer  # noqa: F401
 from .conv import (BatchNormalization, ConvolutionLayer,  # noqa: F401
                    GlobalPoolingLayer, SubsamplingLayer)
 from .conv_extra import SpaceToDepthStemConv  # noqa: F401
-from .core import ActivationLayer, DenseLayer, OutputLayer  # noqa: F401
+from .core import (ActivationLayer, DenseLayer, LossLayer,  # noqa: F401
+                   OutputLayer)

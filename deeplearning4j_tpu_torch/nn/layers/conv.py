@@ -1,4 +1,4 @@
-"""Convolution, pooling and batch-norm layers (inference).
+"""Convolution, pooling and batch-norm layers.
 
 Port of ``ConvolutionLayer``, ``SubsamplingLayer``, ``BatchNormalization``
 and ``GlobalPoolingLayer`` from ``deeplearning4j_tpu/nn/layers/conv.py``.
@@ -7,9 +7,9 @@ JAX package. The convolution is ``F.conv2d``; its bias + activation tail
 and the batch-norm normalize + activation run through
 ``ops.fused_epilogues`` (kernel K1 on the card).
 
-Batch norm here is the inference branch only (running statistics); the
-training branch comes with the training slice. Its ``decay`` and ``eps``
-round-trip through JSON all the same.
+Batch norm normalizes with the running statistics at inference and with
+the batch's (one-pass f32 moments, mask-aware) in training, where it also
+returns the new running statistics.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ... import dtypes as _dt
 from ...ops import fused_epilogues as _fe
 from ...ops import nnops
 from .. import weights as _winit
@@ -137,8 +138,8 @@ class SubsamplingLayer(Layer):
 @layer("batchnorm")
 class BatchNormalization(Layer):
     """DL4J BatchNormalization. Params gamma/beta; state mean/var (running
-    statistics, updated as running = decay*running + (1-decay)*batch by
-    the training branch of a later slice)."""
+    statistics, updated in training as
+    running = decay*running + (1-decay)*batch)."""
     decay: float = 0.9
     eps: float = 1e-5
     lock_gamma_beta: bool = False
@@ -159,19 +160,58 @@ class BatchNormalization(Layer):
                  "var": torch.ones(n, dtype=dtype, device=device)}
         return params, state, tuple(input_shape)
 
+    def _batch_moments(self, x, axis, mask):
+        """One-pass f32 moments ``E[x^2] - mean^2`` over every axis but the
+        channel axis, as the JAX package computes them (one sweep of x for
+        both sums); with a ``[B]`` or ``[B, T]`` mask, over the unmasked
+        positions only."""
+        xs = _dt.upcast_16(x)
+        dims = tuple(i for i in range(x.ndim) if i != axis % x.ndim)
+        if mask is not None:
+            m = mask.to(xs.dtype)
+            while m.ndim < xs.ndim:
+                m = m[..., None]
+            cnt = torch.clamp(torch.sum(m.expand(xs.shape), dim=dims),
+                              min=1.0)
+            s1 = torch.sum(xs * m, dim=dims)
+            s2 = torch.sum(torch.square(xs) * m, dim=dims)
+        else:
+            cnt = 1
+            for i in dims:
+                cnt *= x.shape[i]
+            s1 = torch.sum(xs, dim=dims)
+            s2 = torch.sum(torch.square(xs), dim=dims)
+        mean = s1 / cnt
+        var = torch.clamp(s2 / cnt - torch.square(mean), min=0.0)
+        return mean, var
+
     def apply(self, params, x, state, *, train=False, mask=None,
               fold_act=None):
         """``fold_act``: the activation the graph's fold plan merged into
-        this epilogue (the following ActivationLayer passes through)."""
-        if train:
-            raise NotImplementedError(
-                "BatchNormalization training (batch statistics) comes "
-                "with the training slice of the port")
+        this epilogue (the following ActivationLayer passes through).
+
+        Training normalizes with the batch statistics (the gradient flows
+        through them into x) and returns the new running statistics,
+        computed outside autograd; the caller commits them."""
+        axis = self._caxis(x.ndim)
+        act = fold_act or "identity"
+        if not train:
+            y = _fe.bn_act(x, params.get("gamma"), params.get("beta"),
+                           state["mean"].to(x.dtype),
+                           state["var"].to(x.dtype), self.eps, axis, act=act)
+            return y, state, mask
+        mean, var = self._batch_moments(x, axis, mask)
+        d = self.decay
+        with torch.no_grad():
+            new_state = {
+                "mean": (d * state["mean"] + (1 - d) * mean).to(
+                    state["mean"].dtype),
+                "var": (d * state["var"] + (1 - d) * var).to(
+                    state["var"].dtype)}
         y = _fe.bn_act(x, params.get("gamma"), params.get("beta"),
-                       state["mean"].to(x.dtype), state["var"].to(x.dtype),
-                       self.eps, self._caxis(x.ndim),
-                       act=fold_act or "identity")
-        return y, state, mask
+                       mean.to(x.dtype), var.to(x.dtype), self.eps, axis,
+                       act=act)
+        return y, new_state, mask
 
 
 @layer("global_pool")

@@ -1,10 +1,10 @@
-"""Core feed-forward layers: Dense, Activation, Output (inference).
+"""Core feed-forward layers: Dense, Activation, Output, Loss.
 
-Port of ``DenseLayer``, ``ActivationLayer`` and ``OutputLayer`` from
-``deeplearning4j_tpu/nn/layers/core.py``. Parameter names and layouts
-follow DL4J: ``W`` is ``[nIn, nOut]``, ``b`` is ``[nOut]``. The loss
-fields of ``OutputLayer`` round-trip through JSON; the loss computation
-comes with the training slice.
+Port of ``DenseLayer``, ``ActivationLayer``, ``OutputLayer`` and
+``LossLayer`` from ``deeplearning4j_tpu/nn/layers/core.py``. Parameter
+names and layouts follow DL4J: ``W`` is ``[nIn, nOut]``, ``b`` is
+``[nOut]``. In training the loss heads return their pre-activation and
+:meth:`_BaseOutput.loss_value` computes the loss from it.
 """
 
 from __future__ import annotations
@@ -13,7 +13,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from ... import dtypes as _dt
 from ...ops import activations as _act
+from ...ops import losses as _loss
 from .. import weights as _winit
 from .base import Layer, layer
 
@@ -66,10 +68,33 @@ class ActivationLayer(Layer):
         return fn(x), state, mask
 
 
+class _BaseOutput:
+    """Loss plumbing shared by the loss heads. softmax + mcxent (or
+    sparse_mcxent) and sigmoid + binary_xent take the stable loss on
+    logits; every other pair applies the activation, then the loss."""
+
+    def loss_value(self, logits, labels, mask=None, weights=None):
+        logits = _dt.upcast_16(logits)  # loss math in f32
+        labels = _dt.upcast_16(labels)
+        act, lname = self.activation, self.loss
+        if act == "softmax" and lname in ("mcxent", "sparse_mcxent"):
+            if lname == "sparse_mcxent":
+                labels = torch.nn.functional.one_hot(
+                    labels.long().reshape(labels.shape[:logits.ndim - 1]),
+                    logits.shape[-1]).to(logits.dtype)
+            return _loss.softmax_cross_entropy_with_logits(
+                labels, logits, mask, weights)
+        if act == "sigmoid" and lname == "binary_xent":
+            return _loss.sigmoid_binary_xent_with_logits(labels, logits,
+                                                         mask, weights)
+        preds = _act.get(act)(logits)
+        return _loss.get(lname)(labels, preds, mask, weights)
+
+
 @layer("output")
-class OutputLayer(Layer):
+class OutputLayer(Layer, _BaseOutput):
     """DenseLayer + loss head (DL4J OutputLayer). Inference applies the
-    activation to the logits."""
+    activation to the logits; training returns the logits."""
     n_out: int = 0
     n_in: Optional[int] = None
     loss: str = "mcxent"
@@ -90,9 +115,24 @@ class OutputLayer(Layer):
         return {"W": w, "b": b}, {}, tuple(input_shape[:-1]) + (self.n_out,)
 
     def apply(self, params, x, state, *, train=False, mask=None):
-        if train:
-            raise NotImplementedError(
-                "OutputLayer training (loss on logits) comes with the "
-                "training slice of the port")
         y = _dense(x, params["W"], params["b"])
+        if train:
+            return y, state, mask  # the loss consumes the logits
         return _act.get(self.activation)(y), state, mask
+
+
+@layer("loss")
+class LossLayer(Layer, _BaseOutput):
+    """Loss head with no params (DL4J LossLayer)."""
+    loss: str = "mse"
+    activation: str = "identity"
+    loss_weights: Optional[Tuple[float, ...]] = None
+    name: Optional[str] = None
+
+    def has_params(self):
+        return False
+
+    def apply(self, params, x, state, *, train=False, mask=None):
+        if train:
+            return x, state, mask
+        return _act.get(self.activation)(x), state, mask

@@ -31,7 +31,9 @@ REQUESTS = (1, 32)
 PRECISIONS = ("auto", "highest")
 
 
-def _device_us(evt) -> float:
+def device_us(evt) -> float:
+    """A profiler event's own device time in microseconds (the attribute
+    is named differently across PyTorch versions)."""
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
             return float(getattr(evt, name))
@@ -59,11 +61,11 @@ def profile(net, n: int, reps: int = 5) -> dict:
                              "each")
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and _device_us(e) > 0]
-    dev = sum(_device_us(e) for e in kernels) / 1e3 / reps
-    k1_ms = sum(_device_us(e) for e in kernels
-                if "affine_act" in e.key) / 1e3 / reps
-    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+               and device_us(e) > 0]
+    dev = sum(device_us(e) for e in kernels) / 1e3 / reps
+    k1_ms = sum(device_us(e) for e in kernels
+                if "affine_act_kernel" in e.key) / 1e3 / reps
+    top = sorted(kernels, key=device_us, reverse=True)[:8]
     wall = statistics.median(walls)
     return {
         "request_images": n,
@@ -72,7 +74,7 @@ def profile(net, n: int, reps: int = 5) -> dict:
         "device_busy_share": dev / wall if kernels else None,
         "k1_device_ms": k1_ms if kernels else None,
         "images_per_s": n * 1e3 / wall,
-        "top_kernels_ms": [[e.key[:70], _device_us(e) / 1e3 / reps,
+        "top_kernels_ms": [[e.key[:70], device_us(e) / 1e3 / reps,
                             e.count // reps] for e in top],
     }
 

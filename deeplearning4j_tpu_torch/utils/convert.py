@@ -4,7 +4,10 @@ The JAX package keys ``net.params``/``net.state`` by vertex name, then by
 parameter name (``{"stem_conv": {"W": ...}, "stem_bn": {"gamma": ...}}``),
 with the same layouts the port uses (OIHW conv weights, Dense ``W`` as
 ``[nIn, nOut]``). :func:`from_numpy` turns such a tree of numpy arrays
-(or of anything ``np.asarray`` accepts) into the port's tree of tensors.
+(or of anything ``np.asarray`` accepts) into the port's tree of tensors;
+it carries the updater state tree too (``net.updater_state``, keyed by
+slot and then the same way), so both packages can start from the same
+Adam m and v.
 """
 
 from __future__ import annotations
@@ -34,9 +37,15 @@ def _tree(node, device):
     return tensor_from_numpy(node, device)
 
 
-def from_numpy(params: dict, state: dict, device=None):
+def from_numpy(params: dict, state: dict, device=None, *,
+               updater_state=None):
     """``(params, state)`` of the JAX package, keyed exactly as its
     ``net.params``/``net.state``, as the port's trees of tensors on
-    ``device`` (``cuda`` unless the caller asks for ``cpu``)."""
+    ``device`` (``cuda`` unless the caller asks for ``cpu``). Given
+    ``updater_state`` (its ``net.updater_state``), returns ``(params,
+    state, updater_state)``."""
     device = _env.resolve_device(device)
-    return _tree(params, device), _tree(state, device)
+    out = (_tree(params, device), _tree(state, device))
+    if updater_state is None:
+        return out
+    return out + (_tree(updater_state, device),)

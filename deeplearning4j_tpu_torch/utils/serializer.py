@@ -6,13 +6,16 @@ Port of ``save_model``/``load_model`` from
 - ``configuration.json``: the network config (the same JSON);
 - ``coefficients.npz``: params, keys ``"vertex/param"``;
 - ``state.npz``: layer state (BN running statistics);
+- ``updaterState.npz``: the updater state (Adam's m and v, keys
+  ``"slot/vertex/param"``), when there is one and it is saved;
 - ``meta.json``: iteration/epoch counters.
 
 bfloat16 arrays are stored as their uint16 view, with the true dtype in a
 ``__dtypes__`` JSON entry inside the npz (numpy cannot save the extension
 type). The port reads and writes that carrier without ``ml_dtypes``: the
-uint16 view is reinterpreted as ``torch.bfloat16``. The updater state
-(``updaterState.npz``) is ignored on load until the training slice.
+uint16 view is reinterpreted as ``torch.bfloat16``. A ZIP the JAX
+package saved mid-training resumes in the port, and the port's loads
+there.
 """
 
 from __future__ import annotations
@@ -82,19 +85,23 @@ def _npz_bytes_to_tree(data: bytes, device) -> dict:
     return tree
 
 
-def save_model(model, path) -> None:
+def save_model(model, path, save_updater: bool = True) -> None:
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
         zf.writestr("configuration.json", model.conf.to_json())
         zf.writestr("coefficients.npz", _tree_to_npz_bytes(model.params))
         zf.writestr("state.npz", _tree_to_npz_bytes(model.state))
+        if save_updater and model.updater_state:
+            zf.writestr("updaterState.npz",
+                        _tree_to_npz_bytes(model.updater_state))
         zf.writestr("meta.json", json.dumps(
             {"iteration": model.iteration, "epoch": model.epoch,
              "format": "deeplearning4j_tpu", "version": 1}))
 
 
-def load_model(path, device=None):
+def load_model(path, device=None, load_updater: bool = True):
     """A ComputationGraph from a ZIP written by either package, on
-    ``device`` (``cuda`` unless the caller asks for ``cpu``)."""
+    ``device`` (``cuda`` unless the caller asks for ``cpu``), with its
+    updater state when the ZIP holds one (else a fresh one)."""
     from ..nn.graph import ComputationGraph, ComputationGraphConfiguration
 
     device = _env.resolve_device(device)
@@ -114,6 +121,9 @@ def load_model(path, device=None):
         model.params = _dt.cast_floating(
             _npz_bytes_to_tree(zf.read("coefficients.npz"), device), pdt)
         model.state = _npz_bytes_to_tree(zf.read("state.npz"), device)
+        if load_updater and "updaterState.npz" in zf.namelist():
+            model.updater_state = _dt.cast_floating(
+                _npz_bytes_to_tree(zf.read("updaterState.npz"), device), pdt)
         if "meta.json" in zf.namelist():
             meta = json.loads(zf.read("meta.json"))
             model.iteration = meta.get("iteration", 0)

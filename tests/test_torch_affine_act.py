@@ -1,11 +1,16 @@
 """Kernel K1's module: its plain version, its bound arithmetic, its build
-description, and (marked ``cuda``, skipped without a card) the kernel
-itself against the plain version on the card.
+description, and (marked ``cuda``, skipped without a card) K1 and K2
+themselves against their plain versions on the card. This file imports
+no JAX, so ``pytest --noconftest tests/test_torch_affine_act.py -m cuda``
+runs on the card's machine.
 
 The card test's tolerance is ``affine_act.ulp_tolerance``: float32 atol
-and rtol 1e-5 (nvcc contracts ``x*scale + shift`` into one fused
-multiply-add and the card's tanhf/erff/expf differ from PyTorch's by an
-ulp or two); a 16-bit output one ulp of its type on top."""
+and rtol 1e-5 (the kernel computes ``x*scale + shift`` with the plain
+version's two roundings, but the card's tanhf/erff/expf differ from
+PyTorch's by an ulp or two); a 16-bit output one ulp of its type on
+top. K2's dx takes the same tolerance; its dscale and dshift must be
+within 1e-4 of each channel's sum over rows of |term| (float32 sums of
+the same terms in another order), and a second run bit-equal."""
 
 import numpy as np
 import pytest
@@ -75,8 +80,8 @@ def test_build_description():
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("K1 is CUDA C++ with no CPU mode; needs an NVIDIA card "
-                    "and nvcc")
+        pytest.skip("K1 and K2 are CUDA C++ with no CPU mode; need an "
+                    "NVIDIA card and nvcc")
     return torch.device("cuda")
 
 
@@ -100,3 +105,39 @@ def test_kernel_matches_plain_on_card(cuda_device, rows, cols, dtype):
             ref = k1.affine_act_reference(x, scale, b, act)
             torch.testing.assert_close(y.float(), ref.float(), atol=atol,
                                        rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows,cols", [(49, 2048), (1568, 512), (7, 3),
+                                       (4000, 64)])
+def test_k2_matches_plain_on_card(cuda_device, rows, cols, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + cols)
+    x = torch.randn(rows, cols, generator=gen, device=cuda_device).to(dtype)
+    dy = torch.randn(rows, cols, generator=gen, device=cuda_device).to(dtype)
+    s = torch.rand(cols, generator=gen, device=cuda_device) + 0.5
+    b = torch.randn(cols, generator=gen, device=cuda_device)
+    atol, rtol = k1.ulp_tolerance(dtype)
+    for act in k1.ACTS:
+        for scale in (s, None):
+            before = k1.bwd_launches
+            got = k1.affine_act_bwd(x, scale, b, dy, act)
+            again = k1.affine_act_bwd(x, scale, b, dy, act)
+            torch.cuda.synchronize()
+            assert k1.bwd_launches == before + 2
+            want = k1.affine_act_bwd_reference(x, scale, b, dy, act)
+            torch.testing.assert_close(got[0].float(), want[0].float(),
+                                       atol=atol, rtol=rtol)
+            # the sums' scale: the same sums over |term|
+            xf = x.float()
+            z = xf * scale + b if scale is not None else xf + b
+            dz = (dy.float() * k1.act_grad(act, z)).abs()
+            mags = (None if scale is None else (dz * xf.abs()).sum(0),
+                    dz.sum(0))
+            for g, a, w, mag in zip(got[1:], again[1:], want[1:], mags):
+                if w is None:
+                    assert g is None
+                    continue
+                assert torch.equal(g, a)  # deterministic
+                assert bool(((g - w).abs() <= 1e-4 * mag + 1e-6).all())

@@ -155,12 +155,22 @@ def test_batchnorm_inference_matches_jax(fold_act, data_format, shape):
 
 
 def test_batchnorm_train_branch_waits_for_training_slice():
+    """The training slice has come: the train branch normalizes with the
+    batch statistics and returns the new running statistics, as the JAX
+    package's does (rtol 1e-5: float32 moments summed in another order)."""
     params, state = _bn_inputs(11, 4)
-    with pytest.raises(NotImplementedError):
-        conv.BatchNormalization(data_format="NHWC").apply(
-            {k: torch.from_numpy(v) for k, v in params.items()},
-            torch.zeros(2, 3, 3, 4),
-            {k: torch.from_numpy(v) for k, v in state.items()}, train=True)
+    x = _x(12, (2, 3, 3, 4))
+    want, want_st, _ = jconv.BatchNormalization(data_format="NHWC").apply(
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x),
+        {k: jnp.asarray(v) for k, v in state.items()}, train=True)
+    got, got_st, _ = conv.BatchNormalization(data_format="NHWC").apply(
+        {k: torch.from_numpy(v) for k, v in params.items()},
+        torch.from_numpy(x),
+        {k: torch.from_numpy(v) for k, v in state.items()}, train=True)
+    _close(got, want)
+    for k in ("mean", "var"):
+        np.testing.assert_allclose(got_st[k].numpy(), np.asarray(want_st[k]),
+                                   rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("has_bias", [True, False])
