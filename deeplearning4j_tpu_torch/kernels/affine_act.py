@@ -298,9 +298,11 @@ def flops(rows: int, cols: int, act: str, has_scale: bool = True) -> int:
 
 
 #: Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): the
-#: device-memory rate and the float32 rate outside the tensor cores.
+#: device-memory rate, the float32 rate outside the tensor cores and the
+#: dense bf16/f16 tensor-core rate.
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS_PER_S = 67e12
+H100_16BIT_FLOPS_PER_S = 989e12
 
 
 def bound_ms(rows: int, cols: int, itemsize: int, act: str) -> float:

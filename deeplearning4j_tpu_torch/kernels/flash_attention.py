@@ -1,0 +1,200 @@
+"""K3, the flash-attention forward: ``(o, m, l)`` of
+``softmax(q k^T * scale + kb) v``.
+
+Wrapper of ``csrc/flash_attn_fwd.cu``, which replaces the JAX package's
+``ops/flash_attention.py::_fwd_kernel``. ``q`` is ``[B, H, Tq, d]``,
+``k`` and ``v`` ``[B, H, Tk, d]``, in f32, bf16 or f16, each a strided
+view with a contiguous last dimension (the head split of a ``[B, T, H*d]``
+projection is read in place). ``kb`` is an optional f32 key bias
+``[B, Tk]`` shared by the heads of a batch row (the reduced mask; the
+caller clamps it to ``finfo(float32).min``). The outputs are ``o`` in
+q's dtype and layout and f32 ``m`` and ``l`` of shape ``[B*H, Tq]``: the
+row max of the scores and the row sum of ``exp(s - m)`` (1 where that
+sum is 0). The TPU kernel kept ``m`` and ``l`` replicated over 128 lanes;
+these are one value per row.
+
+- A CPU tensor takes the plain version, :func:`flash_attention_fwd_reference`:
+  the kernel's arithmetic in PyTorch, key tile by key tile (``KEY_TILE``
+  keys, the kernel's tile), with the same online-softmax rescaling and the
+  same roundings (p rounded to v's dtype before ``p v``, ``o`` rounded
+  once), so the two differ only in the order of f32 sums.
+- A CUDA tensor launches K3, or raises: a dtype other than f32/bf16/f16,
+  a head dimension above ``MAX_HEAD_DIM``, mismatched shapes, a last
+  dimension that is not contiguous, a failed build or a refused launch.
+  No CUDA call gives way to the plain version.
+
+``launches`` counts wrapper calls that launched K3.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import _build
+from .affine_act import (H100_16BIT_FLOPS_PER_S, H100_BYTES_PER_S,
+                         H100_F32_FLOPS_PER_S)
+
+#: keys per tile of the kernel (one per lane of a warp)
+KEY_TILE = 32
+#: the largest head dimension the kernel takes
+MAX_HEAD_DIM = 128
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+#: Kernel launches since the last reset (a plain integer; set it to 0).
+launches = 0
+
+
+def flash_attention_fwd_reference(q, k, v, kb=None, scale=None):
+    """K3's plain version: ``(o, m, l)`` computed tile by tile as the
+    kernel does, in f32 (f64 for f64 inputs). Runs wherever its tensors
+    are; matmuls follow the global TF32 switch, so hold it against the
+    kernel with TF32 off."""
+    B, H, Tq, d = q.shape
+    Tk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf = q.to(ct), k.to(ct), v.to(ct)
+    m = torch.full((B, H, Tq), -math.inf, dtype=ct, device=q.device)
+    l = torch.zeros((B, H, Tq), dtype=ct, device=q.device)
+    acc = torch.zeros((B, H, Tq, d), dtype=ct, device=q.device)
+    for j0 in range(0, Tk, KEY_TILE):
+        j1 = min(j0 + KEY_TILE, Tk)
+        s = torch.matmul(qf, kf[:, :, j0:j1].transpose(-1, -2)) * scale
+        if kb is not None:
+            s = s + kb[:, None, None, j0:j1].to(ct)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.matmul(
+            p.to(v.dtype).to(ct), vf[:, :, j0:j1])
+        m = m_new
+    safe = torch.where(l == 0, torch.ones_like(l), l)
+    o = (acc / safe[..., None]).to(q.dtype)
+    return o, m.reshape(B * H, Tq), safe.reshape(B * H, Tq)
+
+
+def _check(q, k, v, kb):
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash_attention: dtype {q.dtype} not supported "
+                        "(float32, bfloat16, float16)")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k, v must be [B, H, T, d]; "
+                         f"got {tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    B, H, _, d = q.shape
+    Tk = k.shape[2]
+    if k.shape != (B, H, Tk, d) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q/k/v shapes disagree: "
+                         f"{tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q/k/v dtypes disagree: "
+                        f"{q.dtype} {k.dtype} {v.dtype}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dimension {d} is above "
+                         f"the kernel's limit {MAX_HEAD_DIM}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1 or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} must lie on "
+                             f"{q.device} with a contiguous last dimension,"
+                             f" got strides {t.stride()} on {t.device}")
+    if kb is not None and (kb.dtype != torch.float32 or kb.shape != (B, Tk)
+                           or not kb.is_contiguous()
+                           or kb.device != q.device):
+        raise ValueError(f"flash_attention: kb must be a contiguous float32 "
+                         f"[{B}, {Tk}] tensor on {q.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    lib = _build.load("flash_attn_fwd")
+    fn = lib.dl4j_flash_attn_fwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_fwd(q, k, v, kb=None, scale=None):
+    """K3 on CUDA tensors, the plain version on CPU tensors: ``(o, m, l)``
+    (see the module docstring)."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_reference(q, k, v, kb, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: tensors on {q.device} are not "
+                         "supported (cuda or cpu)")
+    global launches
+    _check(q, k, v, kb)
+    fn = _kernel()
+    B, H, Tq, d = q.shape
+    Tk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    o = torch.empty_like(q)
+    if o.stride(-1) != 1:  # a layout empty_like does not keep
+        o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    m = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    if q.numel() == 0:
+        return o, m, l
+    strides = (ctypes.c_longlong * 12)(*[
+        s for t in (q, k, v, o) for s in t.stride()[:3]])
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if kb is None else kb.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l.data_ptr(), B, H, Tq, Tk, d, strides,
+            float(scale), _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    launches += 1
+    return o, m, l
+
+
+def bytes_moved(B: int, H: int, Tq: int, Tk: int, d: int, itemsize: int,
+                has_bias: bool = True) -> int:
+    """Least device-memory traffic of one call: q, k, v and kb read once;
+    o, m and l written once."""
+    G = B * H
+    return (2 * G * Tq * d + 2 * G * Tk * d) * itemsize + 2 * G * Tq * 4 \
+        + (B * Tk * 4 if has_bias else 0)
+
+
+def flops(B: int, H: int, Tq: int, Tk: int, d: int) -> int:
+    """Operations of one call: the multiply-adds of ``q k^T`` and of
+    ``p v``, 4 G Tq Tk d. The softmax's few operations per score (under
+    2% more at d = 64) are left out, so the bound stays a lower bound."""
+    return 4 * B * H * Tq * Tk * d
+
+
+def bound_ms(B: int, H: int, Tq: int, Tk: int, d: int, itemsize: int,
+             has_bias: bool = True) -> tuple:
+    """``(ms, "bytes" or "operations")``: the least time an H100 SXM could
+    take for one call, the larger of bytes over the memory rate and the
+    operations over the peak rate of the input type (the f32 rate for
+    f32, the tensor-core rate for 16-bit inputs)."""
+    rate = H100_F32_FLOPS_PER_S if itemsize == 4 else H100_16BIT_FLOPS_PER_S
+    t_bytes = bytes_moved(B, H, Tq, Tk, d, itemsize, has_bias) \
+        / H100_BYTES_PER_S
+    t_ops = flops(B, H, Tq, Tk, d) / rate
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ulp_error(got, want) -> float:
+    """The largest difference of two tensors of a 16-bit dtype in units of
+    the output dtype's ulp at the reference value, the ulp taken no finer
+    than at 2^-10 of the largest reference magnitude (an output near 0 is
+    judged on the scale of the row sums it came from)."""
+    mant = {torch.bfloat16: 7, torch.float16: 10}[want.dtype]
+    w = want.double()
+    floor = max(float(w.abs().max()) * 2.0 ** -10, 1e-30)
+    mag = torch.clamp(w.abs(), min=floor)
+    ulp = torch.pow(2.0, torch.floor(torch.log2(mag)) - mant)
+    return float(((got.double() - w).abs() / ulp).max())

@@ -2,13 +2,17 @@
 
 Port of ``deeplearning4j_tpu/ops/activations.py``. Names are the strings
 used in config JSON; :func:`get` resolves them case-insensitively with
-underscores stripped, as the JAX package does.
+underscores stripped, as the JAX package does. Each is also in the op
+catalog as ``act.<name>`` (the names a SameDiff graph records), with the
+JAX function's keyword names (``act.softmax(x, axis=-1)``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from . import register
 
 # name -> callable; populated by _act
 ACTIVATIONS = {}
@@ -17,6 +21,7 @@ ACTIVATIONS = {}
 def _act(name):
     def deco(fn):
         ACTIVATIONS[name] = fn
+        register(f"act.{name}", category="activation")(fn)
         return fn
     return deco
 

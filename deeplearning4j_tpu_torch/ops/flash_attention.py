@@ -1,0 +1,159 @@
+"""Attention dispatch and the ``attention.fused_sdpa`` catalog op.
+
+Port of the dispatch half of ``deeplearning4j_tpu/ops/flash_attention.py``:
+
+- :func:`reference_attention`: the quadratic path with the kernel's
+  numerics (f32 scores, f32 softmax, p cast to v's dtype, f32
+  accumulation, output in q's dtype);
+- :func:`attention`: the dispatcher the SameDiff ``attention.fused_sdpa``
+  op enters. It routes to K3 (``kernels/flash_attention.py``) for CUDA
+  tensors when the bias reduces to one row per key, else to the reference
+  path, and counts every decision in :func:`counters`.
+
+Decisions (one per call; the counters are this package's own):
+
+- ``fused``: a CUDA tensor in mode ``auto`` with no bias or a key-reducible
+  one (``[B or 1, 1, 1, Tk]``): K3 runs.
+- ``fallback_mode``: mode ``off`` (reference path everywhere).
+- ``fallback_platform``: a CPU tensor: the reference path.
+- ``fallback_bias``: a bias that varies over heads or queries.
+
+Divergences from the JAX dispatcher, by design:
+
+- No ``fallback_shape``, ``fallback_dtype`` or ``fallback_vmem``: K3 masks
+  ragged sequence lengths itself and has no VMEM budget. A CUDA input K3
+  cannot take (a dtype other than f32/bf16/f16, a head dimension above
+  ``kernels.flash_attention.MAX_HEAD_DIM``, shapes that are not
+  ``[B, H, T, d]``) raises instead of running the reference path.
+- Decisions are counted once per call: the port runs eagerly, there is no
+  trace to count once.
+- There is no ``force`` mode: it ran the Pallas kernel in interpret mode
+  on the CPU, and a CUDA kernel has no such mode.
+- On the card the fused path has no backward yet: the flash backward (K4,
+  K5) comes with the fine-tune path, and differentiating through K3
+  raises. The reference path differentiates as usual.
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+from typing import Optional
+
+import torch
+
+from . import register
+from ..kernels import flash_attention as _k3
+
+_NEG = float(torch.finfo(torch.float32).min)
+_MODES = ("auto", "off")
+_COUNTER_KEYS = ("fused", "fallback_mode", "fallback_platform",
+                 "fallback_bias")
+_counts = collections.Counter()
+_state = {"mode": "auto"}
+
+
+def reference_attention(q, k, v, bias=None, scale: Optional[float] = None):
+    """Quadratic attention with the kernel's numerics: scores in f32 (f64
+    for f64 inputs), softmax in f32, ``p @ v`` accumulated in f32, output
+    in q's dtype. q: ``[..., Tq, d]``; k, v: ``[..., Tk, d]``; bias
+    broadcastable to ``[..., Tq, Tk]`` (additive, large-negative masks),
+    clamped to ``finfo(float32).min``."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    ct = torch.promote_types(q.dtype, torch.float32)
+    s = torch.matmul(q.to(ct), k.to(ct).transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + torch.clamp(bias.to(ct), min=_NEG)
+    p = torch.softmax(s, dim=-1)
+    y = torch.matmul(p.to(v.dtype).to(ct), v.to(ct))
+    return y.to(q.dtype)
+
+
+def _key_bias(bias, batch, tk):
+    """Reduce an additive bias broadcastable to ``[B, H, Tq, Tk]`` to the
+    per-(batch, key) form ``[B, Tk]`` K3 reads, or None when the bias
+    varies over heads or queries."""
+    if bias is None:
+        return None
+    if bias.dim() != 4 or bias.shape[1] != 1 or bias.shape[2] != 1:
+        return None
+    if bias.shape[0] not in (1, batch) or bias.shape[3] != tk:
+        return None
+    kb = torch.broadcast_to(bias[:, 0, 0, :], (batch, tk))
+    return torch.clamp(kb.float(), min=_NEG).contiguous()
+
+
+def mode() -> str:
+    return _state["mode"]
+
+
+def set_mode(m: str) -> str:
+    """``auto`` (CUDA tensors run K3, CPU tensors the reference path) or
+    ``off`` (the reference path everywhere). Returns the previous mode.
+    The mode starts at ``auto`` and changes only here."""
+    if m not in _MODES:
+        raise ValueError(f"flash attention mode {m!r} not in {_MODES} (the "
+                         "port has no interpret mode, so no 'force')")
+    old = _state["mode"]
+    _state["mode"] = m
+    return old
+
+
+def counters() -> dict:
+    """Dispatch-decision counts since the last reset (one per call)."""
+    return {k: int(_counts[k]) for k in _COUNTER_KEYS}
+
+
+def reset_counters() -> None:
+    _counts.clear()
+
+
+def _route(q, k, v, bias) -> Optional[str]:
+    """None = fuse; otherwise the fallback counter key."""
+    if _state["mode"] == "off":
+        return "fallback_mode"
+    if q.device.type != "cuda":
+        return "fallback_platform"
+    if bias is not None and (q.dim() != 4 or k.dim() != 4 or _key_bias(
+            bias, q.shape[0], k.shape[2]) is None):
+        return "fallback_bias"
+    return None
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K3 as an autograd node: the forward launches the kernel; the
+    backward (K4, K5) is not ported yet and raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kb, scale):
+        return _k3.flash_attention_fwd(q, k, v, kb, scale)[0]
+
+    @staticmethod
+    def backward(ctx, do):
+        raise NotImplementedError(
+            "the flash-attention backward (K4, K5) is not ported yet "
+            "(ROADMAP Queue 2): differentiate with set_mode('off'), or on "
+            "the CPU")
+
+
+def attention(q, k, v, bias=None, scale: Optional[float] = None):
+    """Guarded attention dispatch: K3 when the route is clear, the
+    f32-softmax reference path otherwise. q: ``[B, H, Tq, d]``; k, v:
+    ``[B, H, Tk, d]``; bias broadcastable to ``[B, H, Tq, Tk]``."""
+    reason = _route(q, k, v, bias)
+    if reason is None:
+        _counts["fused"] += 1
+        kb = _key_bias(bias, q.shape[0], k.shape[2])
+        return _FlashAttention.apply(q, k, v, kb, scale)
+    _counts[reason] += 1
+    return reference_attention(q, k, v, bias, scale)
+
+
+@register("attention.fused_sdpa", category="attention")
+def fused_sdpa(q, k, v, bias=None, scale: float = 1.0):
+    """Fused scaled-dot-product attention graph op, the rewrite target of
+    ``autodiff.fusion.fuse_attention``: ``softmax((q @ k^T) * scale +
+    bias, axis=-1) @ v`` with the softmax in f32."""
+    return attention(q, k, v, bias=bias, scale=float(scale))

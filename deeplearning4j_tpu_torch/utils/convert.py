@@ -7,7 +7,8 @@ with the same layouts the port uses (OIHW conv weights, Dense ``W`` as
 (or of anything ``np.asarray`` accepts) into the port's tree of tensors;
 it carries the updater state tree too (``net.updater_state``, keyed by
 slot and then the same way), so both packages can start from the same
-Adam m and v.
+Adam m and v. :func:`samediff_from_numpy` does the same for a SameDiff
+graph: its ``graph.json`` and its values by graph name.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
         a = a.view(np.uint16)
         return torch.from_numpy(a.view(np.int16).copy()).view(
             torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    # np.array, not np.ascontiguousarray: that one makes a 0-d array 1-d
+    return torch.from_numpy(np.array(a, order="C", copy=True)).to(device)
 
 
 def _tree(node, device):
@@ -49,3 +51,17 @@ def from_numpy(params: dict, state: dict, device=None, *,
     if updater_state is None:
         return out
     return out + (_tree(updater_state, device),)
+
+
+def samediff_from_numpy(graph_json: str, values: dict, device=None):
+    """The port's SameDiff for a JAX SameDiff's ``to_json()`` and its
+    values (``{name: array}``, e.g. ``{n: np.asarray(v) for n, v in
+    sd._values.items()}``), on ``device`` (``cuda`` unless the caller asks
+    for ``cpu``)."""
+    from ..autodiff.samediff import SameDiff
+    sd = SameDiff.from_json(graph_json, device)
+    for name, value in values.items():
+        if name not in sd._vars:
+            raise ValueError(f"value {name!r} names no variable of the graph")
+        sd._values[name] = tensor_from_numpy(value, sd.device)
+    return sd

@@ -5,8 +5,9 @@
    (a scan and not ``sys.modules``: a process may have JAX loaded for
    other reasons, as the tests that compare the two packages do).
 2. The device rule: with CUDA absent, every entry point raises unless the
-   caller asks for ``cpu``, and a non-CPU tensor never reaches K1's plain
-   version.
+   caller asks for ``cpu`` (the ComputationGraph and serving fronts,
+   SameDiff and its loaders, the BERT builders), and a non-CPU tensor never
+   reaches K1's plain version (K3's: ``test_torch_flash_attention.py``).
 3. The environment's precision policy and the dtype policy."""
 
 import ast
@@ -17,16 +18,18 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch import dtypes, environment
+from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
 from deeplearning4j_tpu_torch.kernels import _build
 from deeplearning4j_tpu_torch.kernels import affine_act as k1
-from deeplearning4j_tpu_torch.models import resnet
+from deeplearning4j_tpu_torch.models import BertConfig, bert, bert_base, resnet
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.ops import fused_epilogues as fe
 from deeplearning4j_tpu_torch.serving.batcher import ParallelInference
 from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
 from deeplearning4j_tpu_torch.serving.server import JsonModelServer
 from deeplearning4j_tpu_torch.utils import serializer
-from deeplearning4j_tpu_torch.utils.convert import from_numpy
+from deeplearning4j_tpu_torch.utils.convert import (from_numpy,
+                                                    samediff_from_numpy)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu")
@@ -58,7 +61,8 @@ def _imports(tree):
 def test_scan_covers_the_package():
     names = {p.name for p in _port_sources()}
     assert {"graph.py", "fused_epilogues.py", "affine_act.py", "engine.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "samediff.py", "fusion.py", "flash_attention.py",
+            "bert.py", "math.py", "reduce.py", "profile_bert.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -107,6 +111,29 @@ def test_loaders_without_device_raise(no_cuda, cpu_net, tmp_path):
             load()
     back = serializer.load_model(str(path), device="cpu")
     assert back.device.type == "cpu"
+
+
+def test_samediff_entry_points_without_device_raise(no_cuda, tmp_path):
+    """SameDiff, its loaders, samediff_from_numpy and the BERT builders
+    run on cuda unless asked for cpu, and raise without a card (the
+    builder before it draws 110M random weights)."""
+    cpu = SameDiff(device="cpu")
+    cpu.constant("c", np.ones(2, np.float32))
+    path = str(tmp_path / "sd.zip")
+    cpu.save(path)
+    graph = cpu.to_json()
+    tiny = BertConfig(vocab_size=8, hidden_size=4, num_hidden_layers=1,
+                      num_attention_heads=2, intermediate_size=8,
+                      max_position_embeddings=4)
+    for make in (SameDiff, SameDiff.create, lambda: SameDiff(device="cuda"),
+                 lambda: SameDiff.from_json(graph),
+                 lambda: SameDiff.load(path),
+                 lambda: samediff_from_numpy(graph, {}),
+                 lambda: bert(tiny, seq_len=4), bert_base):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert SameDiff.load(path, device="cpu").device.type == "cpu"
+    assert bert(tiny, seq_len=4, device="cpu").device.type == "cpu"
 
 
 def test_engine_device_must_match_model(cpu_net):
