@@ -51,12 +51,27 @@ Phases, in order; any failure exits non-zero:
    decision; the card's ``last_hidden_state`` against the port's plain
    path on the CPU at batch 2; wall time, sequences per second and a
    ``torch.profiler`` split (device time, busy share, K3 time);
-10. summary: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
+10. kernel-attn-bwd against plain: K4 (dq) and K5 (dk, dv), the
+    flash-attention backward, against their plain PyTorch versions at
+    phase 8's shapes, dtypes, layouts and masks (each fed K3's m and l and
+    ``di = rowsum(o * do)``): a second run bitwise equal, and CUDA-event
+    times on the head-split layout beside their bounds and the backward of
+    ``scaled_dot_product_attention`` with the same float mask;
+11. bert-fit: BERT-base as in phase 9 with the fine-tune head of
+    ``bench.py`` ``_bert_sd`` (mean pool, 2 classes, softmax cross
+    entropy, Adam(2e-5)); one batch-2 step's loss and every VARIABLE's
+    gradient on the card against the port's plain path on the CPU (float32
+    and float64 copies); then ``sd.fit`` on one fixed batch of 32 x 128
+    (ragged masks) for 12 steps in one call, each step with exactly 12 K3,
+    12 K4 and 12 K5 launches and only ``fused`` decisions, a finite and
+    falling loss, the step time and a ``torch.profiler`` split (device
+    time, busy share, K3/K4/K5 time, top kernels) of 3 more steps;
+12. summary: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
     power limit, and last ``{"ok": true, "device": {...}}``.
 
-The serving path (phases 4-5), the training path (phase 7) and the BERT
-serving path (phase 9) are each driven with the launch counts set to 0
-just before and read just after.
+The serving path (phases 4-5), the training path (phase 7), the BERT
+serving path (phase 9) and the BERT fine-tune path (phase 11) are each
+driven with the launch counts set to 0 just before and read just after.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -128,9 +143,22 @@ ATTN_ULP_TOL = 2.0
 #: [B, T, H*d] projection (rows H*d apart), which is what the BERT path
 #: hands K3 and the layout that is timed
 ATTN_LAYOUTS = ("packed", "heads")
+#: K4 and K5 against their plain versions: float32 dq, dk and dv within
+#: 2e-5 of max(1, |ref|) (sums of up to 200 terms of O(1) in another
+#: order; expf may differ from PyTorch's exp by an ulp); 16-bit within
+#: ATTN_ULP_TOL ulps (ds and p are rounded at the same points in both)
+ATTN_BWD_F32_TOL = 2e-5
 BERT_REQUESTS = (1, 8, 32)
 BERT_SEQ = 128
 BERT_LAYERS = 12
+FIT_BATCH = 32
+FIT_STEPS = 12
+FIT_PARITY_BATCH = 2
+#: card vs the port's CPU plain path, one batch-2 fine-tune step from the
+#: same weights, TF32 off: the loss within 1e-4 relative; each VARIABLE's
+#: gradient against the CPU float64 gradient within max(TRAIN_GRAD_TOL,
+#: GRAD_NOISE_FACTOR x the CPU float32 gradient's own error), PR 4's rule
+FIT_LOSS_TOL = 1e-4
 #: the card's last_hidden_state against the port's plain path on the CPU,
 #: max |diff| / max |ref|: both float32 with TF32 off; cuBLAS, the CPU and
 #: K3 sum in other orders over 12 layers
@@ -775,6 +803,238 @@ def phase_bert(k1, k3, fa, env) -> dict:
             "rel_err": rel}
 
 
+def check_attn_bwd_case(k3, q, k, v, do, kb, scale, where, err) -> None:
+    """K4 and K5 twice (bitwise equal) against their plain versions, fed
+    K3's m and l; folds the errors into ``err``."""
+    o, m, l = k3.flash_attention_fwd(q, k, v, kb, scale)
+    di = k3.attention_di(o, do)
+    args = (q, k, v, kb, m, l, di, do, scale)
+    got = (k3.flash_attention_bwd_dq(*args),
+           *k3.flash_attention_bwd_dkv(*args))
+    again = (k3.flash_attention_bwd_dq(*args),
+             *k3.flash_attention_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{where} is not deterministic")
+    want = (k3.flash_attention_bwd_dq_reference(*args),
+            *k3.flash_attention_bwd_dkv_reference(*args))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if q.dtype == torch.float32:
+            e = float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
+            bad = e > ATTN_BWD_F32_TOL
+            key = "float32"
+            err["abs_float32"] = max(err["abs_float32"],
+                                     float((g - w).abs().max()))
+        else:
+            e = k3.ulp_error(g, w)
+            bad = e > ATTN_ULP_TOL
+            key = "ulp_" + str(q.dtype)[6:]
+        err[key] = max(err[key], e)
+        if bad:
+            raise AssertionError(f"{where}: {name} disagrees with its plain "
+                                 f"version ({e})")
+
+
+def phase_kernel_attn_bwd(k3) -> dict:
+    """K4 and K5 against their plain versions in both operand layouts,
+    twice per case for determinism; returns the times at BERT-base batch
+    32 (head-split operands, as the BERT path gives them) and the
+    errors."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    neg = float(torch.finfo(torch.float32).min)
+    err = {"float32": 0.0, "abs_float32": 0.0, "ulp_bfloat16": 0.0,
+           "ulp_float16": 0.0}
+    times, cases = {}, 0
+    for B, H, Tq, Tk, d in ATTN_SHAPES:
+        lengths = torch.randint(1, Tk + 1, (B,), generator=gen, device=dev)
+        ragged = torch.where(torch.arange(Tk, device=dev)[None, :]
+                             < lengths[:, None], 0.0, neg).contiguous()
+        masked = ragged.clone()
+        masked[0] = neg  # batch row 0: every key masked (uniform rows)
+        scale = 1.0 / float(np.sqrt(d))
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for layout in ATTN_LAYOUTS:
+                q, k, v, do = (attn_operand(B, H, T, d, dtype, layout, gen)
+                               for T in (Tq, Tk, Tk, Tq))
+                for tag, kb in (("none", None), ("ragged", ragged),
+                                ("masked", masked)):
+                    check_attn_bwd_case(
+                        k3, q, k, v, do, kb, scale,
+                        f"K4/K5 {str(dtype)[6:]} {(B, H, Tq, Tk, d)} "
+                        f"{layout} bias={tag}", err)
+                    cases += 1
+            if dtype == torch.float16:
+                continue
+            # timed on the last layout: the head split the BERT path gives
+            o, m, l = k3.flash_attention_fwd(q, k, v, ragged, scale)
+            di = k3.attention_di(o, do)
+            args = (q, k, v, ragged, m, l, di, do, scale)
+            row = {}
+            for name, fn, plain_fn in (
+                    ("dq", k3.flash_attention_bwd_dq,
+                     k3.flash_attention_bwd_dq_reference),
+                    ("dkv", k3.flash_attention_bwd_dkv,
+                     k3.flash_attention_bwd_dkv_reference)):
+                ms, host = time_ms(lambda: fn(*args))
+                plain, _ = time_ms(lambda: plain_fn(*args))
+                bound, by = k3.bound_ms_bwd(B, H, Tq, Tk, d,
+                                            q.element_size(), name)
+                row[name] = (ms, plain, host, bound, by)
+            # the library's backward of the same attention: dq, dk, dv
+            # from one autograd.grad of SDPA's output, its forward outside
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=ragged[:, None, None, :].to(dtype),
+                scale=scale)
+            lib, _ = time_ms(lambda: torch.autograd.grad(
+                out, (qs, ks, vs), do, retain_graph=True))
+            del qs, ks, vs, out
+            if dtype == torch.float32:
+                times[(B, H, Tq, Tk, d)] = (row, lib)
+            for name, kname in (("dq", "K4"), ("dkv", "K5")):
+                ms, plain, host, bound, by = row[name]
+                log(f"[kernel-attn-bwd] {kname} {str(dtype)[6:]:8s} B={B:2d} "
+                    f"H={H:2d} Tq={Tq:3d} Tk={Tk:3d} d={d:3d} "
+                    f"{ATTN_LAYOUTS[-1]} ms={ms:.5f} plain_ms={plain:.5f} "
+                    f"bound_ms={bound:.5f} ({by}) library_ms={lib:.5f} "
+                    f"(SDPA backward, dq+dk+dv) host_ms={host:.5f}")
+            del q, k, v, do
+    log(f"[kernel-attn-bwd] K4 and K5 match their plain versions and repeat "
+        f"bit for bit: {cases} cases (5 shapes x 3 dtypes x "
+        f"{len(ATTN_LAYOUTS)} layouts x (no bias, ragged, masked rows)); "
+        f"float32 max err {err['float32']:.3g} of max(1, |ref|) (tolerance "
+        f"{ATTN_BWD_F32_TOL}; max abs err {err['abs_float32']:.3g}); bfloat16 {err['ulp_bfloat16']:.3g} ulp, "
+        f"float16 {err['ulp_float16']:.3g} ulp (tolerance {ATTN_ULP_TOL})")
+    return {"times": times, "max_err": err, "cases": cases}
+
+
+class FitLaunchCheck:
+    """A ``fit`` listener that holds each step to 12 K3, 12 K4 and 12 K5
+    launches and only ``fused`` attention decisions."""
+
+    def __init__(self, k3, fa):
+        self.k3, self.fa = k3, fa
+        self.last = self._now()
+
+    def _now(self):
+        return (self.k3.launches, self.k3.launches_dq, self.k3.launches_dkv,
+                self.fa.counters()["fused"])
+
+    def iteration_done(self, model, iteration, epoch):
+        now = self._now()
+        got = tuple(a - b for a, b in zip(now, self.last))
+        self.last = now
+        if got != (BERT_LAYERS,) * 4 or any(
+                v for k, v in self.fa.counters().items() if k != "fused"):
+            raise AssertionError(f"fit step {iteration}: K3/K4/K5 launches "
+                                 f"and fused decisions {got}, decisions "
+                                 f"{self.fa.counters()}")
+
+    def on_epoch_end(self, model):
+        pass
+
+
+def phase_bert_fit(k1, k3, fa, env) -> dict:
+    from deeplearning4j_tpu_torch.autodiff.fusion import fuse_attention
+    from deeplearning4j_tpu_torch.models.bert import (
+        attach_classifier_head, bert_base, fine_tune_feeds)
+    from deeplearning4j_tpu_torch.tools.profile_bert import profile_fit
+    from deeplearning4j_tpu_torch.utils.convert import samediff_from_numpy
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t0 = time.perf_counter()
+    sd = bert_base(seed=0, device="cuda", seq_len=BERT_SEQ)
+    report = fuse_attention(sd)
+    if (report.matched, report.unmatched) != (BERT_LAYERS, 0):
+        raise AssertionError(f"fuse_attention: {report} {report.reasons}")
+    attach_classifier_head(sd, seed=0)
+    names = sd.variables()
+    n_params = sum(int(sd._values[n].numel()) for n in names)
+    log(f"[bert-fit] bert_base + classifier head on cuda: {n_params} "
+        f"params in {len(names)} VARIABLEs, {time.perf_counter() - t0:.1f} "
+        f"s; {report}")
+
+    # ---- parity: one batch-2 step on the card vs the CPU plain path ----
+    t0 = time.perf_counter()
+    parity = fine_tune_feeds(np.random.default_rng(6), FIT_PARITY_BATCH,
+                             BERT_SEQ)
+    loss_name = sd.loss_name
+    loss_g = float(sd.output(parity, [loss_name])[loss_name])
+    grads_g = sd.grad(parity)
+    values = {n: sd.get_value(n) for n in sd._values}
+    cpu = samediff_from_numpy(sd.to_json(), values, "cpu")
+    loss_c = float(cpu.output(parity, [loss_name])[loss_name])
+    grads_c = cpu.grad(parity)
+    cpu._values = {n: t.double() if t.is_floating_point() else t
+                   for n, t in cpu._values.items()}
+    grads_64 = cpu.grad(parity)
+    del cpu
+    e_loss = abs(loss_g - loss_c) / abs(loss_c)
+    worst, bad = (0.0, "", 0.0, 0.0), []
+    for n in names:
+        e_card = rel_err(grads_g[n], grads_64[n])
+        e_cpu = rel_err(grads_c[n], grads_64[n])
+        allowed = max(TRAIN_GRAD_TOL, GRAD_NOISE_FACTOR * e_cpu)
+        if e_card / allowed >= worst[0]:
+            worst = (e_card / allowed, n, e_card, e_cpu)
+        if e_card > allowed:
+            bad.append(n)
+    log(f"[bert-fit] card vs CPU plain path, one batch-{FIT_PARITY_BATCH} x "
+        f"{BERT_SEQ} step ({time.perf_counter() - t0:.1f} s): loss "
+        f"{loss_g:.6f} vs {loss_c:.6f} (rel err {e_loss:.3g}, tolerance "
+        f"{FIT_LOSS_TOL}); against the CPU float64 gradient the worst "
+        f"card/allowed ratio is {worst[0]:.3g} at {worst[1]} (card "
+        f"{worst[2]:.3g}, CPU float32 {worst[3]:.3g}; allowed "
+        f"max({TRAIN_GRAD_TOL}, {GRAD_NOISE_FACTOR} x CPU float32)); "
+        f"{len(names)} VARIABLEs")
+    if e_loss > FIT_LOSS_TOL or bad:
+        raise AssertionError(f"the fine-tune step on the card disagrees with "
+                             f"the CPU plain path (gradients out of bounds: "
+                             f"{bad})")
+    del grads_g, grads_c, grads_64, values
+
+    # ---- the main path: counts from 0, read after the last fit ----
+    feed = fine_tune_feeds(np.random.default_rng(7), FIT_BATCH, BERT_SEQ)
+    sd.fit(feed)  # warm-up: cuBLAS handles, allocator pools, the kernels
+    k1.launches = k1.bwd_launches = 0
+    k3.launches = k3.launches_dq = k3.launches_dkv = 0
+    fa.reset_counters()
+    check = FitLaunchCheck(k3, fa)
+    row = profile_fit(sd, feed, walls=FIT_STEPS - 1, listeners=[check])
+    steps = FIT_STEPS + 1 + 3
+    launches = (k3.launches, k3.launches_dq, k3.launches_dkv)
+    decisions, copies = fa.counters(), fa.do_copies
+    sentinel = sd.resilience_counters()
+    losses = row["losses"]
+    log(f"[bert-fit] fit, batch {FIT_BATCH} x {BERT_SEQ}, {FIT_STEPS} steps "
+        f"in one call: losses " + " ".join(f"{v:.5f}" for v in losses))
+    if launches != (steps * BERT_LAYERS,) * 3 \
+            or decisions["fused"] != launches[0] \
+            or any(v for k, v in decisions.items() if k != "fused") \
+            or k1.launches or k1.bwd_launches or copies \
+            or sentinel["bad_total"]:
+        raise AssertionError(f"fine-tune path: K3/K4/K5 launches {launches} "
+                             f"for {steps} steps, decisions {decisions}, "
+                             f"K1/K2 {k1.launches}/{k1.bwd_launches}, do "
+                             f"copies {copies}, sentinel {sentinel}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fine-tune loss not finite and falling: "
+                             f"{losses}")
+    log(f"[bert-fit] step {row['step_ms_median']:.3f} ms median of "
+        f"{FIT_STEPS - 1} ({row['sequences_per_s']:.1f} sequences/s); device "
+        f"{row['device_ms']:.3f} ms per step (busy share "
+        f"{row['device_busy_share']:.3f}); K3 {row['k3_device_ms']:.3f} ms, "
+        f"K4 {row['k4_device_ms']:.3f} ms, K5 {row['k5_device_ms']:.3f} ms "
+        f"per step; {BERT_LAYERS} K3 + {BERT_LAYERS} K4 + {BERT_LAYERS} K5 "
+        f"launches in each of {steps} steps; decisions {decisions}; "
+        f"sentinel {sentinel}")
+    log("[bert-fit] top kernels (ms per step): " + "; ".join(
+        f"{k[:60]} {t:.3f} x{c}" for k, t, c in row["top_kernels_ms"][:6]))
+    return {"launches": launches, "steps": steps, "row": row,
+            "parity": (e_loss, worst[0])}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -815,6 +1075,8 @@ def main() -> int:
         raise AssertionError(f"{k3.launches} K3 launches on the ResNet paths")
     katt = phase_kernel_attn(k3)
     served_bert = phase_bert(k1, k3, fa, env)
+    kbwd_attn = phase_kernel_attn_bwd(k3)
+    fitted = phase_bert_fit(k1, k3, fa, env)
 
     # one batch-32 forward's (training step's) 53 K1 (K2) calls, timed per
     # (rows, C, act) in phases 3 and 6
@@ -849,6 +1111,28 @@ def main() -> int:
         f"calls, {ms3:.4f} ms on the device (plain {plain3:.4f}, "
         f"scaled_dot_product_attention {lib3:.4f}, bound {bound3:.4f}, "
         f"{by3}); host enqueue {host3:.4f} ms")
+    rows_bwd, lib_bwd = kbwd_attn["times"][(32, 12, 128, 128, 64)]
+    per_step = {}  # K4 / K5: (ms, plain, host, bound, by) per fine-tune step
+    for name, kname in (("dq", "K4"), ("dkv", "K5")):
+        ms_, plain_, host_, bound_, by_ = rows_bwd[name]
+        per_step[name] = (BERT_LAYERS * ms_, BERT_LAYERS * plain_,
+                          BERT_LAYERS * host_, BERT_LAYERS * bound_, by_)
+        log(f"[summary] one batch-32 float32 BERT-base fine-tune step: "
+            f"{BERT_LAYERS} {kname} calls, {per_step[name][0]:.4f} ms on the "
+            f"device (plain {per_step[name][1]:.4f}, bound "
+            f"{per_step[name][3]:.4f}, {by_}); the backward of "
+            f"scaled_dot_product_attention (dq, dk, dv) "
+            f"{BERT_LAYERS * lib_bwd:.4f}; host enqueue "
+            f"{per_step[name][2]:.4f} ms")
+    fit_l = fitted["launches"]
+    bwd_timed_as = (
+        "device time of one float32 call at BERT-base batch 32 (B=32, "
+        "H=12, T=128, d=64, ragged key bias, head-split operands) times the "
+        "12 calls of one fine-tune step; library_ms is the backward of "
+        "torch.nn.functional.scaled_dot_product_attention with the same "
+        "float mask (one torch.autograd.grad of its output giving dq, dk "
+        "and dv together, its forward outside the timed window) times 12; "
+        "host_ms is the wrapper's enqueue time over the same calls")
     print(json.dumps({"kernels": [{
         "name": "K1 affine_act", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/affine_act.cu",
@@ -856,7 +1140,7 @@ def main() -> int:
         "launches": serve_launches + trained["launches"][0],
         "launches_by_path": {"serve": serve_launches,
                              "train": trained["launches"][0],
-                             "bert_serve": 0},
+                             "bert_serve": 0, "bert_fit": 0},
         "max_abs_err": max(kern["max_err"].values()),
         "max_abs_err_float32": kern["max_err"][torch.float32],
         "max_abs_err_bfloat16": kern["max_err"][torch.bfloat16],
@@ -873,7 +1157,7 @@ def main() -> int:
         "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:179",
         "launches": trained["launches"][1],
         "launches_by_path": {"serve": 0, "train": trained["launches"][1],
-                             "bert_serve": 0},
+                             "bert_serve": 0, "bert_fit": 0},
         "max_abs_err": max(kbwd["max_err"]["dx_float32"],
                            kbwd["max_err"]["dx_bfloat16"],
                            kbwd["max_err"]["dscale_dshift"]),
@@ -893,9 +1177,10 @@ def main() -> int:
         "name": "K3 flash_attn_fwd", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "deeplearning4j_tpu/ops/flash_attention.py:114",
-        "launches": served_bert["launches"],
+        "launches": served_bert["launches"] + fit_l[0],
         "launches_by_path": {"serve": 0, "train": 0,
-                             "bert_serve": served_bert["launches"]},
+                             "bert_serve": served_bert["launches"],
+                             "bert_fit": fit_l[0]},
         "max_abs_err": katt["max_err"]["float32"],
         "max_abs_err_float32": katt["max_err"]["float32"],
         "max_ulp_bfloat16": katt["max_err"]["ulp_bfloat16"],
@@ -910,7 +1195,28 @@ def main() -> int:
                     "torch.nn.functional.scaled_dot_product_attention with "
                     "the same float mask at the same shapes; host_ms is the "
                     "wrapper's enqueue time over the same calls",
-    }]}), flush=True)
+    }] + [{
+        "name": f"{kname} {cname}", "checked": True, "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
+        "launches": fit_l[i],
+        "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
+                             "bert_fit": fit_l[i]},
+        "max_abs_err": kbwd_attn["max_err"]["abs_float32"],
+        "max_err_float32_of_max1_ref": kbwd_attn["max_err"]["float32"],
+        "max_ulp_bfloat16": kbwd_attn["max_err"]["ulp_bfloat16"],
+        "max_ulp_float16": kbwd_attn["max_err"]["ulp_float16"],
+        "deterministic": True,
+        "ms": per_step[name][0], "plain_ms": per_step[name][1],
+        "bound_ms": per_step[name][3], "bound_by": per_step[name][4],
+        "library_ms": BERT_LAYERS * lib_bwd, "host_ms": per_step[name][2],
+        "fit_step_ms": fitted["row"]["step_ms_median"],
+        "fit_device_ms": fitted["row"]["device_ms"],
+        "timed_as": bwd_timed_as,
+    } for i, (name, kname, cname, line) in enumerate(
+        (("dq", "K4", "flash_attn_bwd_dq", 155),
+         ("dkv", "K5", "flash_attn_bwd_dkv", 184)), start=1)]}),
+        flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

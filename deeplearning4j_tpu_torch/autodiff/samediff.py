@@ -14,10 +14,25 @@ returns numpy arrays, as the JAX package does. Where the JAX package hands
 the whole program to ``jax.jit`` (whose compiler drops ops the targets do
 not need), the port runs only the ops the targets need.
 
+Training: :meth:`SameDiff.grad` runs the ops the loss needs eagerly under
+``torch.enable_grad()`` and the precision policy, with leaf copies of the
+VARIABLEs, and returns numpy gradients by name. :meth:`SameDiff.fit` is
+the JAX package's plain fit step, taken one step at a time: the loss plus
+the l1/l2 terms of :meth:`set_training_config`, its gradient, the clip
+pipeline of ``nn/gradnorm.py`` (per VARIABLE where a mode says per
+layer), the divergence sentinel's verdict (one host sync per step; a
+non-finite step is skipped and counted), then the updater over the
+name-keyed tree and ``p - delta``. Each ``fit`` call starts the updater
+state afresh, as the JAX package's does; ``iteration`` and ``epoch`` run
+on across calls. Listeners get ``iteration_done`` and ``on_epoch_end``.
+Divergence: ``fit`` has no fault-injection sites (the JAX package trips
+``train.step`` and ``train.nonfinite`` there; ``runtime/faults.py`` is
+not ported).
+
 Not in this port yet, and raising ``NotImplementedError`` that names
 ROADMAP Queue 1: control flow (``cond``, ``while_loop``, ``scan``; a graph
-holding their records loads and saves, but does not run), training
-(``fit``, ``grad``), the 16-bit dtype policy (``set_dtype("BFLOAT16")``)
+holding their records loads and saves, but does not run), ``evaluate``,
+``memory_report``, the 16-bit dtype policy (``set_dtype("BFLOAT16")``)
 and activation checkpointing (``set_workspace_mode``).
 
 The constructor, :meth:`SameDiff.load` and :meth:`SameDiff.from_json` put
@@ -36,6 +51,8 @@ import torch
 
 from .. import environment as _env
 from .. import ops as _catalog
+from ..nn import gradnorm as _gn
+from ..runtime import sentinel as _sent
 from ..utils.convert import tensor_from_numpy
 
 VARIABLE = "VARIABLE"
@@ -49,8 +66,9 @@ _CONTROL_FLOW = ("__cond__", "__while__", "__scan__")
 def _not_ported(what: str):
     return NotImplementedError(
         f"SameDiff {what} is not in the PyTorch port yet (ROADMAP Queue 1: "
-        "the port serves SameDiff graphs; control flow, training, the "
-        "16-bit dtype policy and remat come in later slices)")
+        "the port serves and trains SameDiff graphs; control flow, "
+        "evaluate, memory_report, the 16-bit dtype policy and remat come "
+        "in later slices)")
 
 
 class SDVariable:
@@ -225,10 +243,37 @@ class SameDiff:
         self.train_config: Dict[str, Any] = {}
         self.dtype = "FLOAT"
         self.workspace_mode = "none"
+        self._listeners: List[Any] = []
+        self.iteration = 0
+        self.epoch = 0
+        self._score = float("nan")
+        self._sentinel = _sent.Sentinel()
 
     @staticmethod
     def create(device=None) -> "SameDiff":
         return SameDiff(device)
+
+    # listener-facing Model protocol
+    def score(self) -> float:
+        """The loss of the last ``fit`` step."""
+        return self._score
+
+    def set_listeners(self, *listeners) -> "SameDiff":
+        self._listeners = list(listeners)
+        return self
+
+    def add_listener(self, listener) -> "SameDiff":
+        self._listeners.append(listener)
+        return self
+
+    def resilience_counters(self) -> dict:
+        """The divergence sentinel's counters: skipped steps in total and
+        in a row, clip events."""
+        return self._sentinel.to_host()
+
+    def reset_resilience_counters(self) -> "SameDiff":
+        self._sentinel = _sent.Sentinel()
+        return self
 
     # ------------------------------------------------------------ variables
     def _fresh(self, base: str) -> str:
@@ -423,11 +468,133 @@ class SameDiff:
         self.workspace_mode = "none"
         return self
 
-    def grad(self, *args, **kwargs):
-        raise _not_ported("grad")
+    def set_training_config(self, updater=None, l1: float = 0.0,
+                            l2: float = 0.0,
+                            gradient_clip_value: Optional[float] = None,
+                            gradient_clip_l2: Optional[float] = None,
+                            gradient_normalization: Optional[str] = None,
+                            gradient_normalization_threshold: float = 1.0
+                            ) -> "SameDiff":
+        """nd4j ``TrainingConfig``: the updater, l1/l2 over the VARIABLEs,
+        gradient clipping and normalization, applied in every ``fit`` step.
+        A normalization mode "per layer" acts per VARIABLE (a SameDiff has
+        no layers), as in the JAX package."""
+        _gn.validate(gradient_normalization)
+        if updater is not None:
+            self.updater = updater
+        self.train_config = {
+            "l1": float(l1), "l2": float(l2),
+            "clip_value": gradient_clip_value,
+            "clip_l2": gradient_clip_l2,
+            "grad_norm": gradient_normalization,
+            "grad_norm_threshold": float(gradient_normalization_threshold),
+        }
+        return self
 
-    def fit(self, *args, **kwargs):
-        raise _not_ported("fit")
+    def _value_and_grad(self, feeds, wrt: Dict[str, torch.Tensor],
+                        penalty: bool):
+        """``(loss, {name: gradient})`` with the values ``wrt`` (by name) in
+        place of the stored ones: the ops the loss needs, run eagerly with
+        autograd on leaf copies of ``wrt`` under the precision policy; with
+        ``penalty`` the l1/l2 terms of the training config are added over
+        ``wrt``. A value the loss does not reach gets a zero gradient."""
+        if self.loss_name is None:
+            raise ValueError("set_loss(...) first")
+        ops, needed = self._needed([self.loss_name])
+        missing = sorted(needed - set(feeds))
+        if missing:
+            raise ValueError(f"missing placeholder feeds: {missing}")
+        env: Dict[str, torch.Tensor] = dict(self._values)
+        env.update({k: _as_tensor(v, self.device) for k, v in feeds.items()
+                    if k in needed})
+        leaves = {n: t.detach().requires_grad_(True) for n, t in wrt.items()}
+        env.update(leaves)
+        tc = self.train_config if penalty else {}
+        with torch.enable_grad(), _env.precision(self.device):
+            self._exec_ops(ops, env)
+            total = env[self.loss_name]
+            if tc.get("l1"):
+                total = total + tc["l1"] * sum(
+                    torch.sum(torch.abs(t)) for t in leaves.values())
+            if tc.get("l2"):
+                total = total + 0.5 * tc["l2"] * sum(
+                    torch.sum(torch.square(t)) for t in leaves.values())
+            found = torch.autograd.grad(total, list(leaves.values()),
+                                        allow_unused=True)
+        grads = {n: torch.zeros_like(t) if g is None else g
+                 for (n, t), g in zip(leaves.items(), found)}
+        return total.detach(), grads
+
+    def grad(self, feeds: Dict[str, Any],
+             wrt: Optional[Sequence[str]] = None) -> Dict[str, np.ndarray]:
+        """Gradients of the loss with respect to ``wrt`` (every VARIABLE by
+        default), as numpy arrays keyed by name."""
+        wrt = {n: self._values[n] for n in (wrt or self.variables())}
+        _, grads = self._value_and_grad(feeds, wrt, penalty=False)
+        return {n: _to_numpy(g) for n, g in grads.items()}
+
+    def _fit_step(self, train, opt_state, feeds):
+        """One training step: ``(loss, new values, new updater state)``; a
+        step the sentinel refuses returns the values and state it got."""
+        tc = self.train_config
+        loss, grads = self._value_and_grad(feeds, train, penalty=True)
+        with torch.no_grad(), _env.precision(self.device):
+            # the engines' clip pipeline with each VARIABLE as its own layer
+            wrapped, events = _gn.clip_with_events(
+                tc.get("grad_norm"), tc.get("grad_norm_threshold", 1.0),
+                tc.get("clip_value"), tc.get("clip_l2"),
+                {n: {"g": g} for n, g in grads.items()})
+            grads = {n: w["g"] for n, w in wrapped.items()}
+            if self._sentinel.verdict(loss, grads, events):
+                delta, opt_state = self.updater.apply(
+                    grads, opt_state, train, self.iteration)
+                train = {n: p - delta[n] for n, p in train.items()}
+        return loss, train, opt_state
+
+    def fit(self, feeds_iter, epochs: int = 1,
+            listeners: Optional[List] = None) -> "History":
+        """Minibatch training over a feed dict or an iterable of them, for
+        ``epochs`` passes; returns a :class:`History`. ``listeners`` (and
+        those of :meth:`set_listeners`) get ``iteration_done(sd, iteration,
+        epoch)`` after each step and ``on_epoch_end(sd)`` after each
+        pass."""
+        if self.loss_name is None or self.updater is None:
+            raise ValueError("set_loss(...) and set_updater(...) first")
+        feeds_list = [feeds_iter] if isinstance(feeds_iter, dict) \
+            else list(feeds_iter)
+        train = {n: self._values[n] for n in self.variables()}
+        opt_state = self.updater.init_state(train)
+        cbs = list(self._listeners) + list(listeners or [])
+        history = History()
+        for _ in range(epochs):
+            epoch_losses = []
+            for feeds in feeds_list:
+                loss, train, opt_state = self._fit_step(train, opt_state,
+                                                        feeds)
+                loss = float(loss)
+                history.losses.append(loss)
+                epoch_losses.append(loss)
+                self._score = loss
+                self.iteration += 1
+                if cbs:  # listeners may read or save the values
+                    self._values.update(train)
+                for cb in cbs:
+                    cb.iteration_done(self, self.iteration, self.epoch)
+            self.epoch += 1
+            history.epoch_losses.append(
+                sum(epoch_losses) / max(1, len(epoch_losses)))
+            if cbs:
+                self._values.update(train)
+            for cb in cbs:
+                cb.on_epoch_end(self)
+        self._values.update(train)
+        return history
+
+    def evaluate(self, *args, **kwargs):
+        raise _not_ported("evaluate (eval/evaluation.py)")
+
+    def memory_report(self, *args, **kwargs):
+        raise _not_ported("memory_report")
 
     # ------------------------------------------------------------ accessors
     def get_value(self, name: str) -> np.ndarray:
@@ -504,6 +671,28 @@ class SameDiff:
             else:  # an older artifact: flat keys, no slashes in names
                 sd._values = dict(tree)
         return sd
+
+
+class History:
+    """Training history (nd4j ``History``): the loss of every iteration and
+    the mean loss of every epoch; iterable and indexable as the loss
+    list."""
+
+    def __init__(self):
+        self.losses: List[float] = []
+        self.epoch_losses: List[float] = []
+
+    def loss_curve(self) -> List[float]:
+        return list(self.losses)
+
+    def __len__(self):
+        return len(self.losses)
+
+    def __iter__(self):
+        return iter(self.losses)
+
+    def __getitem__(self, i):
+        return self.losses[i]
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:

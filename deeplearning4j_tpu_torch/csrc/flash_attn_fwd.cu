@@ -42,13 +42,14 @@
 // s = dot * scale + kb is a rounded product and a rounded sum (no fused
 // multiply-add), as in the plain version; the dot products and sums run in
 // another order than PyTorch's, and expf may differ from PyTorch's exp by
-// an ulp.
+// an ulp. The score routine is flash_attn_common.cuh's, which K4 and K5
+// share, so the backward recomputes these scores bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "epilogue_act.cuh"
+#include "flash_attn_common.cuh"
 
 namespace {
 
@@ -67,22 +68,6 @@ template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * ((size_t)kBQ * D + 2 * (size_t)kBK * kv_stride<D>()
                           + (size_t)kWarps * kRows * kBK);
-}
-
-struct Strides {
-  long long b, h, t;
-};
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 template <typename T, int D>
@@ -113,11 +98,7 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vg = v + b * vs.b + h * vs.h;
   const float* kbrow = kb != nullptr ? kb + (long long)b * Tk : nullptr;
 
-  for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
-    const int r = i / D;
-    const int c = i - r * D;
-    sq[i] = (q0 + r < Tq && c < d) ? to_f32<T>(qg[(q0 + r) * qs.t + c]) : 0.0f;
-  }
+  stage_rows<T, D, kBQ, kThreads>(sq, D, qg, qs.t, q0, Tq, d);
 
   float acc[kRows][CPL];
   float m_run[kRows];
@@ -135,32 +116,13 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int j0 = 0; j0 < Tk; j0 += kBK) {
     __syncthreads();  // the q block is stored; the last tile is consumed
-    for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
-      const int r = i / D;
-      const int c = i - r * D;
-      const bool in = j0 + r < Tk && c < d;
-      sk[r * KS + c] = in ? to_f32<T>(kg[(j0 + r) * ks.t + c]) : 0.0f;
-      sv[r * KS + c] = in ? to_f32<T>(vg[(j0 + r) * vs.t + c]) : 0.0f;
-    }
+    stage_row_pairs<T, D, kBK, kThreads>(sk, sv, KS, kg, ks.t, vg, vs.t, j0,
+                                         Tk, d);
     __syncthreads();
 
     // scores of key j0 + lane against the warp's rows
     float s[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.0f;
-    const float* krow = sk + lane * KS;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 4) {
-      const float4 kk = *reinterpret_cast<const float4*>(krow + c);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qq = *reinterpret_cast<const float4*>(qw + r * D + c);
-        s[r] = fmaf(qq.x, kk.x, s[r]);
-        s[r] = fmaf(qq.y, kk.y, s[r]);
-        s[r] = fmaf(qq.z, kk.z, s[r]);
-        s[r] = fmaf(qq.w, kk.w, s[r]);
-      }
-    }
+    row_dots<D, kRows>(qw, D, sk + lane * KS, s);
     const int key = j0 + lane;
     const bool valid = key < Tk;
     const float bias = (valid && kbrow != nullptr) ? kbrow[key] : 0.0f;
@@ -168,7 +130,7 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // online softmax; p rounded to v's type goes to the warp's p tile
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const float sr = valid ? __fadd_rn(__fmul_rn(s[r], scale), bias) : -INFINITY;
+      const float sr = valid ? score(s[r], scale, bias) : -INFINITY;
       const float m_new = fmaxf(m_run[r], warp_max(sr));
       const float alpha = expf(m_run[r] - m_new);
       const float p = expf(sr - m_new);

@@ -1,8 +1,11 @@
 """K3, the flash-attention forward: ``(o, m, l)`` of
-``softmax(q k^T * scale + kb) v``.
+``softmax(q k^T * scale + kb) v``; K4 and K5, its backward: ``dq`` and
+``(dk, dv)``.
 
-Wrapper of ``csrc/flash_attn_fwd.cu``, which replaces the JAX package's
-``ops/flash_attention.py::_fwd_kernel``. ``q`` is ``[B, H, Tq, d]``,
+Wrappers of ``csrc/flash_attn_fwd.cu`` (K3), which replaces the JAX
+package's ``ops/flash_attention.py::_fwd_kernel``, and of
+``csrc/flash_attn_bwd.cu`` (K4 and K5), which replace ``_bwd_dq_kernel``
+and ``_bwd_dkv_kernel``. ``q`` is ``[B, H, Tq, d]``,
 ``k`` and ``v`` ``[B, H, Tk, d]``, in f32, bf16 or f16, each a strided
 view with a contiguous last dimension (the head split of a ``[B, T, H*d]``
 projection is read in place). ``kb`` is an optional f32 key bias
@@ -23,7 +26,21 @@ these are one value per row.
   dimension that is not contiguous, a failed build or a refused launch.
   No CUDA call gives way to the plain version.
 
-``launches`` counts wrapper calls that launched K3.
+The backward takes the forward's ``m`` and ``l``, the output gradient
+``do`` (q's shape and dtype, any strides with a contiguous last dimension)
+and ``di = rowsum(o * do)`` in f32 ``[B*H, Tq]``, which the caller
+computes, as the JAX package does. It recomputes ``p = exp(s - m) * (1 /
+l)`` from scores made exactly as K3 made them and ``ds = p * (dp - di) *
+scale`` with ``dp = do v^T``; :func:`flash_attention_bwd_dq` gives ``dq =
+ds k`` in q's layout, :func:`flash_attention_bwd_dkv` ``dk = ds^T q`` and
+``dv = p^T do`` in k's and v's layouts. ds is rounded to k's (K4) or q's
+(K5) dtype and p to do's before the products, as on the TPU. The same
+CPU/CUDA rule holds: CPU tensors take the plain versions
+(:func:`flash_attention_bwd_reference` computes all three), CUDA tensors
+launch K4 and K5 or raise.
+
+``launches`` counts wrapper calls that launched K3, ``launches_dq`` those
+that launched K4 and ``launches_dkv`` those that launched K5.
 """
 
 from __future__ import annotations
@@ -44,8 +61,11 @@ KEY_TILE = 32
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-#: Kernel launches since the last reset (a plain integer; set it to 0).
+#: Kernel launches since the last reset (plain integers; set them to 0):
+#: K3, K4 and K5.
 launches = 0
+launches_dq = 0
+launches_dkv = 0
 
 
 def flash_attention_fwd_reference(q, k, v, kb=None, scale=None):
@@ -77,6 +97,73 @@ def flash_attention_fwd_reference(q, k, v, kb=None, scale=None):
     safe = torch.where(l == 0, torch.ones_like(l), l)
     o = (acc / safe[..., None]).to(q.dtype)
     return o, m.reshape(B * H, Tq), safe.reshape(B * H, Tq)
+
+
+def _bwd_tiles(q, k, v, kb, m, l, di, do, scale):
+    """The backward's key tiles as the kernels compute them: yields ``(j0,
+    j1, p, ds)`` for each ``KEY_TILE`` keys, with ``p = exp(s - m) * (1 /
+    l)`` and ``ds = p * (dp - di) * scale`` in f32 (f64 for f64 inputs)."""
+    B, H, Tq, d = q.shape
+    Tk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf, dof = q.to(ct), k.to(ct), v.to(ct), do.to(ct)
+    m, inv_l, di = (t.reshape(B, H, Tq, 1).to(ct) for t in (m, 1.0 / l, di))
+    for j0 in range(0, Tk, KEY_TILE):
+        j1 = min(j0 + KEY_TILE, Tk)
+        s = torch.matmul(qf, kf[:, :, j0:j1].transpose(-1, -2)) * scale
+        if kb is not None:
+            s = s + kb[:, None, None, j0:j1].to(ct)
+        p = torch.exp(s - m) * inv_l
+        dp = torch.matmul(dof, vf[:, :, j0:j1].transpose(-1, -2))
+        yield j0, j1, p, p * (dp - di) * scale
+
+
+def flash_attention_bwd_dq_reference(q, k, v, kb, m, l, di, do, scale=None):
+    """K4's plain version: ``dq = sum over key tiles of ds k``, ds rounded
+    to k's dtype, accumulated in f32 (f64 for f64 inputs), rounded once to
+    q's dtype."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    kf = k.to(ct)
+    dq = torch.zeros(q.shape, dtype=ct, device=q.device)
+    for j0, j1, _, ds in _bwd_tiles(q, k, v, kb, m, l, di, do, scale):
+        dq = dq + torch.matmul(ds.to(k.dtype).to(ct), kf[:, :, j0:j1])
+    return dq.to(q.dtype)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, kb, m, l, di, do,
+                                      scale=None):
+    """K5's plain version: per key tile, ``dv = p^T do`` (p rounded to do's
+    dtype) and ``dk = ds^T q`` (ds rounded to q's dtype), summed over the
+    queries in f32 (f64 for f64 inputs), rounded once."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qf, dof = q.to(ct), do.to(ct)
+    dk, dv = [], []
+    for _, _, p, ds in _bwd_tiles(q, k, v, kb, m, l, di, do, scale):
+        dv.append(torch.matmul(p.to(do.dtype).to(ct).transpose(-1, -2), dof))
+        dk.append(torch.matmul(ds.to(q.dtype).to(ct).transpose(-1, -2), qf))
+    return torch.cat(dk, 2).to(k.dtype), torch.cat(dv, 2).to(v.dtype)
+
+
+def attention_di(o, do):
+    """``di = rowsum(o * do)`` in f32 (f64 for f64 inputs) as ``[B*H, Tq]``,
+    the row term of the backward that the JAX package also computes
+    outside its kernels."""
+    B, H, Tq, _ = o.shape
+    ct = torch.promote_types(o.dtype, torch.float32)
+    di = torch.sum(o.to(ct) * do.to(ct), dim=-1)
+    return di.reshape(B * H, Tq).contiguous()
+
+
+def flash_attention_bwd_reference(q, k, v, kb, o, m, l, do, scale=None):
+    """K4's and K5's plain versions together: ``(dq, dk, dv)`` from the
+    forward's ``o``, ``m`` and ``l`` and the output gradient ``do``."""
+    di = attention_di(o, do)
+    dq = flash_attention_bwd_dq_reference(q, k, v, kb, m, l, di, do, scale)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, kb, m, l, di, do,
+                                               scale)
+    return dq, dk, dv
 
 
 def _check(q, k, v, kb):
@@ -121,6 +208,104 @@ def _kernel():
     return fn
 
 
+def _check_bwd(q, k, v, kb, m, l, di, do):
+    _check(q, k, v, kb)
+    if do.shape != q.shape or do.dtype != q.dtype or do.stride(-1) != 1 \
+            or do.device != q.device:
+        raise ValueError(f"flash_attention backward: do must be a "
+                         f"{q.dtype} {tuple(q.shape)} tensor on {q.device} "
+                         f"with a contiguous last dimension")
+    rows = (q.shape[0] * q.shape[1], q.shape[2])
+    for name, t in (("m", m), ("l", l), ("di", di)):
+        if t.dtype != torch.float32 or t.shape != rows \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash_attention backward: {name} must be a "
+                             f"contiguous float32 {list(rows)} tensor on "
+                             f"{q.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernels():
+    lib = _build.load("flash_attn_bwd")
+    fns = []
+    for fn, outs in ((lib.dl4j_flash_attn_bwd_dq, 1),
+                     (lib.dl4j_flash_attn_bwd_dkv, 2)):
+        fn.argtypes = [ctypes.c_void_p] * (8 + outs) + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns.append(fn)
+    return tuple(fns)
+
+
+def _bwd_launch(fn, outs, q, k, v, kb, m, l, di, do, scale):
+    """Launch K4 (one output) or K5 (two) into ``outs``."""
+    B, H, Tq, d = q.shape
+    Tk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    strides = (ctypes.c_longlong * (3 * (4 + len(outs))))(*[
+        s for t in (q, k, v, do, *outs) for s in t.stride()[:3]])
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if kb is None else kb.data_ptr(), m.data_ptr(),
+            l.data_ptr(), di.data_ptr(), do.data_ptr(),
+            *[t.data_ptr() for t in outs], B, H, Tq, Tk, d, strides,
+            float(scale), _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: "
+                           f"CUDA error {rc}")
+
+
+def _like(t):
+    """An empty tensor in ``t``'s layout (the head split stays one)."""
+    out = torch.empty_like(t)
+    if out.stride(-1) != 1:  # a layout empty_like does not keep
+        out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    return out
+
+
+def _route_bwd(q, k, v, kb, m, l, di, do):
+    """True for CUDA tensors (after the checks), False for CPU ones."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: tensors on {q.device} are not "
+                         "supported (cuda or cpu)")
+    _check_bwd(q, k, v, kb, m, l, di, do)
+    return True
+
+
+def flash_attention_bwd_dq(q, k, v, kb, m, l, di, do, scale=None):
+    """K4 on CUDA tensors, its plain version on CPU tensors: ``dq`` in q's
+    layout (see the module docstring)."""
+    if not _route_bwd(q, k, v, kb, m, l, di, do):
+        return flash_attention_bwd_dq_reference(q, k, v, kb, m, l, di, do,
+                                                scale)
+    global launches_dq
+    dq = _like(q)
+    if q.numel() == 0 or k.shape[2] == 0:
+        return dq.zero_()
+    _bwd_launch(_bwd_kernels()[0], (dq,), q, k, v, kb, m, l, di, do, scale)
+    launches_dq += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, kb, m, l, di, do, scale=None):
+    """K5 on CUDA tensors, its plain version on CPU tensors: ``(dk, dv)``
+    in k's and v's layouts (see the module docstring)."""
+    if not _route_bwd(q, k, v, kb, m, l, di, do):
+        return flash_attention_bwd_dkv_reference(q, k, v, kb, m, l, di, do,
+                                                 scale)
+    global launches_dkv
+    dk, dv = _like(k), _like(v)
+    if k.numel() == 0 or q.shape[2] == 0:
+        return dk.zero_(), dv.zero_()
+    _bwd_launch(_bwd_kernels()[1], (dk, dv), q, k, v, kb, m, l, di, do,
+                scale)
+    launches_dkv += 1
+    return dk, dv
+
+
 def flash_attention_fwd(q, k, v, kb=None, scale=None):
     """K3 on CUDA tensors, the plain version on CPU tensors: ``(o, m, l)``
     (see the module docstring)."""
@@ -136,9 +321,7 @@ def flash_attention_fwd(q, k, v, kb=None, scale=None):
     Tk = k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    o = torch.empty_like(q)
-    if o.stride(-1) != 1:  # a layout empty_like does not keep
-        o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    o = _like(q)
     m = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     if q.numel() == 0:
@@ -183,6 +366,42 @@ def bound_ms(B: int, H: int, Tq: int, Tk: int, d: int, itemsize: int,
     t_bytes = bytes_moved(B, H, Tq, Tk, d, itemsize, has_bias) \
         / H100_BYTES_PER_S
     t_ops = flops(B, H, Tq, Tk, d) / rate
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bytes_moved_bwd(B: int, H: int, Tq: int, Tk: int, d: int, itemsize: int,
+                    kernel: str, has_bias: bool = True) -> int:
+    """Least device-memory traffic of one K4 (``kernel="dq"``) or K5
+    (``"dkv"``) call: q, k, v, do, m, l, di and kb read once; dq, or dk
+    and dv, written once."""
+    G = B * H
+    reads = (2 * G * Tq * d + 2 * G * Tk * d) * itemsize + 3 * G * Tq * 4 \
+        + (B * Tk * 4 if has_bias else 0)
+    writes = G * Tq * d * itemsize if kernel == "dq" \
+        else 2 * G * Tk * d * itemsize
+    return reads + writes
+
+
+def flops_bwd(B: int, H: int, Tq: int, Tk: int, d: int, kernel: str) -> int:
+    """Operations of one K4 (``"dq"``) or K5 (``"dkv"``) call: the
+    multiply-adds of ``q k^T``, ``do v^T`` and ``ds k`` (6 G Tq Tk d), or
+    of ``q k^T``, ``do v^T``, ``p^T do`` and ``ds^T q`` (8 G Tq Tk d). The
+    few elementwise operations per score are left out, so the bound stays
+    a lower bound."""
+    if kernel not in ("dq", "dkv"):
+        raise ValueError(f"kernel {kernel!r} is 'dq' (K4) or 'dkv' (K5)")
+    return (6 if kernel == "dq" else 8) * B * H * Tq * Tk * d
+
+
+def bound_ms_bwd(B: int, H: int, Tq: int, Tk: int, d: int, itemsize: int,
+                 kernel: str, has_bias: bool = True) -> tuple:
+    """``(ms, "bytes" or "operations")`` for one K4 (``"dq"``) or K5
+    (``"dkv"``) call, as :func:`bound_ms` for K3."""
+    rate = H100_F32_FLOPS_PER_S if itemsize == 4 else H100_16BIT_FLOPS_PER_S
+    t_bytes = bytes_moved_bwd(B, H, Tq, Tk, d, itemsize, kernel, has_bias) \
+        / H100_BYTES_PER_S
+    t_ops = flops_bwd(B, H, Tq, Tk, d, kernel) / rate
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
 

@@ -10,6 +10,12 @@ the same catalog ops, named as the TF graph names them (from ``bert/``
 on), with the weights under their HF variable names. The CPU tests hold
 it against a real import of a small TFBert.
 
+For fine-tuning, :func:`attach_classifier_head` adds the JAX package's
+benchmark head (``bench.py`` ``_bert_sd``): the mean over the sequence,
+a ``[hidden, n_classes]`` dense layer and ``loss.softmax_ce_logits``,
+trained with ``Adam(2e-5)``; :func:`fine_tune_feeds` makes a batch with
+``bench_bert``'s labels.
+
 The ops of ``last_hidden_state``:
 
 - embeddings: ``shape.gather`` of the word rows by ``input_ids``, of the
@@ -51,10 +57,12 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..autodiff.samediff import SameDiff
+from ..nn.updaters import Adam
 
 INPUT_IDS = "input_ids"
 ATTENTION_MASK = "attention_mask"
 OUTPUT = "last_hidden_state"
+LABELS = "labels"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,3 +279,40 @@ def bert_base(seed: int = 0, device=None, seq_len: int = 128,
     intermediate 3072, vocab 30522, 512 positions), float32."""
     return bert(BertConfig(), seed=seed, weights=weights, device=device,
                 seq_len=seq_len)
+
+
+def attach_classifier_head(sd: SameDiff, seed,
+                           n_classes: int = 2) -> SameDiff:
+    """The fine-tune head of ``bench.py`` ``_bert_sd`` on a graph of
+    :func:`bert`: ``mean`` of ``last_hidden_state`` over the sequence,
+    ``mmul`` with ``cls_W`` ([hidden, n_classes], normal(0, 0.02) from
+    ``np.random.default_rng(seed)``, or from ``seed`` if it is a
+    Generator), ``+ cls_b`` (zeros), and ``loss.softmax_ce_logits`` against
+    the one-hot ``labels`` placeholder, set as the loss, with
+    ``Adam(learning_rate=2e-5)`` as the updater."""
+    rng = seed if isinstance(seed, np.random.Generator) \
+        else np.random.default_rng(seed)
+    width = sd._values["bert/embeddings/word_embeddings/weight"].shape[1]
+    pooled = sd._vars[OUTPUT].mean(axis=1)
+    w = sd.var("cls_W", rng.normal(0, 0.02, (width, n_classes))
+               .astype(np.float32))
+    b = sd.var("cls_b", np.zeros((n_classes,), np.float32))
+    logits = pooled.mmul(w) + b
+    labels = sd.placeholder(LABELS)
+    sd.set_loss(sd.call("loss.softmax_ce_logits", labels, logits))
+    sd.set_updater(Adam(learning_rate=2e-5))
+    return sd
+
+
+def fine_tune_feeds(rng, batch: int, seq: int, vocab: int = 30522,
+                    n_classes: int = 2) -> dict:
+    """One fine-tune batch: ``input_ids`` (uniform in 1..vocab-1, padding
+    id 0 past each row's valid length), a ragged ``attention_mask`` (valid
+    lengths uniform in 1..seq) and ``bench_bert``'s labels, the one-hot
+    of ``input_ids.sum(axis=1) % n_classes``."""
+    lengths = rng.integers(1, seq + 1, batch)
+    mask = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.int32)
+    ids = rng.integers(1, vocab, (batch, seq)).astype(np.int32) * mask
+    labels = np.eye(n_classes, dtype=np.float32)[
+        ids.sum(axis=1) % n_classes]
+    return {INPUT_IDS: ids, ATTENTION_MASK: mask, LABELS: labels}

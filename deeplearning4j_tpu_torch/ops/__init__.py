@@ -7,8 +7,9 @@ package's name (``math.add``, ``linalg.mmul``, ``attention.fused_sdpa``,
 ``graph.json`` written by either package runs in the other. This registry
 is the port's own: nothing here reads or writes the JAX package's.
 
-Besides the catalog the package holds the nn ops, the losses and the
-fused epilogues the ComputationGraph path calls directly.
+Besides the catalog the package holds the nn ops, the losses (two of
+which are catalog ops too) and the fused epilogues the ComputationGraph
+path calls directly.
 """
 
 from __future__ import annotations
@@ -75,3 +76,4 @@ from . import activations  # noqa: E402,F401
 from . import math  # noqa: E402,F401
 from . import reduce  # noqa: E402,F401
 from . import flash_attention  # noqa: E402,F401  (attention.fused_sdpa)
+from . import losses  # noqa: E402,F401  (loss.softmax_ce_logits, ...)

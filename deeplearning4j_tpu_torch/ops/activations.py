@@ -4,7 +4,9 @@ Port of ``deeplearning4j_tpu/ops/activations.py``. Names are the strings
 used in config JSON; :func:`get` resolves them case-insensitively with
 underscores stripped, as the JAX package does. Each is also in the op
 catalog as ``act.<name>`` (the names a SameDiff graph records), with the
-JAX function's keyword names (``act.softmax(x, axis=-1)``).
+JAX function's keyword names (``act.softmax(x, axis=-1)``). Integer and
+bool inputs give jnp's dtypes: float32 from the float-valued functions,
+int32 from ``relu`` and ``cube`` of bools.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from . import register
+from .math import _float, _int32
 
 # name -> callable; populated by _act
 ACTIVATIONS = {}
@@ -33,12 +36,12 @@ def identity(x):
 
 @_act("relu")
 def relu(x):
-    return torch.relu(x)
+    return torch.relu(_int32(x))
 
 
 @_act("relu6")
 def relu6(x):
-    return torch.clamp(torch.relu(x), max=6.0)
+    return torch.clamp(relu(x), max=6.0)
 
 
 @_act("leakyrelu")
@@ -49,23 +52,25 @@ def leakyrelu(x, alpha=0.01):
 
 @_act("thresholdedrelu")
 def thresholdedrelu(x, theta=1.0):
+    # jnp.where(x > theta, x, 0.0): integer and bool inputs give float32
+    x = _float(x)
     return torch.where(x > theta, x, torch.zeros_like(x))
 
 
 @_act("elu")
 def elu(x, alpha=1.0):
-    return F.elu(x, alpha)
+    return F.elu(_float(x), alpha)
 
 
 @_act("selu")
 def selu(x):
-    return F.selu(x)
+    return F.selu(_float(x))
 
 
 @_act("gelu")
 def gelu(x, approximate=True):
     # DL4J GELU is the tanh approximation; ONNX Gelu is the erf form
-    return F.gelu(x, approximate="tanh" if approximate else "none")
+    return F.gelu(_float(x), approximate="tanh" if approximate else "none")
 
 
 @_act("swish")
@@ -75,6 +80,7 @@ def swish(x):
 
 @_act("mish")
 def mish(x):
+    x = _float(x)
     return x * torch.tanh(F.softplus(x))
 
 
@@ -115,12 +121,12 @@ def recttanh(x):
 
 @_act("softmax")
 def softmax(x, axis=-1):
-    return torch.softmax(x, dim=axis)
+    return torch.softmax(_float(x), dim=axis)
 
 
 @_act("logsoftmax")
 def logsoftmax(x, axis=-1):
-    return torch.log_softmax(x, dim=axis)
+    return torch.log_softmax(_float(x), dim=axis)
 
 
 @_act("softmax_onnx_legacy")
@@ -132,24 +138,24 @@ def softmax_onnx_legacy(x, axis=1, log=False):
     lead = 1
     for s in shape[:ax]:
         lead *= int(s)
-    flat = x.reshape(lead, -1)
+    flat = _float(x).reshape(lead, -1)
     y = torch.log_softmax(flat, dim=-1) if log else torch.softmax(flat, dim=-1)
     return y.reshape(shape)
 
 
 @_act("softplus")
 def softplus(x):
-    return F.softplus(x)
+    return F.softplus(_float(x))
 
 
 @_act("softsign")
 def softsign(x):
-    return F.softsign(x)
+    return F.softsign(_float(x))
 
 
 @_act("cube")
 def cube(x):
-    return x ** 3
+    return _int32(x) ** 3
 
 
 @_act("rrelu")

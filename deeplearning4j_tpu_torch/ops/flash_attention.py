@@ -8,15 +8,24 @@ Port of the dispatch half of ``deeplearning4j_tpu/ops/flash_attention.py``:
 - :func:`attention`: the dispatcher the SameDiff ``attention.fused_sdpa``
   op enters. It routes to K3 (``kernels/flash_attention.py``) for CUDA
   tensors when the bias reduces to one row per key, else to the reference
-  path, and counts every decision in :func:`counters`.
+  path, and counts every decision in :func:`counters`;
+- ``_FlashAttention``, the autograd node of the fused route (the JAX
+  package's ``_flash`` custom VJP): its forward launches K3 and saves q,
+  k, v, the key bias, o, m and l; its backward computes ``di =
+  rowsum(o * do)`` in f32 with a torch op and launches K4 (dq) and K5
+  (dk, dv).
 
 Decisions (one per call; the counters are this package's own):
 
 - ``fused``: a CUDA tensor in mode ``auto`` with no bias or a key-reducible
-  one (``[B or 1, 1, 1, Tk]``): K3 runs.
-- ``fallback_mode``: mode ``off`` (reference path everywhere).
+  one (``[B or 1, 1, 1, Tk]``): K3 runs, and K4 and K5 in the backward.
+- ``fallback_mode``: mode ``off`` on CPU tensors (the reference path). On
+  CUDA tensors mode ``off`` raises a ValueError: the card has no route
+  around K3/K4/K5 but the bias one below.
 - ``fallback_platform``: a CPU tensor: the reference path.
-- ``fallback_bias``: a bias that varies over heads or queries.
+- ``fallback_bias``: a bias that varies over heads or queries: the
+  reference path, differentiated by autograd. The only card route away
+  from the kernels.
 
 Divergences from the JAX dispatcher, by design:
 
@@ -29,9 +38,12 @@ Divergences from the JAX dispatcher, by design:
   trace to count once.
 - There is no ``force`` mode: it ran the Pallas kernel in interpret mode
   on the CPU, and a CUDA kernel has no such mode.
-- On the card the fused path has no backward yet: the flash backward (K4,
-  K5) comes with the fine-tune path, and differentiating through K3
-  raises. The reference path differentiates as usual.
+- Mode ``off`` is refused for CUDA tensors (the JAX package runs its
+  reference path there).
+- The key bias gets no gradient (None), as the JAX package's zero
+  cotangent: it is a mask-derived constant on this route. A learned bias
+  that varies over heads or queries takes ``fallback_bias``, where autograd
+  differentiates it.
 """
 
 from __future__ import annotations
@@ -51,6 +63,11 @@ _COUNTER_KEYS = ("fused", "fallback_mode", "fallback_platform",
                  "fallback_bias")
 _counts = collections.Counter()
 _state = {"mode": "auto"}
+
+#: output gradients copied to a contiguous last dimension before K4/K5
+#: (a plain integer; set it to 0). The BERT path's head merge hands the
+#: backward row-contiguous views, so it stays 0 there.
+do_copies = 0
 
 
 def reference_attention(q, k, v, bias=None, scale: Optional[float] = None):
@@ -107,12 +124,20 @@ def counters() -> dict:
 
 
 def reset_counters() -> None:
+    """Zero the decision counters and ``do_copies``."""
+    global do_copies
     _counts.clear()
+    do_copies = 0
 
 
 def _route(q, k, v, bias) -> Optional[str]:
     """None = fuse; otherwise the fallback counter key."""
     if _state["mode"] == "off":
+        if q.device.type == "cuda":
+            raise ValueError(
+                "flash attention mode 'off' is refused for CUDA tensors: "
+                "on the card attention runs K3 forward and K4/K5 backward "
+                "(set_mode('auto'))")
         return "fallback_mode"
     if q.device.type != "cuda":
         return "fallback_platform"
@@ -123,19 +148,32 @@ def _route(q, k, v, bias) -> Optional[str]:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K3 as an autograd node: the forward launches the kernel; the
-    backward (K4, K5) is not ported yet and raises."""
+    """The fused route as an autograd node: K3 forward, K4 and K5
+    backward (the JAX package's ``_flash_fwd``/``_flash_bwd``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kb, scale):
-        return _k3.flash_attention_fwd(q, k, v, kb, scale)[0]
+        o, m, l = _k3.flash_attention_fwd(q, k, v, kb, scale)
+        ctx.save_for_backward(q, k, v, kb, o, m, l)
+        ctx.scale = scale
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(
-            "the flash-attention backward (K4, K5) is not ported yet "
-            "(ROADMAP Queue 2): differentiate with set_mode('off'), or on "
-            "the CPU")
+        global do_copies
+        q, k, v, kb, o, m, l = ctx.saved_tensors
+        if do.stride(-1) != 1:  # the kernels read rows in place
+            do = do.contiguous()
+            do_copies += 1
+        di = _k3.attention_di(o, do)
+        args = (q, k, v, kb, m, l, di, do, ctx.scale)
+        dq = _k3.flash_attention_bwd_dq(*args) \
+            if ctx.needs_input_grad[0] else None
+        dk, dv = _k3.flash_attention_bwd_dkv(*args) \
+            if ctx.needs_input_grad[1] or ctx.needs_input_grad[2] \
+            else (None, None)
+        # the key bias is a mask-derived constant: no gradient
+        return dq, dk, dv, None, None
 
 
 def attention(q, k, v, bias=None, scale: Optional[float] = None):

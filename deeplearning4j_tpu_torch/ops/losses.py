@@ -6,8 +6,10 @@ weights=None)`` -> a scalar, the mean over unmasked examples (or
 timesteps) of the per-example loss summed over the output axis.
 ``predictions`` are post-activation outputs; the output layers call
 :func:`softmax_cross_entropy_with_logits` and
-:func:`sigmoid_binary_xent_with_logits` on logits instead. Gradients come
-from autograd.
+:func:`sigmoid_binary_xent_with_logits` on logits instead. Those two are
+also SameDiff graph ops, ``loss.softmax_ce_logits`` and
+``loss.sigmoid_bce_logits`` (the JAX package's catalog names). Gradients
+come from autograd.
 
 Ported so far: ``mcxent``, ``sparse_mcxent``, ``binary_xent``, ``mse``
 and the two logits forms. The rest of the JAX catalog (l1, l2, mae,
@@ -19,6 +21,8 @@ wasserstein, fmeasure, mixture_density, ctc) comes with a later slice
 from __future__ import annotations
 
 import torch
+
+from . import register
 
 LOSSES = {}
 EPS = 1e-7
@@ -104,6 +108,8 @@ def softmax_cross_entropy_with_logits(labels, logits, mask=None,
     return _per_example(_sum_outputs(-labels * logp, weights), mask)
 
 
+register("loss.softmax_ce_logits", category="loss")(
+    softmax_cross_entropy_with_logits)
 LOSSES["softmax_ce_logits"] = softmax_cross_entropy_with_logits
 
 
@@ -122,6 +128,8 @@ def sigmoid_binary_xent_with_logits(labels, logits, mask=None, weights=None):
     return _per_example(_sum_outputs(elem, weights), mask)
 
 
+register("loss.sigmoid_bce_logits", category="loss")(
+    sigmoid_binary_xent_with_logits)
 LOSSES["sigmoid_bce_logits"] = sigmoid_binary_xent_with_logits
 
 

@@ -65,7 +65,22 @@ def div(x, y):
 
 @register("math.floordiv", category="pairwise")
 def floordiv(x, y):
-    return torch.floor_divide(x, y)
+    """``jnp.floor_divide``: integers floor-divide as torch does; floats
+    take jnp's divmod, ``round((x - fmod(x, y)) / y)`` less 1 where the
+    remainder's sign differs from y's, so a division by zero (or of an
+    infinity) gives NaN where torch's ``floor(x / y)`` gives +-inf."""
+    x = _t(x, y if isinstance(y, torch.Tensor) else None)
+    y = _t(y, x)
+    if not (x.is_floating_point() or y.is_floating_point()):
+        return torch.floor_divide(x, y)
+    mod = torch.fmod(x, y)
+    div = (x - mod) / y
+    fix = (mod != 0) & (torch.sign(y) != torch.sign(mod))
+    div = torch.where(fix, div - 1, div)
+    # lax.round rounds halves away from zero; torch.round to even
+    trunc = torch.trunc(div)
+    return torch.where((div - trunc).abs() == 0.5, trunc + torch.sign(div),
+                       torch.round(div))
 
 
 @register("math.mod", category="pairwise")
@@ -108,6 +123,26 @@ def fmod(a, b):
 
 
 # -- elementwise transforms ---------------------------------------------------
+def _int32(x: torch.Tensor) -> torch.Tensor:
+    """A bool tensor as int32: jnp's arithmetic on bools gives int32 where
+    torch's gives int64 (or refuses)."""
+    return x.to(torch.int32) if x.dtype == torch.bool else x
+
+
+def _bool_kept(fn):
+    """``fn`` for numbers, the identity for bools (``jnp.abs``,
+    ``jnp.floor`` and ``jnp.ceil`` return a bool input as it is)."""
+    return lambda x: x if x.dtype == torch.bool else fn(x)
+
+
+def _sign(x):
+    """``jnp.sign``: NaN stays NaN and -0.0 stays -0.0 (``torch.sign``
+    gives 0 and +0.0)."""
+    if not x.is_floating_point():
+        return torch.sign(x)
+    return torch.where(torch.isnan(x) | (x == 0), x, torch.sign(x))
+
+
 def _unary(name, fn, differentiable=True, promote=True):
     def op(x):
         return fn(_float(x) if promote else x)
@@ -117,9 +152,10 @@ def _unary(name, fn, differentiable=True, promote=True):
 
 
 neg = _unary("math.neg", torch.neg, promote=False)
-abs_ = _unary("math.abs", torch.abs, promote=False)
+abs_ = _unary("math.abs", _bool_kept(torch.abs), promote=False)
 sqrt = _unary("math.sqrt", torch.sqrt)
-square = _unary("math.square", torch.square, promote=False)
+square = _unary("math.square", lambda x: torch.square(_int32(x)),
+                promote=False)
 exp = _unary("math.exp", torch.exp)
 expm1 = _unary("math.expm1", torch.expm1)
 log = _unary("math.log", torch.log)
@@ -133,10 +169,12 @@ acos = _unary("math.acos", torch.acos)
 atan = _unary("math.atan", torch.atan)
 sinh = _unary("math.sinh", torch.sinh)
 cosh = _unary("math.cosh", torch.cosh)
-floor = _unary("math.floor", torch.floor, False, promote=False)
-ceil = _unary("math.ceil", torch.ceil, False, promote=False)
+floor = _unary("math.floor", _bool_kept(torch.floor), False,
+               promote=False)
+ceil = _unary("math.ceil", _bool_kept(torch.ceil), False,
+              promote=False)
 round_ = _unary("math.round", torch.round, False, promote=False)
-sign = _unary("math.sign", torch.sign, False, promote=False)
+sign = _unary("math.sign", _sign, False, promote=False)
 reciprocal = _unary("math.reciprocal", torch.reciprocal)
 rsqrt = _unary("math.rsqrt", torch.rsqrt)
 erf = _unary("math.erf", torch.erf)
@@ -627,6 +665,9 @@ def segment_prod(data, segment_ids, num_segments):
 
 @register("math.cumprod", category="reduce")
 def cumprod(a, axis=None):
+    """``jnp.cumprod``: int32 and bool inputs multiply in int32 (torch
+    widens them to int64)."""
     if axis is None:
         a, axis = a.reshape(-1), 0
-    return torch.cumprod(a, dim=axis)
+    keep = not a.is_floating_point() and a.dtype != torch.int64
+    return torch.cumprod(a, dim=axis, dtype=torch.int32 if keep else None)

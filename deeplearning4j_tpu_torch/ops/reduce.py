@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from . import register
-from .math import _dims, _float
+from .math import _dims, _float, abs_
 
 
 def _reduce(fn, a, axis, keepdims):
@@ -76,14 +76,22 @@ def var(a, axis=None, keepdims=False):
                      keepdim=keepdims)
 
 
+def _ordered(a):
+    """A bool tensor as uint8 for argmax/argmin, which torch refuses on
+    bools (jnp orders False before True)."""
+    return a.to(torch.uint8) if a.dtype == torch.bool else a
+
+
 @register("reduce.argmax", category="indexreduce", differentiable=False)
 def argmax(a, axis=None, keepdims=False):
-    return torch.argmax(a, dim=axis, keepdim=keepdims).to(torch.int32)
+    return torch.argmax(_ordered(a), dim=axis,
+                        keepdim=keepdims).to(torch.int32)
 
 
 @register("reduce.argmin", category="indexreduce", differentiable=False)
 def argmin(a, axis=None, keepdims=False):
-    return torch.argmin(a, dim=axis, keepdim=keepdims).to(torch.int32)
+    return torch.argmin(_ordered(a), dim=axis,
+                        keepdim=keepdims).to(torch.int32)
 
 
 @register("reduce.cumsum", category="reduce")
@@ -95,7 +103,7 @@ def cumsum(a, axis=None):
 
 @register("reduce.norm1", category="reduce")
 def norm1(a, axis=None, keepdims=False):
-    return _int32(_reduce(torch.sum, torch.abs(a), axis, keepdims), a)
+    return _int32(_reduce(torch.sum, abs_(a), axis, keepdims), a)
 
 
 @register("reduce.norm2", category="reduce")
@@ -105,7 +113,7 @@ def norm2(a, axis=None, keepdims=False):
 
 @register("reduce.normmax", category="reduce")
 def normmax(a, axis=None, keepdims=False):
-    return _reduce(torch.amax, torch.abs(a), axis, keepdims)
+    return _reduce(torch.amax, abs_(a), axis, keepdims)
 
 
 @register("reduce.logsumexp", category="reduce")

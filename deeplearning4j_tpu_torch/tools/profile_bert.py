@@ -1,4 +1,5 @@
-"""Where a BERT-base serving request spends its time on the card.
+"""Where a BERT-base serving request and a fine-tune step spend their time
+on the card.
 
     python3 -m deeplearning4j_tpu_torch.tools.profile_bert
 
@@ -11,8 +12,16 @@ clock, the copy of the result back to the host included), the device time
 of the kernels it ran (``torch.profiler`` over 3 requests, after one
 profiled request that pays the tracer's start-up), the device's busy
 share (device time over the unprofiled wall time), K3's device time and
-launches, and the kernels that took the most device time. Precision
-``highest`` (TF32 off). Needs one CUDA card.
+launches, and the kernels that took the most device time. Then it
+attaches the fine-tune head (``models.bert.attach_classifier_head``: mean
+pool, 2 classes, softmax cross entropy, Adam(2e-5)) and prints one more
+line for a ``sd.fit`` step on one fixed batch of 32 sequences
+(``fine_tune_feeds``): the step's wall time (median of 11 after one
+warm-up step, host clock between the steps of one ``fit`` call, each
+ending in a synchronize), sequences per second, the device time per step
+and busy share (``torch.profiler`` over 3 steps), the device time and
+launches of K3, K4 and K5, and the top kernels. Precision ``highest``
+(TF32 off). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -28,20 +37,39 @@ import torch
 from .. import environment as env
 from ..autodiff.fusion import fuse_attention
 from ..kernels import flash_attention as k3
-from ..models.bert import ATTENTION_MASK, INPUT_IDS, OUTPUT, bert_base
+from ..models.bert import (ATTENTION_MASK, INPUT_IDS, OUTPUT,
+                           attach_classifier_head, bert_base,
+                           fine_tune_feeds)
 from .profile_serving import device_us
 
 REQUESTS = (1, 8, 32)
 SEQ_LEN = 128
+FIT_BATCH = 32
+#: the three attention kernels, by the name of their CUDA function
+ATTN_KERNELS = {"k3": "flash_attn_fwd_kernel",
+                "k4": "flash_attn_bwd_dq_kernel",
+                "k5": "flash_attn_bwd_dkv_kernel"}
 
 
 def request(rng, n: int, seq_len: int = SEQ_LEN, vocab: int = 30522) -> dict:
     """``n`` sequences of ``seq_len`` ids with ragged valid lengths
-    (uniform in 1..seq_len, padding id 0 past them) and their masks."""
-    lengths = rng.integers(1, seq_len + 1, n)
-    mask = (np.arange(seq_len)[None, :] < lengths[:, None]).astype(np.int32)
-    ids = rng.integers(1, vocab, (n, seq_len)).astype(np.int32) * mask
-    return {INPUT_IDS: ids, ATTENTION_MASK: mask}
+    (uniform in 1..seq_len, padding id 0 past them) and their masks: the
+    inputs of :func:`fine_tune_feeds` without its labels."""
+    feeds = fine_tune_feeds(rng, n, seq_len, vocab)
+    return {INPUT_IDS: feeds[INPUT_IDS], ATTENTION_MASK: feeds[ATTENTION_MASK]}
+
+
+def _kernel_split(prof, reps):
+    """Device ms per step: all kernels, the attention kernels, the top 8."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and device_us(e) > 0]
+    dev = sum(device_us(e) for e in kernels) / 1e3 / reps
+    attn = {k: sum(device_us(e) for e in kernels if name in e.key)
+            / 1e3 / reps for k, name in ATTN_KERNELS.items()}
+    top = sorted(kernels, key=device_us, reverse=True)[:8]
+    return dev, attn, [[e.key[:70], device_us(e) / 1e3 / reps,
+                        e.count // reps] for e in top]
 
 
 def profile(sd, feeds: dict, reps: int = 3, walls: int = 10) -> dict:
@@ -62,25 +90,75 @@ def profile(sd, feeds: dict, reps: int = 3, walls: int = 10) -> dict:
         for _ in range(reps):
             sd.output(feeds, [OUTPUT])
     launches = (k3.launches - before) / reps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and device_us(e) > 0]
-    dev = sum(device_us(e) for e in kernels) / 1e3 / reps
-    k3_ms = sum(device_us(e) for e in kernels
-                if "flash_attn_fwd_kernel" in e.key) / 1e3 / reps
-    top = sorted(kernels, key=device_us, reverse=True)[:8]
+    dev, attn, top = _kernel_split(prof, reps)
     wall = statistics.median(ts)
     return {
         "request_sequences": n,
         "seq_len": int(feeds[INPUT_IDS].shape[1]),
         "wall_ms_median": wall,
-        "device_ms": dev if kernels else None,
-        "device_busy_share": dev / wall if kernels else None,
-        "k3_device_ms": k3_ms if kernels else None,
+        "device_ms": dev if top else None,
+        "device_busy_share": dev / wall if top else None,
+        "k3_device_ms": attn["k3"] if top else None,
         "k3_launches_per_request": launches,
         "sequences_per_s": n * 1e3 / wall,
-        "top_kernels_ms": [[e.key[:70], device_us(e) / 1e3 / reps,
-                            e.count // reps] for e in top],
+        "top_kernels_ms": top,
+    }
+
+
+class StepTimer:
+    """A ``fit`` listener: synchronizes the card after each step and keeps
+    the host clock, so consecutive readings bracket one whole step."""
+
+    def __init__(self):
+        self.marks = [time.perf_counter()]
+
+    def iteration_done(self, model, iteration, epoch):
+        torch.cuda.synchronize()
+        self.marks.append(time.perf_counter())
+
+    def on_epoch_end(self, model):
+        pass
+
+    def step_ms(self):
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+def profile_fit(sd, feeds: dict, reps: int = 3, walls: int = 11,
+                listeners=()) -> dict:
+    """The time split of one ``sd.fit`` step on ``feeds`` (see the module
+    docstring); ``sd`` has its loss and updater set. Trains ``sd``: one
+    ``fit`` call of ``walls + 1`` steps (``listeners`` see those), then
+    ``1 + reps`` profiled steps."""
+    n = feeds[INPUT_IDS].shape[0]
+    timer = StepTimer()
+    torch.cuda.synchronize()
+    timer.marks = [time.perf_counter()]
+    losses = sd.fit(feeds, epochs=walls + 1,
+                    listeners=[timer, *listeners]).losses
+    wall = statistics.median(timer.step_ms()[1:])
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        sd.fit(feeds)
+    before = (k3.launches, k3.launches_dq, k3.launches_dkv)
+    with torch.profiler.profile(activities=acts) as prof:
+        sd.fit(feeds, epochs=reps)
+        torch.cuda.synchronize()
+    launches = [(a - b) / reps for a, b in zip(
+        (k3.launches, k3.launches_dq, k3.launches_dkv), before)]
+    dev, attn, top = _kernel_split(prof, reps)
+    return {
+        "fit_batch": n,
+        "seq_len": int(feeds[INPUT_IDS].shape[1]),
+        "step_ms_median": wall,
+        "sequences_per_s": n * 1e3 / wall,
+        "device_ms": dev,
+        "device_busy_share": dev / wall,
+        "k3_device_ms": attn["k3"], "k4_device_ms": attn["k4"],
+        "k5_device_ms": attn["k5"],
+        "k3_k4_k5_launches_per_step": launches,
+        "losses": losses,
+        "top_kernels_ms": top,
     }
 
 
@@ -99,6 +177,10 @@ def main() -> int:
             row["fusion"] = str(report)
             row["card"] = torch.cuda.get_device_name(0)
             print(json.dumps(row), flush=True)
+        attach_classifier_head(sd, seed=0)
+        row = profile_fit(sd, fine_tune_feeds(rng, FIT_BATCH, SEQ_LEN))
+        row["card"] = torch.cuda.get_device_name(0)
+        print(json.dumps(row), flush=True)
     finally:
         env.Environment.instance().f32_matmul_precision = old
     return 0

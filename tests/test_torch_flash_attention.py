@@ -170,16 +170,31 @@ def _fake(t):
     return None if t is None else t.as_subclass(_FakeCuda)
 
 
+def _plain(t):
+    return None if t is None else t.as_subclass(torch.Tensor)
+
+
 @pytest.fixture
 def stub_kernel(monkeypatch):
-    """K3's wrapper replaced by its plain version, recording its calls."""
+    """K3's, K4's and K5's wrappers replaced by their plain versions; the
+    list records K3's key biases, then "dq" and "dkv" for K4 and K5."""
     calls = []
 
     def fwd(q, k, v, kb=None, scale=None):
         calls.append(kb)
-        q, k, v = (t.as_subclass(torch.Tensor) for t in (q, k, v))
-        return k3.flash_attention_fwd_reference(q, k, v, kb, scale)
+        return k3.flash_attention_fwd_reference(
+            *map(_plain, (q, k, v, kb)), scale)
+
+    def bwd(name, plain):
+        def stub(*args):
+            calls.append(name)
+            return plain(*map(_plain, args[:-1]), args[-1])
+        return stub
     monkeypatch.setattr(k3, "flash_attention_fwd", fwd)
+    monkeypatch.setattr(k3, "flash_attention_bwd_dq", bwd(
+        "dq", k3.flash_attention_bwd_dq_reference))
+    monkeypatch.setattr(k3, "flash_attention_bwd_dkv", bwd(
+        "dkv", k3.flash_attention_bwd_dkv_reference))
     return calls
 
 
@@ -203,7 +218,9 @@ def test_counters_per_route(stub_kernel, restore_mode):
     per_query = torch.zeros(2, 1, 16, 24)
     fa.attention(*map(_fake, (tq, tk, tv, per_query)))  # card, not key-wise
     fa.set_mode("off")
-    fa.attention(*map(_fake, (tq, tk, tv, tb)))
+    with pytest.raises(ValueError, match="'off'"):    # refused on the card
+        fa.attention(*map(_fake, (tq, tk, tv, tb)))
+    fa.attention(tq, tk, tv, tb)                       # CPU, mode off
     assert fa.counters() == {"fused": 2, "fallback_mode": 1,
                              "fallback_platform": 1, "fallback_bias": 1}
     assert len(stub_kernel) == 2 and stub_kernel[1] is None
@@ -234,12 +251,31 @@ def test_mode_starts_auto_whatever_the_environment():
     assert out.stdout.split()[-1] == "auto"
 
 
-def test_fused_backward_is_not_ported(stub_kernel):
-    q, k, v, _ = _inputs((2, 3, 16, 16, 8), "none")
-    tq = _fake(_torch(q)).requires_grad_()
-    y = fa.attention(tq, _fake(_torch(k)), _fake(_torch(v)))
-    with pytest.raises(NotImplementedError, match="K4, K5"):
-        y.sum().backward()
+@pytest.mark.parametrize("bias_kind", BIASES)
+def test_fused_backward_runs(stub_kernel, bias_kind):
+    """The fused route differentiates through K4 and K5 (stubbed by their
+    plain versions): dq, dk and dv match jax.grad of the JAX package's
+    flash kernel in interpret mode within 1e-5; the key bias gets none."""
+    import jax
+    q, k, v, bias = _inputs((2, 3, 16, 24, 8), bias_kind, seed=2)
+    w = np.random.default_rng(3).standard_normal((2, 3, 16, 8)).astype(
+        np.float32)
+    want = jax.grad(lambda *a: jnp.sum(jfa.flash_attention(
+        *a, _jax(bias), interpret=True) * jnp.asarray(w)), argnums=(0, 1, 2))(
+        _jax(q), _jax(k), _jax(v))
+    tq, tk, tv = (_fake(_torch(a)).requires_grad_() for a in (q, k, v))
+    tb = _fake(_torch(bias))
+    if tb is not None:
+        tb.requires_grad_()
+    fa.reset_counters()
+    y = fa.attention(tq, tk, tv, tb)
+    (y * _torch(w)).sum().backward()
+    assert fa.counters()["fused"] == 1 and fa.do_copies == 0
+    assert stub_kernel[1:] == ["dq", "dkv"]
+    for got, ref in zip((tq, tk, tv), want):
+        np.testing.assert_allclose(got.grad.as_subclass(torch.Tensor).numpy(),
+                                   _np(ref), atol=F32_ATOL, rtol=0)
+    assert tb is None or tb.grad is None
 
 
 def test_fused_sdpa_is_the_catalog_op():

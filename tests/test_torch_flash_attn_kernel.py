@@ -1,7 +1,7 @@
-"""K3's module without JAX: its wrapper's checks on a machine without a
-card, its bound arithmetic, its build description, and (marked ``cuda``,
-skipped without a card) K3 against its plain version on the card. This
-file imports no JAX, so ``pytest --noconftest
+"""K3's, K4's and K5's module without JAX: the wrappers' checks on a
+machine without a card, the bound arithmetic, the build description, and
+(marked ``cuda``, skipped without a card) the kernels against their plain
+versions on the card. This file imports no JAX, so ``pytest --noconftest
 tests/test_torch_flash_attn_kernel.py -m cuda`` runs on the card's
 machine.
 
@@ -11,7 +11,10 @@ expf may differ from PyTorch's exp by an ulp) and within 2 ulps of the
 output dtype in bfloat16 and float16 (``ulp_error``: p and o are rounded
 at the same points in the kernel and its plain version); ``m`` within
 2e-5 of max(1, |m|) and ``l`` within 2e-5 relative; a second run
-bit-equal."""
+bit-equal. K4 and K5 (dq, dk, dv) are held to the same bounds: 2e-5
+absolute in float32 (the magnitudes are O(1) at these inputs; the sums
+run in other orders) and 2 ulps in bfloat16 and float16 (ds and p are
+rounded at the same points in the kernels and the plain version)."""
 
 import pytest
 import torch
@@ -40,13 +43,30 @@ def _fake(t):
 def plain_forbidden(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("the plain version was reached")
-    monkeypatch.setattr(k3, "flash_attention_fwd_reference", boom)
+    for name in ("flash_attention_fwd_reference",
+                 "flash_attention_bwd_dq_reference",
+                 "flash_attention_bwd_dkv_reference"):
+        monkeypatch.setattr(k3, name, boom)
     monkeypatch.setattr(_build, "nvcc", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found")))
     monkeypatch.setattr(_build, "_libs", {})
     k3._kernel.cache_clear()
+    k3._bwd_kernels.cache_clear()
     yield
     k3._kernel.cache_clear()
+    k3._bwd_kernels.cache_clear()
+
+
+def _bwd_args(B=1, H=2, Tq=4, Tk=4, d=8, **over):
+    """Arguments of K4's and K5's wrappers as stand-in CUDA tensors, with
+    any of them replaced."""
+    args = {"q": torch.ones(B, H, Tq, d), "k": torch.ones(B, H, Tk, d),
+            "v": torch.ones(B, H, Tk, d), "kb": None,
+            "m": torch.zeros(B * H, Tq), "l": torch.ones(B * H, Tq),
+            "di": torch.zeros(B * H, Tq), "do": torch.ones(B, H, Tq, d)}
+    args.update(over)
+    return [_fake(args[n]) for n in ("q", "k", "v", "kb", "m", "l", "di",
+                                     "do")]
 
 
 def test_cuda_tensor_never_reaches_the_plain_version(plain_forbidden):
@@ -81,6 +101,54 @@ def test_cuda_wrapper_checks_the_key_bias(plain_forbidden):
             k3.flash_attention_fwd(q, q, q, _fake(kb))
 
 
+@pytest.mark.parametrize("fn", ["flash_attention_bwd_dq",
+                                "flash_attention_bwd_dkv"])
+def test_cuda_backward_never_reaches_the_plain_version(plain_forbidden, fn):
+    with pytest.raises(RuntimeError, match="nvcc"):
+        getattr(k3, fn)(*_bwd_args())
+
+
+@pytest.mark.parametrize("over,match", [
+    ({"do": torch.ones(1, 2, 5, 8)}, "do must be"),
+    ({"do": torch.ones(1, 2, 4, 8, dtype=torch.float16)}, "do must be"),
+    ({"do": torch.ones(1, 2, 8, 4).transpose(-1, -2)}, "do must be"),
+    ({"m": torch.zeros(2, 5)}, "m must be"),
+    ({"l": torch.ones(2, 4, dtype=torch.float64)}, "l must be"),
+    ({"di": torch.zeros(4, 2).t()}, "di must be"),
+    ({"kb": torch.zeros(1, 3)}, "kb must be"),
+    ({"q": torch.ones(1, 2, 4, 256), "k": torch.ones(1, 2, 4, 256),
+      "v": torch.ones(1, 2, 4, 256), "do": torch.ones(1, 2, 4, 256)},
+     "limit 128"),
+])
+def test_cuda_backward_raises_on_what_k4_k5_cannot_take(plain_forbidden,
+                                                        over, match):
+    for fn in (k3.flash_attention_bwd_dq, k3.flash_attention_bwd_dkv):
+        with pytest.raises((TypeError, ValueError), match=match):
+            fn(*_bwd_args(**over))
+
+
+def test_backward_bound_from_the_issue_arithmetic():
+    """BERT-base batch 32 in float32: K4 does 6 G T^2 d = 2.42 GFLOP,
+    0.036 ms at 67 TFLOP/s; K5 8 G T^2 d = 3.22 GFLOP, 0.048 ms; both
+    bound by operations (their bytes take 0.019 and 0.023 ms)."""
+    G = 384
+    assert k3.flops_bwd(32, 12, 128, 128, 64, "dq") == 6 * G * 128 * 128 * 64
+    assert abs(k3.flops_bwd(32, 12, 128, 128, 64, "dq") / 1e9 - 2.42) < 0.01
+    assert abs(k3.flops_bwd(32, 12, 128, 128, 64, "dkv") / 1e9 - 3.22) < 0.01
+    qkvdo = 4 * G * 128 * 64 * 4
+    rows = 3 * G * 128 * 4
+    assert k3.bytes_moved_bwd(32, 12, 128, 128, 64, 4, "dq", False) == \
+        qkvdo + rows + G * 128 * 64 * 4
+    assert k3.bytes_moved_bwd(32, 12, 128, 128, 64, 4, "dkv") == \
+        qkvdo + rows + 32 * 128 * 4 + 2 * G * 128 * 64 * 4
+    ms, by = k3.bound_ms_bwd(32, 12, 128, 128, 64, 4, "dq")
+    assert abs(ms - 0.0361) < 0.0001 and by == "operations"
+    ms, by = k3.bound_ms_bwd(32, 12, 128, 128, 64, 4, "dkv")
+    assert abs(ms - 0.0481) < 0.0001 and by == "operations"
+    with pytest.raises(ValueError, match="dkv"):
+        k3.flops_bwd(1, 1, 1, 1, 1, "dk")
+
+
 def test_bound_from_the_issue_arithmetic():
     """BERT-base batch 32 (G = 384, T = 128, d = 64) in float32: 1.61
     GFLOP is 0.0240 ms at 67 TFLOP/s; q, k, v and o are 50.3 MB, 0.0150
@@ -95,11 +163,14 @@ def test_bound_from_the_issue_arithmetic():
     assert abs(12 * ms - 0.288) < 0.001
 
 
-def test_build_describes_k3():
-    assert "flash_attn_fwd" in _build.sources()
-    path = _build.library_path("flash_attn_fwd")
+@pytest.mark.parametrize("name", ["flash_attn_fwd", "flash_attn_bwd"])
+def test_build_describes_k3_k4_k5(name):
+    assert name in _build.sources()
+    path = _build.library_path(name)
     assert path.parent == _build.BUILD_DIR
-    assert path.name.startswith("libflash_attn_fwd-") and path.suffix == ".so"
+    assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
+    # the digest covers the score routine the three kernels share
+    assert (_build.CSRC / "flash_attn_common.cuh").is_file()
 
 
 def test_ulp_error_counts_ulps():
@@ -184,3 +255,95 @@ def test_k3_raises_on_card(cuda_device):
     q = torch.ones(1, 2, 4, 160, device=cuda_device)
     with pytest.raises(ValueError, match="limit"):
         k3.flash_attention_fwd(q, q, q)
+
+
+def _bwd_case(gen, dev, shape, dtype, layout):
+    """q, k, v, do on the card (packed, or the head split of a [B, T, H*d]
+    projection) and a key bias with ragged lengths and batch row 0 fully
+    masked."""
+    B, H, Tq, Tk, d = shape
+
+    def operand(T):
+        if layout == "packed":
+            return torch.randn(B, H, T, d, generator=gen, device=dev).to(dtype)
+        return torch.randn(B, T, H, d, generator=gen,
+                           device=dev).to(dtype).transpose(1, 2)
+    q, k, v, do = operand(Tq), operand(Tk), operand(Tk), operand(Tq)
+    lengths = torch.randint(1, Tk + 1, (B,), generator=gen, device=dev)
+    kb = torch.where(torch.arange(Tk, device=dev)[None, :]
+                     < lengths[:, None], 0.0, NEG).contiguous()
+    kb[0] = NEG
+    return q, k, v, do, kb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "heads"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", [(2, 12, 128, 128, 64),
+                                   (2, 12, 77, 77, 64),
+                                   (2, 4, 200, 200, 128),
+                                   (3, 2, 16, 24, 32), (1, 1, 1, 1, 1)],
+                         ids=str)
+def test_k4_k5_match_plain_on_card(cuda_device, shape, dtype, layout):
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape) + 1)
+    q, k, v, do, kb = _bwd_case(gen, cuda_device, shape, dtype, layout)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for bias in (None, kb):
+            o, m, l = k3.flash_attention_fwd(q, k, v, bias)
+            di = k3.attention_di(o, do)
+            before = (k3.launches_dq, k3.launches_dkv)
+            got = (k3.flash_attention_bwd_dq(q, k, v, bias, m, l, di, do),
+                   *k3.flash_attention_bwd_dkv(q, k, v, bias, m, l, di, do))
+            again = (k3.flash_attention_bwd_dq(q, k, v, bias, m, l, di, do),
+                     *k3.flash_attention_bwd_dkv(q, k, v, bias, m, l, di,
+                                                 do))
+            torch.cuda.synchronize()
+            assert (k3.launches_dq, k3.launches_dkv) == (before[0] + 2,
+                                                         before[1] + 2)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            assert [t.stride() for t in got] == [q.stride(), k.stride(),
+                                                 v.stride()]
+            want = (k3.flash_attention_bwd_dq_reference(
+                q, k, v, bias, m, l, di, do),
+                *k3.flash_attention_bwd_dkv_reference(
+                    q, k, v, bias, m, l, di, do))
+            for g, w in zip(got, want):
+                if dtype == torch.float32:
+                    assert float((g - w).abs().max()) <= 2e-5
+                else:
+                    assert k3.ulp_error(g, w) <= ULP_TOL
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.cuda
+def test_fused_attention_trains_on_card(cuda_device):
+    """The dispatcher's fused route end to end on the card: one K3, one
+    K4 and one K5 launch, gradients as the plain versions give them, no
+    gradient for the key bias, and mode 'off' refused."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v, do, kb = _bwd_case(gen, cuda_device, (2, 4, 40, 40, 32),
+                                torch.float32, "heads")
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    bias = kb[:, None, None, :].clone().requires_grad_()
+    before = (k3.launches, k3.launches_dq, k3.launches_dkv)
+    fa.attention(q, k, v, bias).backward(do)
+    torch.cuda.synchronize()
+    assert (k3.launches, k3.launches_dq, k3.launches_dkv) == tuple(
+        b + 1 for b in before)
+    assert bias.grad is None
+    o, m, l = k3.flash_attention_fwd_reference(q, k, v, kb)
+    want = k3.flash_attention_bwd_reference(q.detach(), k.detach(),
+                                            v.detach(), kb, o, m, l, do)
+    for t, w in zip((q, k, v), want):
+        assert float((t.grad - w).abs().max()) <= 2e-5
+    old = fa.set_mode("off")
+    try:
+        with pytest.raises(ValueError, match="'off'"):
+            fa.attention(q, k, v)
+    finally:
+        fa.set_mode(old)

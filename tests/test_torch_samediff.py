@@ -196,6 +196,13 @@ CASES = [
     # attention
     ("attention.fused_sdpa", (Q, Q, Q), {"scale": 0.5}),
     ("attention.fused_sdpa", (Q, Q, Q, KB), {"scale": 0.5}),
+    # losses (labels, logits)
+    ("loss.softmax_ce_logits", (np.eye(4, dtype=np.float32)[[0, 3, 1]],
+                                A), {}),
+    ("loss.softmax_ce_logits", (np.eye(4, dtype=np.float32)[[2, 2, 0]],
+                                A * 30), {}),
+    ("loss.sigmoid_bce_logits", (M2.astype(np.float32), A), {}),
+    ("loss.sigmoid_bce_logits", (UNIT, B * 40), {}),
 ] + [(f"act.{n}", (A,), {}) for n in (
     "identity", "relu", "relu6", "leakyrelu", "thresholdedrelu", "elu",
     "selu", "gelu", "swish", "mish", "sigmoid", "hardsigmoid", "tanh",
@@ -442,8 +449,8 @@ def test_what_is_not_ported_raises():
     for call in (lambda: sd.cond(x, None, None, x),
                  lambda: sd.while_loop(None, None, x),
                  lambda: sd.scan(None, [x], []),
-                 lambda: sd.fit({"x": np.ones(1)}),
-                 lambda: sd.grad({"x": np.ones(1)}),
+                 lambda: sd.evaluate([], "x"),
+                 lambda: sd.memory_report({"x": np.ones(1)}),
                  lambda: sd.set_dtype("BFLOAT16"),
                  lambda: sd.set_workspace_mode("full")):
         with pytest.raises(NotImplementedError, match="Queue 1"):
