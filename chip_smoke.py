@@ -1,5 +1,5 @@
-"""Drive the PyTorch/H100 port's serving and training paths on one NVIDIA
-card.
+"""Drive the PyTorch/H100 port's serving, training and recurrent paths on
+one NVIDIA card.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -66,12 +66,35 @@ Phases, in order; any failure exits non-zero:
     12 K4 and 12 K5 launches and only ``fused`` decisions, a finite and
     falling loss, the step time and a ``torch.profiler`` split (device
     time, busy share, K3/K4/K5 time, top kernels) of 3 more steps;
-12. summary: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
+12. kernel-lstm against plain: K8 (the LSTM step) against its plain
+    PyTorch version at (B, F, U) = (32, 77, 256) and (32, 256, 256) (the
+    two layers of TextGenerationLSTM at batch 32), (1, 77, 256), ragged
+    (3, 50, 100) and (512, 512, 512) (above the reference's VMEM budget),
+    in float32, bfloat16 and float16 with forget_bias 1.0, on contiguous
+    and row-strided x: h' and c' within ``lstm_cell.tolerance``, a second
+    run bitwise equal, and CUDA-event times at the path's shapes beside
+    the bound and ``torch.lstm_cell`` (operands reordered outside the
+    timed window);
+13. lstm-serve: TextGenerationLSTM at the zoo's width (vocab 77, 2 x
+    ``LSTM(256, use_pallas_cell=True)``, ``RnnOutputLayer(77)``, float32,
+    seed 0, random weights, TF32 off) through ``InferenceEngine.output``:
+    requests of 1, 8 and 32 one-hot sequences of 200 characters with
+    ragged ``lengths`` (time bucket 256), each with exactly 2 x 256 K8
+    launches and only ``fused`` decisions, with wall time, sequences and
+    characters per second and a ``torch.profiler`` split (device time,
+    busy share, K8 time); then greedy generation through ``rnn_time_step``
+    (8 streams, a 50-character prompt, 300 characters, 2 K8 launches per
+    step) matching ``output()`` on the generated text within 1e-6; the
+    card's batch-2 output against the port's plain path on the CPU; and a
+    whole-sequence ``torch.nn.LSTM`` on the batch-32 request as a
+    yardstick;
+14. summary: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
     power limit, and last ``{"ok": true, "device": {...}}``.
 
 The serving path (phases 4-5), the training path (phase 7), the BERT
-serving path (phase 9) and the BERT fine-tune path (phase 11) are each
-driven with the launch counts set to 0 just before and read just after.
+serving path (phase 9), the BERT fine-tune path (phase 11), the LSTM
+serving path and the LSTM streaming path (phase 13) are each driven with
+the launch counts set to 0 just before and read just after.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -163,6 +186,24 @@ FIT_LOSS_TOL = 1e-4
 #: max |diff| / max |ref|: both float32 with TF32 off; cuBLAS, the CPU and
 #: K3 sum in other orders over 12 layers
 BERT_REL_TOL = 1e-4
+#: K8's shapes (B, F, U): TextGenerationLSTM's two layers at batch 32 and
+#: at batch 8 (the streams, and the bucket-8 request), one stream, a ragged
+#: shape, and one batch above the reference's 8 MB VMEM budget
+#: (``fits_vmem``), where the JAX package would leave the kernel
+LSTM_SHAPES = ((32, 77, 256), (32, 256, 256), (8, 77, 256), (8, 256, 256),
+               (1, 77, 256), (3, 50, 100), (512, 512, 512))
+LSTM_PATH_SHAPES = ((32, 77, 256), (32, 256, 256))
+LSTM_FORGET_BIAS = 1.0
+#: the serving requests' 200 characters pad to this time bucket
+LSTM_T_BUCKET = 256
+#: the streamed outputs against output() on their concatenation, the same
+#: weights on the same card: K8 runs the same steps; the output layer's
+#: matmul may take another cuBLAS algorithm for another row count
+LSTM_STREAM_TOL = 1e-6
+#: the card's batch-2 output against the port's plain path on the CPU,
+#: max |diff| / max |ref|: float32 with TF32 off, 256 steps of two layers
+#: with sums in other orders
+LSTM_REL_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -1035,6 +1076,247 @@ def phase_bert_fit(k1, k3, fa, env) -> dict:
             "parity": (e_loss, worst[0])}
 
 
+def phase_kernel_lstm(k8) -> dict:
+    """K8 against its plain version at LSTM_SHAPES x 3 dtypes x (contiguous,
+    row-strided x), twice per case for determinism; returns the float32
+    times at the path's shapes and the errors."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    err = {"float32": 0.0, "ulp_bfloat16": 0.0, "ulp_float16": 0.0}
+    times, cases = {}, 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for B, F, U in LSTM_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            seq = (torch.rand(B, 3, F, generator=gen, device=dev) * 2 - 1
+                   ).to(dtype)
+            h = (torch.rand(B, U, generator=gen, device=dev) * 2 - 1
+                 ).to(dtype)
+            c = torch.randn(B, U, generator=gen, device=dev).to(dtype)
+            w = (torch.randn(F, 4 * U, generator=gen, device=dev)
+                 * (2.0 / (F + U)) ** 0.5).to(dtype)
+            rw = (torch.randn(U, 4 * U, generator=gen, device=dev)
+                  * (1.0 / U) ** 0.5).to(dtype)
+            b = (torch.randn(4 * U, generator=gen, device=dev) * 0.1
+                 ).to(dtype)
+            for layout, x in (("contiguous", seq[:, 1].contiguous()),
+                              ("strided", seq[:, 1])):
+                got = k8.lstm_cell(x, h, c, w, rw, b, LSTM_FORGET_BIAS)
+                again = k8.lstm_cell(x, h, c, w, rw, b, LSTM_FORGET_BIAS)
+                torch.cuda.synchronize()
+                where = f"K8 {str(dtype)[6:]} {(B, F, U)} {layout}"
+                if not all(torch.equal(p, q) for p, q in zip(got, again)):
+                    raise AssertionError(f"{where} is not deterministic")
+                ref = k8.lstm_cell_reference(x, h, c, w, rw, b,
+                                             LSTM_FORGET_BIAS)
+                viol = max(k8.max_violation(g, r) for g, r in zip(got, ref))
+                if dtype == torch.float32:
+                    err["float32"] = max(err["float32"], max(
+                        float((g - r).abs().max()) for g, r in zip(got, ref)))
+                else:
+                    key = "ulp_" + str(dtype)[6:]
+                    err[key] = max(err[key], viol)
+                if viol > 1.0:
+                    raise AssertionError(
+                        f"{where} disagrees with its plain version: "
+                        f"{viol:.3g} x the tolerance")
+                cases += 1
+            if (B, F, U) in LSTM_PATH_SHAPES and dtype != torch.float16:
+                x = seq[:, 1]
+                ms, host = time_ms(lambda: k8.lstm_cell(
+                    x, h, c, w, rw, b, LSTM_FORGET_BIAS), reps=50)
+                plain, _ = time_ms(lambda: k8.lstm_cell_reference(
+                    x, h, c, w, rw, b, LSTM_FORGET_BIAS), reps=50)
+                # torch.lstm_cell computes the same step once its operands
+                # are reordered to [i, f, g, o] (outside the timed window)
+                ops = k8.torch_lstm_cell_operands(w, rw, b, LSTM_FORGET_BIAS)
+                lib, _ = time_ms(lambda: torch.lstm_cell(x, (h, c), *ops),
+                                 reps=50)
+                bound, by = k8.bound_ms(B, F, U, x.element_size())
+                if dtype == torch.float32:
+                    times[(B, F, U)] = (ms, plain, lib, host, bound, by)
+                log(f"[kernel-lstm] K8 {str(dtype)[6:]:8s} B={B:3d} F={F:3d} "
+                    f"U={U:3d} strided ms={ms:.5f} plain_ms={plain:.5f} "
+                    f"bound_ms={bound:.5f} ({by}) library_ms={lib:.5f} "
+                    f"host_ms={host:.5f}")
+            del seq, h, c, w, rw, b
+    log(f"[kernel-lstm] K8 matches its plain version and repeats bit for "
+        f"bit: {cases} cases ({len(LSTM_SHAPES)} shapes x 3 dtypes x "
+        f"(contiguous, row-strided x), forget_bias {LSTM_FORGET_BIAS}); max "
+        f"abs err float32 {err['float32']:.3g} (tolerance {k8.F32_TOL} x "
+        f"max(1, |ref|)); 16-bit worst {err['ulp_bfloat16']:.3g} (bfloat16)"
+        f", {err['ulp_float16']:.3g} (float16) of the tolerance (1 ulp, or "
+        f"the float32 bound near 0)")
+    return {"times": times, "max_err": err, "cases": cases}
+
+
+def phase_lstm_serve(k1, k3, k8, pk, env) -> dict:
+    from deeplearning4j_tpu_torch.nn.model import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.tools import profile_lstm as pl
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t0 = time.perf_counter()
+    net = pl.build(seed=0, device="cuda")
+    log(f"[lstm-serve] TextGenerationLSTM on cuda: {net.num_params()} "
+        f"params (vocab {pl.VOCAB}, 2 x LSTM({pl.UNITS}, "
+        f"use_pallas_cell=True), RnnOutputLayer({pl.VOCAB})), "
+        f"{time.perf_counter() - t0:.1f} s")
+    eng = net.inference_engine()
+    rng = np.random.default_rng(9)
+    reqs = {n: pl.request(rng, n) for n in pl.REQUESTS}
+    t0 = time.perf_counter()
+    eng.warmup(pl.REQUESTS, seq_buckets=[pl.SEQ_LEN])
+    log(f"[lstm-serve] warmup {list(pl.REQUESTS)} x time bucket "
+        f"{LSTM_T_BUCKET}: {time.perf_counter() - t0:.1f} s")
+
+    # ---- the serving path: counts from 0, read after the last request ----
+    k1.launches = k1.bwd_launches = k3.launches = 0
+    k8.launches = 0
+    pk.reset_counters()
+    requests = 0
+    rows = {}
+    for n in pl.REQUESTS:
+        x, lengths = reqs[n]
+        before = k8.launches
+        y = eng.output(x, lengths=lengths)
+        requests += 1
+        if k8.launches - before != 2 * LSTM_T_BUCKET:
+            raise AssertionError(f"request of {n}: {k8.launches - before} K8 "
+                                 f"launches, expected {2 * LSTM_T_BUCKET}")
+        valid = np.arange(pl.SEQ_LEN)[None, :] < lengths[:, None]
+        if y.shape != (n, pl.SEQ_LEN, pl.VOCAB) or not np.isfinite(y).all() \
+                or not np.allclose(y.sum(-1)[valid], 1.0, atol=1e-4):
+            raise AssertionError(f"request of {n}: bad output {y.shape}")
+        before = k8.launches
+        row = pl.profile(net, x, lengths)
+        requests += 10 + 1 + 3
+        if k8.launches - before != 14 * 2 * LSTM_T_BUCKET:
+            raise AssertionError(f"request of {n}: {k8.launches - before} K8 "
+                                 "launches in 14 profiled requests")
+        rows[n] = row
+        log(f"[lstm-serve] request of {n:2d} x {pl.SEQ_LEN} characters "
+            f"(lengths {int(lengths.min())}..{int(lengths.max())}, "
+            f"{row['characters']} in all): wall {row['wall_ms_median']:.3f} "
+            f"ms (median of 10), {row['sequences_per_s']:.1f} sequences/s, "
+            f"{row['characters_per_s']:.0f} characters/s; device "
+            f"{row['device_ms']:.3f} ms (busy share "
+            f"{row['device_busy_share']:.3f}), K8 {row['k8_device_ms']:.3f} "
+            f"ms in {row['k8_launches_per_request']:.0f} launches")
+        log("[lstm-serve] top kernels (ms per request): " + "; ".join(
+            f"{k[:50]} {t:.3f} x{c}" for k, t, c in row["top_kernels_ms"][:5]))
+    serve_launches = k8.launches
+    serve_decisions = pk.counters()
+    if serve_launches != requests * 2 * LSTM_T_BUCKET \
+            or serve_decisions != {"fused": serve_launches,
+                                   "fallback_platform": 0}:
+        raise AssertionError(f"LSTM serving path: {serve_launches} K8 "
+                             f"launches for {requests} requests, decisions "
+                             f"{serve_decisions}")
+
+    # ---- greedy generation through rnn_time_step: counts from 0 ----
+    k8.launches = 0
+    pk.reset_counters()
+    prompt = pl.one_hot(rng.integers(0, pl.VOCAB, (pl.STREAMS, pl.PROMPT)))
+    outs, ins = pl.generate(net, prompt, pl.GEN_STEPS)
+    stream_launches = k8.launches
+    want = 2 * (pl.PROMPT + pl.GEN_STEPS)
+    if stream_launches != want:
+        raise AssertionError(f"generation: {stream_launches} K8 launches, "
+                             f"expected {want} (2 per step)")
+    gen_ms = statistics.median(pl.generate.step_ms)
+    # streaming over the chunks is output() on their concatenation; that
+    # output() is a serving request, so its launches and decisions count
+    # on the serving path
+    before, decided = k8.launches, pk.counters()
+    whole = net.output(ins)
+    whole_launches = k8.launches - before
+    whole_decisions = {k: v - decided[k] for k, v in pk.counters().items()}
+    t_whole = 1 << (ins.shape[1] - 1).bit_length()
+    if whole_launches != 2 * t_whole or whole_decisions != {
+            "fused": whole_launches, "fallback_platform": 0}:
+        raise AssertionError(f"output() on the generated text: "
+                             f"{whole_launches} K8 launches, decisions "
+                             f"{whole_decisions}")
+    serve_launches += whole_launches
+    e_stream = float(np.abs(outs - whole).max())
+    log(f"[lstm-serve] generation: {pl.STREAMS} streams, a {pl.PROMPT}-"
+        f"character prompt then {pl.GEN_STEPS} greedy characters through "
+        f"rnn_time_step, {stream_launches} K8 launches (2 per step); one "
+        f"character {gen_ms:.3f} ms (median), "
+        f"{pl.STREAMS * 1e3 / gen_ms:.0f} characters/s; streamed vs "
+        f"output() on the {ins.shape[1]} characters: max |diff| "
+        f"{e_stream:.3g} (tolerance {LSTM_STREAM_TOL})")
+    if not e_stream <= LSTM_STREAM_TOL:
+        raise AssertionError("streaming disagrees with output()")
+    gen_row = pl.profile_generation(net, prompt, steps=20)
+    stream_launches = k8.launches - whole_launches
+    stream_decisions = {k: v - whole_decisions[k]
+                        for k, v in pk.counters().items()}
+    if stream_decisions != {"fused": stream_launches,
+                            "fallback_platform": 0} \
+            or k1.launches or k1.bwd_launches or k3.launches:
+        raise AssertionError(f"LSTM streaming path: decisions "
+                             f"{stream_decisions} for {stream_launches} K8 "
+                             f"launches; K1/K2/K3 {k1.launches}/"
+                             f"{k1.bwd_launches}/{k3.launches}")
+    log(f"[lstm-serve] one generated character, profiled: device "
+        f"{gen_row['device_ms']:.4f} ms (busy share "
+        f"{gen_row['device_busy_share']:.3f}), K8 "
+        f"{gen_row['k8_device_ms']:.4f} ms in "
+        f"{gen_row['k8_launches_per_step']:.0f} launches")
+
+    # the card against the port's plain path on the CPU, same weights: a
+    # batch-2 request, and the 8 streams' text (whose output() the streamed
+    # steps matched above)
+    x2, l2 = pl.request(np.random.default_rng(10), 2)
+    before = k8.launches
+    got = eng.output(x2, lengths=l2)
+    if k8.launches - before != 2 * LSTM_T_BUCKET:
+        raise AssertionError(f"batch-2 request: {k8.launches - before} K8 "
+                             f"launches, expected {2 * LSTM_T_BUCKET}")
+    serve_launches += k8.launches - before
+    cpu = MultiLayerNetwork(net.conf).init(device="cpu")
+    cpu.params = {v: {k: t.cpu() for k, t in p.items()}
+                  for v, p in net.params.items()}
+    ref = cpu.inference_engine().output(x2, lengths=l2)
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    ref8 = cpu.output(ins)
+    rel8 = float(np.abs(whole - ref8).max() / np.abs(ref8).max())
+    log(f"[lstm-serve] card vs CPU plain path, max|diff|/max|ref|: batch 2 "
+        f"{rel:.3g}, the 8 streams' {ins.shape[1]} characters {rel8:.3g} "
+        f"(tolerance {LSTM_REL_TOL})")
+    if not max(rel, rel8) <= LSTM_REL_TOL:
+        raise AssertionError("TextGenerationLSTM on the card disagrees with "
+                             "the CPU plain path")
+
+    # a whole-sequence torch.nn.LSTM (cuDNN) on the batch-32 request, as a
+    # note for later work; the port never calls it
+    x32, _ = reqs[32]
+    lstm = torch.nn.LSTM(pl.VOCAB, pl.UNITS, num_layers=2, batch_first=True,
+                         device="cuda")
+    with torch.no_grad():
+        for i in range(2):
+            p = net.params[str(i)]
+            w_ih, w_hh, b_ih, b_hh = k8.torch_lstm_cell_operands(
+                p["W"], p["RW"], p["b"], net.layers[i].forget_bias)
+            getattr(lstm, f"weight_ih_l{i}").copy_(w_ih)
+            getattr(lstm, f"weight_hh_l{i}").copy_(w_hh)
+            getattr(lstm, f"bias_ih_l{i}").copy_(b_ih)
+            getattr(lstm, f"bias_hh_l{i}").copy_(b_hh)
+        xt = torch.from_numpy(np.concatenate(
+            [x32, np.zeros((32, LSTM_T_BUCKET - pl.SEQ_LEN, pl.VOCAB),
+                           np.float32)], axis=1)).cuda()
+        with env.precision("cuda"):  # TF32 off, as on the path
+            cudnn_ms, _ = time_ms(lambda: lstm(xt), reps=10)
+    log(f"[lstm-serve] whole-sequence torch.nn.LSTM (2 layers, cuDNN) on the "
+        f"batch-32 request padded to {LSTM_T_BUCKET} steps: {cudnn_ms:.3f} ms "
+        f"on the device (no mask; a yardstick for later work)")
+    return {"serve_launches": serve_launches,
+            "stream_launches": stream_launches, "rows": rows,
+            "gen_row": gen_row, "gen_ms": gen_ms, "rel_err": rel,
+            "rel_err_streams": rel8,
+            "stream_err": e_stream, "cudnn_ms": cudnn_ms,
+            "requests": requests}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1046,7 +1328,9 @@ def main() -> int:
     from deeplearning4j_tpu_torch.kernels import _build as build
     from deeplearning4j_tpu_torch.kernels import affine_act as k1
     from deeplearning4j_tpu_torch.kernels import flash_attention as k3
+    from deeplearning4j_tpu_torch.kernels import lstm_cell as k8
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import pallas_kernels as pk
     from deeplearning4j_tpu_torch.nn import graph
     from deeplearning4j_tpu_torch.ops import fused_epilogues as fe
     from deeplearning4j_tpu_torch.serving import server as server_mod
@@ -1077,6 +1361,8 @@ def main() -> int:
     served_bert = phase_bert(k1, k3, fa, env)
     kbwd_attn = phase_kernel_attn_bwd(k3)
     fitted = phase_bert_fit(k1, k3, fa, env)
+    klstm = phase_kernel_lstm(k8)
+    served_lstm = phase_lstm_serve(k1, k3, k8, pk, env)
 
     # one batch-32 forward's (training step's) 53 K1 (K2) calls, timed per
     # (rows, C, act) in phases 3 and 6
@@ -1125,6 +1411,21 @@ def main() -> int:
             f"{BERT_LAYERS * lib_bwd:.4f}; host enqueue "
             f"{per_step[name][2]:.4f} ms")
     fit_l = fitted["launches"]
+    # one batch-32 request: 256 steps of each of the two layers
+    t8 = [klstm["times"][sh] for sh in LSTM_PATH_SHAPES]
+    ms8, plain8, lib8, host8, bound8 = (
+        LSTM_T_BUCKET * (a + b) for a, b in zip(t8[0][:5], t8[1][:5]))
+    b8_bytes = sum(k8.bytes_moved(B, F, U, 4) for B, F, U in LSTM_PATH_SHAPES)
+    b8_ops = sum(k8.flops(B, F, U) for B, F, U in LSTM_PATH_SHAPES) * (
+        k8.H100_BYTES_PER_S / k8.H100_F32_FLOPS_PER_S)
+    by8 = "bytes" if b8_bytes >= b8_ops else "operations"
+    log(f"[summary] one batch-32 float32 TextGenerationLSTM request (200 "
+        f"characters, time bucket {LSTM_T_BUCKET}): {2 * LSTM_T_BUCKET} K8 "
+        f"calls, {ms8:.4f} ms on the device (plain {plain8:.4f}, "
+        f"torch.lstm_cell {lib8:.4f}, bound {bound8:.4f}, {by8}); host "
+        f"enqueue {host8:.4f} ms; a whole-sequence torch.nn.LSTM "
+        f"{served_lstm['cudnn_ms']:.4f} ms")
+    lstm_paths = {"lstm_serve": 0, "lstm_stream": 0}
     bwd_timed_as = (
         "device time of one float32 call at BERT-base batch 32 (B=32, "
         "H=12, T=128, d=64, ragged key bias, head-split operands) times the "
@@ -1140,7 +1441,7 @@ def main() -> int:
         "launches": serve_launches + trained["launches"][0],
         "launches_by_path": {"serve": serve_launches,
                              "train": trained["launches"][0],
-                             "bert_serve": 0, "bert_fit": 0},
+                             "bert_serve": 0, "bert_fit": 0, **lstm_paths},
         "max_abs_err": max(kern["max_err"].values()),
         "max_abs_err_float32": kern["max_err"][torch.float32],
         "max_abs_err_bfloat16": kern["max_err"][torch.bfloat16],
@@ -1157,7 +1458,7 @@ def main() -> int:
         "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:179",
         "launches": trained["launches"][1],
         "launches_by_path": {"serve": 0, "train": trained["launches"][1],
-                             "bert_serve": 0, "bert_fit": 0},
+                             "bert_serve": 0, "bert_fit": 0, **lstm_paths},
         "max_abs_err": max(kbwd["max_err"]["dx_float32"],
                            kbwd["max_err"]["dx_bfloat16"],
                            kbwd["max_err"]["dscale_dshift"]),
@@ -1180,7 +1481,7 @@ def main() -> int:
         "launches": served_bert["launches"] + fit_l[0],
         "launches_by_path": {"serve": 0, "train": 0,
                              "bert_serve": served_bert["launches"],
-                             "bert_fit": fit_l[0]},
+                             "bert_fit": fit_l[0], **lstm_paths},
         "max_abs_err": katt["max_err"]["float32"],
         "max_abs_err_float32": katt["max_err"]["float32"],
         "max_ulp_bfloat16": katt["max_err"]["ulp_bfloat16"],
@@ -1201,7 +1502,7 @@ def main() -> int:
         "replaces": f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
         "launches": fit_l[i],
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
-                             "bert_fit": fit_l[i]},
+                             "bert_fit": fit_l[i], **lstm_paths},
         "max_abs_err": kbwd_attn["max_err"]["abs_float32"],
         "max_err_float32_of_max1_ref": kbwd_attn["max_err"]["float32"],
         "max_ulp_bfloat16": kbwd_attn["max_err"]["ulp_bfloat16"],
@@ -1215,8 +1516,35 @@ def main() -> int:
         "timed_as": bwd_timed_as,
     } for i, (name, kname, cname, line) in enumerate(
         (("dq", "K4", "flash_attn_bwd_dq", 155),
-         ("dkv", "K5", "flash_attn_bwd_dkv", 184)), start=1)]}),
-        flush=True)
+         ("dkv", "K5", "flash_attn_bwd_dkv", 184)), start=1)] + [{
+        "name": "K8 lstm_cell", "checked": True, "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/lstm_cell.cu",
+        "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:55",
+        "launches": served_lstm["serve_launches"]
+        + served_lstm["stream_launches"],
+        "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
+                             "bert_fit": 0,
+                             "lstm_serve": served_lstm["serve_launches"],
+                             "lstm_stream": served_lstm["stream_launches"]},
+        "max_abs_err": klstm["max_err"]["float32"],
+        "max_abs_err_float32": klstm["max_err"]["float32"],
+        "max_tolerance_share_bfloat16": klstm["max_err"]["ulp_bfloat16"],
+        "max_tolerance_share_float16": klstm["max_err"]["ulp_float16"],
+        "deterministic": True,
+        "ms": ms8, "plain_ms": plain8, "bound_ms": bound8, "bound_by": by8,
+        "library_ms": lib8, "host_ms": host8,
+        "cudnn_lstm_sequence_ms": served_lstm["cudnn_ms"],
+        "lstm_rel_err_vs_cpu": served_lstm["rel_err"],
+        "lstm_streams_rel_err_vs_cpu": served_lstm["rel_err_streams"],
+        "lstm_stream_err": served_lstm["stream_err"],
+        "timed_as": "device time of one float32 call at each of "
+                    "TextGenerationLSTM's two layers at batch 32 ((32, 77, "
+                    "256) and (32, 256, 256), row-strided x) times the 256 "
+                    "steps of one batch-32 request; library_ms is "
+                    "torch.lstm_cell on the same operands reordered to its "
+                    "gate order; host_ms is the wrapper's enqueue time over "
+                    "the same calls",
+    }]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

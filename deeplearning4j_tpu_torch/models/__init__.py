@@ -1,6 +1,7 @@
-"""Model zoo of the port: the ResNet family (ComputationGraph) and the
-BERT encoder (a SameDiff graph)."""
+"""Model zoo of the port: the ResNet family (ComputationGraph), the BERT
+encoder (a SameDiff graph) and TextGenerationLSTM (a MultiLayerNetwork)."""
 
 from .bert import (BertConfig, attach_classifier_head, bert,  # noqa: F401
                    bert_base, fine_tune_feeds)
 from .resnet import resnet, resnet50  # noqa: F401
+from .zoo import text_generation_lstm  # noqa: F401

@@ -1,22 +1,40 @@
-"""Network configuration DSL: ``InputType`` and the builder.
+"""Network configuration DSL: ``InputType``, ``MultiLayerConfiguration``
+and the builder.
 
-Port of the parts of ``deeplearning4j_tpu/nn/config.py`` that the
-ComputationGraph path uses. The updater is an ``nn.updaters.Updater``
-(the builder also takes an updater's name, or its serialized dict as a
-JAX ``configuration.json`` holds it).
+Port of ``deeplearning4j_tpu/nn/config.py``: the ``InputType`` kinds, the
+sequential ``MultiLayerConfiguration`` with its JSON both ways (the same
+keys, so a JAX ``configuration.json`` loads unchanged), and the builder's
+``list(...)``/``build()`` (with the net-level ``tbptt_length`` stamped onto
+the recurrent layers) and ``graph_builder()``. The updater is an
+``nn.updaters.Updater`` (the builder also takes an updater's name, or its
+serialized dict as a JAX ``configuration.json`` holds it).
+
+Not in this slice: the automatic ``FlattenLayer`` at a conv -> dense seam
+of a sequential network (``build`` raises ``NotImplementedError`` for a
+convolutional input type feeding dense layers; it comes with the LeNet
+slice, ``ROADMAP.md`` Queue 1), and the builder's ``optimization_algo``
+(the solvers; the configuration keeps and serializes the fields).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+import json
+from typing import Any, List, Optional, Tuple
 
+from . import constraints as _constraints
 from . import gradnorm as _gn
 from . import updaters as _upd
+from .layers.base import Layer
+from .layers.core import DenseLayer, OutputLayer
 
 
 class InputType:
-    """DL4J InputType equivalent: shape WITHOUT batch dim (the
-    convolutional kind; the others come with the slices that use them)."""
+    """DL4J InputType equivalent: shape WITHOUT batch dim."""
+
+    @staticmethod
+    def feed_forward(n: int) -> Tuple[int, ...]:
+        return (n,)
 
     @staticmethod
     def convolutional(channels: int, height: int, width: int,
@@ -24,13 +42,96 @@ class InputType:
         return (channels, height, width) if data_format == "NCHW" else \
                (height, width, channels)
 
+    @staticmethod
+    def recurrent(n_features: int,
+                  timesteps: Optional[int] = None) -> Tuple[int, ...]:
+        # timesteps None -> dynamic; shape convention [T, F]
+        return (timesteps or -1, n_features)
+
+
+@dataclasses.dataclass
+class MultiLayerConfiguration:
+    """Immutable sequential network description (the thing that
+    serializes), field for field the JAX package's."""
+    layers: List[Layer]
+    input_shape: Optional[Tuple[int, ...]] = None
+    seed: int = 1234
+    dtype: str = "FLOAT"
+    updater: Any = None                     # Updater instance
+    l1: float = 0.0                         # net-level defaults
+    l2: float = 0.0
+    gradient_clip_value: Optional[float] = None
+    gradient_clip_l2: Optional[float] = None
+    gradient_normalization: Optional[str] = None
+    gradient_normalization_threshold: float = 1.0
+    tbptt_length: Optional[int] = None
+    constraints: Any = None                 # [(BaseConstraint, scope)]
+    optimization_algo: str = "SGD"
+    solver_iterations: int = 5
+    max_line_search_iterations: int = 5
+    workspace_mode: str = "none"
+
+    def to_json(self) -> str:
+        d = {
+            "format_version": 1,
+            "model_class": "MultiLayerNetwork",
+            "seed": self.seed,
+            "dtype": self.dtype,
+            "input_shape": list(self.input_shape) if self.input_shape
+            else None,
+            "updater": self.updater.to_dict() if self.updater else None,
+            "l1": self.l1,
+            "l2": self.l2,
+            "gradient_clip_value": self.gradient_clip_value,
+            "gradient_clip_l2": self.gradient_clip_l2,
+            "gradient_normalization": self.gradient_normalization,
+            "gradient_normalization_threshold":
+                self.gradient_normalization_threshold,
+            "tbptt_length": self.tbptt_length,
+            "constraints": _constraints.encode_constraints(self.constraints),
+            "optimization_algo": self.optimization_algo,
+            "solver_iterations": self.solver_iterations,
+            "max_line_search_iterations": self.max_line_search_iterations,
+            "workspace_mode": self.workspace_mode,
+            "layers": [l.to_dict() for l in self.layers],
+        }
+        return json.dumps(d, indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "MultiLayerConfiguration":
+        d = json.loads(s)
+        return MultiLayerConfiguration(
+            layers=[Layer.from_dict(ld) for ld in d["layers"]],
+            input_shape=tuple(d["input_shape"]) if d.get("input_shape")
+            else None,
+            seed=d.get("seed", 1234),
+            dtype=d.get("dtype", "FLOAT"),
+            updater=_upd.Updater.from_dict(d["updater"])
+            if d.get("updater") else None,
+            l1=d.get("l1", 0.0),
+            l2=d.get("l2", 0.0),
+            gradient_clip_value=d.get("gradient_clip_value"),
+            gradient_clip_l2=d.get("gradient_clip_l2"),
+            gradient_normalization=d.get("gradient_normalization"),
+            gradient_normalization_threshold=d.get(
+                "gradient_normalization_threshold", 1.0),
+            tbptt_length=d.get("tbptt_length"),
+            constraints=_constraints.decode_constraints(
+                d.get("constraints")),
+            optimization_algo=d.get("optimization_algo", "SGD"),
+            solver_iterations=d.get("solver_iterations", 5),
+            max_line_search_iterations=d.get("max_line_search_iterations",
+                                             5),
+            workspace_mode=d.get("workspace_mode", "none"),
+        )
+
 
 class NeuralNetConfiguration:
-    """Builder (DL4J ``new NeuralNetConfiguration.Builder()``), the subset a
-    ComputationGraph needs: seed, data type, updater, l1/l2, gradient
-    normalization and clipping, constraints, ``tbptt_length`` and
-    ``workspace_mode`` (the last two are refused by ``fit`` in this
-    slice)."""
+    """Builder (DL4J ``new NeuralNetConfiguration.Builder()``): seed, data
+    type, updater, l1/l2, gradient normalization and clipping,
+    constraints, ``tbptt_length``, ``workspace_mode``, the input type and
+    the layer list; ``build()`` gives a :class:`MultiLayerConfiguration`,
+    ``graph_builder()`` a ComputationGraph builder."""
 
     def __init__(self):
         self._seed = 1234
@@ -45,6 +146,8 @@ class NeuralNetConfiguration:
         self._tbptt = None
         self._constraints = []
         self._workspace_mode = "none"
+        self._layers: List[Layer] = []
+        self._input_shape = None
 
     @staticmethod
     def builder() -> "NeuralNetConfiguration":
@@ -112,8 +215,63 @@ class NeuralNetConfiguration:
         self._constraints.extend((c, "all") for c in cs)
         return self
 
+    def input_type(self, shape: Tuple[int, ...]):
+        self._input_shape = tuple(shape)
+        return self
+
+    def layer(self, l: Layer):
+        self._layers.append(l)
+        return self
+
+    def layers(self, ls: List[Layer]):
+        self._layers.extend(ls)
+        return self
+
+    # DL4J spelling
+    def list(self, *ls: Layer):
+        self._layers.extend(ls)
+        return self
+
     def graph_builder(self):
         """DAG config builder carrying this builder's seed/updater/etc.
         (DL4J ``.graphBuilder()``)."""
         from .graph import GraphBuilder
         return GraphBuilder(self)
+
+    def build(self) -> MultiLayerConfiguration:
+        shape = self._input_shape
+        if shape is not None and len(shape) == 3 and any(
+                isinstance(l, (DenseLayer, OutputLayer))
+                for l in self._layers):
+            raise NotImplementedError(
+                "a convolutional input type feeding dense layers needs the "
+                "automatic FlattenLayer, which comes with the LeNet slice "
+                "of the port (ROADMAP.md Queue 1)")
+        layers = list(self._layers)
+        if self._tbptt:
+            layers = [stamp_tbptt(l, self._tbptt) for l in layers]
+        return MultiLayerConfiguration(
+            layers=layers, input_shape=shape, seed=self._seed,
+            dtype=self._dtype, updater=self._updater, l1=self._l1,
+            l2=self._l2, gradient_clip_value=self._clip_value,
+            gradient_clip_l2=self._clip_l2,
+            gradient_normalization=self._grad_norm,
+            gradient_normalization_threshold=self._grad_norm_threshold,
+            tbptt_length=self._tbptt, constraints=self._constraints or None,
+            workspace_mode=self._workspace_mode)
+
+
+def stamp_tbptt(layer: Layer, tbptt: int) -> Layer:
+    """Copy-on-write stamp of the net-level truncated-BPTT window onto
+    recurrent layers that didn't set their own (DL4J:
+    backpropType(TruncatedBPTT) + tBPTTLength is a net-level knob the RNN
+    layers consume). Recurses into wrappers holding a nested ``layer``;
+    never mutates caller-owned configs."""
+    inner = getattr(layer, "layer", None)
+    if isinstance(inner, Layer):
+        stamped = stamp_tbptt(inner, tbptt)
+        if stamped is not inner:
+            layer = dataclasses.replace(layer, layer=stamped)
+    if getattr(layer, "tbptt_length", False) is None:
+        layer = dataclasses.replace(layer, tbptt_length=tbptt)
+    return layer

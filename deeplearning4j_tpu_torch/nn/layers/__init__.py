@@ -7,3 +7,5 @@ from .conv import (BatchNormalization, ConvolutionLayer,  # noqa: F401
 from .conv_extra import SpaceToDepthStemConv  # noqa: F401
 from .core import (ActivationLayer, DenseLayer, LossLayer,  # noqa: F401
                    OutputLayer)
+from .recurrent import (LSTM, LastTimeStep, RnnLossLayer,  # noqa: F401
+                        RnnOutputLayer)

@@ -1,0 +1,300 @@
+"""MultiLayerNetwork: the sequential network engine, its serving half.
+
+Port of ``deeplearning4j_tpu/nn/model.py``: ``init``, ``num_params``, the
+eager layer walk ``_forward`` (with the mask, and the BN + activation fold
+plan, the same plan the JAX package makes), ``feed_forward``, ``output``
+(through the bucketed :class:`~..serving.engine.InferenceEngine`, with
+sequence buckets and masks), ``predict``, the streaming ``rnn_time_step``
+/ ``rnn_clear_previous_state`` and ``save``/``load``.
+
+Parameters and state are dicts of tensors keyed by layer index (as a
+string) and then by parameter name, exactly as the JAX package keys
+``net.params`` and ``net.state``, so its ``coefficients.npz`` loads
+unchanged; the updater state is keyed by slot, then the same way.
+
+Not in this slice (each raises ``NotImplementedError`` naming the
+``ROADMAP.md`` Queue 1 slice that ports it): ``fit``, ``score``,
+``evaluate`` and training-mode ``output`` (the LeNet slice), the
+autoregressive decode walk (generative serving) and ``quantize_params``
+(int8 serving).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .. import dtypes as _dt
+from .. import environment as _env
+from .config import MultiLayerConfiguration
+
+_TRAINING = "the LeNet slice of the port (ROADMAP.md Queue 1)"
+_DECODE = "the generative-serving slice of the port (ROADMAP.md Queue 1)"
+_INT8 = "the int8-serving slice of the port (ROADMAP.md Queue 1)"
+
+
+class MultiLayerNetwork:
+    """Sequential network engine (DL4J ``MultiLayerNetwork``)."""
+
+    def __init__(self, conf: MultiLayerConfiguration):
+        self.conf = conf
+        self.layers = conf.layers
+        self.params: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.state: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.updater_state: dict = {}
+        self.iteration = 0
+        self.epoch = 0
+        self.device: Optional[torch.device] = None
+        self._inference_engine = None
+        self._epilogue_fold = None
+        self._rnn_step_fn = None
+        self._rnn_stream = None
+
+    # ------------------------------------------------------------------ init
+    def init(self, device=None) -> "MultiLayerNetwork":
+        """Draw the parameters from ``conf.seed`` onto ``device`` (``cuda``
+        unless the caller asks for ``cpu``; raises without CUDA), and zero
+        the updater state. The draws come from one CPU ``torch.Generator``,
+        so a seed gives the same weights on every device (not the JAX
+        package's threefry values)."""
+        if self.conf.input_shape is None:
+            raise ValueError("config needs input_type(...) to initialize")
+        device = _env.resolve_device(device)
+        # mixed precision: 16-bit net dtypes keep f32 master params (cast
+        # to the compute dtype inside _forward)
+        dtype = _dt.param_dtype(self.conf.dtype)
+        shape = tuple(self.conf.input_shape)
+        gen = torch.Generator().manual_seed(int(self.conf.seed))
+        params, state = {}, {}
+        for i, layer in enumerate(self.layers):
+            p, s, shape = layer.initialize(gen, shape, dtype, device)
+            if p:
+                params[str(i)] = p
+            if s:
+                state[str(i)] = s
+        self.params = params
+        self.state = state
+        self.updater_state = self.conf.updater.init_state(params) \
+            if self.conf.updater else {}
+        self.device = device
+        self._inference_engine = None
+        self.rnn_clear_previous_state()
+        return self
+
+    def num_params(self) -> int:
+        return sum(int(t.numel()) for p in self.params.values()
+                   for t in p.values())
+
+    # --------------------------------------------------------------- forward
+    def _forward(self, params, x, state, *, train=False, mask=None,
+                 collect=False):
+        """The eager layer walk. Returns ``(out, new_state, mask)``, or
+        ``(acts, new_state, mask)`` with ``collect=True`` (``acts`` is
+        ``[input, layer0_out, ...]``, feedForward semantics, with no
+        epilogue fold)."""
+        dt = _dt.resolve(self.conf.dtype)
+        if dt.is_floating_point and x.is_floating_point() and x.dtype != dt:
+            x = x.to(dt)  # cast inputs to the network dtype (DL4J)
+        if _dt.is_mixed(self.conf.dtype):
+            params = _dt.cast_floating(params, dt)
+        new_state = dict(state)
+        acts = [x]
+        fold, skip = ({}, frozenset()) if collect \
+            else self._epilogue_fold_plan()
+        for i, layer in enumerate(self.layers):
+            si = str(i)
+            if i in skip:
+                continue  # activation folded into the previous BN
+            kw = {"fold_act": fold[i]} if i in fold else {}
+            x, s_new, mask = layer.apply(params.get(si, {}), x,
+                                         state.get(si, {}), train=train,
+                                         mask=mask, **kw)
+            if collect:
+                acts.append(x)
+            if s_new:
+                new_state[si] = s_new
+        return (acts if collect else x), new_state, mask
+
+    def _epilogue_fold_plan(self):
+        """Static BN + activation fold plan: every BatchNormalization
+        immediately followed by a parameter-free ActivationLayer with a
+        K1-foldable activation gets the activation folded into its
+        ``bn_act`` epilogue (``fold -> {bn_index: act}``), and the
+        ActivationLayer becomes a pass-through (``skip``). The JAX
+        package's plan, layer for layer."""
+        if self._epilogue_fold is not None:
+            return self._epilogue_fold
+        from ..ops import fused_epilogues as _fe
+        from .layers.conv import BatchNormalization
+        from .layers.core import ActivationLayer
+        fold, skip = {}, set()
+        for i, layer in enumerate(self.layers[:-1]):
+            nxt = self.layers[i + 1]
+            if (isinstance(layer, BatchNormalization)
+                    and type(nxt) is ActivationLayer
+                    and _fe.foldable_act(nxt.activation, nxt.alpha)):
+                fold[i] = nxt.activation
+                skip.add(i + 1)
+        self._epilogue_fold = (fold, frozenset(skip))
+        return self._epilogue_fold
+
+    def _tensor(self, a) -> torch.Tensor:
+        """An input array as a tensor on the model's device; float64 comes
+        in as float32 unless the network is ``DOUBLE``."""
+        t = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
+        if t.dtype == torch.float64 and \
+                _dt.resolve(self.conf.dtype) != torch.float64:
+            t = t.float()
+        return t.to(self.device)
+
+    def _ensure_init(self):
+        """An uninitialized net is initialized on ``cuda`` first (raises
+        without CUDA; a CPU run calls ``init(device="cpu")``)."""
+        if self.device is None:
+            self.init()
+
+    # ------------------------------------------------------------- inference
+    def feed_forward(self, x, train: bool = False):
+        """Per-layer activations for input ``x`` (DL4J ``feedForward()``):
+        the input first, then every layer's output, as tensors."""
+        self._ensure_init()
+        with torch.inference_mode(), _env.precision(self.device):
+            acts, _, _ = self._forward(self.params, self._tensor(x),
+                                       self.state, train=train,
+                                       collect=True)
+        return acts
+
+    def inference_engine(self, **kwargs):
+        """The model's serving engine, created lazily on the model's
+        device; ``output()`` routes through it."""
+        if self._inference_engine is None:
+            from ..serving.engine import InferenceEngine
+            self._ensure_init()
+            self._inference_engine = InferenceEngine(
+                self, device=self.device, **kwargs)
+        elif kwargs:
+            raise ValueError("inference engine already built; call "
+                             "inference_engine() without kwargs, or build "
+                             "an InferenceEngine directly")
+        return self._inference_engine
+
+    def output(self, x, train: bool = False):
+        """Output activations as numpy (DL4J ``output()``), through the
+        bucketed engine: ragged batch sizes pad to power-of-two buckets,
+        and a sequence input's time axis to its power-of-two bucket with
+        the padded steps masked."""
+        if train:
+            raise NotImplementedError(
+                f"training-mode output comes with {_TRAINING}")
+        return self.inference_engine().output(x)
+
+    def predict(self, x) -> np.ndarray:
+        """Class indices (DL4J ``predict()``)."""
+        return np.argmax(self.output(x), axis=-1)
+
+    # ----------------------------------------------------- rnnTimeStep state
+    def rnn_time_step(self, x):
+        """Stateful streaming inference (DL4J ``rnnTimeStep()``): feed
+        ``[B, T, F]`` (or ``[B, F]`` for a single step) chunks; the
+        recurrent layers' state persists across calls until
+        :meth:`rnn_clear_previous_state`. Returns numpy (``[B, out]`` for a
+        single step)."""
+        self._ensure_init()
+        x = self._tensor(x)
+        single = x.dim() == 2
+        if single:
+            x = x[:, None, :]  # [B, 1, F]
+        if self._rnn_stream is None:
+            self._rnn_stream = {}
+        if self._rnn_step_fn is None:
+            self._rnn_step_fn = self._build_rnn_step()
+        with torch.inference_mode(), _env.precision(self.device):
+            out, self._rnn_stream = self._rnn_step_fn(
+                self.params, self.state, x, self._rnn_stream)
+            if out.dtype in (torch.bfloat16, torch.float16):
+                out = out.float()
+            out = out.cpu().numpy()
+        return out[:, -1, :] if (single and out.ndim == 3) else out
+
+    def rnn_clear_previous_state(self):
+        self._rnn_stream = None
+
+    def _build_rnn_step(self):
+        """The streaming walk ``(params, state, x, stream) -> (out,
+        new_stream)``: recurrent layers continue from their carry in
+        ``stream`` (keyed by layer index) with ``grad_path=False``, the
+        others apply in inference mode. Raises for a layer that cannot
+        stream."""
+        recurrent = {str(i): l for i, l in enumerate(self.layers)
+                     if getattr(l, "is_recurrent", lambda: False)()}
+        for si, l in recurrent.items():
+            if not getattr(l, "supports_streaming", True):
+                raise ValueError(
+                    f"rnnTimeStep() is not supported with layer {si} "
+                    f"({l.kind}): bidirectional layers need the full future "
+                    "sequence (DL4J throws here too); use output() instead")
+
+        def step(params, state, x, stream):
+            dt = _dt.resolve(self.conf.dtype)
+            if _dt.is_mixed(self.conf.dtype):
+                params = _dt.cast_floating(params, dt)
+            if dt.is_floating_point and x.is_floating_point() \
+                    and x.dtype != dt:
+                x = x.to(dt)  # match _forward's input cast
+            new_stream = dict(stream)
+            for i, layer in enumerate(self.layers):
+                si = str(i)
+                p = params.get(si, {})
+                if si in recurrent:
+                    carry = stream.get(si)
+                    if carry is None:
+                        carry = layer.init_stream_state(p, x.shape[0])
+                    x, carry = layer.scan_with_state(p, x, carry,
+                                                     grad_path=False)
+                    new_stream[si] = carry
+                else:
+                    x, _, _ = layer.apply(p, x, state.get(si, {}),
+                                          train=False)
+            return x, new_stream
+
+        return step
+
+    # ------------------------------------------------ not in this slice
+    def fit(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"MultiLayerNetwork.fit comes with {_TRAINING}")
+
+    def score(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"MultiLayerNetwork.score comes with {_TRAINING}")
+
+    def evaluate(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"MultiLayerNetwork.evaluate comes with {_TRAINING}")
+
+    def quantize_params(self, mode: str = "int8"):
+        raise NotImplementedError(f"quantize_params comes with {_INT8}")
+
+    def _decode(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"the autoregressive decode walk comes with {_DECODE}")
+
+    decode_cache_spec = init_decode_cache = paged_cache_spec = \
+        init_paged_cache = decode_token_features = _decode
+
+    # ------------------------------------------------------------------ serde
+    def save(self, path, save_updater: bool = True):
+        from ..utils.serializer import save_model
+        save_model(self, path, save_updater=save_updater)
+
+    @staticmethod
+    def load(path, device=None, load_updater: bool = True
+             ) -> "MultiLayerNetwork":
+        from ..utils.serializer import load_model
+        model = load_model(path, device=device, load_updater=load_updater)
+        if not isinstance(model, MultiLayerNetwork):
+            raise TypeError(f"{path} holds a {type(model).__name__}, "
+                            "not a MultiLayerNetwork")
+        return model

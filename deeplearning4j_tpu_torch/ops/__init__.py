@@ -77,3 +77,4 @@ from . import math  # noqa: E402,F401
 from . import reduce  # noqa: E402,F401
 from . import flash_attention  # noqa: E402,F401  (attention.fused_sdpa)
 from . import losses  # noqa: E402,F401  (loss.softmax_ce_logits, ...)
+from . import nnops  # noqa: E402,F401  (lstm_cell)

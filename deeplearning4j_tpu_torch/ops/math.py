@@ -63,16 +63,38 @@ def div(x, y):
     return torch.true_divide(x, y)
 
 
+def _int_operands(x, y):
+    """Integer or bool operands in their common integer dtype (two bools
+    become int32, as jnp promotes them), a zero mask of the divisor, and
+    the divisor with its zeros replaced by 1: torch's integer division by
+    zero raises on the CPU and is undefined on a CUDA tensor."""
+    dt = torch.result_type(x, y)
+    if dt == torch.bool:
+        dt = torch.int32
+    x, y = x.to(dt), y.to(dt)
+    zero = y == 0
+    return x, zero, torch.where(zero, torch.ones_like(y), y)
+
+
 @register("math.floordiv", category="pairwise")
 def floordiv(x, y):
-    """``jnp.floor_divide``: integers floor-divide as torch does; floats
-    take jnp's divmod, ``round((x - fmod(x, y)) / y)`` less 1 where the
-    remainder's sign differs from y's, so a division by zero (or of an
-    infinity) gives NaN where torch's ``floor(x / y)`` gives +-inf."""
+    """``jnp.floor_divide``: integers floor-divide as torch does, and by
+    zero give XLA's defined value (-1 for a zero dividend, -2 for any
+    other signed one, all ones for an unsigned type); floats take jnp's
+    divmod, ``round((x - fmod(x, y)) / y)`` less 1 where the remainder's
+    sign differs from y's, so a division by zero (or of an infinity)
+    gives NaN where torch's ``floor(x / y)`` gives +-inf."""
     x = _t(x, y if isinstance(y, torch.Tensor) else None)
     y = _t(y, x)
     if not (x.is_floating_point() or y.is_floating_point()):
-        return torch.floor_divide(x, y)
+        x, zero, safe = _int_operands(x, y)
+        q = torch.floor_divide(x, safe)
+        info = torch.iinfo(x.dtype)
+        if info.min == 0:
+            by_zero = torch.full_like(q, info.max)
+        else:  # -1 - (x != 0): -1 for 0, -2 otherwise, in x's dtype
+            by_zero = -1 - (x != 0).to(x.dtype)
+        return torch.where(zero, by_zero, q)
     mod = torch.fmod(x, y)
     div = (x - mod) / y
     fix = (mod != 0) & (torch.sign(y) != torch.sign(mod))
@@ -85,7 +107,14 @@ def floordiv(x, y):
 
 @register("math.mod", category="pairwise")
 def mod(x, y):
-    """Python-style modulo (the sign of the divisor), as ``jnp.mod``."""
+    """Python-style modulo (the sign of the divisor), as ``jnp.mod``;
+    integers and bools modulo zero give 0 (the remainder by the safe
+    divisor 1), as jnp does."""
+    x = _t(x, y if isinstance(y, torch.Tensor) else None)
+    y = _t(y, x)
+    if not (x.is_floating_point() or y.is_floating_point()):
+        x, _, safe = _int_operands(x, y)
+        return torch.remainder(x, safe)
     return torch.remainder(x, y)
 
 

@@ -1,8 +1,9 @@
-"""Neural-network ops: convolution, pooling, batch norm.
+"""Neural-network ops: convolution, pooling, batch norm, the LSTM cell.
 
 Port of the ``deeplearning4j_tpu/ops/nnops.py`` ops that ResNet serving
-uses. The convolution stays ``F.conv2d`` (cuDNN on the card), as the JAX
-package leaves it to XLA.
+and the recurrent layers use; ``lstm_cell`` is a catalog op, registered
+under the JAX package's name. The convolution stays ``F.conv2d`` (cuDNN
+on the card), as the JAX package leaves it to XLA.
 
 Layouts match the JAX package at every public function: ``data_format``
 "NCHW" or "NHWC" for activations, OIHW weights for both. An NHWC tensor is
@@ -25,6 +26,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from . import register
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -180,3 +183,21 @@ def batch_norm(x, gamma, beta, mean, var, eps=1e-5, axis=1):
     if beta is not None:
         y = y + beta.reshape(shape)
     return y
+
+
+# -- recurrence ---------------------------------------------------------------
+
+@register("lstm_cell", category="rnn")
+def lstm_cell(x, h, c, w_ih, w_hh, b, forget_bias=0.0):
+    """Standard LSTM cell, gate order [i, f, o, g] (DL4J LSTMBlockCell
+    order), in the inputs' dtype: ``z = x @ w_ih + h @ w_hh + b``,
+    ``c' = sigmoid(f + forget_bias) * c + sigmoid(i) * tanh(g)``, ``h' =
+    sigmoid(o) * tanh(c')``. The recurrent layers' gradient path; the
+    inference path may take K8 (``ops/pallas_kernels.py``), which rounds
+    at other points for 16-bit inputs."""
+    z = torch.matmul(x, w_ih) + torch.matmul(h, w_hh) + b
+    i, f, o, g = torch.chunk(z, 4, dim=-1)
+    f = torch.sigmoid(f + forget_bias)
+    c_new = f * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return h_new, c_new

@@ -3,7 +3,9 @@
 The JAX package keys ``net.params``/``net.state`` by vertex name, then by
 parameter name (``{"stem_conv": {"W": ...}, "stem_bn": {"gamma": ...}}``),
 with the same layouts the port uses (OIHW conv weights, Dense ``W`` as
-``[nIn, nOut]``). :func:`from_numpy` turns such a tree of numpy arrays
+``[nIn, nOut]``); a MultiLayerNetwork's are keyed by layer index (``{"0":
+{"W": ..., "RW": ..., "b": ...}}``), LSTM gates in the same [i, f, o, g]
+order on both sides, so nothing is reordered. :func:`from_numpy` turns such a tree of numpy arrays
 (or of anything ``np.asarray`` accepts) into the port's tree of tensors;
 it carries the updater state tree too (``net.updater_state``, keyed by
 slot and then the same way), so both packages can start from the same

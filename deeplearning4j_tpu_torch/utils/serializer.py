@@ -1,10 +1,13 @@
 """Model save/load in the JAX package's ZIP format.
 
 Port of ``save_model``/``load_model`` from
-``deeplearning4j_tpu/utils/serializer.py``. The archive holds:
+``deeplearning4j_tpu/utils/serializer.py``, for a ComputationGraph or a
+MultiLayerNetwork (``model_class`` in the configuration). The archive
+holds:
 
 - ``configuration.json``: the network config (the same JSON);
-- ``coefficients.npz``: params, keys ``"vertex/param"``;
+- ``coefficients.npz``: params, keys ``"vertex/param"`` (a
+  MultiLayerNetwork's vertex is its layer index);
 - ``state.npz``: layer state (BN running statistics);
 - ``updaterState.npz``: the updater state (Adam's m and v, keys
   ``"slot/vertex/param"``), when there is one and it is saved;
@@ -99,22 +102,25 @@ def save_model(model, path, save_updater: bool = True) -> None:
 
 
 def load_model(path, device=None, load_updater: bool = True):
-    """A ComputationGraph from a ZIP written by either package, on
+    """A ComputationGraph or MultiLayerNetwork (``model_class`` in its
+    ``configuration.json``) from a ZIP written by either package, on
     ``device`` (``cuda`` unless the caller asks for ``cpu``), with its
     updater state when the ZIP holds one (else a fresh one)."""
+    from ..nn.config import MultiLayerConfiguration
     from ..nn.graph import ComputationGraph, ComputationGraphConfiguration
+    from ..nn.model import MultiLayerNetwork
 
     device = _env.resolve_device(device)
     with zipfile.ZipFile(path, "r") as zf:
         conf_json = zf.read("configuration.json").decode()
         model_class = json.loads(conf_json).get("model_class",
                                                 "MultiLayerNetwork")
-        if model_class != "ComputationGraph":
-            raise NotImplementedError(
-                f"{path} holds a {model_class}; the port loads "
-                "ComputationGraph models only so far")
-        model = ComputationGraph(
-            ComputationGraphConfiguration.from_json(conf_json))
+        if model_class == "ComputationGraph":
+            model = ComputationGraph(
+                ComputationGraphConfiguration.from_json(conf_json))
+        else:
+            model = MultiLayerNetwork(
+                MultiLayerConfiguration.from_json(conf_json))
         model.init(device=device)  # builds structure; then overwrite
         # masters are f32 under the mixed-precision policy
         pdt = _dt.param_dtype(model.conf.dtype)

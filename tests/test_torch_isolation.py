@@ -5,9 +5,10 @@
    (a scan and not ``sys.modules``: a process may have JAX loaded for
    other reasons, as the tests that compare the two packages do).
 2. The device rule: with CUDA absent, every entry point raises unless the
-   caller asks for ``cpu`` (the ComputationGraph and serving fronts,
-   SameDiff and its loaders, the BERT builders), and a non-CPU tensor never
-   reaches K1's plain version (K3's: ``test_torch_flash_attention.py``).
+   caller asks for ``cpu`` (the ComputationGraph, MultiLayerNetwork and
+   serving fronts, SameDiff and its loaders, the BERT builders), and a
+   non-CPU tensor never reaches K1's or K8's plain version (K3's:
+   ``test_torch_flash_attention.py``).
 3. The environment's precision policy and the dtype policy."""
 
 import ast
@@ -21,9 +22,13 @@ from deeplearning4j_tpu_torch import dtypes, environment
 from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
 from deeplearning4j_tpu_torch.kernels import _build
 from deeplearning4j_tpu_torch.kernels import affine_act as k1
-from deeplearning4j_tpu_torch.models import BertConfig, bert, bert_base, resnet
+from deeplearning4j_tpu_torch.kernels import lstm_cell as k8
+from deeplearning4j_tpu_torch.models import (BertConfig, bert, bert_base,
+                                             resnet, text_generation_lstm)
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.model import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import fused_epilogues as fe
+from deeplearning4j_tpu_torch.ops import pallas_kernels as pk
 from deeplearning4j_tpu_torch.serving.batcher import ParallelInference
 from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
 from deeplearning4j_tpu_torch.serving.server import JsonModelServer
@@ -62,7 +67,9 @@ def test_scan_covers_the_package():
     names = {p.name for p in _port_sources()}
     assert {"graph.py", "fused_epilogues.py", "affine_act.py", "engine.py",
             "chip_smoke.py", "samediff.py", "fusion.py", "flash_attention.py",
-            "bert.py", "math.py", "reduce.py", "profile_bert.py"} <= names
+            "bert.py", "math.py", "reduce.py", "profile_bert.py",
+            "lstm_cell.py", "pallas_kernels.py", "recurrent.py", "model.py",
+            "zoo.py", "config.py", "serializer.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -136,6 +143,30 @@ def test_samediff_entry_points_without_device_raise(no_cuda, tmp_path):
     assert bert(tiny, seq_len=4, device="cpu").device.type == "cpu"
 
 
+def test_multilayer_entry_points_without_device_raise(no_cuda, tmp_path):
+    """MultiLayerNetwork.init, its loaders, the engine over it and
+    rnn_time_step run on cuda unless asked for cpu, and raise without a
+    card (an uninitialized net's output and rnn_time_step initialize it
+    on cuda first)."""
+    tiny = lambda: text_generation_lstm(vocab_size=5, units=4)  # noqa: E731
+    cpu = tiny().init(device="cpu")
+    path = str(tmp_path / "mln.zip")
+    cpu.save(path)
+    x = np.zeros((1, 3, 5), np.float32)
+    for make in (lambda: tiny().init(), lambda: tiny().init(device="cuda"),
+                 lambda: MultiLayerNetwork.load(path),
+                 lambda: serializer.load_model(path),
+                 lambda: InferenceEngine(cpu),
+                 lambda: tiny().rnn_time_step(x),
+                 lambda: tiny().output(x)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    back = MultiLayerNetwork.load(path, device="cpu")
+    assert back.device.type == "cpu"
+    assert back.rnn_time_step(x[:, 0]).shape == (1, 5)
+    assert InferenceEngine(back, device="cpu").output(x).shape == (1, 3, 5)
+
+
 def test_engine_device_must_match_model(cpu_net):
     with pytest.raises(ValueError, match="unsupported device"):
         InferenceEngine(cpu_net, device="meta")
@@ -195,6 +226,45 @@ def test_cuda_wrapper_checks_before_launch(plain_forbidden):
     with pytest.raises(ValueError, match="not contiguous"):
         fe.bn_act(_fake(nchw.permute(0, 2, 3, 1)), _fake(s), _fake(b),
                   _fake(b), _fake(s), act="relu")
+
+
+@pytest.fixture
+def k8_plain_forbidden(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("the plain version was reached")
+    monkeypatch.setattr(k8, "lstm_cell_reference", boom)
+    monkeypatch.setattr(_build, "nvcc", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found")))
+    monkeypatch.setattr(_build, "_libs", {})
+
+
+def _k8_operands(B=2, F=3, U=4):
+    return [torch.ones(s) for s in ((B, F), (B, U), (B, U), (F, 4 * U),
+                                    (U, 4 * U), (4 * U,))]
+
+
+def test_cuda_tensor_never_reaches_k8_plain_version(k8_plain_forbidden):
+    ops = [_fake(t) for t in _k8_operands()]
+    with pytest.raises(RuntimeError, match="nvcc"):
+        k8.lstm_cell(*ops)
+    pk.reset_counters()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        pk.lstm_cell_fused(*ops, forget_bias=1.0)
+    assert pk.counters() == {"fused": 1, "fallback_platform": 0}
+
+
+def test_k8_wrapper_checks_before_launch(k8_plain_forbidden):
+    x, h, c, w, rw, b = _k8_operands()
+    with pytest.raises(TypeError, match="dtype"):
+        k8.lstm_cell(*[_fake(t.double()) for t in (x, h, c, w, rw, b)])
+    with pytest.raises(TypeError, match="every operand"):
+        k8.lstm_cell(_fake(x), _fake(h.half()), *map(_fake, (c, w, rw, b)))
+    with pytest.raises(ValueError, match="W must be contiguous"):
+        k8.lstm_cell(*map(_fake, (x, h, c, torch.ones(16, 3).t(), rw, b)))
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        k8.lstm_cell(*map(_fake, (torch.ones(3, 2).t(), h, c, w, rw, b)))
+    with pytest.raises(ValueError, match="shape"):
+        k8.lstm_cell(*map(_fake, (x, h, c, w, rw, torch.ones(15))))
 
 
 def test_cpu_tensor_takes_the_plain_version_uncounted():

@@ -25,6 +25,9 @@ EDGE = np.array([1.0, -1.0, 0.0, -0.0, np.nan, np.inf, -np.inf, 2.5, -7.5,
                  3.0], np.float32)
 I32 = np.array([[-3, 0, 2], [5, -1, 7]], np.int32)
 BOOL = np.array([[True, False, True], [False, False, True]])
+# integer dividends against divisors with zeros in them
+DIVIDEND = np.array([-7, -1, 0, 1, 7, 5, -6, 3, 0, 100], np.int64)
+DIVISOR = np.array([0, 2, 0, -3, 0, 0, 4, -1, 5, 0], np.int64)
 # every (x, y) pair of the edge values: y = 0, -0, inf, NaN included
 FX, FY = (a.ravel() for a in np.meshgrid(EDGE, EDGE))
 
@@ -36,6 +39,20 @@ CASES = [
     ("math.floordiv", (np.float32([7.0, -7.0, 7.0, -7.0, 0.5]),
                        np.float32([2.0, 2.0, -2.0, -2.0, 0.25])), {}),
     ("math.floordiv", (I32, np.int32(2)), {}),
+] + [
+    # 2b. integer and bool floor division and modulo by zero: XLA's values
+    # (floordiv -1 for a zero dividend, -2 for another signed one, all
+    # ones for uint8; mod 0) where torch raises
+    (name, (x, y), {})
+    for name in ("math.floordiv", "math.mod")
+    for x, y in [(a.astype(dt), b.astype(dt))
+                 for a, b in ((DIVIDEND, DIVISOR), (DIVIDEND, DIVISOR[::-1]))
+                 for dt in (np.int8, np.int16, np.int32)]
+    + [(np.abs(DIVIDEND).astype(np.uint8), DIVISOR.astype(np.uint8)),
+       (np.abs(DIVIDEND).astype(np.uint8), np.uint8(0)),
+       (DIVIDEND.astype(np.int32), np.int32(0)),
+       (DIVIDEND != 0, DIVISOR != 0), (BOOL, np.zeros_like(BOOL))]
+] + [
     # 3. integer and bool inputs stay int32
     ("math.cumprod", (I32,), {"axis": 1}),
     ("math.cumprod", (I32,), {}),

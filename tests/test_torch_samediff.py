@@ -56,6 +56,9 @@ SEG = np.array([0, 2, 2, -1, 0, 7], np.int32)  # segment 1 stays empty
 Q = _R.standard_normal((2, 2, 5, 4)).astype(np.float32)
 KB = np.where(np.arange(5) < np.array([[3], [5]]), 0.0, -1e9).astype(
     np.float32)[:, None, None, :]
+# one LSTM step: x [3, 5], h and c [3, 4], W [5, 16], RW [4, 16], b [16]
+LSTM_ARGS = tuple(_R.standard_normal(s).astype(np.float32) for s in (
+    (3, 5), (3, 4), (3, 4), (5, 16), (4, 16), (16,)))
 
 CASES = [
     # pairwise
@@ -203,6 +206,9 @@ CASES = [
                                 A * 30), {}),
     ("loss.sigmoid_bce_logits", (M2.astype(np.float32), A), {}),
     ("loss.sigmoid_bce_logits", (UNIT, B * 40), {}),
+    # recurrence
+    ("lstm_cell", LSTM_ARGS, {}), ("lstm_cell", LSTM_ARGS,
+                                   {"forget_bias": 1.0}),
 ] + [(f"act.{n}", (A,), {}) for n in (
     "identity", "relu", "relu6", "leakyrelu", "thresholdedrelu", "elu",
     "selu", "gelu", "swish", "mish", "sigmoid", "hardsigmoid", "tanh",
