@@ -88,13 +88,43 @@ Phases, in order; any failure exits non-zero:
     card's batch-2 output against the port's plain path on the CPU; and a
     whole-sequence ``torch.nn.LSTM`` on the batch-32 request as a
     yardstick;
-14. summary: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
+14. kernel-decode against plain: K9 (single-query decode attention over
+    a length-masked KV cache) against its plain PyTorch version at (B, H,
+    C, d) = (8, 4, 128, 64) (the generative path's), (32, 4, 1024, 64),
+    BERT-base heads (32, 12, 512, 64) and (32, 12, 4096, 64), (4, 8, 2048,
+    128) and a ragged (3, 2, 200, 32), with ragged lengths including 1, C
+    and 0 (uniform weights), in float32, bfloat16 and float16, with q
+    packed and as the head split of a ``[B, 1, H*d]`` projection: within
+    ``decode_attention.tolerance``, a second run bitwise equal, and
+    CUDA-event times at the path's shape and lengths and at (32, 12, 4096,
+    64) beside the bound, the plain version and
+    ``scaled_dot_product_attention`` with the float ``[B, 1, 1, C]``
+    length mask;
+15. generate: the JAX package's generative-serving model
+    (``tools/profile_generate.py``: V = 256, three ``SelfAttentionLayer(
+    256, 4 heads)`` blocks, float32, seed 0, random weights, TF32 off):
+    ``net.output`` on a batch-2 ragged request (3 K3 launches, ``fused``
+    only) against the port's plain path on the CPU; greedy sampling on
+    the card against ``np.argmax`` with ties; then
+    ``ContinuousBatcher`` on the bench's mix (8 slots, cache bucket 128,
+    the bench's 8 prompts of 56-64 tokens, 48 new tokens) with exactly 3
+    K3 launches per prefill and 3 K9 launches per decode step (the engine
+    counts both), only ``decode_fused`` and ``fused`` decisions, every
+    stream teacher-forced through the CPU plain path, tokens per second,
+    TTFT, TPOT and a ``torch.profiler`` split; then a growth mix (32
+    slots, cache buckets 256 to 1024, prompts of 200-480 tokens, 256 new
+    tokens) under the same gates, 4 streams teacher-forced;
+16. generate-server: ``JsonModelServer(generate=...)`` on localhost, POST
+    /generate for 3 prompts, each NDJSON stream equal to
+    ``batcher.generate`` on the same prompt;
+17. summary: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
     power limit, and last ``{"ok": true, "device": {...}}``.
 
 The serving path (phases 4-5), the training path (phase 7), the BERT
 serving path (phase 9), the BERT fine-tune path (phase 11), the LSTM
-serving path and the LSTM streaming path (phase 13) are each driven with
-the launch counts set to 0 just before and read just after.
+serving path and the LSTM streaming path (phase 13), the two generative
+mixes (phase 15) and the generative server (phase 16) are each driven
+with the launch counts set to 0 just before and read just after.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -102,6 +132,7 @@ The script imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -204,6 +235,24 @@ LSTM_STREAM_TOL = 1e-6
 #: max |diff| / max |ref|: float32 with TF32 off, 256 steps of two layers
 #: with sums in other orders
 LSTM_REL_TOL = 1e-4
+#: K9's shapes (B, H, C, d): the generative path's, a longer cache at
+#: batch 32, BERT-base heads at two cache lengths, a 128-wide head, and a
+#: ragged one; the first is the path's and the fourth the long one timed
+DECODE_SHAPES = ((8, 4, 128, 64), (32, 4, 1024, 64), (32, 12, 512, 64),
+                 (32, 12, 4096, 64), (4, 8, 2048, 128), (3, 2, 200, 32))
+DECODE_PATH_SHAPE = DECODE_SHAPES[0]
+DECODE_LONG_SHAPE = DECODE_SHAPES[3]
+#: K9 launches per decode step of the generative model (three attention
+#: layers), and K3 launches per prefill
+GEN_LAYERS = 3
+#: the card's batch-2 output and each stream's last-step probabilities
+#: against the port's plain path on the CPU, max |diff| / max |ref|:
+#: float32 with TF32 off, sums in other orders over three blocks
+GEN_REL_TOL = 1e-4
+#: streams of the growth mix held against the CPU, and new tokens per
+#: request of the server phase
+GROW_CHECKED = 4
+SERVER_NEW = 16
 
 
 def log(msg: str) -> None:
@@ -1317,6 +1366,312 @@ def phase_lstm_serve(k1, k3, k8, pk, env) -> dict:
             "requests": requests}
 
 
+def phase_kernel_decode(k9, path_lengths) -> dict:
+    """K9 against its plain version at DECODE_SHAPES x 3 dtypes x (packed,
+    head-split q), twice per case for determinism; returns the float32
+    times at the path's shape (``path_lengths``, the lengths of a decode
+    step halfway through the bench's mix) and at the long one, and the
+    errors."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    neg = float(torch.finfo(torch.float32).min)
+    err = {"float32": 0.0, "tol_share_bfloat16": 0.0,
+           "tol_share_float16": 0.0}
+    times, cases = {}, 0
+    for B, H, C, d in DECODE_SHAPES:
+        ln = torch.randint(1, C + 1, (B,), generator=gen, device=dev)
+        ln[0], ln[1] = 1, C
+        if B > 2:
+            ln[2] = 0  # an inactive slot: uniform weights over the cache
+        ln = ln.to(torch.int32)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            k, v = (attn_operand(B, H, C, d, dtype, "packed", gen)
+                    for _ in range(2))
+            for layout in ATTN_LAYOUTS:
+                q = attn_operand(B, H, 1, d, dtype, layout, gen)
+                got = k9.decode_attention(q, k, v, ln)
+                again = k9.decode_attention(q, k, v, ln)
+                torch.cuda.synchronize()
+                where = f"K9 {str(dtype)[6:]} {(B, H, C, d)} {layout}"
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{where} is not deterministic")
+                ref = k9.decode_attention_reference(q, k, v, ln)
+                viol = k9.max_violation(got, ref, q, k, v, ln)
+                if dtype == torch.float32:
+                    err["float32"] = max(err["float32"], float(
+                        (got - ref).abs().max()))
+                else:
+                    key = "tol_share_" + str(dtype)[6:]
+                    err[key] = max(err[key], viol)
+                if viol > 1.0:
+                    raise AssertionError(f"{where} disagrees with its plain "
+                                         f"version: {viol:.3g} x the "
+                                         "tolerance")
+                cases += 1
+                if (B, H, C, d) == DECODE_LONG_SHAPE and layout == "packed" \
+                        and dtype == torch.bfloat16:
+                    power = tolerance_power(k9, q, k, v, ln, ref)
+            if (B, H, C, d) not in (DECODE_PATH_SHAPE, DECODE_LONG_SHAPE) \
+                    or dtype == torch.float16:
+                continue
+            if (B, H, C, d) == DECODE_PATH_SHAPE:
+                tl = torch.tensor(path_lengths, dtype=torch.int32,
+                                  device=dev)
+            else:
+                tl = torch.randint(C // 2, C + 1, (B,), generator=gen,
+                                   device=dev).to(torch.int32)
+            mask = torch.where(torch.arange(C, device=dev)[None, :]
+                               < tl[:, None], 0.0, neg)[:, None, None, :]
+            ms, host = time_ms(lambda: k9.decode_attention(q, k, v, tl))
+            plain, _ = time_ms(
+                lambda: k9.decode_attention_reference(q, k, v, tl), reps=10)
+            lib, _ = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask.to(dtype)))
+            bound, by = k9.bound_ms(tl.cpu().numpy(), H, C, d,
+                                    q.element_size())
+            if dtype == torch.float32:
+                times[(B, H, C, d)] = (ms, plain, lib, host, bound, by)
+            log(f"[kernel-decode] K9 {str(dtype)[6:]:8s} B={B:2d} H={H:2d} "
+                f"C={C:4d} d={d:3d} heads splits={k9.num_splits(B, H, C)} "
+                f"lengths {int(tl.min())}..{int(tl.max())} ms={ms:.5f} "
+                f"plain_ms={plain:.5f} bound_ms={bound:.5f} ({by}) "
+                f"library_ms={lib:.5f} host_ms={host:.5f}")
+            del q, k, v
+    log(f"[kernel-decode] K9 matches its plain version and repeats bit for "
+        f"bit: {cases} cases ({len(DECODE_SHAPES)} shapes x 3 dtypes x "
+        f"{len(ATTN_LAYOUTS)} q layouts; lengths with 1, C and 0); max abs "
+        f"err float32 {err['float32']:.3g} (tolerance {k9.F32_TOL} x max(1,"
+        f" |ref|)); 16-bit worst {err['tol_share_bfloat16']:.3g} (bfloat16)"
+        f", {err['tol_share_float16']:.3g} (float16) of the tolerance (4 u "
+        f"(sum p|v|/l + |o|))")
+    log(f"[kernel-decode] the bfloat16 tolerance rejects a kernel that "
+        f"drops one split's keys at {DECODE_LONG_SHAPE}: "
+        f"{power['rejected']} of {power['rows']} (b, h, dropped split) rows"
+        f", the least {power['min_violation']:.3g} x the tolerance")
+    return {"times": times, "max_err": err, "cases": cases, "power": power}
+
+
+def tolerance_power(k9, q, k, v, ln, ref) -> dict:
+    """Hold ``k9.dropped_split_reference`` for each split against the
+    plain version: the tolerance must reject it in every (b, h) row whose
+    dropped split held some but not all of its keys."""
+    rows = rejected = 0
+    least = math.inf
+    tol = k9.tolerance(ref, q, k, v, ln)
+    for which in range(k9.num_splits(*k.shape[:3])):
+        bad, partial = k9.dropped_split_reference(q, k, v, ln, which)
+        viol = ((bad.double() - ref.double()).abs() / tol).amax((2, 3))
+        viol = viol[partial]
+        rows += viol.numel()
+        rejected += int((viol > 1.0).sum())
+        if viol.numel():
+            least = min(least, float(viol.min()))
+    if rows == 0 or rejected != rows:
+        raise AssertionError(f"the K9 tolerance rejects a dropped split in "
+                             f"{rejected} of {rows} rows")
+    return {"rows": rows, "rejected": rejected, "min_violation": least}
+
+
+def generate_path(cb, mix, runs, counters) -> dict:
+    """Serve ``mix`` ``runs`` times plus a profiled run through ``cb`` with
+    every launch count and decision counter at 0 just before, and check
+    them just after: 3 K3 launches per prefill and 3 K9 launches per
+    decode step (as the engine counts them), ``fused`` and
+    ``decode_fused`` decisions only, no other kernel."""
+    from deeplearning4j_tpu_torch.tools import profile_generate as pg
+    k1, k3, k8, k9, fa, pk = counters
+    eng = cb.engine
+    k1.launches = k1.bwd_launches = k3.launches = k8.launches = 0
+    k9.launches = 0
+    fa.reset_counters()
+    pk.reset_counters()
+    p0, d0 = eng.prefill_runs, eng.decode_steps
+    row = pg.profile(cb, mix, runs=runs)
+    torch.cuda.synchronize()
+    prefills, steps = eng.prefill_runs - p0, eng.decode_steps - d0
+    launches = {"k3": k3.launches, "k9": k9.launches}
+    want_dec = {k: 0 for k in fa.decode_counters()}
+    want_dec["decode_fused"] = k9.launches
+    want_att = {k: 0 for k in fa.counters()}
+    want_att["fused"] = k3.launches
+    if k3.launches != GEN_LAYERS * prefills \
+            or k9.launches != GEN_LAYERS * steps or steps == 0 \
+            or fa.decode_counters() != want_dec \
+            or fa.counters() != want_att \
+            or k1.launches or k1.bwd_launches or k8.launches \
+            or row["dispatch_decisions"]["host_loop"]:
+        raise AssertionError(
+            f"generative path: {k3.launches} K3 launches for {prefills} "
+            f"prefills, {k9.launches} K9 launches for {steps} decode steps, "
+            f"decisions {fa.counters()} {fa.decode_counters()} "
+            f"{row['dispatch_decisions']}, K1/K2/K8 {k1.launches}/"
+            f"{k1.bwd_launches}/{k8.launches}")
+    row.update(prefills=prefills, decode_steps=steps, launches=launches)
+    return row
+
+
+def check_streams(cpu, mix, row, n, tag) -> dict:
+    """The first ``n`` streams teacher-forced through the CPU plain path
+    (``profile_generate.teacher_forced``); raises on a violation."""
+    from deeplearning4j_tpu_torch.tools import profile_generate as pg
+    worst = {"violations": 0, "near_ties": 0, "min_gap": float("inf"),
+             "last_rel_err": 0.0}
+    for i in range(n):
+        tf = pg.teacher_forced(cpu, mix[i], row["streams"][i],
+                               row["last_logits"][i])
+        worst["violations"] += tf["violations"]
+        worst["near_ties"] += tf["near_ties"]
+        worst["min_gap"] = min(worst["min_gap"], tf["min_gap"])
+        worst["last_rel_err"] = max(worst["last_rel_err"],
+                                    tf["last_rel_err"])
+    log(f"[generate] {tag}: {n} streams teacher-forced through the CPU plain "
+        f"path: {worst['violations']} tokens off the CPU's argmax, "
+        f"{worst['near_ties']} steps with a top-2 gap below "
+        f"{pg.TIE_TOL} of the top (smallest gap {worst['min_gap']:.3g}); "
+        f"last-step probabilities {worst['last_rel_err']:.3g} (tolerance "
+        f"{GEN_REL_TOL})")
+    if worst["violations"] or not worst["last_rel_err"] <= GEN_REL_TOL:
+        raise AssertionError(f"{tag}: the card's streams disagree with the "
+                             "CPU plain path")
+    return worst
+
+
+def log_generate_row(tag, row) -> None:
+    log(f"[generate] {tag}: {row['requests']} requests x {row['slots']} "
+        f"slots, prompts {row['prompt_tokens'][0]}-"
+        f"{row['prompt_tokens'][1]} tokens, {row['new_tokens']} new tokens: "
+        f"wall {row['wall_ms_median']:.3f} ms (median of "
+        f"{len(row['walls_ms'])}), {row['tokens_per_s']:.1f} tokens/s, TTFT "
+        f"p50/p99 {row['ttft_ms_p50']:.3f}/{row['ttft_ms_p99']:.3f} ms, "
+        f"TPOT p50/p99 {row['tpot_ms_p50']:.3f}/{row['tpot_ms_p99']:.3f} ms;"
+        f" {row['decode_steps_per_run']:.1f} decode steps per run; cache "
+        f"{row['final_cache_len']}; device {row['device_ms']} ms (busy share"
+        f" {row['device_busy_share']}), K9 {row['k9_device_ms']} ms, K3 "
+        f"{row['k3_device_ms']} ms")
+    log(f"[generate] {tag} top kernels (ms per run): " + "; ".join(
+        f"{k[:50]} {t:.3f} x{c}" for k, t, c in row["top_kernels_ms"][:6]))
+
+
+def phase_generate(counters, env) -> dict:
+    from deeplearning4j_tpu_torch.serving.batcher import ContinuousBatcher
+    from deeplearning4j_tpu_torch.tools import profile_generate as pg
+    k1, k3, k8, k9, fa, pk = counters
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t0 = time.perf_counter()
+    net = pg.build(seed=0, device="cuda")
+    cpu = pg.cpu_copy(net)
+    log(f"[generate] the bench's generative model on cuda: "
+        f"{net.num_params()} params (V {pg.VOCAB}, 3 x SelfAttentionLayer("
+        f"{pg.VOCAB}, {pg.HEADS} heads)), {time.perf_counter() - t0:.1f} s")
+
+    # output() on a ragged batch-2 request against the CPU plain path
+    rng = np.random.default_rng(12)
+    x2 = np.eye(pg.VOCAB, dtype=np.float32)[rng.integers(0, pg.VOCAB,
+                                                         (2, 64))]
+    l2 = np.array([64, 37])
+    k3.launches = k9.launches = 0
+    fa.reset_counters()
+    got = net.inference_engine().output(x2, lengths=l2)
+    out_launches = (k3.launches, k9.launches)
+    if out_launches != (GEN_LAYERS, 0) \
+            or fa.counters()["fused"] != GEN_LAYERS \
+            or sum(fa.counters().values()) != GEN_LAYERS \
+            or any(fa.decode_counters().values()):
+        raise AssertionError(f"output(): {out_launches} K3, K9 launches, "
+                             f"decisions {fa.counters()} "
+                             f"{fa.decode_counters()}")
+    ref = cpu.inference_engine().output(x2, lengths=l2)
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    log(f"[generate] output() on 2 x 64 tokens (lengths 64, 37): "
+        f"{out_launches[0]} K3 launches, no K9; card vs CPU plain path "
+        f"max|diff|/max|ref| {rel:.3g} (tolerance {GEN_REL_TOL})")
+    if not rel <= GEN_REL_TOL:
+        raise AssertionError("output() on the card disagrees with the CPU")
+
+    # greedy sampling on the card: the first maximum on ties, as the host
+    # oracle np.argmax takes it
+    from deeplearning4j_tpu_torch.ops import sampling as smp
+    ties = np.random.default_rng(13).standard_normal((64, pg.VOCAB)).astype(
+        np.float32)
+    ties[::2, 7] = ties[::2, 200] = ties[::2, 90] = 50.0
+    got_t = smp.greedy(torch.from_numpy(ties).cuda()).cpu().numpy()
+    if not np.array_equal(got_t, np.argmax(ties, -1)) \
+            or not (got_t[::2] == 7).all():
+        raise AssertionError("greedy on the card does not take the first "
+                             "maximum")
+    log("[generate] greedy on the card equals np.argmax on 64 rows of 256 "
+        "logits, ties included (the first maximum wins)")
+
+    rows = {}
+    for tag, kw, mix_spec, runs, checked in (
+            ("bench", pg.BENCH, pg.BENCH_PROMPTS, 3, pg.BENCH_PROMPTS[0]),
+            ("grow", pg.GROW, pg.GROW_PROMPTS, 2, GROW_CHECKED)):
+        t0 = time.perf_counter()
+        cb = ContinuousBatcher(net, **kw)
+        log(f"[generate] {tag}: ContinuousBatcher({kw}) built and warmed in "
+            f"{time.perf_counter() - t0:.1f} s; cache "
+            f"{cb.stats()['cache_len']}")
+        mix = pg.prompts(*mix_spec)
+        try:
+            row = generate_path(cb, mix, runs, counters)
+        finally:
+            cb.shutdown()
+        log_generate_row(tag, row)
+        row["check"] = check_streams(cpu, mix, row, checked, tag)
+        if tag == "grow" and row["final_cache_len"] != kw["max_cache_len"]:
+            raise AssertionError(f"the growth mix ended at cache "
+                                 f"{row['final_cache_len']}")
+        del row["streams"], row["last_logits"]
+        rows[tag] = row
+    return {"net": net, "rows": rows, "output_rel_err": rel,
+            "output_launches": out_launches}
+
+
+def phase_generate_server(counters, server_mod, net) -> dict:
+    from deeplearning4j_tpu_torch.tools import profile_generate as pg
+    k1, k3, k8, k9, fa, pk = counters
+    srv = server_mod.JsonModelServer(
+        net, generate=dict(pg.BENCH, max_new_tokens=SERVER_NEW))
+    port = srv.start()
+    eng = srv.generator.engine
+    k3.launches = k9.launches = 0
+    fa.reset_counters()
+    p0, d0 = eng.prefill_runs, eng.decode_steps
+    try:
+        for i, p in enumerate(pg.prompts(*pg.BENCH_PROMPTS)[:3]):
+            tokens = [int(t) for t in p.argmax(-1)]
+            body = json.dumps({"tokens": tokens, "stream": True}).encode()
+            with urllib.request.urlopen(urllib.request.Request(
+                    f"http://127.0.0.1:{port}/generate", data=body),
+                    timeout=120) as r:
+                lines = [json.loads(x) for x in r.read().decode().splitlines()
+                         if x]
+            want = srv.generator.generate(tokens=tokens)["tokens"]
+            streamed = [x.get("token") for x in lines[:-1]]
+            if not lines[-1].get("done") or streamed != want \
+                    or lines[-1]["tokens"] != want or len(want) != SERVER_NEW:
+                raise AssertionError(f"POST /generate {i}: {lines[-1]} vs "
+                                     f"{want}")
+        torch.cuda.synchronize()
+    finally:
+        srv.stop()
+    prefills, steps = eng.prefill_runs - p0, eng.decode_steps - d0
+    if k3.launches != GEN_LAYERS * prefills \
+            or k9.launches != GEN_LAYERS * steps \
+            or fa.decode_counters()["decode_fused"] != k9.launches \
+            or sum(fa.decode_counters().values()) != k9.launches:
+        raise AssertionError(f"generative server: {k3.launches} K3 / "
+                             f"{k9.launches} K9 launches for {prefills} "
+                             f"prefills / {steps} steps, decisions "
+                             f"{fa.decode_counters()}")
+    log(f"[generate-server] POST /generate on localhost for 3 prompts: each "
+        f"NDJSON stream ({SERVER_NEW} tokens) equals batcher.generate; "
+        f"{k3.launches} K3 launches for {prefills} prefills, {k9.launches} "
+        f"K9 launches for {steps} decode steps")
+    return {"launches": {"k3": k3.launches, "k9": k9.launches}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1327,6 +1682,7 @@ def main() -> int:
     from deeplearning4j_tpu_torch import models
     from deeplearning4j_tpu_torch.kernels import _build as build
     from deeplearning4j_tpu_torch.kernels import affine_act as k1
+    from deeplearning4j_tpu_torch.kernels import decode_attention as k9
     from deeplearning4j_tpu_torch.kernels import flash_attention as k3
     from deeplearning4j_tpu_torch.kernels import lstm_cell as k8
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
@@ -1363,6 +1719,15 @@ def main() -> int:
     fitted = phase_bert_fit(k1, k3, fa, env)
     klstm = phase_kernel_lstm(k8)
     served_lstm = phase_lstm_serve(k1, k3, k8, pk, env)
+    from deeplearning4j_tpu_torch.tools import profile_generate as pg
+    # a decode step halfway through the bench's mix: each prompt's length
+    # plus half the new tokens, the step's own token included
+    path_lengths = [len(p) + pg.BENCH["max_new_tokens"] // 2 + 1
+                    for p in pg.prompts(*pg.BENCH_PROMPTS)]
+    kdec = phase_kernel_decode(k9, path_lengths)
+    counters = (k1, k3, k8, k9, fa, pk)
+    gen = phase_generate(counters, env)
+    gen_server = phase_generate_server(counters, server_mod, gen["net"])
 
     # one batch-32 forward's (training step's) 53 K1 (K2) calls, timed per
     # (rows, C, act) in phases 3 and 6
@@ -1425,7 +1790,30 @@ def main() -> int:
         f"torch.lstm_cell {lib8:.4f}, bound {bound8:.4f}, {by8}); host "
         f"enqueue {host8:.4f} ms; a whole-sequence torch.nn.LSTM "
         f"{served_lstm['cudnn_ms']:.4f} ms")
-    lstm_paths = {"lstm_serve": 0, "lstm_stream": 0}
+    rows = gen["rows"]
+    gen_l = {"generate": rows["bench"]["launches"],
+             "generate_grow": rows["grow"]["launches"],
+             "generate_server": gen_server["launches"]}
+    # the output() request of [generate] goes through InferenceEngine, not
+    # the batcher: a path of its own
+    k3_gen = {k: v["k3"] for k, v in gen_l.items()}
+    k3_gen["generate_output"] = gen["output_launches"][0]
+    k9_gen = {k: v["k9"] for k, v in gen_l.items()}
+    k9_gen["generate_output"] = gen["output_launches"][1]
+    no_gen = {k: 0 for k in k3_gen}
+    # one decode step of the bench's mix: 3 K9 calls at the path's shape
+    t9 = kdec["times"][DECODE_PATH_SHAPE]
+    ms9, plain9, lib9, host9, bound9 = (GEN_LAYERS * t for t in t9[:5])
+    by9 = t9[5]
+    t9l = kdec["times"][DECODE_LONG_SHAPE]
+    log(f"[summary] one float32 decode step of the generative model (8 "
+        f"slots, cache 128, lengths {min(path_lengths)}..."
+        f"{max(path_lengths)}): {GEN_LAYERS} K9 calls, {ms9:.4f} ms on the "
+        f"device (plain {plain9:.4f}, scaled_dot_product_attention "
+        f"{lib9:.4f}, bound {bound9:.4f}, {by9}); host enqueue {host9:.4f} "
+        f"ms; at {DECODE_LONG_SHAPE}: {t9l[0]:.4f} ms (bound {t9l[4]:.4f}, "
+        f"SDPA {t9l[2]:.4f})")
+    lstm_paths = {"lstm_serve": 0, "lstm_stream": 0, **no_gen}
     bwd_timed_as = (
         "device time of one float32 call at BERT-base batch 32 (B=32, "
         "H=12, T=128, d=64, ragged key bias, head-split operands) times the "
@@ -1478,10 +1866,12 @@ def main() -> int:
         "name": "K3 flash_attn_fwd", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "deeplearning4j_tpu/ops/flash_attention.py:114",
-        "launches": served_bert["launches"] + fit_l[0],
+        "launches": served_bert["launches"] + fit_l[0]
+        + sum(k3_gen.values()),
         "launches_by_path": {"serve": 0, "train": 0,
                              "bert_serve": served_bert["launches"],
-                             "bert_fit": fit_l[0], **lstm_paths},
+                             "bert_fit": fit_l[0], "lstm_serve": 0,
+                             "lstm_stream": 0, **k3_gen},
         "max_abs_err": katt["max_err"]["float32"],
         "max_abs_err_float32": katt["max_err"]["float32"],
         "max_ulp_bfloat16": katt["max_err"]["ulp_bfloat16"],
@@ -1525,7 +1915,8 @@ def main() -> int:
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
                              "bert_fit": 0,
                              "lstm_serve": served_lstm["serve_launches"],
-                             "lstm_stream": served_lstm["stream_launches"]},
+                             "lstm_stream": served_lstm["stream_launches"],
+                             **no_gen},
         "max_abs_err": klstm["max_err"]["float32"],
         "max_abs_err_float32": klstm["max_err"]["float32"],
         "max_tolerance_share_bfloat16": klstm["max_err"]["ulp_bfloat16"],
@@ -1543,6 +1934,44 @@ def main() -> int:
                     "steps of one batch-32 request; library_ms is "
                     "torch.lstm_cell on the same operands reordered to its "
                     "gate order; host_ms is the wrapper's enqueue time over "
+                    "the same calls",
+    }, {
+        "name": "K9 decode_attn", "checked": True, "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/decode_attn.cu",
+        "replaces": "deeplearning4j_tpu/ops/flash_attention.py:576",
+        "launches": sum(k9_gen.values()),
+        "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
+                             "bert_fit": 0, "lstm_serve": 0,
+                             "lstm_stream": 0, **k9_gen},
+        "launches_per_decode_step": GEN_LAYERS,
+        "decode_steps_by_path": {
+            "generate": rows["bench"]["decode_steps"],
+            "generate_grow": rows["grow"]["decode_steps"]},
+        "max_abs_err": kdec["max_err"]["float32"],
+        "max_abs_err_float32": kdec["max_err"]["float32"],
+        "max_tolerance_share_bfloat16": kdec["max_err"]["tol_share_bfloat16"],
+        "max_tolerance_share_float16": kdec["max_err"]["tol_share_float16"],
+        "deterministic": True,
+        "ms": ms9, "plain_ms": plain9, "bound_ms": bound9, "bound_by": by9,
+        "library_ms": lib9, "host_ms": host9,
+        "long_cache": {"shape": list(DECODE_LONG_SHAPE), "ms": t9l[0],
+                       "plain_ms": t9l[1], "library_ms": t9l[2],
+                       "bound_ms": t9l[4], "bound_by": t9l[5]},
+        "generate": {tag: {k: r[k] for k in (
+            "tokens_per_s", "wall_ms_median", "ttft_ms_p50", "ttft_ms_p99",
+            "tpot_ms_p50", "tpot_ms_p99", "device_ms", "device_busy_share",
+            "k9_device_ms", "k3_device_ms", "decode_steps_per_run")}
+            for tag, r in rows.items()},
+        "output_rel_err_vs_cpu": gen["output_rel_err"],
+        "bfloat16_drop_split_check": dict(shape=list(DECODE_LONG_SHAPE),
+                                          **kdec["power"]),
+        "timed_as": "device time of one float32 call at the generative "
+                    "path's shape (B=8, H=4, C=128, d=64, head-split q, the "
+                    "lengths of a decode step halfway through the bench's "
+                    "mix) times the 3 calls of one decode step; library_ms "
+                    "is torch.nn.functional.scaled_dot_product_attention "
+                    "with the float [B, 1, 1, C] length mask on the same "
+                    "q, k, v; host_ms is the wrapper's enqueue time over "
                     "the same calls",
     }]}), flush=True)
     print(smi_line(), flush=True)

@@ -1,0 +1,264 @@
+"""Attention layers: SelfAttentionLayer and LearnedSelfAttentionLayer.
+
+Port of ``deeplearning4j_tpu/nn/layers/attention.py`` (the helpers
+:37-138, ``SelfAttentionLayer`` :179, ``LearnedSelfAttentionLayer``
+:283), with the same JSON kinds (``self_attention``,
+``learned_self_attention``), fields and parameter names (``Wq``, ``Wk``,
+``Wv``, ``Wo``, the optional biases, the learned query bank ``Q``), so a
+ZIP the JAX package saved loads unchanged. Layout ``[B, T, F]``; the
+heads are the view ``[B, H, T, hs]`` of a ``[B, T, H*hs]`` projection.
+
+``apply`` and ``prefill`` go through ``ops.flash_attention.attention``
+with the ``[B, 1, 1, T]`` key mask (K3 on the card, the reference path on
+the CPU). The KV-cached decode follows prefix-LM semantics: the prompt
+attends bidirectionally over itself; each generated token attends over
+everything before it and itself. ``decode_step`` appends the token's k/v
+with ``cache_insert`` (in place) and runs ``decode_dispatch`` (K9 on the
+card) with ``lengths + 1``; ``full_context`` is the quadratic oracle with
+an explicit prefix-LM bias. The prompt's bucket-padded rows land in the
+cache too; the decode side's lengths mask them.
+
+Divergences: the caches are updated in place (the JAX engines donate
+theirs); the int8 KV cache (``kv_quant``) and the paged pool
+(``page_table``) raise ``NotImplementedError`` naming their slices (the
+int8-serving and the paged/speculative slices, ``ROADMAP.md`` Queue 1);
+``RecurrentAttentionLayer`` (:382) comes with recurrent breadth.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ...ops import flash_attention as _fa
+from .. import weights as _winit
+from .base import CacheSpec, Layer, layer
+
+_INT8 = ("the int8 KV cache comes with the int8-serving slice of the port "
+         "(ROADMAP.md Queue 1)")
+_PAGED = ("the paged KV pool comes with the paged and speculative slice of "
+          "the port (ROADMAP.md Queue 1)")
+_NEG = float(torch.finfo(torch.float32).min)
+
+
+def _heads_split(x, n_heads):
+    B, T, D = x.shape
+    return x.reshape(B, T, n_heads, D // n_heads).transpose(1, 2)
+
+
+def _heads_join(x):
+    B, H, T, hs = x.shape
+    return x.transpose(1, 2).reshape(B, T, H * hs)
+
+
+def _key_mask(mask):
+    """``[B, T]`` keep-mask -> additive f32 bias ``[B, 1, 1, T]``."""
+    if mask is None:
+        return None
+    return torch.where(mask[:, None, None, :] > 0,
+                       torch.tensor(0.0, device=mask.device),
+                       torch.tensor(_NEG, device=mask.device))
+
+
+def _proj(x, w, b=None):
+    y = torch.matmul(x, w)
+    return y if b is None else y + b
+
+
+def _qkv(x_q, x_kv, params, n_heads):
+    q = _heads_split(_proj(x_q, params["Wq"], params.get("bq")), n_heads)
+    k = _heads_split(_proj(x_kv, params["Wk"], params.get("bk")), n_heads)
+    v = _heads_split(_proj(x_kv, params["Wv"], params.get("bv")), n_heads)
+    return q, k, v
+
+
+def _mha(x_q, x_kv, params, n_heads, mask):
+    q, k, v = _qkv(x_q, x_kv, params, n_heads)
+    y = _fa.attention(q, k, v, bias=_key_mask(mask))
+    return _proj(_heads_join(y), params["Wo"], params.get("bo"))
+
+
+def _kv_cache_spec(params, n_heads, batch, cache_len, dtype, kv_quant):
+    if kv_quant:
+        raise NotImplementedError(_INT8)
+    proj = params["Wk"].shape[1]
+    shape = (int(batch), int(n_heads), int(cache_len), proj // n_heads)
+    return {"k": CacheSpec(shape, dtype), "v": CacheSpec(shape, dtype)}
+
+
+def _cache_fill_prompt(cache, k, v):
+    """Write the prompt's k/v into cache positions ``[0, T)``, in place."""
+    T = k.shape[2]
+    cache["k"][:, :, :T] = k
+    cache["v"][:, :, :T] = v
+    return cache
+
+
+def _cache_append(cache, k_new, v_new, lengths, write, page_table):
+    """Append one token's k/v (in place); returns ``(cache, k, v)``."""
+    if page_table is not None:
+        raise NotImplementedError(_PAGED)
+    if "k_scale" in cache:
+        raise NotImplementedError(_INT8)
+    kc = _fa.cache_insert(cache["k"], k_new, lengths, write)
+    vc = _fa.cache_insert(cache["v"], v_new, lengths, write)
+    return cache, kc, vc
+
+
+def _query_bank(params, batch):
+    return params["Q"][None].expand((batch,) + tuple(params["Q"].shape))
+
+
+@layer("self_attention")
+class SelfAttentionLayer(Layer):
+    """DL4J SelfAttentionLayer: multi-head scaled-dot self-attention with
+    input projections; output ``[B, T, n_out]``. ``n_out=0`` resolves to
+    the input feature size at init; ``has_bias`` adds a bias to each
+    projection (DL4J's layer has none, the default)."""
+    n_out: int = 0
+    n_heads: int = 1
+    head_size: Optional[int] = None
+    weight_init: str = "xavier"
+    has_bias: bool = False
+    l1: float = 0.0
+    l2: float = 0.0
+    name: Optional[str] = None
+
+    def initialize(self, gen, input_shape, dtype, device):
+        t, f = int(input_shape[0]), int(input_shape[-1])
+        n_out = self.n_out or f
+        hs = self.head_size or (n_out // self.n_heads)
+        proj = self.n_heads * hs
+
+        def w(shape, fi, fo):
+            return _winit.init(self.weight_init, gen, shape, fi, fo, dtype,
+                               device)
+
+        params = {"Wq": w((f, proj), f, proj), "Wk": w((f, proj), f, proj),
+                  "Wv": w((f, proj), f, proj),
+                  "Wo": w((proj, n_out), proj, n_out)}
+        if self.has_bias:
+            for name, n in (("bq", proj), ("bk", proj), ("bv", proj),
+                            ("bo", n_out)):
+                params[name] = torch.zeros(n, dtype=dtype, device=device)
+        return params, {}, (t, n_out)
+
+    def apply(self, params, x, state, *, train=False, mask=None):
+        y = _mha(x, x, params, self.n_heads, mask)
+        if mask is not None:
+            y = y * mask[..., None]  # masked steps emit zeros (DL4J)
+        return y, state, mask
+
+    def decode_cache_spec(self, params, batch, cache_len, dtype,
+                          kv_quant=False):
+        return _kv_cache_spec(params, self.n_heads, batch, cache_len,
+                              dtype, kv_quant)
+
+    def prefill(self, params, x, state, *, cache, lengths, mask=None):
+        q, k, v = _qkv(x, x, params, self.n_heads)
+        y = _fa.attention(q, k, v, bias=_key_mask(mask))
+        y = _proj(_heads_join(y), params["Wo"], params.get("bo"))
+        if mask is not None:
+            y = y * mask[..., None]
+        return y, _cache_fill_prompt(cache, k, v)
+
+    def decode_step(self, params, x, state, *, cache, lengths, write=None,
+                    page_table=None, page_size=0):
+        """One decode window ``x`` ``[B, Tq, F]``: Tq = 1 for plain decode
+        (K9), Tq = k for a speculative verify window (window-causal; its
+        kernel comes with the speculative slice)."""
+        q, k_new, v_new = _qkv(x, x, params, self.n_heads)
+        cache, kf, vf = _cache_append(cache, k_new, v_new, lengths, write,
+                                      page_table)
+        if x.shape[1] == 1:
+            y = _fa.decode_dispatch(q, kf, vf, lengths + 1)
+        else:
+            y = _fa.decode_multiquery_dispatch(q, kf, vf, lengths)
+        return _proj(_heads_join(y), params["Wo"], params.get("bo")), cache
+
+    def full_context(self, params, x, state, *, bias, key_bias):
+        """The full-recompute oracle: an explicit ``[B, 1, T, T]`` bias
+        (the prefix-LM mask) through the reference path (a per-query bias
+        is not key-reducible: ``fallback_bias`` on the card)."""
+        q, k, v = _qkv(x, x, params, self.n_heads)
+        y = _fa.attention(q, k, v, bias=bias)
+        return _proj(_heads_join(y), params["Wo"], params.get("bo"))
+
+
+@layer("learned_self_attention")
+class LearnedSelfAttentionLayer(Layer):
+    """DL4J LearnedSelfAttentionLayer: ``n_queries`` learned query vectors
+    attend over the sequence; output ``[B, n_queries, n_out]``."""
+    n_out: int = 0
+    n_heads: int = 1
+    n_queries: int = 1
+    head_size: Optional[int] = None
+    weight_init: str = "xavier"
+    l1: float = 0.0
+    l2: float = 0.0
+    name: Optional[str] = None
+
+    def initialize(self, gen, input_shape, dtype, device):
+        f = int(input_shape[-1])
+        hs = self.head_size or (self.n_out // self.n_heads)
+        proj = self.n_heads * hs
+
+        def w(shape, fi, fo):
+            return _winit.init(self.weight_init, gen, shape, fi, fo, dtype,
+                               device)
+
+        params = {"Q": w((self.n_queries, f), f, f),
+                  "Wq": w((f, proj), f, proj), "Wk": w((f, proj), f, proj),
+                  "Wv": w((f, proj), f, proj),
+                  "Wo": w((proj, self.n_out), proj, self.n_out)}
+        return params, {}, (self.n_queries, self.n_out)
+
+    def apply(self, params, x, state, *, train=False, mask=None):
+        q = _query_bank(params, x.shape[0])
+        y = _mha(q, x, params, self.n_heads, mask)
+        return y, state, None  # n_queries steps: no time mask any more
+
+    # the query bank re-attends over the growing cache each step; the
+    # learned queries are not positions, so only key validity masks apply
+    def decode_cache_spec(self, params, batch, cache_len, dtype,
+                          kv_quant=False):
+        return _kv_cache_spec(params, self.n_heads, batch, cache_len,
+                              dtype, kv_quant)
+
+    def _bank_q(self, params, batch):
+        return _heads_split(_proj(_query_bank(params, batch), params["Wq"]),
+                            self.n_heads)
+
+    def prefill(self, params, x, state, *, cache, lengths, mask=None):
+        q = self._bank_q(params, x.shape[0])
+        k = _heads_split(_proj(x, params["Wk"]), self.n_heads)
+        v = _heads_split(_proj(x, params["Wv"]), self.n_heads)
+        y = _fa.attention(q, k, v, bias=_key_mask(mask))
+        return (_proj(_heads_join(y), params["Wo"]),
+                _cache_fill_prompt(cache, k, v))
+
+    def decode_step(self, params, x, state, *, cache, lengths, write=None,
+                    page_table=None, page_size=0):
+        if x.shape[1] != 1:
+            raise ValueError(
+                "learned_self_attention cannot verify a multi-token "
+                "window (its output is a query-bank summary, not "
+                "per-token); use a self-attention stack for speculative "
+                "decoding")
+        q = self._bank_q(params, x.shape[0])
+        k_new = _heads_split(_proj(x, params["Wk"]), self.n_heads)
+        v_new = _heads_split(_proj(x, params["Wv"]), self.n_heads)
+        cache, kf, vf = _cache_append(cache, k_new, v_new, lengths, write,
+                                      page_table)
+        # n_queries > 1: decode_dispatch takes the length-masked reference
+        # (decode_fallback_multiquery), uniform visibility over the cache
+        y = _fa.decode_dispatch(q, kf, vf, lengths + 1)
+        return _proj(_heads_join(y), params["Wo"]), cache
+
+    def full_context(self, params, x, state, *, bias, key_bias):
+        q = self._bank_q(params, x.shape[0])
+        k = _heads_split(_proj(x, params["Wk"]), self.n_heads)
+        v = _heads_split(_proj(x, params["Wv"]), self.n_heads)
+        y = _fa.attention(q, k, v, bias=key_bias)
+        return _proj(_heads_join(y), params["Wo"])

@@ -12,13 +12,19 @@ Protocol:
   output_shape)``; ``input_shape`` excludes the batch dim and ``gen`` is a
   CPU ``torch.Generator``.
 - ``apply(params, x, state, *, train=False, mask=None) -> (y, new_state,
-  new_mask)``.
+  new_mask)``;
+- the autoregressive decode protocol (the JAX module's :56, :83-137):
+  ``decode_pointwise``, ``decode_cache_spec``, ``prefill`` and
+  ``decode_step``. A cache spec is a dict of :class:`CacheSpec` (shape and
+  dtype) where the JAX package returns ``jax.ShapeDtypeStruct``s.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
 
 LAYERS: Dict[str, type] = {}
 
@@ -33,9 +39,23 @@ def layer(kind: str):
     return deco
 
 
+class CacheSpec(NamedTuple):
+    """Shape and dtype of one decode-cache tensor."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
 class Layer:
     kind = "base"
     name: Optional[str] = None
+
+    #: True when ``apply``'s output at time step t depends only on the
+    #: input at step t (dense, activation and output heads): such a layer
+    #: runs unchanged on a ``[B, 1, F]`` slice in the decode walk. A layer
+    #: with temporal state carries a KV cache (``decode_cache_spec``
+    #: returns a spec) or cannot decode (recurrent and conv stacks: the
+    #: walk raises). Default False: a layer opts in.
+    decode_pointwise = False
 
     def initialize(self, gen, input_shape, dtype, device):
         """-> (params: dict, state: dict, output_shape: tuple)"""
@@ -44,6 +64,35 @@ class Layer:
     def apply(self, params, x, state, *, train=False, mask=None):
         """-> (y, new_state, out_mask)"""
         raise NotImplementedError
+
+    # -- autoregressive decode protocol (KV-cache serving) -----------------
+    def decode_cache_spec(self, params, batch, cache_len, dtype,
+                          kv_quant: bool = False):
+        """The layer's decode cache as ``{name: CacheSpec}`` (``{"k": ...,
+        "v": ...}`` for attention), or None when it carries none."""
+        return None
+
+    def prefill(self, params, x, state, *, cache, lengths, mask=None):
+        """Prompt phase: fill ``cache`` from the end-padded prompt ``x``
+        ``[B, T, F]`` and return ``(y, cache)``. Default (no cache): the
+        inference ``apply`` with the prompt key mask."""
+        y, _, _ = self.apply(params, x, state, train=False, mask=mask)
+        return y, cache
+
+    def decode_step(self, params, x, state, *, cache, lengths, write=None):
+        """One decode token: ``x`` ``[B, 1, F]``, ``lengths`` ``[B]`` the
+        tokens already cached, ``write`` ``[B]`` the optional gate of the
+        rows whose caches this token enters. Returns ``(y, cache)``.
+        Default: a time-pointwise layer re-runs ``apply`` on the slice;
+        any other raises."""
+        if not self.decode_pointwise:
+            raise ValueError(
+                f"layer kind {self.kind!r} cannot run in the "
+                "autoregressive decode walk: it is neither time-pointwise "
+                "nor KV-cached (set decode_pointwise=True or implement "
+                "decode_cache_spec/prefill/decode_step)")
+        y, _, _ = self.apply(params, x, state, train=False, mask=None)
+        return y, cache
 
     def has_params(self) -> bool:
         return True

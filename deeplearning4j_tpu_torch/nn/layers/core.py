@@ -1,7 +1,9 @@
 """Core feed-forward layers: Dense, Activation, Output, Loss.
 
 Port of ``DenseLayer``, ``ActivationLayer``, ``OutputLayer`` and
-``LossLayer`` from ``deeplearning4j_tpu/nn/layers/core.py``. Parameter
+``LossLayer`` from ``deeplearning4j_tpu/nn/layers/core.py``, each marked
+``decode_pointwise`` as there (:35, :65, :276, :309; the port has no
+``DropoutLayer`` or ``ElementWiseMultiplicationLayer`` yet). Parameter
 names and layouts follow DL4J: ``W`` is ``[nIn, nOut]``, ``b`` is
 ``[nOut]``. In training the loss heads return their pre-activation and
 :meth:`_BaseOutput.loss_value` computes the loss from it.
@@ -28,6 +30,7 @@ def _dense(x, w, b):
 @layer("dense")
 class DenseLayer(Layer):
     """Fully connected layer (DL4J DenseLayer). W:[nIn,nOut] b:[nOut]."""
+    decode_pointwise = True  # y_t depends only on x_t
     n_out: int = 0
     n_in: Optional[int] = None  # inferred from input_shape when None
     activation: str = "identity"
@@ -52,6 +55,7 @@ class DenseLayer(Layer):
 
 @layer("activation")
 class ActivationLayer(Layer):
+    decode_pointwise = True
     activation: str = "relu"
     # parameter for parameterized activations (leakyrelu slope, elu alpha,
     # thresholdedrelu theta); None = the activation's own default
@@ -95,6 +99,7 @@ class _BaseOutput:
 class OutputLayer(Layer, _BaseOutput):
     """DenseLayer + loss head (DL4J OutputLayer). Inference applies the
     activation to the logits; training returns the logits."""
+    decode_pointwise = True
     n_out: int = 0
     n_in: Optional[int] = None
     loss: str = "mcxent"
@@ -124,6 +129,7 @@ class OutputLayer(Layer, _BaseOutput):
 @layer("loss")
 class LossLayer(Layer, _BaseOutput):
     """Loss head with no params (DL4J LossLayer)."""
+    decode_pointwise = True
     loss: str = "mse"
     activation: str = "identity"
     loss_weights: Optional[Tuple[float, ...]] = None

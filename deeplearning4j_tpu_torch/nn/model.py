@@ -5,7 +5,13 @@ eager layer walk ``_forward`` (with the mask, and the BN + activation fold
 plan, the same plan the JAX package makes), ``feed_forward``, ``output``
 (through the bucketed :class:`~..serving.engine.InferenceEngine`, with
 sequence buckets and masks), ``predict``, the streaming ``rnn_time_step``
-/ ``rnn_clear_previous_state`` and ``save``/``load``.
+/ ``rnn_clear_previous_state``, ``save``/``load``, and the
+autoregressive decode walk of the generative-serving slice (the JAX
+module's :880-1053): ``decode_cache_spec``, ``init_decode_cache``,
+``decode_token_features`` (on the device, bit-identical to the host
+one-hot ``f[token % F] = 1``), ``_prefill``, ``_decode_step`` (with the
+``write`` gate) and ``_full_context``, the prefix-LM oracle. The caches
+are updated in place (the JAX engines donate theirs).
 
 Parameters and state are dicts of tensors keyed by layer index (as a
 string) and then by parameter name, exactly as the JAX package keys
@@ -14,9 +20,10 @@ unchanged; the updater state is keyed by slot, then the same way.
 
 Not in this slice (each raises ``NotImplementedError`` naming the
 ``ROADMAP.md`` Queue 1 slice that ports it): ``fit``, ``score``,
-``evaluate`` and training-mode ``output`` (the LeNet slice), the
-autoregressive decode walk (generative serving) and ``quantize_params``
-(int8 serving).
+``evaluate`` and training-mode ``output`` (the LeNet slice), the paged
+decode cache (``paged_cache_spec``/``init_paged_cache``: the paged and
+speculative slice), and ``quantize_params`` and the int8 KV cache (int8
+serving).
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from .. import environment as _env
 from .config import MultiLayerConfiguration
 
 _TRAINING = "the LeNet slice of the port (ROADMAP.md Queue 1)"
-_DECODE = "the generative-serving slice of the port (ROADMAP.md Queue 1)"
+_PAGED = "the paged and speculative slice of the port (ROADMAP.md Queue 1)"
 _INT8 = "the int8-serving slice of the port (ROADMAP.md Queue 1)"
 
 
@@ -51,6 +58,7 @@ class MultiLayerNetwork:
         self._epilogue_fold = None
         self._rnn_step_fn = None
         self._rnn_stream = None
+        self._decode_plan = None
 
     # ------------------------------------------------------------------ init
     def init(self, device=None) -> "MultiLayerNetwork":
@@ -277,12 +285,166 @@ class MultiLayerNetwork:
     def quantize_params(self, mode: str = "int8"):
         raise NotImplementedError(f"quantize_params comes with {_INT8}")
 
-    def _decode(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"the autoregressive decode walk comes with {_DECODE}")
+    def _paged(self, *args, **kwargs):
+        raise NotImplementedError(f"the paged decode cache comes with "
+                                  f"{_PAGED}")
 
-    decode_cache_spec = init_decode_cache = paged_cache_spec = \
-        init_paged_cache = decode_token_features = _decode
+    paged_cache_spec = init_paged_cache = _paged
+
+    # ------------------------------------------- autoregressive decode walk
+    # Prefill and one-token decode walks over the layer stack, threading
+    # per-layer (k, v) caches and per-row lengths. Prefix-LM semantics: the
+    # prompt attends bidirectionally over itself (prefill = one pass of
+    # the attention dispatch, K3 on the card), every generated token
+    # attends over everything before it and itself (K9 on the card).
+    # ``serving.engine.GenerativeEngine`` drives them; the tests hold N
+    # decode steps against :meth:`_full_context`.
+    def _decode_layer_plan(self, params):
+        """``(layer, "cache" | "pointwise")`` per layer, worked out once
+        per model (the layer list never changes); raises for a layer that
+        can be neither: the decode walk is exact, not best-effort."""
+        if self._decode_plan is not None:
+            return self._decode_plan
+        plan = []
+        for i, layer in enumerate(self.layers):
+            p = params.get(str(i), {})
+            if layer.decode_cache_spec(p, 1, 8, torch.float32) is not None:
+                plan.append((layer, "cache"))
+            elif getattr(layer, "decode_pointwise", False):
+                plan.append((layer, "pointwise"))
+            else:
+                raise ValueError(
+                    f"layer {i} ({layer.kind!r}) cannot run in the "
+                    "autoregressive decode walk (neither KV-cached nor "
+                    "time-pointwise)")
+        self._decode_plan = plan
+        return plan
+
+    def decode_cache_spec(self, batch: int, cache_len: int,
+                          kv_quant: bool = False) -> dict:
+        """``{layer_index: {"k": CacheSpec, "v": CacheSpec}}`` for the
+        KV-cached layers, in the compute dtype."""
+        self._ensure_init()
+        dt = _dt.resolve(self.conf.dtype)
+        spec = {}
+        for i, layer in enumerate(self.layers):
+            s = layer.decode_cache_spec(self.params.get(str(i), {}),
+                                        batch, cache_len, dt,
+                                        kv_quant=kv_quant)
+            if s is not None:
+                spec[str(i)] = s
+        if not spec:
+            raise ValueError("model has no KV-cached layers; nothing to "
+                             "decode incrementally")
+        return spec
+
+    def init_decode_cache(self, batch: int, cache_len: int,
+                          kv_quant: bool = False) -> dict:
+        """Zeroed decode caches for one slot batch, on the model's
+        device."""
+        return {si: {name: torch.zeros(a.shape, dtype=a.dtype,
+                                       device=self.device)
+                     for name, a in leaves.items()}
+                for si, leaves in self.decode_cache_spec(
+                    batch, cache_len, kv_quant=kv_quant).items()}
+
+    def decode_token_features(self, tokens, dtype=None):
+        """Token ids ``[B]`` -> the next decode input ``[B, 1, F]``, on the
+        tokens' device: the one-hot ``f[token % F] = 1``, bit-identical
+        to the serving front's host featurizer."""
+        shape = self.conf.input_shape
+        if not (isinstance(shape, (tuple, list)) and len(shape) == 2):
+            raise ValueError(
+                "decode_token_features needs a recurrent [T, F] input "
+                f"type; model input_shape is {shape!r}")
+        f = int(shape[1])
+        dt = _dt.resolve(self.conf.dtype) if dtype is None else dtype
+        toks = torch.as_tensor(tokens).to(torch.int64) % f
+        out = torch.zeros((toks.shape[0], f), dtype=dt, device=toks.device)
+        return out.scatter_(1, toks[:, None], 1.0)[:, None, :]
+
+    def _decode_cast(self, params, x):
+        dt = _dt.resolve(self.conf.dtype)
+        x = torch.as_tensor(x)
+        if dt.is_floating_point and x.is_floating_point() and x.dtype != dt:
+            x = x.to(dt)
+        if _dt.is_mixed(self.conf.dtype):
+            params = _dt.cast_floating(params, dt)
+        return params, x
+
+    def _prefill(self, params, x, state, caches, lengths):
+        """Prompt phase: ``x`` ``[B, T, F]`` end-padded, ``lengths`` ``[B]``
+        the true prompt lengths. Fills the caches' positions ``[0, T)`` in
+        place (rows past a length are masked by the decode side) and
+        returns ``(y [B, T, out], caches)``."""
+        params, x = self._decode_cast(params, x)
+        T = x.shape[1]
+        lengths = torch.as_tensor(lengths).to(x.device)
+        mask = (torch.arange(T, device=x.device)[None, :]
+                < lengths[:, None]).to(torch.float32)
+        new_caches = {}
+        for i, (layer, kind) in enumerate(self._decode_layer_plan(params)):
+            si = str(i)
+            p, s = params.get(si, {}), state.get(si, {})
+            if kind == "cache":
+                x, new_caches[si] = layer.prefill(
+                    p, x, s, cache=caches[si], lengths=lengths, mask=mask)
+            else:
+                x, _, _ = layer.apply(p, x, s, train=False, mask=mask)
+        return x, new_caches
+
+    def _decode_step(self, params, x, state, caches, lengths, write=None,
+                     page_table=None, page_size=0):
+        """One decode window ``x`` ``[B, Tq, F]``; ``lengths`` ``[B]`` the
+        tokens cached BEFORE it. Appends the window's k/v at ``lengths``
+        onward in place (rows with ``write == 0`` keep their caches bit for
+        bit) and returns ``(y [B, Tq, out], caches)``; the caller advances
+        ``lengths``."""
+        if page_table is not None:
+            raise NotImplementedError(f"the paged decode cache comes with "
+                                      f"{_PAGED}")
+        params, x = self._decode_cast(params, x)
+        lengths = torch.as_tensor(lengths).to(x.device)
+        new_caches = {}
+        for i, (layer, kind) in enumerate(self._decode_layer_plan(params)):
+            si = str(i)
+            p, s = params.get(si, {}), state.get(si, {})
+            if kind == "cache":
+                x, new_caches[si] = layer.decode_step(
+                    p, x, s, cache=caches[si], lengths=lengths, write=write)
+            else:
+                x, _ = layer.decode_step(p, x, s, cache=None,
+                                         lengths=lengths)
+        return x, new_caches
+
+    def _full_context(self, params, x, state, prompt_lengths, lengths):
+        """The full-recompute oracle: one quadratic forward over the whole
+        running sequence under the prefix-LM mask: position j is visible
+        to position i iff ``j < prompt_len`` or ``j <= i``, and ``j`` is
+        within the row's ``lengths``."""
+        params, x = self._decode_cast(params, x)
+        T, dev = x.shape[1], x.device
+        prompt_lengths = torch.as_tensor(prompt_lengths).to(dev)
+        lengths = torch.as_tensor(lengths).to(dev)
+        ii = torch.arange(T, device=dev)[:, None]
+        jj = torch.arange(T, device=dev)[None, :]
+        allowed = ((jj < prompt_lengths[:, None, None]) | (jj <= ii)) \
+            & (jj < lengths[:, None, None])
+        zero = torch.tensor(0.0, device=dev)
+        neg = torch.tensor(torch.finfo(torch.float32).min, device=dev)
+        bias = torch.where(allowed[:, None], zero, neg)        # [B,1,T,T]
+        key_bias = torch.where(torch.arange(T, device=dev)[None, None, None,
+                                                          :]
+                               < lengths[:, None, None, None], zero, neg)
+        for i, (layer, kind) in enumerate(self._decode_layer_plan(params)):
+            si = str(i)
+            p, s = params.get(si, {}), state.get(si, {})
+            if kind == "cache":
+                x = layer.full_context(p, x, s, bias=bias,
+                                       key_bias=key_bias)
+            else:
+                x, _, _ = layer.apply(p, x, s, train=False, mask=None)
+        return x
 
     # ------------------------------------------------------------------ serde
     def save(self, path, save_updater: bool = True):

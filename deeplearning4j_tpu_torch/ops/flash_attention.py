@@ -39,11 +39,57 @@ Divergences from the JAX dispatcher, by design:
 - There is no ``force`` mode: it ran the Pallas kernel in interpret mode
   on the CPU, and a CUDA kernel has no such mode.
 - Mode ``off`` is refused for CUDA tensors (the JAX package runs its
-  reference path there).
+  reference path there), by the decode dispatch too.
 - The key bias gets no gradient (None), as the JAX package's zero
   cotangent: it is a mask-derived constant on this route. A learned bias
   that varies over heads or queries takes ``fallback_bias``, where autograd
   differentiates it.
+
+The decode half (the JAX module's :556-1051, without the tensor-parallel
+branch):
+
+- :func:`length_bias` (:556) and :func:`reference_decode_attention`
+  (:567), both K9's module's (``kernels/decode_attention.py``): the length
+  mask and K9's plain version, K3's at any number of query rows;
+  :func:`cache_insert` (:622) and :func:`reference_decode_multiquery`
+  (:747);
+- :func:`decode_dispatch` (:1027), the entry of the KV-cached attention
+  layers' ``decode_step``. Its decisions, read through
+  :func:`decode_counters` (one per call):
+
+  - ``decode_fused``: a CUDA ``q`` of one query row in mode ``auto``: K9
+    (``kernels/decode_attention.py``) with the lengths as int32;
+  - ``decode_fallback_platform``: a CPU tensor: K9's wrapper, which runs
+    its plain version there;
+  - ``decode_fallback_mode``: mode ``off`` on CPU tensors, the same plain
+    version (on CUDA tensors it raises, as :func:`attention` does);
+  - ``decode_fallback_multiquery``: a query bank of ``Tq > 1`` rows with
+    uniform visibility over the valid cache
+    (``LearnedSelfAttentionLayer`` with ``n_queries > 1``): the
+    length-masked plain version on both devices, as in the JAX package,
+    which has no kernel for it either. It is the one route on which a
+    CUDA tensor runs plain torch ops and neither a kernel nor a refusal
+    (``ROADMAP.md`` Queue 3); the counter shows each use.
+
+  A ``q`` that is not ``[B, H, Tq, d]`` raises: there is no
+  ``decode_fallback_shape``, ``_dtype`` or ``_vmem`` (K9 takes every cache
+  length; the dtype and head-dimension limits raise in its wrapper).
+- :func:`decode_multiquery_dispatch` (:1091), the speculative verify
+  window: its plain version for CPU tensors (counted
+  ``decode_multiquery_fallback``); for CUDA tensors it raises
+  ``NotImplementedError``: its kernel, K10, comes with the paged and
+  speculative slice (``ROADMAP.md`` Queue 1).
+
+``cache_insert`` keeps ``dynamic_update_slice``'s semantics: a start index
+past ``C - k`` clamps to ``C - k`` (a negative one counts from the end
+first, as JAX indexes), and rows with ``write == 0`` write back the values
+they gathered, so they stay bit for bit. Unlike the JAX function it
+updates ``cache`` IN PLACE and returns it: the caller owns the cache (the
+JAX engines donate theirs, which XLA turns into the same in-place
+update).
+
+The decode decisions are kept apart from :func:`counters` (read through
+:func:`decode_counters`); :func:`reset_counters` zeroes both.
 """
 
 from __future__ import annotations
@@ -55,12 +101,16 @@ from typing import Optional
 import torch
 
 from . import register
+from ..kernels import decode_attention as _k9
 from ..kernels import flash_attention as _k3
 
 _NEG = float(torch.finfo(torch.float32).min)
 _MODES = ("auto", "off")
 _COUNTER_KEYS = ("fused", "fallback_mode", "fallback_platform",
                  "fallback_bias")
+_DECODE_KEYS = ("decode_fused", "decode_fallback_mode",
+                "decode_fallback_platform", "decode_fallback_multiquery",
+                "decode_multiquery_fallback")
 _counts = collections.Counter()
 _state = {"mode": "auto"}
 
@@ -123,8 +173,15 @@ def counters() -> dict:
     return {k: int(_counts[k]) for k in _COUNTER_KEYS}
 
 
+def decode_counters() -> dict:
+    """Decode dispatch-decision counts since the last reset (one per
+    call)."""
+    return {k: int(_counts[k]) for k in _DECODE_KEYS}
+
+
 def reset_counters() -> None:
-    """Zero the decision counters and ``do_copies``."""
+    """Zero the decision counters (the decode ones too) and
+    ``do_copies``."""
     global do_copies
     _counts.clear()
     do_copies = 0
@@ -195,3 +252,109 @@ def fused_sdpa(q, k, v, bias=None, scale: float = 1.0):
     ``autodiff.fusion.fuse_attention``: ``softmax((q @ k^T) * scale +
     bias, axis=-1) @ v`` with the softmax in f32."""
     return attention(q, k, v, bias=bias, scale=float(scale))
+
+
+# --------------------------------------------------------------------------
+# autoregressive decode: one new-token query over a bucketed KV cache
+# --------------------------------------------------------------------------
+
+#: the JAX module's names for K9's length mask and plain version
+length_bias = _k9.length_bias
+reference_decode_attention = _k9.decode_attention_reference
+
+
+def reference_decode_multiquery(q, k, v, lengths, scale=None):
+    """Quadratic reference for the speculative ``Tq = k`` verify window:
+    query i sits at position ``lengths[b] + i`` and attends cache columns
+    ``< lengths[b] + 1 + i`` (its own just-appended token included):
+    causal within the window, the whole prefix visible."""
+    C, Tq = k.shape[2], q.shape[2]
+    lengths = torch.as_tensor(lengths).to(q.device).to(torch.int64)
+    col = torch.arange(C, device=q.device)[None, None, :]
+    row = torch.arange(Tq, device=q.device)[None, :, None]
+    valid = col < lengths[:, None, None] + 1 + row
+    bias = torch.where(valid, torch.tensor(0.0, device=q.device),
+                       torch.tensor(_NEG, device=q.device))[:, None]
+    return reference_attention(q, k, v, bias=bias, scale=scale)
+
+
+def cache_insert(cache, new, lengths, write=None):
+    """Append one token window's K or V rows into a bucketed cache, IN
+    PLACE: ``cache`` ``[B, H, C, d]``, ``new`` ``[B, H, k, d]`` (k = 1 for
+    plain decode, k > 1 for a verify window) written at positions
+    ``lengths[b] .. lengths[b] + k - 1``; returns ``cache``.
+
+    ``dynamic_update_slice`` semantics as JAX applies them: a negative
+    start counts from the end (``+ C``), then the start clamps to ``[0,
+    C - k]``. ``write`` ``[B]`` (optional 0/1):
+    rows with ``write == 0`` write back the values gathered at the
+    (clamped) positions, so they stay bit-identical, and a freed slot's
+    stale length can never touch a neighbour's rows."""
+    B, H, C, d = cache.shape
+    kw = new.shape[2]
+    if new.shape != (B, H, kw, d) or kw > C:
+        raise ValueError(f"cache_insert: window {tuple(new.shape)} does not "
+                         f"fit the cache {tuple(cache.shape)}")
+    start = torch.as_tensor(lengths).to(cache.device).to(torch.int64)
+    start = torch.clamp(torch.where(start < 0, start + C, start), 0, C - kw)
+    pos = start[:, None] + torch.arange(kw, device=cache.device)[None, :]
+    rows = torch.arange(B, device=cache.device)[:, None].expand(B, kw)
+    view = cache.transpose(1, 2)                       # [B, C, H, d]
+    upd = new.to(cache.dtype).transpose(1, 2)          # [B, k, H, d]
+    if write is not None:
+        keep = torch.as_tensor(write).to(cache.device).to(torch.bool)
+        upd = torch.where(keep[:, None, None, None], upd, view[rows, pos])
+    view[rows, pos] = upd
+    return cache
+
+
+def _route_decode(q) -> str:
+    """The decode decision for a ``[B, H, Tq, d]`` query."""
+    if q.dim() != 4 or q.shape[2] < 1:
+        raise ValueError(f"decode attention wants q [B, H, Tq, d]; got "
+                         f"{tuple(q.shape)}")
+    if q.shape[2] > 1:
+        return "decode_fallback_multiquery"
+    if _state["mode"] == "off":
+        if q.device.type == "cuda":
+            raise ValueError(
+                "flash attention mode 'off' is refused for CUDA tensors: "
+                "on the card decode attention runs K9 (set_mode('auto'))")
+        return "decode_fallback_mode"
+    if q.device.type != "cuda":
+        return "decode_fallback_platform"
+    return "decode_fused"
+
+
+def decode_dispatch(q, k, v, lengths, scale: Optional[float] = None):
+    """Guarded decode dispatch: K9's wrapper for a ``q`` of one query row
+    (K9 on a CUDA tensor, its plain version on a CPU one), the
+    length-masked plain version for a query bank (see the module
+    docstring). ``q`` ``[B, H, Tq, d]``; ``k``, ``v`` ``[B, H, C, d]``;
+    ``lengths`` ``[B]``: the valid cache entries, the just-appended
+    token included."""
+    reason = _route_decode(q)
+    _counts[reason] += 1
+    if reason == "decode_fallback_multiquery":
+        return reference_decode_attention(q, k, v, lengths, scale=scale)
+    if reason == "decode_fused":
+        lengths = torch.as_tensor(lengths)
+        if lengths.device != q.device or lengths.dtype != torch.int32:
+            lengths = lengths.to(device=q.device, dtype=torch.int32)
+        lengths = lengths.contiguous()
+    return _k9.decode_attention(q, k, v, lengths, scale)
+
+
+def decode_multiquery_dispatch(q, k, v, lengths,
+                               scale: Optional[float] = None):
+    """The speculative verify window (``lengths`` counts the valid
+    entries BEFORE the window): its plain version on CPU tensors, counted
+    ``decode_multiquery_fallback``. On CUDA tensors it raises: its kernel
+    (K10) comes with the paged and speculative slice."""
+    if q.device.type == "cuda":
+        raise NotImplementedError(
+            "the speculative verify window on the card needs K10, which "
+            "comes with the paged and speculative slice of the port "
+            "(ROADMAP.md Queue 1)")
+    _counts["decode_multiquery_fallback"] += 1
+    return reference_decode_multiquery(q, k, v, lengths, scale=scale)

@@ -6,9 +6,37 @@ coalesces concurrent requests up to ``max_batch_size`` rows or
 ``max_wait_ms`` of linger into ONE :class:`InferenceEngine` call (padded to
 a bucket), then scatters the rows back and resolves per-request futures.
 
-Not ported yet (they come with the runtime slice): the SEQUENTIAL mode,
-deadlines, load shedding, transient retries, the health state machine,
-SLOs and request tracing.
+Not ported yet for ``ParallelInference`` (they come with the runtime
+slice): the SEQUENTIAL mode, deadlines, load shedding, transient retries,
+the health state machine, SLOs and request tracing.
+
+:class:`ContinuousBatcher` is the port of the JAX module's generative
+front (``GenerationHandle`` :821, ``_GenRequest`` :856,
+``ContinuousBatcher`` :911) over the contiguous
+:class:`~.engine.GenerativeEngine`: requests join the decode batch at
+token boundaries when a slot frees up (their prompts prefill between
+decode iterations, ``prefill_per_iter`` per iteration) and leave the
+moment they finish, without perturbing the other slots. The default front
+decodes in horizons of up to ``max_horizon`` tokens sampled on the device
+(``on_device`` decisions), the next horizon dispatched from the last
+one's device-carried chain before the last one is read back; a custom
+``sample_fn`` or ``token_to_features`` runs the per-token host loop
+(``host_loop`` decisions). ``deadline_ms`` bounds enqueue -> admission (a
+request still queued when it expires fails with ``DeadlineExceeded`` and
+never prefills; an admitted generation is never expired);
+``shed_queue_depth`` rejects in the caller's thread with ``QueueFull``;
+``health()`` is the HEALTHY / DEGRADED / SHEDDING state machine over the
+recent events; ``stats()`` reports TTFT and TPOT percentiles and the
+decision mix. The worker thread sets the engine's device in its thread
+and hands every exception to the requests' handles; a failed decode
+fails the in-flight requests and rebuilds a fresh state
+(``_fail_active``).
+
+Divergences: no ``serving.decode`` fault site, retries, SLO or request
+trace (the runtime slice); ``paged=``, ``draft_model=``,
+``submit_prefilled``, ``quantize=`` and ``kv_cache=`` raise ``NotImplementedError`` naming their slices
+(``ROADMAP.md`` Queue 1); stochastic sampling draws from a
+``torch.Generator`` seeded with ``seed``.
 """
 
 from __future__ import annotations
@@ -18,13 +46,15 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future, TimeoutError as _FutTimeout
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import environment as _env
-from .engine import InferenceEngine, default_buckets, next_bucket
+from ..ops import sampling as _smp
+from .engine import (GenerativeEngine, InferenceEngine, default_buckets,
+                     next_bucket)
 
 
 class InferenceMode:
@@ -33,6 +63,20 @@ class InferenceMode:
 
 class ShutdownError(RuntimeError):
     """The front was shut down before the request was served."""
+
+
+class DeadlineExceeded(Exception):
+    """A generation request's admission deadline expired in the queue."""
+
+
+class QueueFull(Exception):
+    """The generation queue is at its load-shedding threshold."""
+
+
+class HealthState:
+    HEALTHY = "HEALTHY"
+    DEGRADED = "DEGRADED"
+    SHEDDING = "SHEDDING"
 
 
 class _Request:
@@ -289,3 +333,561 @@ class ParallelInference:
             self._batches += 1
             self._rows.append(total)
             self._latency.extend(done_t - r.t_enqueue for r in batch)
+
+
+# ===========================================================================
+# Continuous batching for autoregressive decode
+# ===========================================================================
+
+_PAGED = "the paged and speculative slice of the port (ROADMAP.md Queue 1)"
+_INT8 = "the int8-serving slice of the port (ROADMAP.md Queue 1)"
+
+
+def _percentile(values, q):
+    return float(np.percentile(np.asarray(values, np.float64), q)) \
+        if len(values) else None
+
+
+class GenerationHandle:
+    """One in-flight generation: a ``Future`` resolving to ``{"tokens":
+    [ids], "logits": last-step logits}``, and :meth:`tokens`, which yields
+    the token ids as they are produced (what POST /generate streams)."""
+
+    def __init__(self):
+        self.future: Future = Future()
+        self._stream: "queue.Queue" = queue.Queue()
+
+    def _emit(self, index: int, token: int):
+        self._stream.put((index, int(token)))
+
+    def _finish(self, err: Optional[BaseException] = None):
+        self._stream.put(None)
+        if err is not None and not self.future.done():
+            self.future.set_exception(err)
+
+    def tokens(self, timeout: Optional[float] = None):
+        """Yield the generated token ids in order as they are produced; a
+        terminal failure is raised to the consumer too."""
+        while True:
+            item = self._stream.get(timeout=timeout)
+            if item is None:
+                err = self.future.exception() if self.future.done() \
+                    else None
+                if err is not None:
+                    raise err
+                return
+            yield item[1]
+
+    def result(self, timeout: Optional[float] = None) -> dict:
+        return self.future.result(timeout=timeout)
+
+
+class _GenRequest:
+    __slots__ = ("x", "plen", "max_new", "eos_id", "handle", "t_enqueue",
+                 "deadline", "t_admitted", "tokens", "emitted",
+                 "t_first_token")
+
+    def __init__(self, x, plen, max_new, eos_id, deadline):
+        self.x = x                    # [T, F] prompt features (host)
+        self.plen = int(plen)
+        self.max_new = int(max_new)
+        self.eos_id = eos_id
+        self.handle = GenerationHandle()
+        self.t_enqueue = time.perf_counter()
+        self.deadline = deadline      # absolute admission deadline or None
+        self.t_admitted = None
+        self.tokens: List[int] = []
+        self.emitted = 0
+        self.t_first_token = None
+
+    def expired(self, now=None) -> bool:
+        return self.deadline is not None and \
+            (now if now is not None else time.perf_counter()) > self.deadline
+
+
+class _Horizon:
+    """One dispatched horizon and its host bookkeeping: the slots live at
+    dispatch and each one's token budget left after it lands."""
+
+    __slots__ = ("res", "live", "k", "budget_after")
+
+    def __init__(self, res, live, k, budget_after):
+        self.res = res
+        self.live = list(live)
+        self.k = int(k)
+        self.budget_after = dict(budget_after)
+
+
+class ContinuousBatcher:
+    """Token-boundary continuous batching over a
+    :class:`~.engine.GenerativeEngine` slot set (see the module
+    docstring). ``device`` follows the port's rule (``cuda`` unless the
+    caller asks for ``cpu``) and must be the model's."""
+
+    def __init__(self, model, slots: int = 4, max_cache_len: int = 256,
+                 min_cache_len: int = 16,
+                 prompt_buckets: Optional[Sequence[int]] = None,
+                 max_new_tokens: int = 32, queue_limit: int = 256,
+                 deadline_ms: Optional[float] = None,
+                 shed_queue_depth: Optional[int] = None,
+                 prefill_per_iter: int = 1, eos_id: Optional[int] = None,
+                 token_to_features=None, sample_fn=None, engine=None,
+                 warmup: bool = True, quantize: Optional[str] = None,
+                 kv_cache: Optional[str] = None, paged: bool = False,
+                 draft_model=None, max_horizon: int = 8,
+                 sampling: Optional[_smp.SamplingSpec] = None,
+                 seed: int = 0, device=None):
+        if paged:
+            raise NotImplementedError(f"paged=True comes with {_PAGED}")
+        if draft_model is not None:
+            raise NotImplementedError(f"speculative decoding comes with "
+                                      f"{_PAGED}")
+        if quantize is not None or kv_cache is not None:
+            raise NotImplementedError(f"quantize=/kv_cache= come with "
+                                      f"{_INT8}")
+        self.model = model
+        self.max_cache_len = next_bucket(max_cache_len)
+        self.min_cache_len = next_bucket(min_cache_len)
+        self.engine = engine if engine is not None else GenerativeEngine(
+            model, slots=slots, device=device)
+        self.slots = self.engine.slots
+        self.max_new_tokens = int(max_new_tokens)
+        self.deadline_ms = deadline_ms
+        self.shed_queue_depth = None if shed_queue_depth is None \
+            else int(shed_queue_depth)
+        self.prefill_per_iter = max(1, int(prefill_per_iter))
+        self.eos_id = eos_id
+        self._f = self.engine._feature_dim()
+        # a custom sample_fn / token_to_features cannot run inside the
+        # device horizon: those callers keep the per-token host loop
+        self._custom_host_loop = (sample_fn is not None
+                                  or token_to_features is not None)
+        if sampling is not None and sample_fn is not None:
+            raise ValueError("sampling= configures the on-device sampler; "
+                             "a host sample_fn bypasses it: pass one of "
+                             "the two")
+        self._sampling = sampling if sampling is not None else _smp.GREEDY
+        self.max_horizon = max(1, int(max_horizon))
+        # the adaptive horizon's ramp: powers of two up to max_horizon
+        ladder, h = [], 1
+        while h < self.max_horizon:
+            ladder.append(h)
+            h <<= 1
+        ladder.append(self.max_horizon)
+        self._ladder = tuple(ladder)
+        self.token_to_features = token_to_features or self._one_hot
+        self.sample_fn = sample_fn or (lambda logits: int(np.argmax(logits)))
+        if warmup:
+            cb, b = [], self.min_cache_len
+            while b <= self.max_cache_len:
+                cb.append(b)
+                b <<= 1
+            pb = list(prompt_buckets) if prompt_buckets else cb
+            horizons = () if self._custom_host_loop else (self.max_horizon,)
+            self.engine.warmup(cb, pb, horizons=horizons,
+                               sampling=self._sampling)
+        # live decode state and its host mirrors (the worker's own)
+        self._state = self.engine.new_state(self.min_cache_len)
+        self._slot_req: List[Optional[_GenRequest]] = [None] * self.slots
+        self._lengths = np.zeros((self.slots,), np.int64)
+        self._x_t = np.zeros((self.slots, 1, self._f), np.float32)
+        self._inflight: Optional[_Horizon] = None
+        self._h_streak = 0
+        self._gen = torch.Generator(device=self.engine.device).manual_seed(
+            int(seed))
+        self._token_times: deque = deque(maxlen=4096)
+        self._q: "queue.Queue[_GenRequest]" = queue.Queue(maxsize=queue_limit)
+        self._shutdown = threading.Event()
+        self._lock = threading.Lock()
+        self._counts = {k: 0 for k in (
+            "requests", "tokens_generated", "failures", "shed",
+            "deadline_expired", "on_device", "host_loop")}
+        self._ttft = deque(maxlen=4096)
+        self._tpot = deque(maxlen=4096)
+        self.health_window = 5.0
+        self._events = deque(maxlen=1024)
+        # the worker drives the engine's card: its index, resolved here
+        # (a bare "cuda" means the current device of this thread)
+        dev = self.engine.device
+        self._cuda_index = None if dev.type != "cuda" else (
+            dev.index if dev.index is not None
+            else torch.cuda.current_device())
+        self._worker = threading.Thread(target=self._loop, daemon=True,
+                                        name="ContinuousBatcher-decode")
+        self._worker.start()
+
+    def _bump(self, key: str, n: int = 1):
+        with self._lock:
+            self._counts[key] += n
+
+    def _note(self, kind: str):
+        self._events.append((time.perf_counter(), kind))
+
+    def health(self) -> str:
+        """HEALTHY / DEGRADED / SHEDDING over the recent event window."""
+        now = time.perf_counter()
+        recent = {k for t, k in list(self._events)
+                  if now - t <= self.health_window}
+        if "shed" in recent or (
+                self.shed_queue_depth is not None
+                and self._q.qsize() >= self.shed_queue_depth):
+            return HealthState.SHEDDING
+        if recent & {"failure", "deadline"}:
+            return HealthState.DEGRADED
+        return HealthState.HEALTHY
+
+    # ---- public ------------------------------------------------------------
+    def _one_hot(self, token: int) -> np.ndarray:
+        f = np.zeros((self._f,), np.float32)
+        f[int(token) % self._f] = 1.0
+        return f
+
+    def submit(self, prompt=None, tokens=None, plen: Optional[int] = None,
+               max_new_tokens: Optional[int] = None,
+               deadline_ms: Optional[float] = None,
+               eos_id: Optional[int] = None) -> GenerationHandle:
+        """Enqueue one generation: ``prompt`` ``[T, F]`` features, or
+        ``tokens`` (ids through ``token_to_features``). Returns a
+        :class:`GenerationHandle` at once; tokens stream as they
+        decode."""
+        if self._shutdown.is_set():
+            raise ShutdownError("ContinuousBatcher is shut down")
+        if tokens is not None:
+            prompt = np.stack([self.token_to_features(t) for t in tokens])
+        prompt = np.asarray(prompt, np.float32)
+        if prompt.ndim == 3 and prompt.shape[0] == 1:
+            prompt = prompt[0]
+        if prompt.ndim != 2 or prompt.shape[1] != self._f:
+            raise ValueError(f"prompt must be [T, {self._f}] features; got "
+                             f"{prompt.shape}")
+        plen = int(plen) if plen is not None else prompt.shape[0]
+        max_new = int(max_new_tokens) if max_new_tokens is not None \
+            else self.max_new_tokens
+        if next_bucket(plen + max_new) > self.max_cache_len:
+            raise ValueError(f"prompt ({plen}) + max_new_tokens ({max_new}) "
+                             f"exceeds max_cache_len {self.max_cache_len}")
+        if self.shed_queue_depth is not None and \
+                self._q.qsize() >= self.shed_queue_depth:
+            self._bump("shed")
+            self._note("shed")
+            raise QueueFull(f"generation queue depth {self._q.qsize()} "
+                            f"at/above shedding threshold "
+                            f"{self.shed_queue_depth}")
+        dl = self.deadline_ms if deadline_ms is None else deadline_ms
+        deadline = None if dl is None else time.perf_counter() + dl / 1e3
+        req = _GenRequest(prompt, plen, max_new,
+                          self.eos_id if eos_id is None else eos_id,
+                          deadline)
+        self._bump("requests")
+        self._q.put(req)
+        if self._shutdown.is_set() and not req.handle.future.done():
+            req.handle._finish(ShutdownError(
+                "ContinuousBatcher shut down before the request was served"))
+        return req.handle
+
+    def generate(self, prompt=None, tokens=None, **kw) -> dict:
+        """Blocking convenience over :meth:`submit`."""
+        return self.submit(prompt=prompt, tokens=tokens, **kw).result()
+
+    def submit_prefilled(self, *args, **kwargs):
+        raise NotImplementedError(f"submit_prefilled (disaggregated "
+                                  f"serving) comes with {_PAGED}")
+
+    def active_slots(self) -> int:
+        return sum(1 for r in self._slot_req if r is not None)
+
+    def stats(self) -> dict:
+        """Counters, TTFT/TPOT percentiles (ms), the windowed token rate
+        and the decision mix."""
+        now = time.perf_counter()
+        tps = sum(1 for t in list(self._token_times)
+                  if now - t <= self.health_window) / self.health_window
+        with self._lock:
+            c = dict(self._counts)
+            ttft, tpot = list(self._ttft), list(self._tpot)
+
+        def ms(v, q):
+            p = _percentile(v, q)
+            return None if p is None else p * 1e3
+
+        return {
+            "slots": self.slots, "health": self.health(), "slots_active": self.active_slots(),
+            "queue_depth": self._q.qsize(), "requests": c["requests"],
+            "tokens_generated": c["tokens_generated"],
+            "failures": c["failures"], "shed": c["shed"],
+            "deadline_expired": c["deadline_expired"], "retries": 0,
+            "cache_len": self._state.cache_len,
+            "ttft_ms_p50": ms(ttft, 50), "ttft_ms_p99": ms(ttft, 99),
+            "tpot_ms_p50": ms(tpot, 50), "tpot_ms_p99": ms(tpot, 99),
+            "tokens_per_s": tps, "max_horizon": self.max_horizon,
+            "dispatch_decisions": {"on_device": c["on_device"],
+                                   "host_loop": c["host_loop"],
+                                   "speculative": 0},
+            "engine": self.engine.stats(),
+        }
+
+    def shutdown(self):
+        self._shutdown.set()
+        if self._worker:
+            self._worker.join(timeout=30)
+        err = ShutdownError(
+            "ContinuousBatcher shut down before the request was served")
+        while True:
+            try:
+                req = self._q.get_nowait()
+            except queue.Empty:
+                break
+            req.handle._finish(err)
+        for i, req in enumerate(self._slot_req):
+            if req is not None:
+                req.handle._finish(err)
+            self._slot_req[i] = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.shutdown()
+
+    # ---- worker internals (one thread owns _state and the mirrors) --------
+    def _free_slot(self) -> Optional[int]:
+        for i, r in enumerate(self._slot_req):
+            if r is None:
+                return i
+        return None
+
+    def _loop(self):
+        if self._cuda_index is not None:
+            torch.cuda.set_device(self._cuda_index)
+        while not self._shutdown.is_set():
+            try:
+                if self._inflight is not None:
+                    # a horizon is in flight: chain its successor, then
+                    # land it (one readback) and emit its tokens
+                    self._consume_horizon()
+                    continue
+                admitted = self._admit()
+                if any(r is not None for r in self._slot_req):
+                    if self._custom_host_loop:
+                        self._decode_iter()
+                    else:
+                        self._dispatch_horizon()
+                elif not admitted:
+                    time.sleep(0.002)  # idle: no queue, no active slots
+            except Exception as e:
+                # a raising sample_fn / token_to_features or an engine
+                # error must not kill the worker and strand every future
+                self._fail_active(e)
+
+    def _fail_active(self, e: BaseException):
+        """Fail every in-flight request with ``e``, rebuild a fresh decode
+        state (the engine updates the state in place, so a failed call
+        may leave it half written; with every slot freed, zeros are the
+        right state), and keep the worker alive."""
+        self._inflight = None
+        self._h_streak = 0
+        live = [i for i, r in enumerate(self._slot_req) if r is not None]
+        self._bump("failures", max(1, len(live)))
+        self._note("failure")
+        for i in live:
+            self._slot_req[i].handle._finish(e)
+            self._slot_req[i] = None
+        self._lengths[:] = 0
+        self._x_t[:] = 0.0
+        self._state = self.engine.new_state(self.min_cache_len)
+
+    def _admit(self) -> int:
+        """Prefill up to ``prefill_per_iter`` queued requests into free
+        slots, between decode iterations."""
+        n = 0
+        while n < self.prefill_per_iter:
+            slot = self._free_slot()
+            if slot is None:
+                break
+            try:
+                req = self._q.get(timeout=0.02 if n == 0 and not any(
+                    r is not None for r in self._slot_req) else 0.0)
+            except queue.Empty:
+                break
+            # the admission deadline is checked here, against the enqueue
+            # clock; an admitted generation restarts its clock
+            if req.expired():
+                self._bump("deadline_expired")
+                self._note("deadline")
+                req.handle._finish(DeadlineExceeded(
+                    "generation request expired before admission"))
+                continue
+            try:
+                self._prefill(req, slot)
+                n += 1
+            except Exception as e:
+                self._bump("failures")
+                self._note("failure")
+                req.handle._finish(e)
+                if self._slot_req[slot] is req:
+                    self._slot_req[slot] = None
+                self._reset_slot(slot)
+        return n
+
+    def _prefill(self, req: _GenRequest, slot: int):
+        need_c = next_bucket(max(req.plen + 1, next_bucket(req.x.shape[0])))
+        if need_c > self._state.cache_len:
+            self._state = self.engine.grow(self._state, need_c)
+        req.t_admitted = time.perf_counter()
+        self._state, logits = self.engine.prefill(self._state, req.x,
+                                                  req.plen, slot)
+        self._slot_req[slot] = req
+        self._lengths[slot] = req.plen
+        self._emit_token(slot, logits)
+
+    def _reset_slot(self, slot: int):
+        self._lengths[slot] = 0
+        self._x_t[slot] = 0.0
+
+    def _emit_token(self, slot: int, logits: np.ndarray):
+        self._emit_known(slot, self.sample_fn(logits), logits)
+
+    def _emit_known(self, slot: int, tok: int, logits: np.ndarray) -> bool:
+        """Emit one decided token; True when the request finished and the
+        slot was reclaimed."""
+        req = self._slot_req[slot]
+        tok = int(tok)
+        req.tokens.append(tok)
+        req.emitted += 1
+        self._bump("tokens_generated")
+        req.handle._emit(req.emitted - 1, tok)
+        now = time.perf_counter()
+        self._token_times.append(now)
+        if req.t_first_token is None:
+            # TTFT: submit -> first emitted token, queue and prefill in
+            req.t_first_token = now
+            with self._lock:
+                self._ttft.append(now - req.t_enqueue)
+        done = req.emitted >= req.max_new or \
+            (req.eos_id is not None and tok == req.eos_id)
+        if done:
+            if req.emitted > 1:
+                with self._lock:
+                    self._tpot.append((now - req.t_first_token)
+                                      / (req.emitted - 1))
+            if not req.handle.future.done():
+                req.handle.future.set_result(
+                    {"tokens": list(req.tokens), "logits": logits})
+            req.handle._finish()
+            self._slot_req[slot] = None
+            self._reset_slot(slot)
+        else:
+            self._x_t[slot, 0] = self.token_to_features(tok)
+        return done
+
+    # ---- device horizons ---------------------------------------------------
+    def _pick_horizon(self, live) -> int:
+        """k = 1 while requests wait (joins stay at token boundaries),
+        else up the ramp toward ``max_horizon``; never past the smallest
+        remaining token budget of the live slots."""
+        if self.max_horizon <= 1 or not self._q.empty():
+            self._h_streak = 0
+            k = 1
+        else:
+            k = self._ladder[min(self._h_streak, len(self._ladder) - 1)]
+            self._h_streak += 1
+        budget = min(self._slot_req[s].max_new - self._slot_req[s].emitted
+                     for s in live)
+        return max(1, min(k, budget))
+
+    def _eos_vec(self, live) -> np.ndarray:
+        eos = np.full((self.slots,), -1, np.int32)
+        for s in live:
+            e = self._slot_req[s].eos_id
+            if e is not None:
+                eos[s] = int(e)
+        return eos
+
+    def _dispatch_horizon(self):
+        """Dispatch one horizon without reading it back."""
+        active = np.array([1 if r is not None else 0
+                           for r in self._slot_req], np.int32)
+        live = [i for i in range(self.slots) if active[i]]
+        k = self._pick_horizon(live)
+        need = int(self._lengths[live].max()) + k
+        if need > self._state.cache_len:
+            self._state = self.engine.grow(self._state, need)
+        try:
+            self._state, res = self.engine.decode_multi(
+                self._state, self._x_t, active, k,
+                eos_ids=self._eos_vec(live), sampling=self._sampling,
+                generator=self._gen)
+        except Exception as e:
+            self._fail_active(e)
+            return
+        self._bump("on_device")
+        self._inflight = _Horizon(res, live, k, {
+            s: self._slot_req[s].max_new - self._slot_req[s].emitted - k
+            for s in live})
+
+    def _maybe_chain(self, h: _Horizon):
+        """Dispatch horizon i+1 from horizon i's device-carried chain
+        before horizon i is read back. It yields to admission (a queued
+        request and a free slot) and to growth (a bigger cache bucket
+        copies the caches: read back first)."""
+        if self.max_horizon <= 1:
+            return
+        if not self._q.empty() and self._free_slot() is not None:
+            return
+        cont = [s for s in h.live if h.budget_after.get(s, 0) > 0
+                and self._slot_req[s] is not None]
+        if not cont:
+            return
+        budget = min(h.budget_after[s] for s in cont)
+        k2 = self._ladder[min(self._h_streak, len(self._ladder) - 1)]
+        k2 = max(1, min(k2, budget))
+        # lengths after horizon i are at most mirror + h.k (an EOS freeze
+        # advances less, and its rows are gated off)
+        need = max(int(self._lengths[s]) + h.k for s in cont) + k2
+        if need > self._state.cache_len:
+            return
+        cap = np.zeros((self.slots,), np.int32)
+        cap[cont] = 1
+        self._state, res = self.engine.decode_multi(
+            self._state, None, None, k2, eos_ids=self._eos_vec(cont),
+            active_cap=cap, sampling=self._sampling, chain=h.res.chain)
+        self._h_streak += 1
+        self._bump("on_device")
+        self._inflight = _Horizon(
+            res, cont, k2, {s: h.budget_after[s] - k2 for s in cont})
+
+    def _consume_horizon(self):
+        """Land the in-flight horizon: chain its successor first, then one
+        readback, then the per-token host work (emission, slot reclaim)."""
+        h = self._inflight
+        self._inflight = None
+        self._maybe_chain(h)
+        toks, logits, emitted = h.res.fetch()
+        for s in h.live:
+            if self._slot_req[s] is None:
+                continue
+            m = int(emitted[:, s].sum())
+            for j in range(m):
+                self._lengths[s] += 1
+                if self._emit_known(s, int(toks[j, s]), logits[j, s]):
+                    break
+
+    def _decode_iter(self):
+        """The per-token host loop (a custom ``sample_fn`` or
+        ``token_to_features``): one decode, then host sampling."""
+        active = np.array([1 if r is not None else 0
+                           for r in self._slot_req], np.int32)
+        live = [i for i in range(self.slots) if active[i]]
+        if int(self._lengths[live].max()) >= self._state.cache_len:
+            self._state = self.engine.grow(self._state,
+                                           self._state.cache_len + 1)
+        self._bump("host_loop")
+        try:
+            self._state, logits = self.engine.decode(self._state, self._x_t,
+                                                     active)
+        except Exception as e:
+            self._fail_active(e)
+            return
+        self._lengths[live] += 1
+        for i in live:
+            self._emit_token(i, logits[i])

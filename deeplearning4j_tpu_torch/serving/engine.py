@@ -20,6 +20,40 @@ Divergences from the JAX engine: there is no ahead-of-time compile, so
 engine calls ``compiles`` is ``cold_calls`` here (requests that landed on
 a bucket not warmed). Meshes, tensor parallelism and int8 quantization
 wait for their slices.
+
+:class:`GenerativeEngine` is the port of the JAX module's
+``GenerativeEngine`` (:921) with :class:`DecodeState` (:848) and
+:class:`HorizonChain`/:class:`HorizonResult` (:862-920): KV-cached
+autoregressive decode for one MultiLayerNetwork over a fixed slot batch.
+``prefill`` fills one slot from a prompt padded to the smallest warmed
+prompt bucket (K3 in each attention layer on the card); ``decode`` runs
+one token for the whole slot batch with ``write = active`` (K9 in each
+attention layer); ``decode_multi`` runs a horizon of ``k <= kmax`` decode
+steps with on-device sampling, featurization and EOS freezing, and one
+host readback per horizon (:meth:`HorizonResult.fetch`); ``grow``
+re-buckets the caches by zero padding along the cache axis.
+
+Divergences from the JAX engine, by design:
+
+- Eager execution: no executables. ``warmup`` runs one prefill per
+  (prompt bucket, cache bucket) and one decode (or one horizon) per cache
+  bucket on a scratch state, and ``cold_calls`` stands in for
+  ``compiles``. The horizon is a Python loop of eager steps; ``k`` is
+  any runtime value.
+- The state is updated IN PLACE: ``prefill``, ``decode`` and
+  ``decode_multi`` write the passed state's caches and lengths and
+  return it (the JAX engine donates the caches, so there too the passed
+  state is consumed). A call that raises part-way leaves a consumed
+  state: the continuous batcher rebuilds a fresh one.
+- A ``torch.Generator`` on the engine's device takes the place of the
+  threaded PRNG key (stochastic sampling agrees in distribution only).
+- ``quantize=``, ``kv_cache="int8"``, ``mesh=`` and
+  ``warmup(checkpoint=)`` raise ``NotImplementedError`` naming their
+  slices (``ROADMAP.md`` Queue 1); the KV page export/import of
+  disaggregated serving lives on the paged engine, which comes with the
+  paged slice; ``attribution_report`` and ``decode_multi_traceable``
+  (the MFU attribution and the static-check probe) come with the runtime
+  slice.
 """
 
 from __future__ import annotations
@@ -32,6 +66,7 @@ import torch
 
 from .. import dtypes as _dt
 from .. import environment as _env
+from ..ops import sampling as _smp
 
 
 def next_bucket(n: int, minimum: int = 1) -> int:
@@ -243,3 +278,380 @@ class InferenceEngine:
                                               if t is not None}),
                 "bucket_hits": dict(self._bucket_hits),
             }
+
+
+# ===========================================================================
+# Autoregressive decode: GenerativeEngine
+# ===========================================================================
+
+_INT8 = "the int8-serving slice of the port (ROADMAP.md Queue 1)"
+_PARALLEL = "the parallel slice of the port (ROADMAP.md Queue 1)"
+
+
+class DecodeState:
+    """The live state of one decode batch: per-layer KV caches at the
+    current cache bucket and the per-slot valid lengths (int32 on the
+    device). The continuous batcher owns it; the engine updates it in
+    place."""
+
+    __slots__ = ("caches", "lengths", "cache_len")
+
+    def __init__(self, caches, lengths, cache_len: int):
+        self.caches = caches          # {layer: {"k": [S,H,C,d], "v": ...}}
+        self.lengths = lengths        # [S] int32 on the device
+        self.cache_len = int(cache_len)
+
+
+class HorizonChain:
+    """What the next horizon needs from the last one: the next-step
+    features and the live mask on the device, and the sampling generator
+    (the lengths advance in the state itself)."""
+
+    __slots__ = ("x_t", "active", "generator")
+
+    def __init__(self, x_t, active, generator):
+        self.x_t = x_t
+        self.active = active
+        self.generator = generator
+
+
+class HorizonResult:
+    """One dispatched multi-token decode horizon: ``toks`` ``[kmax, S]``,
+    ``logits`` ``[kmax, S, V]`` and ``actives`` ``[kmax, S]`` (rows ``>= k``
+    are zero); ``actives[j, s] == 1`` iff slot ``s`` really emitted token
+    j (an EOS mid-horizon, or ``j >= k``, freezes the tail, so per-slot
+    emission is a prefix). On the card the three are copied to pinned host
+    memory behind the horizon's kernels as it is dispatched, and
+    :meth:`fetch` waits for that copy alone: the horizon's one readback,
+    which a horizon dispatched after it does not delay."""
+
+    __slots__ = ("k", "chain", "_host", "_event", "_cached")
+
+    def __init__(self, toks, logits, actives, chain, k):
+        if logits.dtype in (torch.bfloat16, torch.float16):
+            logits = logits.float()
+        self._event = None
+        if toks.device.type == "cuda":
+            self._host = tuple(t.to("cpu", non_blocking=True)
+                               for t in (toks, logits, actives))
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = (toks, logits, actives)
+        self.chain = chain
+        self.k = int(k)
+        self._cached = None
+
+    def fetch(self):
+        """Host ``(toks [kmax, S], logits [kmax, S, V], actives [kmax,
+        S])`` numpy, once the horizon's device work is done. Idempotent."""
+        if self._cached is None:
+            if self._event is not None:
+                self._event.synchronize()
+            self._cached = tuple(t.numpy() for t in self._host)
+        return self._cached
+
+
+class GenerativeEngine:
+    """Bucketed KV-cached autoregressive decode for one MultiLayerNetwork
+    (the JAX package's ``GenerativeEngine``), eager.
+
+    - ``slots``: the decode batch; every decode runs the full slot batch,
+      so requests join and leave at token boundaries without changing a
+      shape (slot rows are independent).
+    - :meth:`prefill`: one request's prompt fills its slot's cache rows
+      and returns the last valid position's logits (the first generated
+      token's distribution).
+    - :meth:`decode`: one token for every slot; the ``active`` mask gates
+      the cache writes, so an inactive slot stays bit for bit.
+    - :meth:`decode_multi`: a horizon of ``k`` tokens with on-device
+      sampling and one readback.
+    - :meth:`grow`: a larger power-of-two cache bucket by zero padding,
+      entries preserved bit for bit.
+
+    ``device`` must be the model's (``cuda`` unless the caller asks for
+    ``cpu``)."""
+
+    def __init__(self, model, slots: int = 8, quantize: Optional[str] = None,
+                 kv_cache: Optional[str] = None, mesh=None, device=None):
+        if quantize is not None:
+            raise NotImplementedError(f"quantize={quantize!r} comes with "
+                                      f"{_INT8}")
+        if kv_cache is not None:
+            raise NotImplementedError(f"kv_cache={kv_cache!r} comes with "
+                                      f"{_INT8}")
+        if mesh is not None:
+            raise NotImplementedError(f"a tensor-parallel mesh comes with "
+                                      f"{_PARALLEL}")
+        device = _env.resolve_device(device)
+        if model.device is None:
+            raise RuntimeError("the model is not initialized; call "
+                               "init(device=...) first")
+        if torch.device(model.device).type != device.type:
+            raise ValueError(f"the model lives on {model.device}; this "
+                             f"engine was asked for {device}")
+        self.model = model
+        self.device = device
+        self.slots = int(slots)
+        self._lock = threading.Lock()
+        self._warmed: set = set()
+        self._calls = 0
+        self._hits = 0
+        self._cold = 0
+        #: prefills and decode steps run (warm-up included; plain
+        #: integers): each attention layer launches K3 once per prefill
+        #: and K9 once per decode step on the card
+        self.prefill_runs = 0
+        self.decode_steps = 0
+        # an un-decodable stack fails here, not at the first request
+        model.decode_cache_spec(1, 8)
+
+    # ----------------------------------------------------------- state
+    def _feature_dim(self) -> int:
+        shape = self.model.conf.input_shape
+        if shape is None or len(shape) != 2:
+            raise ValueError("generative serving needs a recurrent "
+                             "([T, F]) input_type on the model config")
+        return int(shape[1])
+
+    def _dtype(self) -> torch.dtype:
+        return _dt.resolve(self.model.conf.dtype)
+
+    def cache_bytes(self, cache_len: int) -> int:
+        """Decode-cache bytes at one bucket for the full slot batch."""
+        spec = self.model.decode_cache_spec(self.slots,
+                                            next_bucket(cache_len))
+        return sum(int(np.prod(a.shape)) * a.dtype.itemsize
+                   for leaves in spec.values() for a in leaves.values())
+
+    def new_state(self, cache_len: int) -> DecodeState:
+        """A fresh zeroed decode state at the cache bucket of
+        ``cache_len``."""
+        c = next_bucket(cache_len)
+        with torch.inference_mode():
+            caches = self.model.init_decode_cache(self.slots, c)
+            lengths = torch.zeros((self.slots,), dtype=torch.int32,
+                                  device=self.device)
+        return DecodeState(caches, lengths, c)
+
+    def grow(self, state: DecodeState, cache_len: int) -> DecodeState:
+        """Re-bucket the caches to the larger power-of-two length of
+        ``cache_len`` by zero padding along the cache axis (axis 2); the
+        existing entries are preserved bit for bit. A bucket that is not
+        larger returns ``state``."""
+        c2 = next_bucket(cache_len)
+        if c2 <= state.cache_len:
+            return state
+        with torch.inference_mode():
+            caches = {}
+            for si, leaves in state.caches.items():
+                caches[si] = {}
+                for name, a in leaves.items():
+                    g = a.new_zeros(a.shape[:2] + (c2,) + a.shape[3:])
+                    g[:, :, :a.shape[2]] = a
+                    caches[si][name] = g
+        return DecodeState(caches, state.lengths, c2)
+
+    # ---------------------------------------------------------- warm-up
+    def _count(self, key) -> None:
+        with self._lock:
+            self._calls += 1
+            if key in self._warmed:
+                self._hits += 1
+            else:
+                self._cold += 1
+
+    def warmup(self, cache_buckets: Sequence[int],
+               prompt_buckets: Sequence[int],
+               checkpoint: Optional[str] = None,
+               horizons: Sequence[int] = (),
+               sampling: _smp.SamplingSpec = _smp.GREEDY
+               ) -> "GenerativeEngine":
+        """Run every (prompt bucket x cache bucket) prefill and every
+        cache bucket's decode once on a scratch state, outside traffic;
+        with ``horizons``, one horizon per (cache bucket x capacity)
+        under ``sampling`` in place of the single-step decode (a horizon
+        front never runs it)."""
+        if checkpoint is not None:
+            raise NotImplementedError(f"warmup(checkpoint=) comes with "
+                                      f"{_PARALLEL}")
+        cs = sorted(set(next_bucket(c) for c in cache_buckets))
+        tps = sorted(set(next_bucket(t) for t in prompt_buckets))
+        hs = sorted({int(h) for h in horizons if int(h) >= 1})
+        f, S = self._feature_dim(), self.slots
+        for c in cs:
+            scratch = self.new_state(c)
+            for tp in tps:
+                if tp <= c:
+                    self._prefill_into(scratch, np.zeros((1, tp, f)), 1, 0)
+                    self._warmed.add(("prefill", tp, c))
+            x0 = np.zeros((S, 1, f), np.float32)
+            idle = np.zeros((S,), np.int32)
+            if not hs:
+                self._decode_into(scratch, x0, idle)
+                self._warmed.add(("decode", c))
+            for h in hs:
+                _, res = self._decode_multi_into(
+                    scratch, x0, idle, 1, h, None, None, sampling,
+                    torch.Generator(device=self.device).manual_seed(0),
+                    None)
+                res.fetch()
+                self._warmed.add(("decode_multi", c, h)
+                                 + sampling.static_key())
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    # --------------------------------------------------------- dispatch
+    def _tensor(self, a, dtype=None):
+        t = a if torch.is_tensor(a) else torch.from_numpy(
+            np.ascontiguousarray(a))
+        return t.to(device=self.device, dtype=dtype)
+
+    def _prefill_into(self, state, x, plen, slot):
+        m = self.model
+        x = self._tensor(x, self._dtype() if np.issubdtype(
+            np.asarray(x).dtype, np.floating) else None)
+        with torch.inference_mode(), _env.precision(self.device):
+            mini = {si: {name: a[slot:slot + 1].zero_()
+                         for name, a in leaves.items()}
+                    for si, leaves in state.caches.items()}
+            plen_t = torch.full((1,), int(plen), dtype=torch.int32,
+                                device=self.device)
+            y, _ = m._prefill(m.params, x, m.state, mini, plen_t)
+            self.prefill_runs += 1
+            state.lengths[slot] = int(plen)
+            logits = y[0, int(plen) - 1]
+            if logits.dtype in (torch.bfloat16, torch.float16):
+                logits = logits.float()
+            return logits.cpu().numpy()
+
+    def prefill(self, state: DecodeState, x, plen: int, slot: int):
+        """Fill ``slot`` from one request's prompt ``x`` (``[T, F]`` or
+        ``[1, T, F]``, host array), end-padded here to the smallest warmed
+        prompt bucket of this cache bucket (``next_bucket(T)`` when none
+        fits); ``plen`` is the true prompt length. Returns ``(state, logits
+        [V])``: the logits of the first generated token."""
+        x = np.asarray(x)
+        if x.ndim == 2:
+            x = x[None]
+        with self._lock:
+            warmed = sorted(k[1] for k in self._warmed
+                            if k[0] == "prefill" and k[2] == state.cache_len
+                            and k[1] >= x.shape[1])
+        tp = warmed[0] if warmed else next_bucket(x.shape[1])
+        if tp > state.cache_len:
+            raise ValueError(f"prompt bucket {tp} exceeds the cache bucket "
+                             f"{state.cache_len}; grow() first")
+        if tp != x.shape[1]:
+            x = np.concatenate(
+                [x, np.zeros((1, tp - x.shape[1]) + x.shape[2:], x.dtype)],
+                axis=1)
+        self._count(("prefill", tp, state.cache_len))
+        return state, self._prefill_into(state, x, plen, slot)
+
+    def _decode_into(self, state, x_t, active):
+        m = self.model
+        with torch.inference_mode(), _env.precision(self.device):
+            x = self._tensor(x_t, self._dtype())
+            a = self._tensor(np.asarray(active, np.int32))
+            y, _ = m._decode_step(m.params, x, m.state, state.caches,
+                                  state.lengths, write=a)
+            self.decode_steps += 1
+            state.lengths += a
+            logits = y[:, 0]
+            if logits.dtype in (torch.bfloat16, torch.float16):
+                logits = logits.float()
+            return logits.cpu().numpy()
+
+    def decode(self, state: DecodeState, x_t, active):
+        """One token for every slot: ``x_t`` ``[S, 1, F]`` (inactive rows
+        are ignored), ``active`` ``[S]`` 0/1. Returns ``(state, logits [S,
+        V])``; inactive rows' logits are garbage by contract."""
+        self._count(("decode", state.cache_len))
+        return state, self._decode_into(state, x_t, active)
+
+    def _decode_multi_into(self, state, x_t, active, k, kmax, eos_ids,
+                           active_cap, sampling, generator, chain):
+        m = self.model
+        S, dt = self.slots, self._dtype()
+        sample = sampling.build()
+        temp = float(sampling.temperature)
+        with torch.inference_mode(), _env.precision(self.device):
+            if chain is not None:
+                x, a, gen = chain.x_t, chain.active, chain.generator
+            else:
+                x = self._tensor(x_t, dt)
+                a = self._tensor(np.asarray(active, np.int32))
+                gen = generator
+            cap = np.ones((S,), np.int32) if active_cap is None \
+                else np.asarray(active_cap, np.int32)
+            eos = np.full((S,), -1, np.int32) if eos_ids is None \
+                else np.asarray(eos_ids, np.int32)
+            # the host-known budget gate, ANDed once for the horizon
+            a = a * self._tensor(cap)
+            eos = self._tensor(eos)
+            toks = torch.zeros((kmax, S), dtype=torch.int32,
+                               device=self.device)
+            emitted = torch.zeros((kmax, S), dtype=torch.int32,
+                                  device=self.device)
+            logits_buf = None
+            for i in range(int(k)):
+                y, _ = m._decode_step(m.params, x, m.state, state.caches,
+                                      state.lengths, write=a)
+                self.decode_steps += 1
+                logits = y[:, 0]
+                if logits_buf is None:
+                    logits_buf = logits.new_zeros((kmax,) + logits.shape)
+                tok = sample(logits, gen, temp)
+                emitted[i] = a
+                state.lengths += a
+                # an EOS freezes its slot for the rest of the horizon; the
+                # EOS token itself is emitted
+                a = a * (1 - _smp.eos_hit(tok, eos))
+                x = m.decode_token_features(tok, dtype=dt)
+                toks[i] = tok
+                logits_buf[i] = logits
+            chain = HorizonChain(x, a, gen)
+            res = HorizonResult(toks, logits_buf, emitted, chain, k)
+        return state, res
+
+    def decode_multi(self, state: DecodeState, x_t, active, k: int, *,
+                     eos_ids=None, active_cap=None,
+                     sampling: _smp.SamplingSpec = _smp.GREEDY,
+                     generator: Optional[torch.Generator] = None,
+                     chain: Optional[HorizonChain] = None):
+        """``k`` tokens for every slot, sampled, featurized and
+        EOS-frozen on the device; returns ``(state, HorizonResult)``
+        without a readback (``result.fetch()`` is the one per horizon).
+        ``eos_ids`` ``[S]`` per-slot EOS (-1: none); ``active_cap`` ``[S]``
+        0/1 the host-known budget gate ANDed into the live mask; ``chain``
+        takes the previous horizon's device-carried features, live mask
+        and generator in place of ``x_t``/``active``/``generator``. The
+        output buffers have the capacity ``kmax`` of the smallest warmed
+        horizon ``>= k`` (``k`` when none is)."""
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"a horizon takes k >= 1 tokens, got {k}")
+        with self._lock:
+            warmed = sorted(
+                kk[2] for kk in self._warmed
+                if kk[0] == "decode_multi" and kk[1] == state.cache_len
+                and kk[2] >= k and tuple(kk[3:]) == sampling.static_key())
+        kmax = warmed[0] if warmed else k
+        self._count(("decode_multi", state.cache_len, kmax)
+                    + sampling.static_key())
+        if generator is None and chain is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return self._decode_multi_into(state, x_t, active, k, kmax,
+                                       eos_ids, active_cap, sampling,
+                                       generator, chain)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"calls": self._calls, "hits": self._hits,
+                    "cold_calls": self._cold,
+                    "warmed_buckets": len(self._warmed),
+                    "prefill_runs": self.prefill_runs,
+                    "decode_steps": self.decode_steps,
+                    "slots": self.slots, "kv_cache": "off"}

@@ -13,6 +13,11 @@ holds:
   ``"slot/vertex/param"``), when there is one and it is saved;
 - ``meta.json``: iteration/epoch counters.
 
+Layers round-trip by their JSON kind and parameter names, so a
+MultiLayerNetwork with attention layers (``self_attention``,
+``learned_self_attention``) saved by the JAX package loads here, and the
+port's ZIP loads there (``tests/test_torch_generate.py`` serves one).
+
 bfloat16 arrays are stored as their uint16 view, with the true dtype in a
 ``__dtypes__`` JSON entry inside the npz (numpy cannot save the extension
 type). The port reads and writes that carrier without ``ml_dtypes``: the

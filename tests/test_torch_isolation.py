@@ -69,7 +69,8 @@ def test_scan_covers_the_package():
             "chip_smoke.py", "samediff.py", "fusion.py", "flash_attention.py",
             "bert.py", "math.py", "reduce.py", "profile_bert.py",
             "lstm_cell.py", "pallas_kernels.py", "recurrent.py", "model.py",
-            "zoo.py", "config.py", "serializer.py"} <= names
+            "zoo.py", "config.py", "serializer.py", "decode_attention.py",
+            "attention.py", "sampling.py", "profile_generate.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -165,6 +166,38 @@ def test_multilayer_entry_points_without_device_raise(no_cuda, tmp_path):
     assert back.device.type == "cpu"
     assert back.rnn_time_step(x[:, 0]).shape == (1, 5)
     assert InferenceEngine(back, device="cpu").output(x).shape == (1, 3, 5)
+
+
+def test_generative_fronts_without_device_raise(no_cuda):
+    """GenerativeEngine, ContinuousBatcher and a generative
+    JsonModelServer run on cuda unless asked for cpu, and raise without a
+    card; on the CPU they serve."""
+    from deeplearning4j_tpu_torch.nn.config import (InputType,
+                                                    NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import (OutputLayer,
+                                                    SelfAttentionLayer)
+    from deeplearning4j_tpu_torch.serving.batcher import ContinuousBatcher
+    from deeplearning4j_tpu_torch.serving.engine import GenerativeEngine
+    conf = (NeuralNetConfiguration.builder().seed(0)
+            .input_type(InputType.recurrent(6, 4))
+            .list(SelfAttentionLayer(n_out=6, n_heads=2),
+                  OutputLayer(n_out=6)).build())
+    net = MultiLayerNetwork(conf)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        net.decode_cache_spec(1, 8)  # an uninitialized net inits on cuda
+    net.init(device="cpu")
+    gen = dict(slots=1, max_cache_len=8, min_cache_len=8)
+    for make in (lambda: GenerativeEngine(net),
+                 lambda: ContinuousBatcher(net, **gen),
+                 lambda: JsonModelServer(net, generate=gen)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    cb = ContinuousBatcher(net, device="cpu", **gen)
+    try:
+        assert len(cb.generate(tokens=[1, 2], max_new_tokens=3)["tokens"]) \
+            == 3
+    finally:
+        cb.shutdown()
 
 
 def test_engine_device_must_match_model(cpu_net):

@@ -211,9 +211,13 @@ def test_what_the_slice_leaves_out_raises(nets):
                  lambda: pn.evaluate(x, x),
                  lambda: pn.output(x, train=True),
                  lambda: pn.quantize_params(),
-                 lambda: pn.decode_cache_spec(1, 8)):
+                 lambda: pn.paged_cache_spec(4, 8)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             call()
+    # the decode walk is ported; an LSTM stack refuses it, as in the JAX
+    # package
+    with pytest.raises(ValueError, match="decode"):
+        pn.decode_cache_spec(1, 8)
 
 
 def test_engine_masks_a_graph_sequence_input_as_jax_does():
