@@ -100,7 +100,20 @@ Phases, in order; any failure exits non-zero:
     64) beside the bound, the plain version and
     ``scaled_dot_product_attention`` with the float ``[B, 1, 1, C]``
     length mask;
-15. generate: the JAX package's generative-serving model
+15. kernel-mq-decode against plain: K10 (the speculative verify window,
+    multi-query decode attention) against its plain PyTorch version at
+    (B, H, k, C, d) = (8, 4, 4, 128, 64) (the speculative mix's), (32, 4,
+    4, 1024, 64) (the speculative growth mix's largest cache), (32, 12,
+    4, 4096, 64), windows of 2 and 8 at (8, 4, k, 512, 64) and a C that
+    is not a power of two, (3, 2, 4, 200, 32), with ragged lengths
+    including 0, C - k and a row whose whole window is masked, in float32,
+    bfloat16 and float16, with q packed and as the head split of a [B, k,
+    H*d] projection: within ``multiquery_decode.tolerance``, a second run
+    bitwise equal, the bfloat16 tolerance rejecting a kernel that drops one
+    split's keys, and CUDA-event times at the three first shapes beside
+    the bound, the plain version and ``scaled_dot_product_attention`` with
+    the float ``[B, 1, k, C]`` window mask;
+16. generate: the JAX package's generative-serving model
     (``tools/profile_generate.py``: V = 256, three ``SelfAttentionLayer(
     256, 4 heads)`` blocks, float32, seed 0, random weights, TF32 off):
     ``net.output`` on a batch-2 ragged request (3 K3 launches, ``fused``
@@ -114,17 +127,40 @@ Phases, in order; any failure exits non-zero:
     TTFT, TPOT and a ``torch.profiler`` split; then a growth mix (32
     slots, cache buckets 256 to 1024, prompts of 200-480 tokens, 256 new
     tokens) under the same gates, 4 streams teacher-forced;
-16. generate-server: ``JsonModelServer(generate=...)`` on localhost, POST
+17. generate-server: ``JsonModelServer(generate=...)`` on localhost, POST
     /generate for 3 prompts, each NDJSON stream equal to
     ``batcher.generate`` on the same prompt;
-17. summary: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
+18. generate-paged: the bench's paged prefix mix (``ContinuousBatcher(
+    paged=True, page_size=16)``, 65 pages, 8 streams of one 90-token system
+    prompt, 16 new tokens each), 3 runs: one prefill (3 K3 launches) for
+    the first admission, every other one a prefix hit, one copy-on-write
+    fork per stream, 3 K9 launches per decode step, only ``fused`` and
+    ``decode_fused`` decisions; the streams equal the contiguous batcher's
+    on the card and each token the CPU plain path's teacher-forced argmax;
+19. generate-spec: the speculative mix (the paged mix with
+    ``draft_model=net, speculate_k=4``, 3 runs), the speculative growth mix
+    (the growth mix made paged and speculative, 2 runs) and the speculative
+    mix with a draft from another seed (1 run): 3 K10 launches per verify
+    step, 3 K9 per draft step, only ``decode_multiquery``,
+    ``decode_fused`` and ``fused`` decisions; every stream the plain greedy
+    stream of the same mix (the paged mix's, the growth mix's) under the
+    tie rule, and teacher-forced through the CPU plain path; the accept
+    rate 1.0 with the target as its own draft (but at a near-tie, which is
+    reported) and below 1.0 with the other draft; tokens per second, TTFT,
+    TPOT, verify steps and a ``torch.profiler`` split (device time, busy
+    share, K9, K10 and K3 time); then one POST /generate through a paged,
+    speculative ``JsonModelServer``, its NDJSON stream equal to
+    ``batcher.generate``;
+20. summary: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
     power limit, and last ``{"ok": true, "device": {...}}``.
 
 The serving path (phases 4-5), the training path (phase 7), the BERT
 serving path (phase 9), the BERT fine-tune path (phase 11), the LSTM
 serving path and the LSTM streaming path (phase 13), the two generative
-mixes (phase 15) and the generative server (phase 16) are each driven
-with the launch counts set to 0 just before and read just after.
+mixes (phase 16), the generative server (phase 17), the paged mix (phase
+18), the three speculative runs and the speculative server (phase 19) are
+each driven with the launch counts set to 0 just before and read just
+after.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -242,8 +278,15 @@ DECODE_SHAPES = ((8, 4, 128, 64), (32, 4, 1024, 64), (32, 12, 512, 64),
                  (32, 12, 4096, 64), (4, 8, 2048, 128), (3, 2, 200, 32))
 DECODE_PATH_SHAPE = DECODE_SHAPES[0]
 DECODE_LONG_SHAPE = DECODE_SHAPES[3]
+#: K10's shapes (B, H, k, C, d): the speculative mix's verify window (8
+#: slots, cache 128), the speculative growth mix's at its largest cache,
+#: BERT-base heads at a long cache, windows of 2 and 8 at one shape, and a
+#: cache length that is not a power of two; the first three are timed
+MQ_SHAPES = ((8, 4, 4, 128, 64), (32, 4, 4, 1024, 64), (32, 12, 4, 4096, 64),
+             (8, 4, 2, 512, 64), (8, 4, 8, 512, 64), (3, 2, 4, 200, 32))
+MQ_PATH_SHAPE, MQ_GROW_SHAPE, MQ_LONG_SHAPE = MQ_TIMED = MQ_SHAPES[:3]
 #: K9 launches per decode step of the generative model (three attention
-#: layers), and K3 launches per prefill
+#: layers), K10 launches per verify step, and K3 launches per prefill
 GEN_LAYERS = 3
 #: the card's batch-2 output and each stream's last-step probabilities
 #: against the port's plain path on the CPU, max |diff| / max |ref|:
@@ -1480,17 +1523,17 @@ def generate_path(cb, mix, runs, counters) -> dict:
     decode step (as the engine counts them), ``fused`` and
     ``decode_fused`` decisions only, no other kernel."""
     from deeplearning4j_tpu_torch.tools import profile_generate as pg
-    k1, k3, k8, k9, fa, pk = counters
+    k1, k3, k8, k9, k10, fa, pk = counters
     eng = cb.engine
     k1.launches = k1.bwd_launches = k3.launches = k8.launches = 0
-    k9.launches = 0
+    k9.launches = k10.launches = 0
     fa.reset_counters()
     pk.reset_counters()
     p0, d0 = eng.prefill_runs, eng.decode_steps
     row = pg.profile(cb, mix, runs=runs)
     torch.cuda.synchronize()
     prefills, steps = eng.prefill_runs - p0, eng.decode_steps - d0
-    launches = {"k3": k3.launches, "k9": k9.launches}
+    launches = {"k3": k3.launches, "k9": k9.launches, "k10": k10.launches}
     want_dec = {k: 0 for k in fa.decode_counters()}
     want_dec["decode_fused"] = k9.launches
     want_att = {k: 0 for k in fa.counters()}
@@ -1500,7 +1543,7 @@ def generate_path(cb, mix, runs, counters) -> dict:
             or fa.decode_counters() != want_dec \
             or fa.counters() != want_att \
             or k1.launches or k1.bwd_launches or k8.launches \
-            or row["dispatch_decisions"]["host_loop"]:
+            or k10.launches or row["dispatch_decisions"]["host_loop"]:
         raise AssertionError(
             f"generative path: {k3.launches} K3 launches for {prefills} "
             f"prefills, {k9.launches} K9 launches for {steps} decode steps, "
@@ -1556,7 +1599,7 @@ def log_generate_row(tag, row) -> None:
 def phase_generate(counters, env) -> dict:
     from deeplearning4j_tpu_torch.serving.batcher import ContinuousBatcher
     from deeplearning4j_tpu_torch.tools import profile_generate as pg
-    k1, k3, k8, k9, fa, pk = counters
+    k1, k3, k8, k9, k10, fa, pk = counters
     env.Environment.instance().f32_matmul_precision = "highest"
     t0 = time.perf_counter()
     net = pg.build(seed=0, device="cuda")
@@ -1603,7 +1646,7 @@ def phase_generate(counters, env) -> dict:
     log("[generate] greedy on the card equals np.argmax on 64 rows of 256 "
         "logits, ties included (the first maximum wins)")
 
-    rows = {}
+    rows, streams = {}, {}
     for tag, kw, mix_spec, runs, checked in (
             ("bench", pg.BENCH, pg.BENCH_PROMPTS, 3, pg.BENCH_PROMPTS[0]),
             ("grow", pg.GROW, pg.GROW_PROMPTS, 2, GROW_CHECKED)):
@@ -1622,20 +1665,21 @@ def phase_generate(counters, env) -> dict:
         if tag == "grow" and row["final_cache_len"] != kw["max_cache_len"]:
             raise AssertionError(f"the growth mix ended at cache "
                                  f"{row['final_cache_len']}")
-        del row["streams"], row["last_logits"]
+        streams[tag] = row.pop("streams")
+        del row["last_logits"]
         rows[tag] = row
-    return {"net": net, "rows": rows, "output_rel_err": rel,
-            "output_launches": out_launches}
+    return {"net": net, "cpu": cpu, "rows": rows, "streams": streams,
+            "output_rel_err": rel, "output_launches": out_launches}
 
 
 def phase_generate_server(counters, server_mod, net) -> dict:
     from deeplearning4j_tpu_torch.tools import profile_generate as pg
-    k1, k3, k8, k9, fa, pk = counters
+    k1, k3, k8, k9, k10, fa, pk = counters
     srv = server_mod.JsonModelServer(
         net, generate=dict(pg.BENCH, max_new_tokens=SERVER_NEW))
     port = srv.start()
     eng = srv.generator.engine
-    k3.launches = k9.launches = 0
+    k3.launches = k9.launches = k10.launches = 0
     fa.reset_counters()
     p0, d0 = eng.prefill_runs, eng.decode_steps
     try:
@@ -1658,7 +1702,7 @@ def phase_generate_server(counters, server_mod, net) -> dict:
         srv.stop()
     prefills, steps = eng.prefill_runs - p0, eng.decode_steps - d0
     if k3.launches != GEN_LAYERS * prefills \
-            or k9.launches != GEN_LAYERS * steps \
+            or k9.launches != GEN_LAYERS * steps or k10.launches \
             or fa.decode_counters()["decode_fused"] != k9.launches \
             or sum(fa.decode_counters().values()) != k9.launches:
         raise AssertionError(f"generative server: {k3.launches} K3 / "
@@ -1669,7 +1713,386 @@ def phase_generate_server(counters, server_mod, net) -> dict:
         f"NDJSON stream ({SERVER_NEW} tokens) equals batcher.generate; "
         f"{k3.launches} K3 launches for {prefills} prefills, {k9.launches} "
         f"K9 launches for {steps} decode steps")
-    return {"launches": {"k3": k3.launches, "k9": k9.launches}}
+    return {"launches": {"k3": k3.launches, "k9": k9.launches, "k10": 0}}
+
+
+def window_mask_bias(k10, ln, n_queries: int, C: int, dtype):
+    """The float ``[B, 1, k, C]`` window mask of ``ln`` (0 where a query
+    may attend, ``finfo(float32).min`` elsewhere; a fully masked query
+    takes the uniform rule through its all-min row), for
+    ``scaled_dot_product_attention``."""
+    keep, uniform = k10.window_mask(ln, n_queries, C)
+    neg = float(torch.finfo(torch.float32).min)
+    bias = torch.where(keep | uniform[:, :, None], 0.0, neg)
+    return bias[:, None].to(dtype)
+
+
+def phase_kernel_mq(k10, k9, path_lengths) -> dict:
+    """K10 against its plain version at MQ_SHAPES x 3 dtypes x (packed,
+    head-split q), twice per case for determinism; ``path_lengths`` maps
+    a timed shape to the lengths (before the window) of a verify step
+    halfway through its mix. Returns the float32 times, the errors and the
+    bfloat16 dropped-split check."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    err = {"float32": 0.0, "tol_share_bfloat16": 0.0,
+           "tol_share_float16": 0.0}
+    times, cases, power = {}, 0, None
+    for B, H, kq, C, d in MQ_SHAPES:
+        ln = torch.randint(0, C - kq + 1, (B,), generator=gen, device=dev)
+        ln[0], ln[1] = 0, C - kq
+        if B > 2:
+            ln[2] = -kq  # every query of this row fully masked: uniform
+        ln = ln.to(torch.int32)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            k, v = (attn_operand(B, H, C, d, dtype, "packed", gen)
+                    for _ in range(2))
+            for layout in ATTN_LAYOUTS:
+                q = attn_operand(B, H, kq, d, dtype, layout, gen)
+                got = k10.multiquery_decode(q, k, v, ln)
+                again = k10.multiquery_decode(q, k, v, ln)
+                torch.cuda.synchronize()
+                where = f"K10 {str(dtype)[6:]} {(B, H, kq, C, d)} {layout}"
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{where} is not deterministic")
+                ref = k10.multiquery_decode_reference(q, k, v, ln)
+                viol = k10.max_violation(got, ref, q, k, v, ln)
+                if dtype == torch.float32:
+                    err["float32"] = max(err["float32"], float(
+                        (got - ref).abs().max()))
+                else:
+                    key = "tol_share_" + str(dtype)[6:]
+                    err[key] = max(err[key], viol)
+                if viol > 1.0:
+                    raise AssertionError(f"{where} disagrees with its plain "
+                                         f"version: {viol:.3g} x the "
+                                         "tolerance")
+                cases += 1
+                if (B, H, kq, C, d) == MQ_LONG_SHAPE and layout == "packed" \
+                        and dtype == torch.bfloat16:
+                    power = mq_tolerance_power(k10, k9, q, k, v, ln, ref)
+            shape = (B, H, kq, C, d)
+            if shape not in MQ_TIMED or dtype == torch.float16:
+                continue
+            if shape in path_lengths:
+                tl = torch.tensor(path_lengths[shape], dtype=torch.int32,
+                                  device=dev)
+            else:
+                tl = torch.randint(C // 2, C - kq + 1, (B,), generator=gen,
+                                   device=dev).to(torch.int32)
+            mask = window_mask_bias(k10, tl, kq, C, dtype)
+            ms, host = time_ms(lambda: k10.multiquery_decode(q, k, v, tl))
+            plain, _ = time_ms(
+                lambda: k10.multiquery_decode_reference(q, k, v, tl),
+                reps=10)
+            lib, _ = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask))
+            bound, by = k10.bound_ms(tl.cpu().numpy(), H, kq, C, d,
+                                     q.element_size())
+            if dtype == torch.float32:
+                times[shape] = (ms, plain, lib, host, bound, by)
+            log(f"[kernel-mq-decode] K10 {str(dtype)[6:]:8s} B={B:2d} "
+                f"H={H:2d} k={kq} C={C:4d} d={d:3d} heads splits="
+                f"{k9.num_splits(B, H, C)} lengths {int(tl.min())}.."
+                f"{int(tl.max())} ms={ms:.5f} plain_ms={plain:.5f} "
+                f"bound_ms={bound:.5f} ({by}) library_ms={lib:.5f} "
+                f"host_ms={host:.5f}")
+            del q, k, v
+    log(f"[kernel-mq-decode] K10 matches its plain version and repeats bit "
+        f"for bit: {cases} cases ({len(MQ_SHAPES)} shapes x 3 dtypes x "
+        f"{len(ATTN_LAYOUTS)} q layouts; lengths with 0, C - k and a fully "
+        f"masked row); max abs err float32 {err['float32']:.3g} (tolerance "
+        f"{k10.F32_TOL} x max(1, |ref|)); 16-bit worst "
+        f"{err['tol_share_bfloat16']:.3g} (bfloat16), "
+        f"{err['tol_share_float16']:.3g} (float16) of the tolerance (4 u "
+        f"(sum p|v|/l + |o|) per query row)")
+    log(f"[kernel-mq-decode] the bfloat16 tolerance rejects a kernel that "
+        f"drops one split's keys at {MQ_LONG_SHAPE}: {power['rejected']} of "
+        f"{power['rows']} (b, h, query, dropped split) rows, the least "
+        f"{power['min_violation']:.3g} x the tolerance")
+    return {"times": times, "max_err": err, "cases": cases, "power": power}
+
+
+def mq_tolerance_power(k10, k9, q, k, v, ln, ref) -> dict:
+    """Hold ``k10.dropped_split_reference`` for each split against the
+    plain version: the tolerance must reject it in every (b, h, query) row
+    whose window held some but not all of the dropped keys."""
+    rows = rejected = 0
+    least = math.inf
+    tol = k10.tolerance(ref, q, k, v, ln)
+    B, H, kq, _ = q.shape
+    for which in range(k9.num_splits(B, H, k.shape[2])):
+        bad, partial = k10.dropped_split_reference(q, k, v, ln, which)
+        viol = ((bad.double() - ref.double()).abs() / tol).amax(-1)
+        viol = viol[partial[:, None, :].expand(B, H, kq)]
+        rows += viol.numel()
+        rejected += int((viol > 1.0).sum())
+        if viol.numel():
+            least = min(least, float(viol.min()))
+    if rows == 0 or rejected != rows:
+        raise AssertionError(f"the K10 tolerance rejects a dropped split in "
+                             f"{rejected} of {rows} rows")
+    return {"rows": rows, "rejected": rejected, "min_violation": least}
+
+
+def spec_path(cb, mix, runs, counters) -> dict:
+    """Serve ``mix`` through a paged (and maybe speculative) ``cb`` as
+    ``generate_path`` does, with every count at 0 just before and checked
+    just after: 3 K3 launches per prefill (the target's misses and the
+    draft's), 3 K9 launches per single-token step (the target's and the
+    draft's), 3 K10 launches per verify step; decisions ``fused``,
+    ``decode_fused`` and ``decode_multiquery`` only."""
+    from deeplearning4j_tpu_torch.tools import profile_generate as pg
+    k1, k3, k8, k9, k10, fa, pk = counters
+    eng, draft = cb.engine, cb.draft
+    k1.launches = k1.bwd_launches = k3.launches = k8.launches = 0
+    k9.launches = k10.launches = 0
+    fa.reset_counters()
+    pk.reset_counters()
+    before = (eng.prefill_runs, eng.decode_steps, eng.verify_steps,
+              draft.prefill_runs if draft else 0,
+              draft.decode_steps if draft else 0)
+    row = pg.profile(cb, mix, runs=runs)
+    torch.cuda.synchronize()
+    after = (eng.prefill_runs, eng.decode_steps, eng.verify_steps,
+             draft.prefill_runs if draft else 0,
+             draft.decode_steps if draft else 0)
+    prefills, steps, verify, dprefills, dsteps = (
+        a - b for a, b in zip(after, before))
+    launches = {"k3": k3.launches, "k9": k9.launches, "k10": k10.launches}
+    want_dec = {k: 0 for k in fa.decode_counters()}
+    want_dec["decode_fused"] = k9.launches
+    want_dec["decode_multiquery"] = k10.launches
+    want_att = {k: 0 for k in fa.counters()}
+    want_att["fused"] = k3.launches
+    if k3.launches != GEN_LAYERS * (prefills + dprefills) \
+            or k9.launches != GEN_LAYERS * (steps + dsteps) \
+            or k10.launches != GEN_LAYERS * verify \
+            or (draft is not None) != (verify > 0 and dsteps > 0) \
+            or (draft is None and steps == 0) \
+            or fa.decode_counters() != want_dec \
+            or fa.counters() != want_att \
+            or k1.launches or k1.bwd_launches or k8.launches \
+            or row["dispatch_decisions"]["host_loop"]:
+        raise AssertionError(
+            f"paged path: {k3.launches} K3 launches for {prefills} + "
+            f"{dprefills} prefills, {k9.launches} K9 launches for {steps} + "
+            f"{dsteps} decode steps, {k10.launches} K10 launches for "
+            f"{verify} verify steps, decisions {fa.counters()} "
+            f"{fa.decode_counters()} {row['dispatch_decisions']}, K1/K2/K8 "
+            f"{k1.launches}/{k1.bwd_launches}/{k8.launches}")
+    row.update(prefills=prefills, decode_steps=steps, verify_steps=verify,
+               draft_prefills=dprefills, draft_steps=dsteps,
+               launches=launches)
+    return row
+
+
+def split_gap(cpu, prompt, ours, theirs):
+    """None when two card streams of ``prompt`` are equal; else the CPU
+    plain path's top-2 gap (share of the top probability) at the first
+    position they part, teacher-forced on their common prefix."""
+    from deeplearning4j_tpu_torch.tools import profile_generate as pg
+    if ours == theirs:
+        return None
+    j = next((i for i, (a, b) in enumerate(zip(ours, theirs)) if a != b),
+             min(len(ours), len(theirs)))
+    eye = np.eye(pg.VOCAB, dtype=np.float32)
+    seq = np.concatenate([prompt, eye[np.asarray(ours[:j], np.int64)]])
+    with torch.inference_mode():
+        y = cpu._full_context(cpu.params, torch.from_numpy(seq[None]),
+                              cpu.state, torch.tensor([len(prompt)]),
+                              torch.tensor([len(seq)]))[0, -1].numpy()
+    top = np.sort(y)[-2:]
+    return float((top[1] - top[0]) / abs(top[1]))
+
+
+def check_equal_streams(cpu, mix, ours, theirs, tag, what) -> int:
+    """Each stream of ``ours`` equals ``theirs`` or parts from it only at
+    a near-tie of the CPU plain path (top-2 gap below
+    ``profile_generate.TIE_TOL``); returns the number of near-tie
+    partings and raises on any other."""
+    from deeplearning4j_tpu_torch.tools import profile_generate as pg
+    ties = 0
+    for i, (a, b) in enumerate(zip(ours, theirs)):
+        gap = split_gap(cpu, mix[i], a, b)
+        if gap is None:
+            continue
+        if not gap < pg.TIE_TOL:
+            raise AssertionError(f"{tag}: stream {i} parts from {what} at a "
+                                 f"top-2 gap of {gap:.3g}")
+        ties += 1
+    if len(ours) != len(theirs):
+        raise AssertionError(f"{tag}: {len(ours)} streams vs {len(theirs)}")
+    log(f"[generate-spec] {tag}: {len(ours)} streams equal {what}"
+        + (f" but for {ties} parting at a near-tie" if ties else ""))
+    return ties
+
+
+def log_spec_row(tag, row) -> None:
+    sp = row.get("speculative") or {}
+    pool = row.get("page_pool") or {}
+    log(f"[{tag}] {row['requests']} requests x {row['slots']} slots, prompts"
+        f" {row['prompt_tokens'][0]}-{row['prompt_tokens'][1]} tokens, "
+        f"{row['new_tokens']} new tokens: wall {row['wall_ms_median']:.3f} "
+        f"ms (median of {len(row['walls_ms'])}), {row['tokens_per_s']:.1f} "
+        f"tokens/s, TTFT p50/p99 {row['ttft_ms_p50']:.3f}/"
+        f"{row['ttft_ms_p99']:.3f} ms, TPOT p50/p99 {row['tpot_ms_p50']:.3f}"
+        f"/{row['tpot_ms_p99']:.3f} ms; per run {row['prefills_per_run']:.1f}"
+        f" prefills, {row['decode_steps_per_run']:.1f} decode steps, "
+        f"{row['verify_steps_per_run']:.1f} verify steps, "
+        f"{row['draft_steps_per_run']:.1f} draft steps; accept rate "
+        f"{sp.get('accept_rate')} ({sp.get('accepted')} of "
+        f"{sp.get('proposed')}); pool hits/misses/forks/peak "
+        f"{pool.get('prefix_hits')}/{pool.get('prefix_misses')}/"
+        f"{pool.get('forks')}/{pool.get('pages_peak')} of "
+        f"{pool.get('pages_total')}; device {row['device_ms']} ms (busy "
+        f"share {row['device_busy_share']}), K9 {row['k9_device_ms']} ms, "
+        f"K10 {row['k10_device_ms']} ms, K3 {row['k3_device_ms']} ms")
+    log(f"[{tag}] top kernels (ms per run): " + "; ".join(
+        f"{k[:50]} {t:.3f} x{c}" for k, t, c in row["top_kernels_ms"][:6]))
+
+
+def phase_generate_paged(counters, gen) -> dict:
+    """The bench's paged prefix mix, 3 runs: the streams against the
+    contiguous batcher's on the card and the CPU plain path's
+    teacher-forced argmax; prefix hits, misses, forks and the peak."""
+    from deeplearning4j_tpu_torch.serving.batcher import ContinuousBatcher
+    from deeplearning4j_tpu_torch.tools import profile_generate as pg
+    net, cpu = gen["net"], gen["cpu"]
+    mix = pg.system_prompt_mix()
+    contiguous = ContinuousBatcher(net, **dict(pg.BENCH, max_new_tokens=16))
+    try:
+        want = pg.serve(contiguous, mix)[0]
+    finally:
+        contiguous.shutdown()
+    t0 = time.perf_counter()
+    cb = ContinuousBatcher(net, **pg.PAGED)
+    log(f"[generate-paged] ContinuousBatcher({pg.PAGED}) built and warmed in "
+        f"{time.perf_counter() - t0:.1f} s: {cb.engine.pages} pages of "
+        f"{cb.engine.page_size} rows, {cb.engine.pool_bytes()} pool bytes")
+    try:
+        row = spec_path(cb, mix, 3, counters)
+    finally:
+        cb.shutdown()
+    log_spec_row("generate-paged", row)
+    pool = row["page_pool"]  # read after the 3 timed runs
+    # every admission but the first hits the registered prompt: one miss,
+    # one prefill, and a fork of the partial last page per stream
+    if pool["prefix_misses"] != 1 or row["prefills"] != 1 \
+            or pool["prefix_hits"] != 3 * len(mix) - 1 \
+            or pool["forks"] != 3 * len(mix) or row["verify_steps"]:
+        raise AssertionError(f"paged mix: pool {pool}, {row['prefills']} "
+                             f"prefills")
+    if row["streams"] != want:
+        raise AssertionError("paged mix: the streams differ from the "
+                             "contiguous batcher's on the card")
+    log(f"[generate-paged] the {len(mix)} streams equal the contiguous "
+        f"batcher's on the card; {row['prefills']} prefill for "
+        f"{pool['prefix_hits'] + pool['prefix_misses']} admissions")
+    row["check"] = check_streams(cpu, mix, row, len(mix), "paged")
+    streams = row.pop("streams")
+    del row["last_logits"]
+    return {"row": row, "streams": streams, "mix": mix}
+
+
+def phase_generate_spec(counters, gen, paged) -> dict:
+    """The speculative mix and the speculative growth mix with the target
+    as its own draft, then the speculative mix with an other-seed draft:
+    3 K10 launches per verify step, 3 K9 per draft step, every stream the
+    plain greedy stream of the same mix under the tie rule."""
+    from deeplearning4j_tpu_torch.serving.batcher import ContinuousBatcher
+    from deeplearning4j_tpu_torch.tools import profile_generate as pg
+    net, cpu = gen["net"], gen["cpu"]
+    other = pg.build(seed=1, device="cuda")
+    grow_mix = pg.prompts(*pg.GROW_PROMPTS)
+    spec = dict(speculate_k=pg.SPECULATE_K)
+    rows = {}
+    for tag, kw, mix, runs, greedy, checked in (
+            ("spec", dict(pg.PAGED, draft_model=net, **spec),
+             paged["mix"], 3, paged["streams"], len(paged["mix"])),
+            ("spec_grow", dict(pg.GROW_PAGED, draft_model=net, **spec),
+             grow_mix, 2, gen["streams"]["grow"], GROW_CHECKED),
+            ("spec_other_draft", dict(pg.PAGED, draft_model=other, **spec),
+             paged["mix"], 1, paged["streams"], len(paged["mix"]))):
+        t0 = time.perf_counter()
+        cb = ContinuousBatcher(net, **kw)
+        log(f"[generate-spec] {tag}: built and warmed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        try:
+            row = spec_path(cb, mix, runs, counters)
+        finally:
+            cb.shutdown()
+        log_spec_row(f"generate-spec] [{tag}", row)
+        row["ties_vs_greedy"] = check_equal_streams(
+            cpu, mix, row["streams"], greedy, tag, "the plain greedy streams")
+        row["check"] = check_streams(cpu, mix, row, checked, tag)
+        rate = row["speculative"]["accept_rate"]
+        if tag == "spec_other_draft":
+            if not rate < 1.0:
+                raise AssertionError(f"{tag}: accept rate {rate}")
+        elif rate != 1.0 and not (row["check"]["near_ties"]
+                                  or row["ties_vs_greedy"]):
+            raise AssertionError(f"{tag}: the target as its own draft "
+                                 f"accepts {rate} with no near-tie")
+        log(f"[generate-spec] {tag}: accept rate {rate}"
+            + ("" if rate in (None, 1.0) or tag == "spec_other_draft" else
+               f" (near-ties in the streams: {row['check']['near_ties']})"))
+        del row["streams"], row["last_logits"]
+        rows[tag] = row
+    return {"rows": rows}
+
+
+def phase_generate_spec_server(counters, server_mod, net) -> dict:
+    """One POST /generate through a paged, speculative
+    ``JsonModelServer``: its NDJSON tokens equal ``batcher.generate``."""
+    from deeplearning4j_tpu_torch.tools import profile_generate as pg
+    k1, k3, k8, k9, k10, fa, pk = counters
+    srv = server_mod.JsonModelServer(net, generate=dict(
+        pg.PAGED, draft_model=net, speculate_k=pg.SPECULATE_K,
+        max_new_tokens=SERVER_NEW))
+    port = srv.start()
+    cb = srv.generator
+    k3.launches = k9.launches = k10.launches = 0
+    fa.reset_counters()
+    before = (cb.engine.verify_steps, cb.draft.decode_steps)
+    try:
+        tokens = [int(t) for t in pg.system_prompt_mix()[0].argmax(-1)]
+        body = json.dumps({"tokens": tokens, "stream": True}).encode()
+        with urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{port}/generate", data=body),
+                timeout=120) as r:
+            lines = [json.loads(x) for x in r.read().decode().splitlines()
+                     if x]
+        want = cb.generate(tokens=tokens)["tokens"]
+        streamed = [x.get("token") for x in lines[:-1]]
+        if not lines[-1].get("done") or streamed != want \
+                or lines[-1]["tokens"] != want or len(want) != SERVER_NEW:
+            raise AssertionError(f"paged speculative POST /generate: "
+                                 f"{lines[-1]} vs {want}")
+        torch.cuda.synchronize()
+        st = cb.stats()
+    finally:
+        srv.stop()
+    verify = cb.engine.verify_steps - before[0]
+    dsteps = cb.draft.decode_steps - before[1]
+    if k10.launches != GEN_LAYERS * verify or verify == 0 \
+            or k9.launches != GEN_LAYERS * dsteps \
+            or fa.decode_counters()["decode_multiquery"] != k10.launches \
+            or fa.decode_counters()["decode_multiquery_fallback"]:
+        raise AssertionError(f"paged speculative server: {k10.launches} K10 "
+                             f"/ {k9.launches} K9 launches for {verify} "
+                             f"verify / {dsteps} draft steps, decisions "
+                             f"{fa.decode_counters()}")
+    log(f"[generate-server] POST /generate through JsonModelServer(generate="
+        f"dict(paged=True, page_size=16, draft_model=net, speculate_k="
+        f"{pg.SPECULATE_K})): the NDJSON stream ({SERVER_NEW} tokens) "
+        f"equals batcher.generate; {k10.launches} K10 launches for {verify} "
+        f"verify steps, {k9.launches} K9 for {dsteps} draft steps; accept "
+        f"rate {st['speculative']['accept_rate']}, pool hits "
+        f"{st['page_pool']['prefix_hits']}")
+    return {"launches": {"k3": k3.launches, "k9": k9.launches,
+                         "k10": k10.launches}}
 
 
 def main() -> int:
@@ -1685,6 +2108,7 @@ def main() -> int:
     from deeplearning4j_tpu_torch.kernels import decode_attention as k9
     from deeplearning4j_tpu_torch.kernels import flash_attention as k3
     from deeplearning4j_tpu_torch.kernels import lstm_cell as k8
+    from deeplearning4j_tpu_torch.kernels import multiquery_decode as k10
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import pallas_kernels as pk
     from deeplearning4j_tpu_torch.nn import graph
@@ -1725,9 +2149,21 @@ def main() -> int:
     path_lengths = [len(p) + pg.BENCH["max_new_tokens"] // 2 + 1
                     for p in pg.prompts(*pg.BENCH_PROMPTS)]
     kdec = phase_kernel_decode(k9, path_lengths)
-    counters = (k1, k3, k8, k9, fa, pk)
+    # a verify step halfway through each speculative mix: the rows cached
+    # before the window (the prompt plus half the new tokens)
+    spec_half = pg.PAGED["max_new_tokens"] // 2
+    mq_lengths = {
+        MQ_PATH_SHAPE: [pg.SYSTEM_PROMPT_LEN + spec_half] * MQ_PATH_SHAPE[0],
+        MQ_GROW_SHAPE: [len(p) + pg.GROW["max_new_tokens"] // 2
+                        for p in pg.prompts(*pg.GROW_PROMPTS)]}
+    kmq = phase_kernel_mq(k10, k9, mq_lengths)
+    counters = (k1, k3, k8, k9, k10, fa, pk)
     gen = phase_generate(counters, env)
     gen_server = phase_generate_server(counters, server_mod, gen["net"])
+    paged = phase_generate_paged(counters, gen)
+    spec = phase_generate_spec(counters, gen, paged)
+    spec_server = phase_generate_spec_server(counters, server_mod,
+                                             gen["net"])
 
     # one batch-32 forward's (training step's) 53 K1 (K2) calls, timed per
     # (rows, C, act) in phases 3 and 6
@@ -1791,15 +2227,24 @@ def main() -> int:
         f"enqueue {host8:.4f} ms; a whole-sequence torch.nn.LSTM "
         f"{served_lstm['cudnn_ms']:.4f} ms")
     rows = gen["rows"]
+    srows = spec["rows"]
     gen_l = {"generate": rows["bench"]["launches"],
              "generate_grow": rows["grow"]["launches"],
-             "generate_server": gen_server["launches"]}
+             "generate_server": gen_server["launches"],
+             "generate_paged": paged["row"]["launches"],
+             "generate_spec": {k: srows["spec"]["launches"][k]
+                               + srows["spec_other_draft"]["launches"][k]
+                               for k in ("k3", "k9", "k10")},
+             "generate_spec_grow": srows["spec_grow"]["launches"],
+             "generate_spec_server": spec_server["launches"]}
     # the output() request of [generate] goes through InferenceEngine, not
     # the batcher: a path of its own
     k3_gen = {k: v["k3"] for k, v in gen_l.items()}
     k3_gen["generate_output"] = gen["output_launches"][0]
     k9_gen = {k: v["k9"] for k, v in gen_l.items()}
     k9_gen["generate_output"] = gen["output_launches"][1]
+    k10_gen = {k: v["k10"] for k, v in gen_l.items()}
+    k10_gen["generate_output"] = 0
     no_gen = {k: 0 for k in k3_gen}
     # one decode step of the bench's mix: 3 K9 calls at the path's shape
     t9 = kdec["times"][DECODE_PATH_SHAPE]
@@ -1813,6 +2258,20 @@ def main() -> int:
         f"{lib9:.4f}, bound {bound9:.4f}, {by9}); host enqueue {host9:.4f} "
         f"ms; at {DECODE_LONG_SHAPE}: {t9l[0]:.4f} ms (bound {t9l[4]:.4f}, "
         f"SDPA {t9l[2]:.4f})")
+    # one verify step of the speculative mix: 3 K10 calls at the path's
+    # shape
+    t10 = kmq["times"][MQ_PATH_SHAPE]
+    ms10, plain10, lib10, host10, bound10 = (GEN_LAYERS * t for t in t10[:5])
+    by10 = t10[5]
+    t10g, t10l = kmq["times"][MQ_GROW_SHAPE], kmq["times"][MQ_LONG_SHAPE]
+    log(f"[summary] one float32 verify step of the speculative mix (8 slots,"
+        f" cache 128, k = {pg.SPECULATE_K}, lengths {mq_lengths[MQ_PATH_SHAPE][0]}"
+        f" before the window): {GEN_LAYERS} K10 calls, {ms10:.4f} ms on the "
+        f"device (plain {plain10:.4f}, scaled_dot_product_attention "
+        f"{lib10:.4f}, bound {bound10:.4f}, {by10}); host enqueue "
+        f"{host10:.4f} ms; at {MQ_GROW_SHAPE}: {t10g[0]:.4f} ms (bound "
+        f"{t10g[4]:.4f}, SDPA {t10g[2]:.4f}); at {MQ_LONG_SHAPE}: "
+        f"{t10l[0]:.4f} ms (bound {t10l[4]:.4f}, SDPA {t10l[2]:.4f})")
     lstm_paths = {"lstm_serve": 0, "lstm_stream": 0, **no_gen}
     bwd_timed_as = (
         "device time of one float32 call at BERT-base batch 32 (B=32, "
@@ -1973,6 +2432,49 @@ def main() -> int:
                     "with the float [B, 1, 1, C] length mask on the same "
                     "q, k, v; host_ms is the wrapper's enqueue time over "
                     "the same calls",
+    }, {
+        "name": "K10 mq_decode_attn", "checked": True, "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/mq_decode_attn.cu",
+        "replaces": "deeplearning4j_tpu/ops/flash_attention.py:220",
+        "launches": sum(k10_gen.values()),
+        "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
+                             "bert_fit": 0, "lstm_serve": 0,
+                             "lstm_stream": 0, **k10_gen},
+        "launches_per_verify_step": GEN_LAYERS,
+        "verify_steps_by_path": {
+            "generate_spec": srows["spec"]["verify_steps"]
+            + srows["spec_other_draft"]["verify_steps"],
+            "generate_spec_grow": srows["spec_grow"]["verify_steps"]},
+        "max_abs_err": kmq["max_err"]["float32"],
+        "max_abs_err_float32": kmq["max_err"]["float32"],
+        "max_tolerance_share_bfloat16": kmq["max_err"]["tol_share_bfloat16"],
+        "max_tolerance_share_float16": kmq["max_err"]["tol_share_float16"],
+        "deterministic": True,
+        "ms": ms10, "plain_ms": plain10, "bound_ms": bound10,
+        "bound_by": by10, "library_ms": lib10, "host_ms": host10,
+        "grow_cache": {"shape": list(MQ_GROW_SHAPE), "ms": t10g[0],
+                       "plain_ms": t10g[1], "library_ms": t10g[2],
+                       "bound_ms": t10g[4], "bound_by": t10g[5]},
+        "long_cache": {"shape": list(MQ_LONG_SHAPE), "ms": t10l[0],
+                       "plain_ms": t10l[1], "library_ms": t10l[2],
+                       "bound_ms": t10l[4], "bound_by": t10l[5]},
+        "generate": {tag: {k: r[k] for k in (
+            "tokens_per_s", "wall_ms_median", "ttft_ms_p50", "ttft_ms_p99",
+            "tpot_ms_p50", "tpot_ms_p99", "device_ms", "device_busy_share",
+            "k9_device_ms", "k10_device_ms", "k3_device_ms",
+            "verify_steps_per_run", "draft_steps_per_run",
+            "decode_steps_per_run", "speculative", "page_pool")}
+            for tag, r in [("paged", paged["row"])] + list(srows.items())},
+        "bfloat16_drop_split_check": dict(shape=list(MQ_LONG_SHAPE),
+                                          **kmq["power"]),
+        "timed_as": "device time of one float32 call at the speculative "
+                    "mix's shape (B=8, H=4, k=4, C=128, d=64, head-split q, "
+                    "the lengths of a verify step halfway through the mix) "
+                    "times the 3 calls of one verify step; library_ms is "
+                    "torch.nn.functional.scaled_dot_product_attention with "
+                    "the float [B, 1, k, C] window mask on the same q, k, v; "
+                    "host_ms is the wrapper's enqueue time over the same "
+                    "calls",
     }]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

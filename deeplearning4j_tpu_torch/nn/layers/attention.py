@@ -12,17 +12,26 @@ heads are the view ``[B, H, T, hs]`` of a ``[B, T, H*hs]`` projection.
 with the ``[B, 1, 1, T]`` key mask (K3 on the card, the reference path on
 the CPU). The KV-cached decode follows prefix-LM semantics: the prompt
 attends bidirectionally over itself; each generated token attends over
-everything before it and itself. ``decode_step`` appends the token's k/v
+everything before it and itself. ``decode_step`` appends the window's k/v
 with ``cache_insert`` (in place) and runs ``decode_dispatch`` (K9 on the
-card) with ``lengths + 1``; ``full_context`` is the quadratic oracle with
-an explicit prefix-LM bias. The prompt's bucket-padded rows land in the
-cache too; the decode side's lengths mask them.
+card) with ``lengths + 1`` for one token, or ``decode_multiquery_dispatch``
+(K10 on the card) with ``lengths`` (the rows BEFORE the window) for a
+speculative verify window of ``Tq = k`` tokens; ``full_context`` is the
+quadratic oracle with an explicit prefix-LM bias. The prompt's
+bucket-padded rows land in the cache too; the decode side's lengths mask
+them.
 
-Divergences: the caches are updated in place (the JAX engines donate
-theirs); the int8 KV cache (``kv_quant``) and the paged pool
-(``page_table``) raise ``NotImplementedError`` naming their slices (the
-int8-serving and the paged/speculative slices, ``ROADMAP.md`` Queue 1);
-``RecurrentAttentionLayer`` (:382) comes with recurrent breadth.
+With ``page_table`` / ``page_size`` the cache is one layer's paged pool
+(``[NP * P, H, d]`` token rows): ``_paged_cache_append`` (the JAX module's
+:141) scatters the window's rows through the table with ``paged_insert``
+(in place, write-gated) and gathers the per-slot ``[S, H, MP*P, d]``
+caches the attention kernels read with ``paged_gather``.
+
+Divergences: the caches and pools are updated in place (the JAX engines
+donate theirs); the int8 KV cache (``kv_quant``, int8 pools included)
+raises ``NotImplementedError`` naming the int8-serving slice
+(``ROADMAP.md`` Queue 1); ``RecurrentAttentionLayer`` (:382) comes with
+recurrent breadth.
 """
 
 from __future__ import annotations
@@ -37,8 +46,6 @@ from .base import CacheSpec, Layer, layer
 
 _INT8 = ("the int8 KV cache comes with the int8-serving slice of the port "
          "(ROADMAP.md Queue 1)")
-_PAGED = ("the paged KV pool comes with the paged and speculative slice of "
-          "the port (ROADMAP.md Queue 1)")
 _NEG = float(torch.finfo(torch.float32).min)
 
 
@@ -95,10 +102,28 @@ def _cache_fill_prompt(cache, k, v):
     return cache
 
 
-def _cache_append(cache, k_new, v_new, lengths, write, page_table):
-    """Append one token's k/v (in place); returns ``(cache, k, v)``."""
+def _paged_cache_append(cache, k_new, v_new, lengths, write, page_table,
+                        page_size):
+    """Scatter the window's k/v rows into the pool leaves through the page
+    table (in place, write-gated), then gather the per-slot ``[B, H, C,
+    d]`` caches for the attention kernel; returns ``(cache, k, v)``."""
+    if "k_scale" in cache:
+        raise NotImplementedError(_INT8)
+    kc = _fa.paged_insert(cache["k"], k_new, lengths, page_table, page_size,
+                          write)
+    vc = _fa.paged_insert(cache["v"], v_new, lengths, page_table, page_size,
+                          write)
+    return (cache, _fa.paged_gather(kc, page_table, page_size),
+            _fa.paged_gather(vc, page_table, page_size))
+
+
+def _cache_append(cache, k_new, v_new, lengths, write, page_table=None,
+                  page_size=0):
+    """Append one window's k/v (in place); returns ``(cache, k, v)``: the
+    contiguous caches themselves, or the paged pool's gathered ones."""
     if page_table is not None:
-        raise NotImplementedError(_PAGED)
+        return _paged_cache_append(cache, k_new, v_new, lengths, write,
+                                   page_table, page_size)
     if "k_scale" in cache:
         raise NotImplementedError(_INT8)
     kc = _fa.cache_insert(cache["k"], k_new, lengths, write)
@@ -166,11 +191,13 @@ class SelfAttentionLayer(Layer):
     def decode_step(self, params, x, state, *, cache, lengths, write=None,
                     page_table=None, page_size=0):
         """One decode window ``x`` ``[B, Tq, F]``: Tq = 1 for plain decode
-        (K9), Tq = k for a speculative verify window (window-causal; its
-        kernel comes with the speculative slice)."""
+        (K9), Tq = k for a speculative verify window (window-causal: token
+        i sees the prefix and the window up to itself; K10).
+        ``page_table`` / ``page_size`` switch the cache to the paged pool
+        form."""
         q, k_new, v_new = _qkv(x, x, params, self.n_heads)
         cache, kf, vf = _cache_append(cache, k_new, v_new, lengths, write,
-                                      page_table)
+                                      page_table, page_size)
         if x.shape[1] == 1:
             y = _fa.decode_dispatch(q, kf, vf, lengths + 1)
         else:
@@ -250,7 +277,7 @@ class LearnedSelfAttentionLayer(Layer):
         k_new = _heads_split(_proj(x, params["Wk"]), self.n_heads)
         v_new = _heads_split(_proj(x, params["Wv"]), self.n_heads)
         cache, kf, vf = _cache_append(cache, k_new, v_new, lengths, write,
-                                      page_table)
+                                      page_table, page_size)
         # n_queries > 1: decode_dispatch takes the length-masked reference
         # (decode_fallback_multiquery), uniform visibility over the cache
         y = _fa.decode_dispatch(q, kf, vf, lengths + 1)

@@ -10,8 +10,11 @@ autoregressive decode walk of the generative-serving slice (the JAX
 module's :880-1053): ``decode_cache_spec``, ``init_decode_cache``,
 ``decode_token_features`` (on the device, bit-identical to the host
 one-hot ``f[token % F] = 1``), ``_prefill``, ``_decode_step`` (with the
-``write`` gate) and ``_full_context``, the prefix-LM oracle. The caches
-are updated in place (the JAX engines donate theirs).
+``write`` gate, and with ``page_table`` / ``page_size`` over the paged
+pool) and ``_full_context``, the prefix-LM oracle; and the paged pool of
+the paged and speculative slice, ``paged_cache_spec`` /
+``init_paged_cache`` (:923-944). The caches and pools are updated in
+place (the JAX engines donate theirs).
 
 Parameters and state are dicts of tensors keyed by layer index (as a
 string) and then by parameter name, exactly as the JAX package keys
@@ -20,10 +23,8 @@ unchanged; the updater state is keyed by slot, then the same way.
 
 Not in this slice (each raises ``NotImplementedError`` naming the
 ``ROADMAP.md`` Queue 1 slice that ports it): ``fit``, ``score``,
-``evaluate`` and training-mode ``output`` (the LeNet slice), the paged
-decode cache (``paged_cache_spec``/``init_paged_cache``: the paged and
-speculative slice), and ``quantize_params`` and the int8 KV cache (int8
-serving).
+``evaluate`` and training-mode ``output`` (the LeNet slice), and
+``quantize_params`` and the int8 KV cache (int8 serving).
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ from .. import environment as _env
 from .config import MultiLayerConfiguration
 
 _TRAINING = "the LeNet slice of the port (ROADMAP.md Queue 1)"
-_PAGED = "the paged and speculative slice of the port (ROADMAP.md Queue 1)"
 _INT8 = "the int8-serving slice of the port (ROADMAP.md Queue 1)"
 
 
@@ -285,12 +285,6 @@ class MultiLayerNetwork:
     def quantize_params(self, mode: str = "int8"):
         raise NotImplementedError(f"quantize_params comes with {_INT8}")
 
-    def _paged(self, *args, **kwargs):
-        raise NotImplementedError(f"the paged decode cache comes with "
-                                  f"{_PAGED}")
-
-    paged_cache_spec = init_paged_cache = _paged
-
     # ------------------------------------------- autoregressive decode walk
     # Prefill and one-token decode walks over the layer stack, threading
     # per-layer (k, v) caches and per-row lengths. Prefix-LM semantics: the
@@ -348,6 +342,28 @@ class MultiLayerNetwork:
                 for si, leaves in self.decode_cache_spec(
                     batch, cache_len, kv_quant=kv_quant).items()}
 
+    def paged_cache_spec(self, n_pages: int, page_size: int,
+                         kv_quant: bool = False) -> dict:
+        """The paged twin of :meth:`decode_cache_spec`: ``{layer_index:
+        {"k": CacheSpec([n_pages * page_size, H, d]), "v": ...}}``, each
+        KV-cached layer's cache as a pool of token rows that the serving
+        page allocator owns."""
+        base = self.decode_cache_spec(1, 1, kv_quant=kv_quant)
+        rows = int(n_pages) * int(page_size)
+        return {si: {name: type(a)((rows, a.shape[1], a.shape[3]), a.dtype)
+                     for name, a in leaves.items()}
+                for si, leaves in base.items()}
+
+    def init_paged_cache(self, n_pages: int, page_size: int,
+                         kv_quant: bool = False) -> dict:
+        """A zeroed paged pool on the model's device (page 0 is the zero
+        page the allocator points unallocated table entries at)."""
+        return {si: {name: torch.zeros(a.shape, dtype=a.dtype,
+                                       device=self.device)
+                     for name, a in leaves.items()}
+                for si, leaves in self.paged_cache_spec(
+                    n_pages, page_size, kv_quant=kv_quant).items()}
+
     def decode_token_features(self, tokens, dtype=None):
         """Token ids ``[B]`` -> the next decode input ``[B, 1, F]``, on the
         tokens' device: the one-hot ``f[token % F] = 1``, bit-identical
@@ -399,11 +415,11 @@ class MultiLayerNetwork:
         tokens cached BEFORE it. Appends the window's k/v at ``lengths``
         onward in place (rows with ``write == 0`` keep their caches bit for
         bit) and returns ``(y [B, Tq, out], caches)``; the caller advances
-        ``lengths``."""
-        if page_table is not None:
-            raise NotImplementedError(f"the paged decode cache comes with "
-                                      f"{_PAGED}")
+        ``lengths``. With ``page_table`` ``[B, MP]`` and ``page_size`` the
+        caches are the paged pools (:meth:`init_paged_cache`)."""
         params, x = self._decode_cast(params, x)
+        if page_table is not None:
+            page_table = torch.as_tensor(page_table).to(x.device)
         lengths = torch.as_tensor(lengths).to(x.device)
         new_caches = {}
         for i, (layer, kind) in enumerate(self._decode_layer_plan(params)):
@@ -411,7 +427,8 @@ class MultiLayerNetwork:
             p, s = params.get(si, {}), state.get(si, {})
             if kind == "cache":
                 x, new_caches[si] = layer.decode_step(
-                    p, x, s, cache=caches[si], lengths=lengths, write=write)
+                    p, x, s, cache=caches[si], lengths=lengths, write=write,
+                    page_table=page_table, page_size=page_size)
             else:
                 x, _ = layer.decode_step(p, x, s, cache=None,
                                          lengths=lengths)

@@ -51,8 +51,8 @@ branch):
 - :func:`length_bias` (:556) and :func:`reference_decode_attention`
   (:567), both K9's module's (``kernels/decode_attention.py``): the length
   mask and K9's plain version, K3's at any number of query rows;
-  :func:`cache_insert` (:622) and :func:`reference_decode_multiquery`
-  (:747);
+  :func:`cache_insert` (:622); :func:`reference_decode_multiquery`
+  (:747), K10's plain version (``kernels/multiquery_decode.py``);
 - :func:`decode_dispatch` (:1027), the entry of the KV-cached attention
   layers' ``decode_step``. Its decisions, read through
   :func:`decode_counters` (one per call):
@@ -75,10 +75,27 @@ branch):
   ``decode_fallback_shape``, ``_dtype`` or ``_vmem`` (K9 takes every cache
   length; the dtype and head-dimension limits raise in its wrapper).
 - :func:`decode_multiquery_dispatch` (:1091), the speculative verify
-  window: its plain version for CPU tensors (counted
-  ``decode_multiquery_fallback``); for CUDA tensors it raises
-  ``NotImplementedError``: its kernel, K10, comes with the paged and
-  speculative slice (``ROADMAP.md`` Queue 1).
+  window (``Tq = k`` queries, window-causal): K10's wrapper
+  (``kernels/multiquery_decode.py``), counted ``decode_multiquery`` for a
+  CUDA ``q`` in mode ``auto`` (K10 runs) and ``decode_multiquery_fallback``
+  for a CPU one (the wrapper's plain version, as the JAX package runs its
+  reference off the TPU); mode ``off`` runs the plain version on CPU
+  tensors and raises on CUDA ones. There is no tensor-parallel branch.
+
+The paged half (the JAX module's :652-711), over one layer's pool of
+``[NP * P, H, d]`` token rows and a ``[S, MP]`` page table (page 0 is the
+reserved zero page):
+
+- :func:`paged_positions` (:665): logical positions to pool rows, the
+  page index clamped to the table's last entry (XLA's gather clamp);
+- :func:`paged_gather` (:677): the per-slot caches ``[S, H, MP*P, d]``;
+- :func:`paged_insert` (:691): a window's rows scattered through the
+  table IN PLACE, with the write gate (gated rows write back what they
+  gathered, a no-op even on the zero page);
+- :func:`page_rows` (:711): the rows of whole pages.
+
+``page_export`` / ``page_import`` (:721-740, the KV-page migration of
+disaggregated serving) raise ``NotImplementedError`` naming their slice.
 
 ``cache_insert`` keeps ``dynamic_update_slice``'s semantics: a start index
 past ``C - k`` clamps to ``C - k`` (a negative one counts from the end
@@ -103,6 +120,7 @@ import torch
 from . import register
 from ..kernels import decode_attention as _k9
 from ..kernels import flash_attention as _k3
+from ..kernels import multiquery_decode as _k10
 
 _NEG = float(torch.finfo(torch.float32).min)
 _MODES = ("auto", "off")
@@ -110,7 +128,7 @@ _COUNTER_KEYS = ("fused", "fallback_mode", "fallback_platform",
                  "fallback_bias")
 _DECODE_KEYS = ("decode_fused", "decode_fallback_mode",
                 "decode_fallback_platform", "decode_fallback_multiquery",
-                "decode_multiquery_fallback")
+                "decode_multiquery", "decode_multiquery_fallback")
 _counts = collections.Counter()
 _state = {"mode": "auto"}
 
@@ -263,19 +281,8 @@ length_bias = _k9.length_bias
 reference_decode_attention = _k9.decode_attention_reference
 
 
-def reference_decode_multiquery(q, k, v, lengths, scale=None):
-    """Quadratic reference for the speculative ``Tq = k`` verify window:
-    query i sits at position ``lengths[b] + i`` and attends cache columns
-    ``< lengths[b] + 1 + i`` (its own just-appended token included):
-    causal within the window, the whole prefix visible."""
-    C, Tq = k.shape[2], q.shape[2]
-    lengths = torch.as_tensor(lengths).to(q.device).to(torch.int64)
-    col = torch.arange(C, device=q.device)[None, None, :]
-    row = torch.arange(Tq, device=q.device)[None, :, None]
-    valid = col < lengths[:, None, None] + 1 + row
-    bias = torch.where(valid, torch.tensor(0.0, device=q.device),
-                       torch.tensor(_NEG, device=q.device))[:, None]
-    return reference_attention(q, k, v, bias=bias, scale=scale)
+#: K10's plain version under the JAX module's name
+reference_decode_multiquery = _k10.multiquery_decode_reference
 
 
 def cache_insert(cache, new, lengths, write=None):
@@ -347,14 +354,99 @@ def decode_dispatch(q, k, v, lengths, scale: Optional[float] = None):
 
 def decode_multiquery_dispatch(q, k, v, lengths,
                                scale: Optional[float] = None):
-    """The speculative verify window (``lengths`` counts the valid
-    entries BEFORE the window): its plain version on CPU tensors, counted
-    ``decode_multiquery_fallback``. On CUDA tensors it raises: its kernel
-    (K10) comes with the paged and speculative slice."""
+    """Guarded multi-query dispatch (the speculative verify window):
+    K10's wrapper, which launches K10 on a CUDA ``q`` in mode ``auto``
+    (counted ``decode_multiquery``) and runs its plain version on a CPU
+    one (``decode_multiquery_fallback``). Mode ``off`` on a CUDA tensor
+    raises. ``q`` ``[B, H, k, d]``; ``k``, ``v`` ``[B, H, C, d]``;
+    ``lengths`` ``[B]`` counts the valid entries BEFORE the window (its
+    own rows are already inserted at ``lengths .. lengths + k - 1``)."""
+    if q.dim() != 4 or q.shape[2] < 1:
+        raise ValueError(f"decode_multiquery wants q [B, H, k, d]; got "
+                         f"{tuple(q.shape)}")
     if q.device.type == "cuda":
-        raise NotImplementedError(
-            "the speculative verify window on the card needs K10, which "
-            "comes with the paged and speculative slice of the port "
-            "(ROADMAP.md Queue 1)")
-    _counts["decode_multiquery_fallback"] += 1
-    return reference_decode_multiquery(q, k, v, lengths, scale=scale)
+        if _state["mode"] == "off":
+            raise ValueError(
+                "flash attention mode 'off' is refused for CUDA tensors: "
+                "on the card the verify window runs K10 (set_mode('auto'))")
+        _counts["decode_multiquery"] += 1
+        lengths = torch.as_tensor(lengths)
+        if lengths.device != q.device or lengths.dtype != torch.int32:
+            lengths = lengths.to(device=q.device, dtype=torch.int32)
+        lengths = lengths.contiguous()
+    else:
+        _counts["decode_multiquery_fallback"] += 1
+    return _k10.multiquery_decode(q, k, v, lengths, scale)
+
+
+# --------------------------------------------------------------------------
+# paged KV cache: page-table gather and scatter over a pool of token rows
+# --------------------------------------------------------------------------
+
+def paged_positions(page_table, positions, page_size: int):
+    """Pool rows of logical positions: ``page_table`` ``[S, MP]`` int,
+    ``positions`` ``[S, k]`` -> ``[S, k]`` int64. A position past the
+    table clamps to its last entry (XLA's gather clamp); callers gate
+    those writes."""
+    P = int(page_size)
+    positions = torch.as_tensor(positions).to(page_table.device) \
+        .to(torch.int64)
+    pi = torch.clamp(torch.div(positions, P, rounding_mode="floor"), 0,
+                     page_table.shape[1] - 1)
+    page = torch.gather(page_table.to(torch.int64), 1, pi)
+    return page * P + torch.remainder(positions, P)
+
+
+def paged_gather(pool, page_table, page_size: int):
+    """The per-slot caches from the pool: ``pool`` ``[NP*P, H, d]``,
+    ``page_table`` ``[S, MP]`` -> ``[S, H, MP*P, d]`` (a new tensor: only
+    the pool persists)."""
+    P = int(page_size)
+    S, MP = page_table.shape
+    idx = (page_table.to(torch.int64)[:, :, None] * P
+           + torch.arange(P, device=pool.device)[None, None, :]
+           ).reshape(S, MP * P)
+    return pool[idx].permute(0, 2, 1, 3)
+
+
+def paged_insert(pool, new, lengths, page_table, page_size: int,
+                 write=None):
+    """Append a window's K or V rows into the pool IN PLACE: ``new`` ``[S,
+    H, k, d]`` written at logical positions ``lengths[s] + i`` through the
+    page table; returns ``pool``. ``write`` ``[S]`` (optional 0/1) gates
+    rows as :func:`cache_insert` does: a gated row writes back the value
+    it gathered, a no-op even on the clamped or zero page."""
+    S, H, kw, d = new.shape
+    ln = torch.as_tensor(lengths).to(pool.device).to(torch.int64)
+    pos = ln[:, None] + torch.arange(kw, device=pool.device)[None, :]
+    rows = paged_positions(page_table, pos, page_size).reshape(S * kw)
+    upd = new.to(pool.dtype).permute(0, 2, 1, 3).reshape(S * kw, H, d)
+    if write is not None:
+        keep = torch.as_tensor(write).to(pool.device).to(torch.bool)
+        upd = torch.where(keep.repeat_interleave(kw)[:, None, None], upd,
+                          pool[rows])
+    pool[rows] = upd
+    return pool
+
+
+def page_rows(pages, page_size: int):
+    """Pool rows covering WHOLE pages: ``pages`` ``[n]`` page ids ->
+    ``[n * page_size]`` int64 rows (page 0 resolves to the zero page)."""
+    P = int(page_size)
+    pages = torch.as_tensor(pages).to(torch.int64)
+    return (pages[:, None] * P
+            + torch.arange(P, device=pages.device)[None, :]).reshape(-1)
+
+
+_DISAGG = ("KV-page migration comes with the disaggregated-serving slice of "
+           "the port (ROADMAP.md Queue 1)")
+
+
+def page_export(pool, rows):
+    """Whole pages out of a pool (the JAX module's :721): not ported."""
+    raise NotImplementedError(f"page_export: {_DISAGG}")
+
+
+def page_import(pool, rows, payload, gate):
+    """Whole pages into a pool (the JAX module's :729): not ported."""
+    raise NotImplementedError(f"page_import: {_DISAGG}")

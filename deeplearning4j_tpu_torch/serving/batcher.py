@@ -32,11 +32,30 @@ and hands every exception to the requests' handles; a failed decode
 fails the in-flight requests and rebuilds a fresh state
 (``_fail_active``).
 
-Divergences: no ``serving.decode`` fault site, retries, SLO or request
-trace (the runtime slice); ``paged=``, ``draft_model=``,
-``submit_prefilled``, ``quantize=`` and ``kv_cache=`` raise ``NotImplementedError`` naming their slices
-(``ROADMAP.md`` Queue 1); stochastic sampling draws from a
-``torch.Generator`` seeded with ``seed``.
+With ``paged=True`` the front runs over the
+:class:`~.engine.PagedGenerativeEngine` (the JAX module's :985-1014): the
+slots' caches are pages of one pool, an identical prompt (keyed by its
+full digest, ``kv_pool.prompt_key``) maps the pages a first admission
+prefilled and registered, and a shared page is forked on its first write
+(``_paged_admit``, the paged branches of the horizon loop). With
+``draft_model=`` (paged only, greedy only, ``speculate_k >= 2``) every
+iteration is a speculative one (``_speculative_iter``, :1991-2070): a
+contiguous :class:`~.engine.GenerativeEngine` over the draft proposes k
+tokens, the target verifies the window ``[pending, d_1 .. d_{k-1}]`` in
+ONE step (K10 in each attention layer on the card), the draft's tokens
+are accepted while they equal the target's argmax, the target's
+correction is emitted, and the rollback truncates the lengths. The
+emitted stream is the target's own greedy stream whatever the draft.
+``stats()`` then carries ``page_pool`` and ``speculative`` blocks.
+
+Divergences: no ``serving.decode`` or ``serving.page_pool`` fault site,
+retries, SLO or request trace (the runtime slice); ``submit_prefilled``,
+``migrate_buckets=``, ``quantize=`` and ``kv_cache=`` raise
+``NotImplementedError`` naming their slices (``ROADMAP.md`` Queue 1); the
+draft's k proposals read back one step at a time and the verify's logits
+once per window (the JAX batcher does the same through its executables);
+stochastic sampling draws from a ``torch.Generator`` seeded with
+``seed``.
 """
 
 from __future__ import annotations
@@ -53,8 +72,9 @@ import torch
 
 from .. import environment as _env
 from ..ops import sampling as _smp
-from .engine import (GenerativeEngine, InferenceEngine, default_buckets,
-                     next_bucket)
+from .engine import (GenerativeEngine, InferenceEngine,
+                     PagedGenerativeEngine, default_buckets, next_bucket)
+from .kv_pool import prompt_key
 
 
 class InferenceMode:
@@ -339,7 +359,8 @@ class ParallelInference:
 # Continuous batching for autoregressive decode
 # ===========================================================================
 
-_PAGED = "the paged and speculative slice of the port (ROADMAP.md Queue 1)"
+_DISAGG = ("the disaggregated-serving slice of the port (ROADMAP.md "
+           "Queue 1)")
 _INT8 = "the int8-serving slice of the port (ROADMAP.md Queue 1)"
 
 
@@ -434,22 +455,48 @@ class ContinuousBatcher:
                  token_to_features=None, sample_fn=None, engine=None,
                  warmup: bool = True, quantize: Optional[str] = None,
                  kv_cache: Optional[str] = None, paged: bool = False,
-                 draft_model=None, max_horizon: int = 8,
+                 page_size: int = 16, pages: Optional[int] = None,
+                 prefix_cache: bool = True, draft_model=None,
+                 speculate_k: int = 4, migrate_buckets: Sequence[int] = (),
+                 max_horizon: int = 8,
                  sampling: Optional[_smp.SamplingSpec] = None,
                  seed: int = 0, device=None):
-        if paged:
-            raise NotImplementedError(f"paged=True comes with {_PAGED}")
-        if draft_model is not None:
-            raise NotImplementedError(f"speculative decoding comes with "
-                                      f"{_PAGED}")
         if quantize is not None or kv_cache is not None:
             raise NotImplementedError(f"quantize=/kv_cache= come with "
                                       f"{_INT8}")
+        if any(int(n) for n in migrate_buckets):
+            raise NotImplementedError(f"migrate_buckets= (KV-page "
+                                      f"migration) comes with {_DISAGG}")
+        if engine is not None and (paged or pages is not None):
+            raise ValueError("pass the paged config on the engine you build "
+                             "(PagedGenerativeEngine), not alongside "
+                             "engine=")
         self.model = model
         self.max_cache_len = next_bucket(max_cache_len)
         self.min_cache_len = next_bucket(min_cache_len)
-        self.engine = engine if engine is not None else GenerativeEngine(
-            model, slots=slots, device=device)
+        if engine is None:
+            if paged:
+                # the default pool holds every slot at its full bucket (no
+                # pressure); a capacity-bound deployment sizes ``pages``
+                # down and leans on sharing and eviction
+                psz = next_bucket(page_size)
+                n_pages = int(pages) if pages is not None else \
+                    1 + int(slots) * max(1, self.max_cache_len // psz)
+                engine = PagedGenerativeEngine(
+                    model, slots=slots, pages=n_pages, page_size=psz,
+                    max_cache_len=self.max_cache_len, device=device)
+            else:
+                engine = GenerativeEngine(model, slots=slots, device=device)
+        self.engine = engine
+        self.paged = isinstance(engine, PagedGenerativeEngine)
+        if self.paged and self.max_cache_len > engine.max_cache_len:
+            # the engine's table caps a slot's pages: admitting what it
+            # cannot hold would overflow map_pages and leak the allocation
+            raise ValueError(
+                f"batcher max_cache_len {self.max_cache_len} exceeds the "
+                f"paged engine's max_cache_len {engine.max_cache_len}; "
+                "size the engine (or the batcher bound) to match")
+        self.prefix_cache = bool(prefix_cache) and self.paged
         self.slots = self.engine.slots
         self.max_new_tokens = int(max_new_tokens)
         self.deadline_ms = deadline_ms
@@ -477,20 +524,60 @@ class ContinuousBatcher:
         self._ladder = tuple(ladder)
         self.token_to_features = token_to_features or self._one_hot
         self.sample_fn = sample_fn or (lambda logits: int(np.argmax(logits)))
+        # speculative decoding: a draft engine proposes k tokens, the target
+        # verifies all k in ONE window step
+        self.speculate_k = int(speculate_k)
+        self.draft = None
+        if draft_model is not None:
+            if not self.paged:
+                raise ValueError("speculative decoding rides the paged "
+                                 "engine's verify; pass paged=True (or a "
+                                 "PagedGenerativeEngine)")
+            if sample_fn is not None:
+                raise ValueError("speculative decoding verifies GREEDY "
+                                 "tokens; a custom sample_fn cannot be "
+                                 "teacher-forced: drop one of the two")
+            if self._sampling.stochastic:
+                raise ValueError("speculative decoding verifies GREEDY "
+                                 "tokens; stochastic on-device sampling "
+                                 "cannot be teacher-forced")
+            if self.speculate_k < 2:
+                raise ValueError("speculate_k must be >= 2 (k=1 is plain "
+                                 "decode)")
+            self.draft = GenerativeEngine(draft_model, slots=self.slots,
+                                          device=self.engine.device)
+            if self.draft._feature_dim() != self._f:
+                raise ValueError(
+                    f"draft model feature dim {self.draft._feature_dim()} "
+                    f"!= target {self._f}: the draft must share the token "
+                    "feature space")
         if warmup:
             cb, b = [], self.min_cache_len
             while b <= self.max_cache_len:
                 cb.append(b)
                 b <<= 1
             pb = list(prompt_buckets) if prompt_buckets else cb
-            horizons = () if self._custom_host_loop else (self.max_horizon,)
-            self.engine.warmup(cb, pb, horizons=horizons,
-                               sampling=self._sampling)
+            horizons = () if (self._custom_host_loop
+                              or self.draft is not None) \
+                else (self.max_horizon,)
+            if self.paged:
+                self.engine.warmup(
+                    cb, pb, speculate=(self.speculate_k,)
+                    if self.draft is not None else (),
+                    horizons=horizons, sampling=self._sampling)
+            else:
+                self.engine.warmup(cb, pb, horizons=horizons,
+                                   sampling=self._sampling)
+            if self.draft is not None:
+                self.draft.warmup(cb, pb)
         # live decode state and its host mirrors (the worker's own)
         self._state = self.engine.new_state(self.min_cache_len)
         self._slot_req: List[Optional[_GenRequest]] = [None] * self.slots
         self._lengths = np.zeros((self.slots,), np.int64)
         self._x_t = np.zeros((self.slots, 1, self._f), np.float32)
+        if self.draft is not None:
+            self._dstate = self.draft.new_state(self.min_cache_len)
+            self._dlengths = np.zeros((self.slots,), np.int64)
         self._inflight: Optional[_Horizon] = None
         self._h_streak = 0
         self._gen = torch.Generator(device=self.engine.device).manual_seed(
@@ -501,7 +588,8 @@ class ContinuousBatcher:
         self._lock = threading.Lock()
         self._counts = {k: 0 for k in (
             "requests", "tokens_generated", "failures", "shed",
-            "deadline_expired", "on_device", "host_loop")}
+            "deadline_expired", "on_device", "host_loop", "speculative",
+            "proposed", "accepted")}
         self._ttft = deque(maxlen=4096)
         self._tpot = deque(maxlen=4096)
         self.health_window = 5.0
@@ -563,9 +651,14 @@ class ContinuousBatcher:
         plen = int(plen) if plen is not None else prompt.shape[0]
         max_new = int(max_new_tokens) if max_new_tokens is not None \
             else self.max_new_tokens
-        if next_bucket(plen + max_new) > self.max_cache_len:
-            raise ValueError(f"prompt ({plen}) + max_new_tokens ({max_new}) "
-                             f"exceeds max_cache_len {self.max_cache_len}")
+        # a verify window caches up to k - 1 rejected rows past the live
+        # sequence: reserve that slack at admission
+        slack = self.speculate_k if self.draft is not None else 0
+        if next_bucket(plen + max_new + slack) > self.max_cache_len:
+            raise ValueError(
+                f"prompt ({plen}) + max_new_tokens ({max_new})"
+                + (f" + speculative slack ({slack})" if slack else "")
+                + f" exceeds max_cache_len {self.max_cache_len}")
         if self.shed_queue_depth is not None and \
                 self._q.qsize() >= self.shed_queue_depth:
             self._bump("shed")
@@ -590,8 +683,8 @@ class ContinuousBatcher:
         return self.submit(prompt=prompt, tokens=tokens, **kw).result()
 
     def submit_prefilled(self, *args, **kwargs):
-        raise NotImplementedError(f"submit_prefilled (disaggregated "
-                                  f"serving) comes with {_PAGED}")
+        raise NotImplementedError(f"submit_prefilled (a migrated prompt) "
+                                  f"comes with {_DISAGG}")
 
     def active_slots(self) -> int:
         return sum(1 for r in self._slot_req if r is not None)
@@ -610,7 +703,7 @@ class ContinuousBatcher:
             p = _percentile(v, q)
             return None if p is None else p * 1e3
 
-        return {
+        out = {
             "slots": self.slots, "health": self.health(), "slots_active": self.active_slots(),
             "queue_depth": self._q.qsize(), "requests": c["requests"],
             "tokens_generated": c["tokens_generated"],
@@ -622,9 +715,18 @@ class ContinuousBatcher:
             "tokens_per_s": tps, "max_horizon": self.max_horizon,
             "dispatch_decisions": {"on_device": c["on_device"],
                                    "host_loop": c["host_loop"],
-                                   "speculative": 0},
+                                   "speculative": c["speculative"]},
             "engine": self.engine.stats(),
         }
+        if self.paged:
+            out["page_pool"] = self.engine.pool.stats()
+        if self.draft is not None:
+            prop, acc = c["proposed"], c["accepted"]
+            out["speculative"] = {"k": self.speculate_k, "proposed": prop,
+                                  "accepted": acc,
+                                  "accept_rate": acc / prop if prop
+                                  else None}
+        return out
 
     def shutdown(self):
         self._shutdown.set()
@@ -668,7 +770,7 @@ class ContinuousBatcher:
                     continue
                 admitted = self._admit()
                 if any(r is not None for r in self._slot_req):
-                    if self._custom_host_loop:
+                    if self._custom_host_loop or self.draft is not None:
                         self._decode_iter()
                     else:
                         self._dispatch_horizon()
@@ -694,7 +796,17 @@ class ContinuousBatcher:
             self._slot_req[i] = None
         self._lengths[:] = 0
         self._x_t[:] = 0.0
+        if self.paged:
+            # every mapped page back, and the registry forgotten: the pool
+            # is rebuilt, so a registered prefix no longer holds its rows
+            for s in range(self.slots):
+                self.engine.pool.release(
+                    self.engine.release_slot(self._state, s))
+            self.engine.pool.clear_prefixes()
         self._state = self.engine.new_state(self.min_cache_len)
+        if self.draft is not None:
+            self._dstate = self.draft.new_state(self.min_cache_len)
+            self._dlengths[:] = 0
 
     def _admit(self) -> int:
         """Prefill up to ``prefill_per_iter`` queued requests into free
@@ -734,15 +846,68 @@ class ContinuousBatcher:
         if need_c > self._state.cache_len:
             self._state = self.engine.grow(self._state, need_c)
         req.t_admitted = time.perf_counter()
-        self._state, logits = self.engine.prefill(self._state, req.x,
-                                                  req.plen, slot)
+        if self.paged:
+            logits = self._paged_admit(req, slot)
+        else:
+            self._state, logits = self.engine.prefill(self._state, req.x,
+                                                      req.plen, slot)
+        if self.draft is not None:
+            # the draft's contiguous caches are private per slot: they
+            # always prefill
+            if need_c > self._dstate.cache_len:
+                self._dstate = self.draft.grow(self._dstate, need_c)
+            self._dstate, _ = self.draft.prefill(self._dstate, req.x,
+                                                 req.plen, slot)
+            self._dlengths[slot] = req.plen
         self._slot_req[slot] = req
         self._lengths[slot] = req.plen
         self._emit_token(slot, logits)
 
+    def _paged_admit(self, req: _GenRequest, slot: int) -> np.ndarray:
+        """Paged admission with prefix sharing: a registry hit on the FULL
+        prompt's key maps the SAME pages into this slot (refcounted: the
+        prompt was prefilled once) and reuses the recorded logits; a miss
+        allocates pages, prefills and registers them. A shared page forks
+        on first write (``prepare_write``). Only identical prompts share:
+        the prompt attends bidirectionally over itself (prefix-LM), so the
+        deep layers' k/v of a common prefix differ under other
+        suffixes."""
+        eng = self.engine
+        key = None
+        if self.prefix_cache:
+            key = prompt_key(req.x, req.plen)
+            hit = eng.pool.lookup_prefix(key)
+            if hit is not None:
+                eng.map_pages(self._state, slot, hit.pages)
+                self._state.lengths[slot] = req.plen
+                return hit.logits.copy()
+        pages = eng.pool.alloc(-(-req.plen // eng.page_size))
+        try:
+            eng.map_pages(self._state, slot, pages)
+            self._state, logits = eng.prefill(self._state, req.x, req.plen,
+                                              slot)
+        except BaseException:
+            # reclaim the allocation exactly once: clear the table row
+            # first so _reset_slot cannot release the pages again
+            self._state.page_table[slot, :] = 0
+            eng.pool.release(pages)
+            raise
+        if key is not None:
+            eng.pool.register_prefix(key, pages, req.plen, logits)
+            # the registry keeps `logits`; the caller gets its own copy
+            return logits.copy()
+        return logits
+
     def _reset_slot(self, slot: int):
+        """Reclaim one slot's host mirrors and (paged) its pages (a normal
+        leave, a failed admission and the failure sweep alike)."""
         self._lengths[slot] = 0
         self._x_t[slot] = 0.0
+        if self.paged:
+            self.engine.pool.release(
+                self.engine.release_slot(self._state, slot))
+        if self.draft is not None:
+            self._dlengths[slot] = 0
 
     def _emit_token(self, slot: int, logits: np.ndarray):
         self._emit_known(slot, self.sample_fn(logits), logits)
@@ -803,6 +968,18 @@ class ContinuousBatcher:
                 eos[s] = int(e)
         return eos
 
+    def _cow(self, slots, n_tokens: int):
+        """Copy-on-write before a paged dispatch: every position the next
+        ``n_tokens`` of ``slots`` write lands on an exclusively owned page
+        (one refcount snapshot, one batched fork)."""
+        snap = self.engine.pool.ref_snapshot()
+        pairs = []
+        for s in slots:
+            pairs += self.engine.prepare_write(self._state, s, n_tokens,
+                                               ref_snapshot=snap)
+        if pairs:
+            self._state = self.engine.fork(self._state, pairs)
+
     def _dispatch_horizon(self):
         """Dispatch one horizon without reading it back."""
         active = np.array([1 if r is not None else 0
@@ -813,7 +990,12 @@ class ContinuousBatcher:
         if need > self._state.cache_len:
             self._state = self.engine.grow(self._state, need)
         try:
-            self._state, res = self.engine.decode_multi(
+            if self.paged:
+                self._cow(live, k)
+                dispatch = self.engine.pdecode_multi
+            else:
+                dispatch = self.engine.decode_multi
+            self._state, res = dispatch(
                 self._state, self._x_t, active, k,
                 eos_ids=self._eos_vec(live), sampling=self._sampling,
                 generator=self._gen)
@@ -844,11 +1026,27 @@ class ContinuousBatcher:
         # lengths after horizon i are at most mirror + h.k (an EOS freeze
         # advances less, and its rows are gated off)
         need = max(int(self._lengths[s]) + h.k for s in cont) + k2
-        if need > self._state.cache_len:
-            return
+        if not self.paged and need > self._state.cache_len:
+            return  # contiguous growth copies the caches: consume first
         cap = np.zeros((self.slots,), np.int32)
         cap[cont] = 1
-        self._state, res = self.engine.decode_multi(
+        if self.paged:
+            if need > self._state.cache_len:
+                self._state = self.engine.grow(self._state, need)
+            # copy-on-write for the chained horizon, planned against the
+            # ASSUMED lengths after horizon i (mirror + h.k); the mirror is
+            # restored at once and advanced by the real counts on consume
+            saved = self._state.lengths.copy()
+            try:
+                for s in cont:
+                    self._state.lengths[s] = saved[s] + h.k
+                self._cow(cont, k2)
+            finally:
+                self._state.lengths[:] = saved
+            dispatch = self.engine.pdecode_multi
+        else:
+            dispatch = self.engine.decode_multi
+        self._state, res = dispatch(
             self._state, None, None, k2, eos_ids=self._eos_vec(cont),
             active_cap=cap, sampling=self._sampling, chain=h.res.chain)
         self._h_streak += 1
@@ -869,6 +1067,8 @@ class ContinuousBatcher:
             m = int(emitted[:, s].sum())
             for j in range(m):
                 self._lengths[s] += 1
+                if self.paged:
+                    self._state.lengths[s] += 1
                 if self._emit_known(s, int(toks[j, s]), logits[j, s]):
                     break
 
@@ -881,8 +1081,14 @@ class ContinuousBatcher:
         if int(self._lengths[live].max()) >= self._state.cache_len:
             self._state = self.engine.grow(self._state,
                                            self._state.cache_len + 1)
-        self._bump("host_loop")
         try:
+            if self.draft is not None:
+                self._bump("speculative")
+                self._speculative_iter(active, live)
+                return
+            self._bump("host_loop")
+            if self.paged:
+                self._cow(live, 1)
             self._state, logits = self.engine.decode(self._state, self._x_t,
                                                      active)
         except Exception as e:
@@ -891,3 +1097,64 @@ class ContinuousBatcher:
         self._lengths[live] += 1
         for i in live:
             self._emit_token(i, logits[i])
+
+    def _speculative_iter(self, active, live):
+        """Draft-propose, target-verify: the draft engine decodes k
+        single-token steps; the target verifies all k in ONE window step.
+        Greedy teacher forcing makes the emitted stream the target's own
+        greedy stream: an accepted draft token equals the target's argmax
+        given exactly the accepted prefix, and the first mismatch emits the
+        target's correction. The rollback truncates the lengths: the
+        rejected rows' pages stay mapped and the next window overwrites
+        them. Raises on a failed dispatch (the caller fails the live
+        requests)."""
+        k, S = self.speculate_k, self.slots
+        need = int(self._lengths[live].max()) + k
+        if need > self._state.cache_len:
+            self._state = self.engine.grow(self._state, need)
+        if need > self._dstate.cache_len:
+            self._dstate = self.draft.grow(self._dstate, need)
+        # 1) the draft proposes k tokens from its host-owned lengths (the
+        # rollback below truncates them)
+        with torch.inference_mode():
+            self._dstate.lengths.copy_(torch.from_numpy(
+                self._dlengths.astype(np.int32)))
+        props = np.zeros((S, k), np.int64)
+        x_d = self._x_t.copy()
+        for j in range(k):
+            self._dstate, dlg = self.draft.decode(self._dstate, x_d, active)
+            for s in live:
+                t = int(np.argmax(dlg[s]))
+                props[s, j] = t
+                x_d[s, 0] = self.token_to_features(t)
+        self._bump("proposed", k * len(live))
+        # 2) the target verifies the window [pending, d_1 .. d_{k-1}]
+        x_seq = np.zeros((S, k, self._f), np.float32)
+        x_seq[:, 0] = self._x_t[:, 0]
+        for s in live:
+            for i in range(1, k):
+                x_seq[s, i] = self.token_to_features(int(props[s, i - 1]))
+        self._cow(live, k)
+        self._state, vlg = self.engine.verify(self._state, x_seq, active)
+        # 3) accept while draft == target argmax; the first mismatch emits
+        # the target's correction; the rollback truncates the lengths
+        for s in live:
+            g = np.argmax(vlg[s], axis=-1)
+            accepted, emitted = 0, []
+            for i in range(k):
+                emitted.append(int(g[i]))
+                if int(props[s, i]) != int(g[i]):
+                    break
+                accepted += 1
+            self._bump("accepted", accepted)
+            l0 = int(self._lengths[s])
+            done = False
+            for j, tok in enumerate(emitted):
+                done = self._emit_known(s, tok, vlg[s, j])
+                if done:
+                    break
+            if not done:
+                new_l = l0 + len(emitted)
+                self._lengths[s] = new_l
+                self._state.lengths[s] = new_l
+                self._dlengths[s] = new_l

@@ -49,11 +49,20 @@ Divergences from the JAX engine, by design:
   threaded PRNG key (stochastic sampling agrees in distribution only).
 - ``quantize=``, ``kv_cache="int8"``, ``mesh=`` and
   ``warmup(checkpoint=)`` raise ``NotImplementedError`` naming their
-  slices (``ROADMAP.md`` Queue 1); the KV page export/import of
-  disaggregated serving lives on the paged engine, which comes with the
-  paged slice; ``attribution_report`` and ``decode_multi_traceable``
-  (the MFU attribution and the static-check probe) come with the runtime
-  slice.
+  slices (``ROADMAP.md`` Queue 1); ``attribution_report`` and
+  ``decode_multi_traceable`` (the MFU attribution and the static-check
+  probe) come with the runtime slice.
+
+:class:`PagedGenerativeEngine` (the JAX module's :1645-2396) with
+:class:`PagedDecodeState` (:1620) keeps the slots' caches as pages of one
+pool per layer, owned by ``kv_pool.PagedKVPool``: ``prefill`` scatters a
+prompt through the slot's page-table row, ``decode`` / ``verify`` /
+``pdecode_multi`` run one token, a speculative window of k tokens (K10 in
+each attention layer on the card) or a horizon over the pool, ``grow``
+widens the table on the host, and ``prepare_write`` / ``fork`` make a
+shared page private before it is written. Its KV-page export and import
+(disaggregated serving) raise ``NotImplementedError`` naming their
+slice.
 """
 
 from __future__ import annotations
@@ -304,15 +313,17 @@ class DecodeState:
 
 class HorizonChain:
     """What the next horizon needs from the last one: the next-step
-    features and the live mask on the device, and the sampling generator
-    (the lengths advance in the state itself)."""
+    features and the live mask on the device, and the sampling generator;
+    on the paged engine also the device-carried lengths (the contiguous
+    engine advances them in its state)."""
 
-    __slots__ = ("x_t", "active", "generator")
+    __slots__ = ("x_t", "active", "generator", "lengths")
 
-    def __init__(self, x_t, active, generator):
+    def __init__(self, x_t, active, generator, lengths=None):
         self.x_t = x_t
         self.active = active
         self.generator = generator
+        self.lengths = lengths
 
 
 class HorizonResult:
@@ -571,49 +582,68 @@ class GenerativeEngine:
         self._count(("decode", state.cache_len))
         return state, self._decode_into(state, x_t, active)
 
-    def _decode_multi_into(self, state, x_t, active, k, kmax, eos_ids,
-                           active_cap, sampling, generator, chain):
+    def _horizon(self, caches, lengths, x, a, k, kmax, eos, sampling, gen,
+                 page_table=None, page_size=0):
+        """The horizon loop: ``k`` decode steps from features ``x`` and the
+        live mask ``a`` (device tensors), ``lengths`` advanced IN PLACE on
+        the device. Returns ``(x, a, toks, logits, emitted)``."""
         m = self.model
         S, dt = self.slots, self._dtype()
         sample = sampling.build()
         temp = float(sampling.temperature)
+        toks = torch.zeros((kmax, S), dtype=torch.int32, device=self.device)
+        emitted = torch.zeros((kmax, S), dtype=torch.int32,
+                              device=self.device)
+        logits_buf = None
+        for i in range(int(k)):
+            y, _ = m._decode_step(m.params, x, m.state, caches, lengths,
+                                  write=a, page_table=page_table,
+                                  page_size=page_size)
+            self.decode_steps += 1
+            logits = y[:, 0]
+            if logits_buf is None:
+                logits_buf = logits.new_zeros((kmax,) + logits.shape)
+            tok = sample(logits, gen, temp)
+            emitted[i] = a
+            lengths += a
+            # an EOS freezes its slot for the rest of the horizon; the EOS
+            # token itself is emitted
+            a = a * (1 - _smp.eos_hit(tok, eos))
+            x = m.decode_token_features(tok, dtype=dt)
+            toks[i] = tok
+            logits_buf[i] = logits
+        return x, a, toks, logits_buf, emitted
+
+    def _horizon_inputs(self, x_t, active, eos_ids, active_cap, chain,
+                        generator):
+        """The device inputs of a horizon: ``(x, live mask with the budget
+        gate ANDed in, eos, generator)``, from the chain when there is
+        one."""
+        S = self.slots
+        if chain is not None:
+            x, a, gen = chain.x_t, chain.active, chain.generator
+        else:
+            x = self._tensor(x_t, self._dtype())
+            a = self._tensor(np.asarray(active, np.int32))
+            gen = generator
+        cap = np.ones((S,), np.int32) if active_cap is None \
+            else np.asarray(active_cap, np.int32)
+        eos = np.full((S,), -1, np.int32) if eos_ids is None \
+            else np.asarray(eos_ids, np.int32)
+        # the host-known budget gate, ANDed once for the horizon
+        return x, a * self._tensor(cap), self._tensor(eos), gen
+
+    def _decode_multi_into(self, state, x_t, active, k, kmax, eos_ids,
+                           active_cap, sampling, generator, chain):
         with torch.inference_mode(), _env.precision(self.device):
-            if chain is not None:
-                x, a, gen = chain.x_t, chain.active, chain.generator
-            else:
-                x = self._tensor(x_t, dt)
-                a = self._tensor(np.asarray(active, np.int32))
-                gen = generator
-            cap = np.ones((S,), np.int32) if active_cap is None \
-                else np.asarray(active_cap, np.int32)
-            eos = np.full((S,), -1, np.int32) if eos_ids is None \
-                else np.asarray(eos_ids, np.int32)
-            # the host-known budget gate, ANDed once for the horizon
-            a = a * self._tensor(cap)
-            eos = self._tensor(eos)
-            toks = torch.zeros((kmax, S), dtype=torch.int32,
-                               device=self.device)
-            emitted = torch.zeros((kmax, S), dtype=torch.int32,
-                                  device=self.device)
-            logits_buf = None
-            for i in range(int(k)):
-                y, _ = m._decode_step(m.params, x, m.state, state.caches,
-                                      state.lengths, write=a)
-                self.decode_steps += 1
-                logits = y[:, 0]
-                if logits_buf is None:
-                    logits_buf = logits.new_zeros((kmax,) + logits.shape)
-                tok = sample(logits, gen, temp)
-                emitted[i] = a
-                state.lengths += a
-                # an EOS freezes its slot for the rest of the horizon; the
-                # EOS token itself is emitted
-                a = a * (1 - _smp.eos_hit(tok, eos))
-                x = m.decode_token_features(tok, dtype=dt)
-                toks[i] = tok
-                logits_buf[i] = logits
-            chain = HorizonChain(x, a, gen)
-            res = HorizonResult(toks, logits_buf, emitted, chain, k)
+            x, a, eos, gen = self._horizon_inputs(x_t, active, eos_ids,
+                                                  active_cap, chain,
+                                                  generator)
+            x, a, toks, logits, emitted = self._horizon(
+                state.caches, state.lengths, x, a, k, kmax, eos, sampling,
+                gen)
+            res = HorizonResult(toks, logits, emitted,
+                                HorizonChain(x, a, gen), k)
         return state, res
 
     def decode_multi(self, state: DecodeState, x_t, active, k: int, *,
@@ -655,3 +685,418 @@ class GenerativeEngine:
                     "prefill_runs": self.prefill_runs,
                     "decode_steps": self.decode_steps,
                     "slots": self.slots, "kv_cache": "off"}
+
+
+# ===========================================================================
+# Paged KV pool, prefix sharing and speculative verify
+# ===========================================================================
+
+_DISAGG = ("KV-page migration comes with the disaggregated-serving slice of "
+           "the port (ROADMAP.md Queue 1)")
+
+
+class PagedDecodeState:
+    """The live state of one paged decode batch: the per-layer page POOLS
+    on the device, and on the host the per-slot lengths and the page
+    table, which the one decode worker owns. Every engine call uploads the
+    table's bucketed width as a small int32 tensor, so growth is a host
+    array write and copies nothing on the device."""
+
+    __slots__ = ("caches", "lengths", "page_table", "mp", "page_size")
+
+    def __init__(self, caches, lengths, page_table, mp: int,
+                 page_size: int):
+        self.caches = caches            # {layer: {"k": [NP*P, H, d], ...}}
+        self.lengths = lengths          # np [S] int64 (host)
+        self.page_table = page_table    # np [S, MP] int32 (host)
+        self.mp = int(mp)               # the table-width bucket in use
+        self.page_size = int(page_size)
+
+    @property
+    def cache_len(self) -> int:
+        """The logical cache bucket the decode steps see (``mp *
+        page_size``), as ``DecodeState.cache_len``."""
+        return self.mp * self.page_size
+
+
+class PagedGenerativeEngine(GenerativeEngine):
+    """Paged-pool generative engine (the JAX package's
+    ``PagedGenerativeEngine``, :1645): the slot caches become fixed-size
+    pages of one device pool per layer, owned by a
+    :class:`~.kv_pool.PagedKVPool`, and the attention layers read them
+    through the page table.
+
+    - :meth:`new_state` builds ONE pool of ``pages`` physical pages per
+      layer (page 0 is the zero page).
+    - :meth:`prefill` scatters the prompt's rows through the slot's table
+      row (gated past the true prompt length).
+    - :meth:`decode` / :meth:`verify` run the layer walk with the page
+      table as an argument: one token (K9 in each attention layer) or a
+      window of k tokens (K10); :meth:`pdecode_multi` runs a horizon of
+      single-token steps as ``decode_multi`` does.
+    - :meth:`grow` widens the table-width bucket: host only, no device
+      copy.
+    - copy-on-write: the caller asks :meth:`prepare_write` before a
+      dispatch, and shared pages are copied by ONE :meth:`fork` call.
+
+    Divergences from the JAX engine: eager, so ``warmup`` runs each
+    (table-width bucket, window), each prompt bucket's prefill and the
+    fork once on a scratch state, and ``cold_calls`` stands in for
+    ``compiles``; the pools are updated IN PLACE; ``export_pages`` /
+    ``import_pages`` and ``warmup(migrate_buckets=)`` (disaggregated
+    serving), ``mesh=`` and ``warmup(checkpoint=)`` raise
+    ``NotImplementedError`` naming their slices."""
+
+    def __init__(self, model, slots: int = 8, pages: int = 64,
+                 page_size: int = 16, max_cache_len: int = 256,
+                 quantize: Optional[str] = None,
+                 kv_cache: Optional[str] = None, mesh=None, device=None):
+        from .kv_pool import PagedKVPool
+        super().__init__(model, slots=slots, quantize=quantize,
+                         kv_cache=kv_cache, mesh=mesh, device=device)
+        self.page_size = next_bucket(page_size)
+        self.max_cache_len = max(next_bucket(max_cache_len), self.page_size)
+        self.max_pages_per_slot = self.max_cache_len // self.page_size
+        self.pages = int(pages)
+        self.pool = PagedKVPool(self.pages, self.page_size)
+        #: verify windows and fork calls run (plain integers): each
+        #: attention layer launches K10 once per verify on the card
+        self.verify_steps = 0
+        self.fork_calls = 0
+
+    # ------------------------------------------------------------ state
+    def _pool_spec(self):
+        return self.model.paged_cache_spec(self.pages, self.page_size)
+
+    def pool_bytes(self) -> int:
+        """Device bytes of the paged KV pool: the FIXED number a per-GB
+        stream count divides into."""
+        return sum(int(np.prod(a.shape)) * a.dtype.itemsize
+                   for leaves in self._pool_spec().values()
+                   for a in leaves.values())
+
+    def bytes_per_token(self) -> int:
+        return self.pool_bytes() // (self.pages * self.page_size)
+
+    def new_state(self, cache_len: int = 0) -> PagedDecodeState:
+        """A fresh zeroed pool and an empty page table; ``cache_len`` picks
+        the first table-width bucket (one page by default)."""
+        with torch.inference_mode():
+            caches = self.model.init_paged_cache(self.pages, self.page_size)
+        return PagedDecodeState(
+            caches, np.zeros((self.slots,), np.int64),
+            np.zeros((self.slots, self.max_pages_per_slot), np.int32),
+            self._mp_bucket(cache_len), self.page_size)
+
+    def _mp_bucket(self, cache_len: int) -> int:
+        c = next_bucket(max(int(cache_len), 1))
+        mp = max(1, c // self.page_size)
+        return min(next_bucket(mp), self.max_pages_per_slot)
+
+    def grow(self, state: PagedDecodeState,
+             cache_len: int) -> PagedDecodeState:
+        """Widen the table-width bucket the decode steps see: host only
+        (the full-width table already exists), no device copy."""
+        mp2 = self._mp_bucket(cache_len)
+        if mp2 <= state.mp:
+            return state
+        return PagedDecodeState(state.caches, state.lengths,
+                                state.page_table, mp2, state.page_size)
+
+    # ------------------------------------------------- page-table plumbing
+    def map_pages(self, state: PagedDecodeState, slot: int,
+                  pages: Sequence[int]) -> None:
+        """Install a slot's (fresh or prefix-shared) pages into its table
+        row from logical page 0."""
+        for j, p in enumerate(pages):
+            state.page_table[slot, j] = int(p)
+
+    def slot_pages(self, state: PagedDecodeState, slot: int) -> list:
+        return [int(p) for p in state.page_table[slot] if p]
+
+    def release_slot(self, state: PagedDecodeState, slot: int) -> list:
+        """Clear a leaving slot's table row and length; returns its page
+        ids for the caller to ``pool.release`` (shared pages live on
+        through their other references)."""
+        pages = self.slot_pages(state, slot)
+        state.page_table[slot, :] = 0
+        state.lengths[slot] = 0
+        return pages
+
+    def prepare_write(self, state: PagedDecodeState, slot: int,
+                      n_tokens: int, ref_snapshot=None) -> list:
+        """Make positions ``[lengths[slot], + n_tokens)`` exclusively
+        writable: allocate the missing pages and plan a copy-on-write fork
+        of each shared one (refcount > 1). Returns the ``(src, dst)`` page
+        pairs for ONE :meth:`fork` call; raises on a write past
+        ``max_cache_len``. The allocation is all or nothing.
+
+        ``ref_snapshot``: a ``pool.ref_snapshot()`` taken once per round by
+        the caller, probed in place of ``pool.shared`` and updated in place
+        so repeated calls in one round agree. Only the calling decode
+        worker raises a refcount, so a stale snapshot can at worst fork
+        needlessly, never lose a fork."""
+        l = int(state.lengths[slot])
+        P = self.page_size
+        j_last = (l + int(n_tokens) - 1) // P
+        if j_last >= self.max_pages_per_slot:
+            raise ValueError(
+                f"slot {slot} write of {n_tokens} at length {l} exceeds "
+                f"max_cache_len {self.max_cache_len}")
+        snap = ref_snapshot
+        plan = []  # (logical page, shared page to fork or 0)
+        for j in range(l // P, j_last + 1):
+            page = int(state.page_table[slot, j])
+            if page == 0:
+                plan.append((j, 0))
+            elif (int(snap[page]) > 1 if snap is not None
+                  else self.pool.shared(page)):
+                plan.append((j, page))
+        if not plan:
+            return []
+        fresh_pages = self.pool.alloc(len(plan))
+        forks, released = [], []
+        for (j, old), fresh in zip(plan, fresh_pages):
+            state.page_table[slot, j] = fresh
+            if snap is not None:
+                snap[fresh] = 1
+            if old:
+                forks.append((old, fresh))
+                released.append(old)
+                if snap is not None:
+                    snap[old] -= 1
+        if released:
+            self.pool.release(released)
+        if forks:
+            self.pool.note_fork(len(forks))
+        return forks
+
+    # ---------------------------------------------------------- warm-up
+    def warmup(self, cache_buckets: Sequence[int],
+               prompt_buckets: Sequence[int],
+               speculate: Sequence[int] = (),
+               checkpoint: Optional[str] = None,
+               migrate_buckets: Sequence[int] = (),
+               horizons: Sequence[int] = (),
+               sampling: _smp.SamplingSpec = _smp.GREEDY
+               ) -> "PagedGenerativeEngine":
+        """Run each table-width bucket's single-token decode (or one
+        horizon per capacity in ``horizons``), a ``Tq = k`` verify per
+        ``speculate`` window, each prompt bucket's prefill and the page
+        fork once on a scratch state, outside traffic."""
+        if checkpoint is not None:
+            raise NotImplementedError(f"warmup(checkpoint=) comes with "
+                                      f"{_PARALLEL}")
+        if any(int(n) for n in migrate_buckets):
+            raise NotImplementedError(f"warmup(migrate_buckets=): {_DISAGG}")
+        mps = sorted({self._mp_bucket(c) for c in cache_buckets})
+        tps = sorted({next_bucket(t) for t in prompt_buckets})
+        hs = sorted({int(h) for h in horizons if int(h) >= 1})
+        f, S = self._feature_dim(), self.slots
+        scratch = self.new_state(max(mps, default=1) * self.page_size)
+        idle = np.zeros((S,), np.int32)
+        for mp in mps:
+            scratch.mp = mp
+            if not hs:
+                self._window_into(scratch, np.zeros((S, 1, f), np.float32),
+                                  idle)
+                self._warmed.add(("pdecode", 1, mp))
+            for h in hs:
+                _, res = self._pdecode_multi_into(
+                    scratch, np.zeros((S, 1, f), np.float32), idle, 1, h,
+                    None, None, sampling,
+                    torch.Generator(device=self.device).manual_seed(0),
+                    None)
+                res.fetch()
+                self._warmed.add(("pdecode_multi", h, mp)
+                                 + sampling.static_key())
+            for kq in speculate:
+                if int(kq) > 1:
+                    self._window_into(
+                        scratch, np.zeros((S, int(kq), f), np.float32), idle)
+                    self._warmed.add(("pdecode", int(kq), mp))
+        for tp in tps:
+            self._prefill_rows(scratch, np.zeros((1, tp, f), np.float32), 1,
+                               0)
+            self._warmed.add(("pprefill", tp))
+        self._fork_into(scratch, [(0, 0)])
+        self._warmed.add(("pfork",))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    # --------------------------------------------------------- dispatch
+    def _table(self, state: PagedDecodeState) -> torch.Tensor:
+        return self._tensor(np.ascontiguousarray(
+            state.page_table[:, :state.mp], dtype=np.int32))
+
+    def _prefill_rows(self, state, x, plen, slot):
+        """The prompt through the layer walk on a scratch cache of the
+        prompt bucket, then its rows scattered through the slot's table
+        row, rows past ``plen`` gated (they may point at the zero page or a
+        shared page). Returns the logits of the last prompt position."""
+        m = self.model
+        tp, P = x.shape[1], self.page_size
+        pos = np.arange(tp)
+        pages = state.page_table[slot, np.minimum(
+            pos // P, self.max_pages_per_slot - 1)].astype(np.int64)
+        rows = np.where(pages > 0, pages * P + pos % P, 0)
+        with torch.inference_mode(), _env.precision(self.device):
+            xt = self._tensor(x, self._dtype())
+            mini = m.init_decode_cache(1, tp)
+            plen_t = torch.full((1,), int(plen), dtype=torch.int32,
+                                device=self.device)
+            y, mini = m._prefill(m.params, xt, m.state, mini, plen_t)
+            self.prefill_runs += 1
+            rows_t = self._tensor(rows)
+            gate = (torch.arange(tp, device=self.device)
+                    < int(plen))[:, None, None]
+            for si, leaves in state.caches.items():
+                for name, pool in leaves.items():
+                    upd = mini[si][name][0].transpose(0, 1).to(pool.dtype)
+                    pool[rows_t] = torch.where(gate, upd, pool[rows_t])
+            logits = y[0, int(plen) - 1]
+            if logits.dtype in (torch.bfloat16, torch.float16):
+                logits = logits.float()
+            return logits.cpu().numpy()
+
+    def prefill(self, state: PagedDecodeState, x, plen: int, slot: int):
+        """Fill ``slot``'s pages from one request's prompt (``[T, F]`` or
+        ``[1, T, F]``, host array, end-padded to the smallest warmed prompt
+        bucket). The slot's table row must already hold ``ceil(plen /
+        page_size)`` pages (the batcher allocates them at admission).
+        Returns ``(state, logits [V])``."""
+        x = np.asarray(x)
+        if x.ndim == 2:
+            x = x[None]
+        with self._lock:
+            warmed = sorted(k[1] for k in self._warmed
+                            if k[0] == "pprefill" and k[1] >= x.shape[1])
+        tp = warmed[0] if warmed else next_bucket(x.shape[1])
+        if tp != x.shape[1]:
+            x = np.concatenate(
+                [x, np.zeros((1, tp - x.shape[1]) + x.shape[2:], x.dtype)],
+                axis=1)
+        self._count(("pprefill", tp))
+        logits = self._prefill_rows(state, x, plen, slot)
+        state.lengths[slot] = int(plen)
+        return state, logits
+
+    def _window_into(self, state, x, active):
+        """One window of ``Tq`` tokens per slot through the layer walk
+        over the pool: logits ``[S, Tq, V]`` on the host."""
+        m = self.model
+        with torch.inference_mode(), _env.precision(self.device):
+            xt = self._tensor(x, self._dtype())
+            a = self._tensor(np.asarray(active, np.int32))
+            ln = self._tensor(state.lengths.astype(np.int32))
+            y, _ = m._decode_step(m.params, xt, m.state, state.caches, ln,
+                                  write=a, page_table=self._table(state),
+                                  page_size=self.page_size)
+            if xt.shape[1] == 1:
+                self.decode_steps += 1
+            else:
+                self.verify_steps += 1
+            if y.dtype in (torch.bfloat16, torch.float16):
+                y = y.float()
+            return y.cpu().numpy()
+
+    def decode(self, state: PagedDecodeState, x_t, active):
+        """One token for every slot over the pool; advances the host
+        ``lengths`` of the active rows. Returns ``(state, logits [S,
+        V])``."""
+        self._count(("pdecode", 1, state.mp))
+        y = self._window_into(state, x_t, active)
+        state.lengths += np.asarray(active, np.int64)
+        return state, y[:, 0]
+
+    def verify(self, state: PagedDecodeState, x_seq, active):
+        """Speculative verify: ``x_seq`` ``[S, k, F]`` (the pending token,
+        then k - 1 draft tokens) in ONE window step (K10 in each attention
+        layer on the card). ``lengths`` are NOT advanced: the caller
+        truncates them to the accepted count (the rollback), which also
+        retires the rejected rows. Returns ``(state, logits [S, k,
+        V])``."""
+        x_seq = np.asarray(x_seq)
+        self._count(("pdecode", int(x_seq.shape[1]), state.mp))
+        return state, self._window_into(state, x_seq, active)
+
+    def _pdecode_multi_into(self, state, x_t, active, k, kmax, eos_ids,
+                            active_cap, sampling, generator, chain):
+        with torch.inference_mode(), _env.precision(self.device):
+            x, a, eos, gen = self._horizon_inputs(x_t, active, eos_ids,
+                                                  active_cap, chain,
+                                                  generator)
+            ln = chain.lengths if chain is not None else self._tensor(
+                state.lengths.astype(np.int32))
+            x, a, toks, logits, emitted = self._horizon(
+                state.caches, ln, x, a, k, kmax, eos, sampling, gen,
+                page_table=self._table(state), page_size=self.page_size)
+            res = HorizonResult(toks, logits, emitted,
+                                HorizonChain(x, a, gen, lengths=ln), k)
+        return state, res
+
+    def pdecode_multi(self, state: PagedDecodeState, x_t, active, k: int,
+                      *, eos_ids=None, active_cap=None,
+                      sampling: _smp.SamplingSpec = _smp.GREEDY,
+                      generator: Optional[torch.Generator] = None,
+                      chain: Optional[HorizonChain] = None):
+        """A paged horizon of ``k`` tokens, the contract of
+        :meth:`GenerativeEngine.decode_multi`. The host ``lengths`` are NOT
+        advanced: the caller advances them by the fetched emit counts; the
+        device lengths ride ``result.chain``. The caller must
+        ``prepare_write(..., k)`` and ``fork`` before, so every page the
+        horizon can touch is exclusively writable."""
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"a horizon takes k >= 1 tokens, got {k}")
+        with self._lock:
+            warmed = sorted(
+                kk[1] for kk in self._warmed
+                if kk[0] == "pdecode_multi" and kk[2] == state.mp
+                and kk[1] >= k and tuple(kk[3:]) == sampling.static_key())
+        kmax = warmed[0] if warmed else k
+        self._count(("pdecode_multi", kmax, state.mp)
+                    + sampling.static_key())
+        if generator is None and chain is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return self._pdecode_multi_into(state, x_t, active, k, kmax,
+                                        eos_ids, active_cap, sampling,
+                                        generator, chain)
+
+    def _fork_into(self, state, pairs):
+        P = self.page_size
+        with torch.inference_mode():
+            src = self._tensor(np.asarray([s for s, _ in pairs], np.int64))
+            dst = self._tensor(np.asarray([d for _, d in pairs], np.int64))
+            offs = torch.arange(P, device=self.device)[None, :]
+            rows_s = (src[:, None] * P + offs).reshape(-1)
+            rows_d = (dst[:, None] * P + offs).reshape(-1)
+            for leaves in state.caches.values():
+                for pool in leaves.values():
+                    pool[rows_d] = pool[rows_s]
+        self.fork_calls += 1
+
+    def fork(self, state: PagedDecodeState, pairs) -> PagedDecodeState:
+        """Copy-on-write page copies: ONE batched copy of every ``(src,
+        dst)`` pair in every layer's pool."""
+        if not pairs:
+            return state
+        self._count(("pfork",))
+        self._fork_into(state, pairs)
+        return state
+
+    def export_pages(self, *args, **kwargs):
+        raise NotImplementedError(f"export_pages: {_DISAGG}")
+
+    def import_pages(self, *args, **kwargs):
+        raise NotImplementedError(f"import_pages: {_DISAGG}")
+
+    # ---------------------------------------------------------------- admin
+    def stats(self) -> dict:
+        out = super().stats()
+        out["verify_steps"] = self.verify_steps
+        out["fork_calls"] = self.fork_calls
+        out["paged"] = self.pool.stats()
+        out["pool_bytes"] = self.pool_bytes()
+        return out

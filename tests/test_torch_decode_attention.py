@@ -33,6 +33,7 @@ import torch
 
 from deeplearning4j_tpu_torch.kernels import _build
 from deeplearning4j_tpu_torch.kernels import decode_attention as k9
+from deeplearning4j_tpu_torch.kernels import multiquery_decode as k10
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
 
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -214,7 +215,7 @@ def test_cpu_decisions(auto_mode):
     assert fa.decode_counters() == {
         "decode_fused": 0, "decode_fallback_mode": 1,
         "decode_fallback_platform": 1, "decode_fallback_multiquery": 1,
-        "decode_multiquery_fallback": 0}
+        "decode_multiquery": 0, "decode_multiquery_fallback": 0}
     assert not any(fa.counters().values())  # kept apart from attention's
     with pytest.raises(ValueError, match=r"\[B, H, Tq, d\]"):
         fa.decode_dispatch(q[0], k, v, ln)
@@ -257,8 +258,13 @@ def test_cuda_query_reaches_k9_or_raises(plain_forbidden, auto_mode):
     fa.set_mode("off")
     with pytest.raises(ValueError, match="'off'"):
         fa.decode_dispatch(_fake(q), _fake(k), _fake(v), _fake(ln))
-    with pytest.raises(NotImplementedError, match="K10"):
-        fa.decode_multiquery_dispatch(_fake(q), _fake(k), _fake(v), ln)
+    # a CUDA verify window reaches K10's wrapper (its build here)
+    fa.set_mode("auto")
+    k10._kernel.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fa.decode_multiquery_dispatch(_fake(q), _fake(k), _fake(v),
+                                      _fake(ln))
+    assert fa.decode_counters()["decode_multiquery"] == 1
 
 
 def test_cuda_query_bank_takes_the_counted_plain_route(monkeypatch,

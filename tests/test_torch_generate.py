@@ -250,13 +250,15 @@ def test_decode_token_features_equal_the_host_one_hot(nets):
 
 
 def test_paged_and_int8_raise(nets):
+    """The int8 KV cache, contiguous or paged, comes with its slice (the
+    paged pool and speculative decoding are ported:
+    ``tests/test_torch_paged_kv.py``)."""
     pn = nets[1]
-    for call in (lambda: pn.paged_cache_spec(4, 8),
-                 lambda: pn.init_paged_cache(4, 8),
+    for call in (lambda: pn.paged_cache_spec(4, 8, kv_quant=True),
+                 lambda: pn.init_paged_cache(4, 8, kv_quant=True),
                  lambda: pn.decode_cache_spec(2, 8, kv_quant=True),
                  lambda: GenerativeEngine(pn, kv_cache="int8", device="cpu"),
-                 lambda: ContinuousBatcher(pn, paged=True, device="cpu"),
-                 lambda: ContinuousBatcher(pn, draft_model=pn,
+                 lambda: ContinuousBatcher(pn, paged=True, kv_cache="int8",
                                            device="cpu")):
         with pytest.raises(NotImplementedError, match="slice"):
             call()

@@ -70,7 +70,8 @@ def test_scan_covers_the_package():
             "bert.py", "math.py", "reduce.py", "profile_bert.py",
             "lstm_cell.py", "pallas_kernels.py", "recurrent.py", "model.py",
             "zoo.py", "config.py", "serializer.py", "decode_attention.py",
-            "attention.py", "sampling.py", "profile_generate.py"} <= names
+            "attention.py", "sampling.py", "profile_generate.py",
+            "kv_pool.py", "multiquery_decode.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -196,6 +197,41 @@ def test_generative_fronts_without_device_raise(no_cuda):
     try:
         assert len(cb.generate(tokens=[1, 2], max_new_tokens=3)["tokens"]) \
             == 3
+    finally:
+        cb.shutdown()
+
+
+def test_paged_fronts_without_device_raise(no_cuda):
+    """The paged engine, and the paged and speculative fronts, run on
+    cuda unless asked for cpu, and raise without a card; on the CPU they
+    serve."""
+    from deeplearning4j_tpu_torch.nn.config import (InputType,
+                                                    NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import (OutputLayer,
+                                                    SelfAttentionLayer)
+    from deeplearning4j_tpu_torch.serving.batcher import ContinuousBatcher
+    from deeplearning4j_tpu_torch.serving.engine import PagedGenerativeEngine
+    conf = (NeuralNetConfiguration.builder().seed(0)
+            .input_type(InputType.recurrent(6, 4))
+            .list(SelfAttentionLayer(n_out=6, n_heads=2),
+                  OutputLayer(n_out=6)).build())
+    net = MultiLayerNetwork(conf).init(device="cpu")
+    gen = dict(slots=1, max_cache_len=16, min_cache_len=16, paged=True,
+               page_size=8)
+    for make in (lambda: PagedGenerativeEngine(net, pages=3, page_size=8),
+                 lambda: ContinuousBatcher(net, **gen),
+                 lambda: ContinuousBatcher(net, draft_model=net,
+                                           speculate_k=2, **gen),
+                 lambda: JsonModelServer(net, generate=dict(
+                     gen, draft_model=net, speculate_k=2))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    cb = ContinuousBatcher(net, device="cpu", draft_model=net,
+                           speculate_k=2, **gen)
+    try:
+        assert len(cb.generate(tokens=[1, 2], max_new_tokens=3)["tokens"]) \
+            == 3
+        assert cb.stats()["speculative"]["proposed"] > 0
     finally:
         cb.shutdown()
 

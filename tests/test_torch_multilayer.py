@@ -210,14 +210,15 @@ def test_what_the_slice_leaves_out_raises(nets):
     for call in (lambda: pn.fit(x, x), lambda: pn.score(),
                  lambda: pn.evaluate(x, x),
                  lambda: pn.output(x, train=True),
-                 lambda: pn.quantize_params(),
-                 lambda: pn.paged_cache_spec(4, 8)):
+                 lambda: pn.quantize_params()):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             call()
-    # the decode walk is ported; an LSTM stack refuses it, as in the JAX
-    # package
+    # the decode walk and the paged pool are ported; an LSTM stack refuses
+    # both, as in the JAX package
     with pytest.raises(ValueError, match="decode"):
         pn.decode_cache_spec(1, 8)
+    with pytest.raises(ValueError, match="decode"):
+        pn.paged_cache_spec(4, 8)
 
 
 def test_engine_masks_a_graph_sequence_input_as_jax_does():
