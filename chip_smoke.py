@@ -1,5 +1,5 @@
-"""Drive the PyTorch/H100 port's serving, training and recurrent paths on
-one NVIDIA card.
+"""Drive the PyTorch/H100 port's serving, training, recurrent, generative
+and fused-epilogue paths on one NVIDIA card.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -151,16 +151,48 @@ Phases, in order; any failure exits non-zero:
     share, K9, K10 and K3 time); then one POST /generate through a paged,
     speculative ``JsonModelServer``, its NDJSON stream equal to
     ``batcher.generate``;
-20. summary: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
-    power limit, and last ``{"ok": true, "device": {...}}``.
+20. kernel-ln and kernel-ln-bwd against plain: K6 (the LayerNorm +
+    activation epilogue) and K7 (its backward) against their plain PyTorch
+    versions at [rows, C] = (4096, 768) (BERT-base at batch 32), (256,
+    768), (128, 768), ragged (77, 768), (4096, 1024), (33, 4096) and (5,
+    37), all 7 activations, in float32, bfloat16 and float16: y, mu and
+    rstd, then dx, dgamma and dbeta (K7 fed K6's mu and rstd) within
+    ``layer_norm_act.tolerance``, a second run bitwise equal; rows of
+    ``1000 + N(0, 1)``, where K6 holds and a one-pass variance in float32
+    is rejected for every activation; CUDA-event times at (4096, 768)
+    beside the bounds, the plain versions, ``F.layer_norm`` and
+    ``native_layer_norm_backward`` (fed the same mean and rstd); and K1
+    and K2 with the exact GELU at (4096, 3072), the fused graph's 12
+    ``bias_act`` sites, beside their bounds and ``F.gelu(x + b)``;
+21. bert-ln: BERT-base as in phase 9, recorded with
+    ``spelling="fusable"``: ``fuse_attention`` 12 matched, 0 unmatched,
+    ``fuse_epilogues`` 37 matched (25 ``layer_norm``, 12 ``gelu``), 0
+    unmatched; ``sd.output`` for requests of 1, 8 and 32 sequences of 128
+    tokens with ragged masks, each forward with exactly 25 K6, 12 K1 and 12
+    K3 launches and only ``fused`` decisions; the card's batch-2
+    ``last_hidden_state`` against the port's plain path on the CPU and
+    against the same graph unfused on the card; wall time, sequences per
+    second and a ``torch.profiler`` split (device time, busy share, K6, K1
+    and K3 time); and the TF-spelled graph against the fused one at batch
+    32, in turns;
+22. bert-ln-fit: the fused graph of phase 21 with the fine-tune head of
+    phase 11: one batch-2 step's loss and every VARIABLE's gradient on the
+    card against the CPU (float32 and float64 copies, phase 11's rule);
+    then ``sd.fit`` on one fixed batch of 32 x 128 for 12 steps, each with
+    exactly 25 K6, 25 K7, 12 K1, 12 K2, 12 K3, 12 K4 and 12 K5 launches
+    and only ``fused`` decisions, a finite and falling loss, the step time
+    and a ``torch.profiler`` split of 3 more steps;
+23. summary: a ``{"kernels": [...]}`` line (K1-K10), the ``nvidia-smi``
+    name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 The serving path (phases 4-5), the training path (phase 7), the BERT
 serving path (phase 9), the BERT fine-tune path (phase 11), the LSTM
 serving path and the LSTM streaming path (phase 13), the two generative
 mixes (phase 16), the generative server (phase 17), the paged mix (phase
-18), the three speculative runs and the speculative server (phase 19) are
-each driven with the launch counts set to 0 just before and read just
-after.
+18), the three speculative runs and the speculative server (phase 19),
+the fused BERT serving path (phase 21) and the fused BERT fine-tune path
+(phase 22) are each driven with the launch counts set to 0 just before
+and read just after.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -296,6 +328,19 @@ GEN_REL_TOL = 1e-4
 #: request of the server phase
 GROW_CHECKED = 4
 SERVER_NEW = 16
+#: K6/K7's shapes [rows, C]: BERT-base's LayerNorm at batch 32, 2 and 1
+#: (x 128 tokens), a ragged row count, a wider row, the widest the row
+#: layout takes in 4 warps, and a tiny ragged one; the first is the path's
+#: and is timed
+LN_SHAPES = ((4096, 768), (256, 768), (128, 768), (77, 768), (4096, 1024),
+             (33, 4096), (5, 37))
+LN_PATH_SHAPE = LN_SHAPES[0]
+#: BERT's LayerNorm epsilon, and K6 launches per fused BERT-base forward
+#: (the embeddings', then two per layer)
+LN_EPS = 1e-12
+LN_SITES = 2 * BERT_LAYERS + 1
+#: the 12 exact-GELU bias_act sites of a fused forward: [B*T, intermediate]
+LN_GELU_SHAPE = (4096, 3072)
 
 
 def log(msg: str) -> None:
@@ -1043,33 +1088,37 @@ def phase_kernel_attn_bwd(k3) -> dict:
     return {"times": times, "max_err": err, "cases": cases}
 
 
+def only_fused(fa, fe) -> bool:
+    """No attention or epilogue decision other than ``fused`` counted."""
+    return not any(v for k, v in list(fa.counters().items())
+                   + list(fe.counters().items()) if k != "fused")
+
+
 class FitLaunchCheck:
-    """A ``fit`` listener that holds each step to 12 K3, 12 K4 and 12 K5
-    launches and only ``fused`` attention decisions."""
+    """A ``fit`` listener that holds each step of a BERT fine-tune to its
+    launches of K1-K7 (``per_step``, by kernel) and only ``fused``
+    attention and epilogue decisions."""
 
-    def __init__(self, k3, fa):
-        self.k3, self.fa = k3, fa
-        self.last = self._now()
-
-    def _now(self):
-        return (self.k3.launches, self.k3.launches_dq, self.k3.launches_dkv,
-                self.fa.counters()["fused"])
+    def __init__(self, fa, fe, per_step):
+        from deeplearning4j_tpu_torch.tools.profile_bert import launch_counts
+        self.counts, self.fa, self.fe, self.per_step = launch_counts, fa, \
+            fe, per_step
+        self.last = launch_counts()
 
     def iteration_done(self, model, iteration, epoch):
-        now = self._now()
-        got = tuple(a - b for a, b in zip(now, self.last))
+        now = self.counts()
+        got = {k: v - self.last[k] for k, v in now.items()}
         self.last = now
-        if got != (BERT_LAYERS,) * 4 or any(
-                v for k, v in self.fa.counters().items() if k != "fused"):
-            raise AssertionError(f"fit step {iteration}: K3/K4/K5 launches "
-                                 f"and fused decisions {got}, decisions "
-                                 f"{self.fa.counters()}")
+        if got != self.per_step or not only_fused(self.fa, self.fe):
+            raise AssertionError(f"fit step {iteration}: launches {got}, "
+                                 f"expected {self.per_step}; decisions "
+                                 f"{self.fa.counters()} {self.fe.counters()}")
 
     def on_epoch_end(self, model):
         pass
 
 
-def phase_bert_fit(k1, k3, fa, env) -> dict:
+def phase_bert_fit(k1, k3, fa, fe, env) -> dict:
     from deeplearning4j_tpu_torch.autodiff.fusion import fuse_attention
     from deeplearning4j_tpu_torch.models.bert import (
         attach_classifier_head, bert_base, fine_tune_feeds)
@@ -1133,7 +1182,10 @@ def phase_bert_fit(k1, k3, fa, env) -> dict:
     k1.launches = k1.bwd_launches = 0
     k3.launches = k3.launches_dq = k3.launches_dkv = 0
     fa.reset_counters()
-    check = FitLaunchCheck(k3, fa)
+    fe.reset_counters()
+    check = FitLaunchCheck(fa, fe, {
+        "k1": 0, "k2": 0, "k3": BERT_LAYERS, "k4": BERT_LAYERS,
+        "k5": BERT_LAYERS, "k6": 0, "k7": 0})
     row = profile_fit(sd, feed, walls=FIT_STEPS - 1, listeners=[check])
     steps = FIT_STEPS + 1 + 3
     launches = (k3.launches, k3.launches_dq, k3.launches_dkv)
@@ -2095,6 +2147,425 @@ def phase_generate_spec_server(counters, server_mod, net) -> dict:
                          "k10": k10.launches}}
 
 
+def ln_violation(err, bound) -> float:
+    """The largest share of its bound an error takes (NaN counts as
+    infinite)."""
+    share = (err / bound).nan_to_num(nan=float("inf"))
+    return float(share.max()) if share.numel() else 0.0
+
+
+def check_ln_case(k6, x, g, b, dy, where, err) -> tuple:
+    """K6 and K7 twice each (bitwise equal) against their plain versions on
+    the same inputs (K7 fed K6's own mu and rstd); folds each output's
+    share of its bound into ``err`` and returns K6's ``(y, mu, rstd)``."""
+    got = k6.layer_norm_act(x, g, b, LN_EPS, where[1])
+    again = k6.layer_norm_act(x, g, b, LN_EPS, where[1])
+    y, mu, rstd = got
+    bwd = k6.layer_norm_act_bwd(x, g, b, mu, rstd, dy, where[1])
+    bwd2 = k6.layer_norm_act_bwd(x, g, b, mu, rstd, dy, where[1])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"K6 {where} is not deterministic")
+    if not all(torch.equal(a, c) for a, c in zip(bwd, bwd2)):
+        raise AssertionError(f"K7 {where} is not deterministic")
+    ry, rmu, rrs = k6.layer_norm_act_reference(x, g, b, LN_EPS, where[1])
+    bmu, brs = k6.stats_bound(rmu, rrs)
+    want = k6.layer_norm_act_bwd_reference(x, g, b, mu, rstd, dy, where[1])
+    sg, sb = k6.sum_bound(x, g, b, mu, rstd, dy, where[1])
+    shares = {
+        "y": ln_violation((y.float() - ry.float()).abs(),
+                          k6.y_bound(x, g, b, rmu, rrs, ry)),
+        "mu": ln_violation((mu - rmu).abs(), bmu),
+        "rstd": ln_violation((rstd - rrs).abs(), brs),
+        "dx": ln_violation((bwd[0].float() - want[0].float()).abs(),
+                           k6.dx_bound(x, g, b, mu, rstd, dy, want[0],
+                                       where[1])),
+        "dgamma": ln_violation((bwd[1] - want[1]).abs(), sg),
+        "dbeta": ln_violation((bwd[2] - want[2]).abs(), sb)}
+    for k, v in shares.items():
+        err[k] = max(err[k], v)
+    if x.dtype == torch.float32:
+        err["y_abs_float32"] = max(err["y_abs_float32"],
+                                   float((y - ry).abs().max()))
+        err["dx_abs_float32"] = max(err["dx_abs_float32"],
+                                    float((bwd[0] - want[0]).abs().max()))
+        err["y_float32"] = max(err["y_float32"], shares["y"])
+        err["dx_float32"] = max(err["dx_float32"], shares["dx"])
+    bad = [k for k, v in shares.items() if not v <= 1.0]
+    if bad:
+        raise AssertionError(f"K6/K7 {where} disagree with their plain "
+                             f"versions: {bad}, shares of the tolerance "
+                             f"{shares}")
+    return got
+
+
+def phase_kernel_ln(k6) -> dict:
+    """K6 and K7 against their plain versions at LN_SHAPES x 7 activations
+    x 3 dtypes, twice per case for determinism; the one-pass variance
+    rejected on rows far from zero; CUDA-event times at the path's shape
+    beside the bounds, the plain versions and the PyTorch calls. Logs as
+    [kernel-ln] and [kernel-ln-bwd]."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    err = {k: 0.0 for k in ("y", "mu", "rstd", "dx", "dgamma", "dbeta",
+                            "y_abs_float32", "dx_abs_float32", "y_float32",
+                            "dx_float32")}
+    cases = 0
+    for rows, cols in LN_SHAPES:
+        g = torch.randn(cols, generator=gen, device=dev) * 0.5 + 1.0
+        b = torch.randn(cols, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            x = (torch.randn(rows, cols, generator=gen, device=dev) * 2.0
+                 + 0.5).to(dtype)
+            dy = torch.randn(rows, cols, generator=gen, device=dev).to(dtype)
+            for act in k6.ACTS:
+                check_ln_case(k6, x, g, b, dy,
+                              (f"{str(dtype)[6:]} ({rows}, {cols})", act),
+                              err)
+                cases += 1
+    log(f"[kernel-ln] K6 matches its plain version and repeats bit for "
+        f"bit: {cases} cases ({len(LN_SHAPES)} shapes x 7 activations x "
+        f"3 dtypes); worst share of the tolerance: y {err['y']:.3g} "
+        f"(float32 {err['y_float32']:.3g}), mu {err['mu']:.3g}, rstd "
+        f"{err['rstd']:.3g}; max abs err y float32 "
+        f"{err['y_abs_float32']:.3g}")
+    log(f"[kernel-ln-bwd] K7 matches its plain version and repeats bit for "
+        f"bit: the same {cases} cases; worst share of the tolerance: dx "
+        f"{err['dx']:.3g} (float32 {err['dx_float32']:.3g}), dgamma "
+        f"{err['dgamma']:.3g}, dbeta "
+        f"{err['dbeta']:.3g}; max abs err dx float32 "
+        f"{err['dx_abs_float32']:.3g}")
+
+    # rows far from zero: the two-pass variance holds, a one-pass one fails
+    rows, cols = LN_PATH_SHAPE
+    g = torch.randn(cols, generator=gen, device=dev) * 0.5 + 1.0
+    b = torch.randn(cols, generator=gen, device=dev)
+    x = torch.randn(rows, cols, generator=gen, device=dev) + 1000.0
+    dy = torch.randn(rows, cols, generator=gen, device=dev)
+    offset = {}
+    for act in k6.ACTS:
+        check_ln_case(k6, x, g, b, dy, ("float32 offset 1000", act), err)
+        ry, rmu, rrs = k6.layer_norm_act_reference(x, g, b, LN_EPS, act)
+        y, _, _ = k6.layer_norm_act(x, g, b, LN_EPS, act)
+        bound = k6.y_bound(x, g, b, rmu, rrs, ry)
+        one = k6.one_pass_reference(x, g, b, LN_EPS, act)
+        offset[act] = (ln_violation((y - ry).abs(), bound),
+                       ln_violation((one - ry).abs(), bound))
+        if offset[act][1] <= 1.0:
+            raise AssertionError(f"the tolerance does not reject a one-pass "
+                                 f"variance ({act}): {offset[act]}")
+    log(f"[kernel-ln] rows of 1000 + N(0, 1) at {LN_PATH_SHAPE}: K6 within "
+        f"{max(v[0] for v in offset.values()):.3g} of its tolerance; a "
+        f"one-pass variance (E[x^2] - E[x]^2 in float32) at least "
+        f"{min(v[1] for v in offset.values()):.3g} x the tolerance, "
+        f"rejected for all 7 activations")
+
+    # times at the path's shape: identity, the only activation on the path
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = torch.randn(rows, cols, generator=gen, device=dev).to(dtype)
+        dyt = torch.randn(rows, cols, generator=gen, device=dev).to(dtype)
+        gt = g.to(dtype)
+        bt = b.to(dtype)
+        _, mu, rstd = k6.layer_norm_act(xt, g, b, LN_EPS, "identity")
+        ms, host = time_ms(lambda: k6.layer_norm_act(xt, g, b, LN_EPS))
+        plain, _ = time_ms(
+            lambda: k6.layer_norm_act_reference(xt, g, b, LN_EPS))
+        lib, _ = time_ms(lambda: F.layer_norm(xt, (cols,), gt, bt, LN_EPS))
+        ms2, host2 = time_ms(
+            lambda: k6.layer_norm_act_bwd(xt, g, b, mu, rstd, dyt))
+        plain2, _ = time_ms(
+            lambda: k6.layer_norm_act_bwd_reference(xt, g, b, mu, rstd, dyt))
+        mu2, rs2 = mu[:, None], rstd[:, None]
+        lib2, _ = time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            dyt, xt, [cols], mu2, rs2, gt, bt, [True, True, True]))
+        item = xt.element_size()
+        bound = k6.bound_ms(rows, cols, item, "identity")
+        bound2 = k6.bound_ms_bwd(rows, cols, item, "identity")
+        if dtype == torch.float32:
+            times["fwd"] = (ms, plain, lib, host, bound)
+            times["bwd"] = (ms2, plain2, lib2, host2, bound2)
+            # the library calls compute the same functions (identity case)
+            y_lib = F.layer_norm(xt, (cols,), g, b, LN_EPS)
+            dx_lib = torch.ops.aten.native_layer_norm_backward(
+                dyt, xt, [cols], mu2, rs2, g, b, [True, True, True])[0]
+            times["library_max_abs_diff"] = (
+                float((y_lib - k6.layer_norm_act(xt, g, b, LN_EPS)[0])
+                      .abs().max()),
+                float((dx_lib - k6.layer_norm_act_bwd(
+                    xt, g, b, mu, rstd, dyt)[0]).abs().max()))
+        log(f"[kernel-ln] K6 {str(dtype)[6:]:8s} act=identity rows={rows} "
+            f"C={cols} ms={ms:.5f} plain_ms={plain:.5f} bound_ms={bound:.5f} "
+            f"(bytes) library_ms={lib:.5f} (F.layer_norm) host_ms={host:.5f}")
+        log(f"[kernel-ln-bwd] K7 {str(dtype)[6:]:8s} act=identity rows={rows}"
+            f" C={cols} ms={ms2:.5f} plain_ms={plain2:.5f} bound_ms="
+            f"{bound2:.5f} (bytes) library_ms={lib2:.5f} "
+            f"(native_layer_norm_backward) host_ms={host2:.5f}")
+        del xt, dyt
+    log(f"[kernel-ln] F.layer_norm and native_layer_norm_backward on the same "
+        f"float32 inputs differ from K6's y and K7's dx by at most "
+        f"{times['library_max_abs_diff'][0]:.3g} and "
+        f"{times['library_max_abs_diff'][1]:.3g}")
+
+    # K1 and K2 with the exact GELU at the path's intermediate width: the
+    # 12 bias_act sites of a fused BERT-base forward (and step)
+    from deeplearning4j_tpu_torch.kernels import affine_act as k1
+    rows1, cols1 = LN_GELU_SHAPE
+    xg = torch.randn(rows1, cols1, generator=gen, device=dev)
+    dyg = torch.randn(rows1, cols1, generator=gen, device=dev)
+    bg = torch.randn(cols1, generator=gen, device=dev)
+    ref = k1.affine_act_reference(xg, None, bg, "geluexact")
+    e1 = float((k1.affine_act(xg, None, bg, "geluexact") - ref).abs().max())
+    want = k1.affine_act_bwd_reference(xg, None, bg, dyg, "geluexact")
+    got = k1.affine_act_bwd(xg, None, bg, dyg, "geluexact")
+    e2 = float((got[0] - want[0]).abs().max())
+    atol, rtol = k1.ulp_tolerance(torch.float32)
+    if not (bool(((got[0] - want[0]).abs() <= atol + rtol * want[0].abs())
+                 .all()) and e1 <= atol + rtol * float(ref.abs().max())):
+        raise AssertionError(f"K1/K2 geluexact at {LN_GELU_SHAPE}: {e1}, {e2}")
+    ms1, host1 = time_ms(lambda: k1.affine_act(xg, None, bg, "geluexact"))
+    plain1, _ = time_ms(
+        lambda: k1.affine_act_reference(xg, None, bg, "geluexact"))
+    lib1, _ = time_ms(lambda: F.gelu(xg + bg))
+    ms2, host2 = time_ms(
+        lambda: k1.affine_act_bwd(xg, None, bg, dyg, "geluexact"))
+    plain2, _ = time_ms(lambda: k1.affine_act_bwd_reference(
+        xg, None, bg, dyg, "geluexact"))
+    # bias_act has no scale vector: bytes and operations without it
+    bound1 = 1e3 * max(
+        k1.bytes_moved(rows1, cols1, 4, has_scale=False) / k1.H100_BYTES_PER_S,
+        k1.flops(rows1, cols1, "geluexact", has_scale=False)
+        / k1.H100_F32_FLOPS_PER_S)
+    gelu = {"fwd": (ms1, plain1, lib1, host1, bound1, e1),
+            "bwd": (ms2, plain2, None, host2, k1.bound_ms_bwd(
+                rows1, cols1, 4, "geluexact", has_scale=False), e2)}
+    log(f"[kernel-ln] K1 geluexact (bias only) rows={rows1} C={cols1}: "
+        f"ms={ms1:.5f} plain_ms={plain1:.5f} bound_ms={gelu['fwd'][4]:.5f} "
+        f"(bytes) library_ms={lib1:.5f} (F.gelu of x + b) host_ms="
+        f"{host1:.5f}; max abs err {e1:.3g}")
+    log(f"[kernel-ln-bwd] K2 geluexact (bias only) rows={rows1} C={cols1}: "
+        f"ms={ms2:.5f} plain_ms={plain2:.5f} bound_ms={gelu['bwd'][4]:.5f} "
+        f"(bytes) library_ms=null host_ms={host2:.5f}; max abs err dx "
+        f"{e2:.3g}")
+    return {"times": times, "max_err": err, "cases": cases,
+            "offset": offset, "gelu": gelu}
+
+
+def phase_bert_ln(k1, k3, k6, fa, fe, env) -> dict:
+    from deeplearning4j_tpu_torch.models.bert import OUTPUT
+    from deeplearning4j_tpu_torch.tools.profile_bert import (
+        build, launch_counts, profile, request)
+    from deeplearning4j_tpu_torch.utils.convert import samediff_from_numpy
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t0 = time.perf_counter()
+    sd, reports = build("fusable", seed=0, seq_len=BERT_SEQ)
+    att, epi = reports["attention"], reports["epilogues"]
+    log(f"[bert-ln] bert_base(spelling='fusable') on cuda, "
+        f"{time.perf_counter() - t0:.1f} s; attention {att}; epilogues "
+        f"{epi}: {epi.kinds.count('layer_norm')} layer_norm, "
+        f"{epi.kinds.count('gelu')} gelu")
+    if (att.matched, att.unmatched) != (BERT_LAYERS, 0) or \
+            (epi.matched, epi.unmatched) != (LN_SITES + BERT_LAYERS, 0) or \
+            epi.kinds.count("layer_norm") != LN_SITES:
+        raise AssertionError(f"fusion: {att} {epi} {epi.reasons}")
+    per_forward = {"k6": LN_SITES, "k1": BERT_LAYERS, "k3": BERT_LAYERS}
+    rng = np.random.default_rng(4)
+    feeds = {n: request(rng, n, BERT_SEQ) for n in BERT_REQUESTS}
+    for n in BERT_REQUESTS:  # warm-up: cuBLAS handles, allocator pools
+        sd.output(feeds[n], [OUTPUT])
+
+    # ---- the fused BERT serving path: counts from 0, read after the last
+    k1.launches = k1.bwd_launches = k3.launches = 0
+    k3.launches_dq = k3.launches_dkv = k6.launches = k6.bwd_launches = 0
+    fa.reset_counters()
+    fe.reset_counters()
+    forwards, rows = 0, {}
+    for n in BERT_REQUESTS:
+        for _ in range(5):
+            before = launch_counts()
+            y = sd.output(feeds[n], [OUTPUT])[OUTPUT]
+            forwards += 1
+            got = {k: v - before[k] for k, v in launch_counts().items()
+                   if v - before[k]}
+            if got != per_forward:
+                raise AssertionError(f"request of {n}: launches {got}, "
+                                     f"expected {per_forward}")
+        if y.shape != (n, BERT_SEQ, 768) or not np.isfinite(y).all():
+            raise AssertionError(f"request of {n}: bad output {y.shape}")
+        row = profile(sd, feeds[n])
+        forwards += 10 + 1 + 3
+        rows[n] = row
+        log(f"[bert-ln] request of {n:2d} x {BERT_SEQ}: wall "
+            f"{row['wall_ms_median']:.3f} ms (median of 10), "
+            f"{row['sequences_per_s']:.1f} sequences/s; device "
+            f"{row['device_ms']:.3f} ms (busy share "
+            f"{row['device_busy_share']:.3f}); K6 {row['k6_device_ms']:.3f} "
+            f"ms, K1 {row['k1_device_ms']:.3f} ms, K3 "
+            f"{row['k3_device_ms']:.3f} ms per request")
+        log("[bert-ln] top kernels (ms per request): " + "; ".join(
+            f"{k[:50]} {t:.3f} x{c}" for k, t, c in row["top_kernels_ms"][:5]))
+    parity = request(np.random.default_rng(5), 2, BERT_SEQ)
+    got = sd.output(parity, [OUTPUT])[OUTPUT]
+    forwards += 1
+    launches = launch_counts()
+    decisions = {"attention": fa.counters(), "epilogues": fe.counters()}
+    want = {k: forwards * per_forward.get(k, 0) for k in launches}
+    if launches != want or not only_fused(fa, fe) \
+            or decisions["attention"]["fused"] != launches["k3"] \
+            or decisions["epilogues"]["fused"] != launches["k6"] \
+            + launches["k1"]:
+        raise AssertionError(f"fused BERT serving path: launches {launches} "
+                             f"for {forwards} forwards, decisions "
+                             f"{decisions}")
+
+    # the card against the port's plain path on the CPU, same graph
+    t0 = time.perf_counter()
+    values = {n: sd.get_value(n) for n in sd._values}
+    cpu = samediff_from_numpy(sd.to_json(), values, "cpu")
+    want_cpu = cpu.output(parity, [OUTPUT])[OUTPUT]
+    del cpu
+    rel = float(np.abs(got - want_cpu).max() / np.abs(want_cpu).max())
+    # the same graph unfused on the card (fuse_attention only): the
+    # epilogue decompositions as recorded
+    from deeplearning4j_tpu_torch.autodiff.fusion import fuse_attention
+    from deeplearning4j_tpu_torch.models.bert import bert_base
+    unfused = bert_base(seed=0, device="cuda", seq_len=BERT_SEQ,
+                        spelling="fusable")
+    fuse_attention(unfused)
+    rel_unfused = float(np.abs(got - unfused.output(parity, [OUTPUT])[OUTPUT])
+                        .max() / np.abs(want_cpu).max())
+    del unfused
+    log(f"[bert-ln] card vs CPU plain path, batch 2: max|diff|/max|ref| "
+        f"{rel:.3g}; fused vs unfused on the card {rel_unfused:.3g} "
+        f"(tolerance {BERT_REL_TOL}; CPU {time.perf_counter() - t0:.1f} s); "
+        f"launches {launches} in {forwards} forwards, decisions {decisions}")
+    if not (rel <= BERT_REL_TOL and rel_unfused <= BERT_REL_TOL):
+        raise AssertionError("fused BERT on the card disagrees with the CPU "
+                             "plain path or with the unfused graph")
+
+    # the TF-spelled graph (fuse_attention only) against the fused one on
+    # one batch-32 request, in turns: tf, fused, fused, tf
+    tf_sd, _ = build("tf", seed=0, seq_len=BERT_SEQ)
+    big = feeds[BERT_REQUESTS[-1]]
+    tf_sd.output(big, [OUTPUT])
+    walls = {"tf": [], "fused": []}
+    for tag in ("tf", "fused", "fused", "tf"):
+        graph = tf_sd if tag == "tf" else sd
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph.output(big, [OUTPUT])
+            walls[tag].append((time.perf_counter() - t0) * 1e3)
+    del tf_sd
+    ab = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"[bert-ln] batch {BERT_REQUESTS[-1]} x {BERT_SEQ}, in turns (tf, "
+        f"fused, fused, tf; median of 10 each): tf spelling "
+        f"{ab['tf']:.3f} ms, fused {ab['fused']:.3f} ms")
+    return {"launches": launches, "forwards": forwards, "rows": rows,
+            "rel_err": rel, "rel_err_unfused": rel_unfused, "ab": ab,
+            "sd": sd}
+
+
+def phase_bert_ln_fit(k1, k3, k6, fa, fe, env, sd) -> dict:
+    from deeplearning4j_tpu_torch.models.bert import (attach_classifier_head,
+                                                      fine_tune_feeds)
+    from deeplearning4j_tpu_torch.tools.profile_bert import (launch_counts,
+                                                             profile_fit)
+    from deeplearning4j_tpu_torch.utils.convert import samediff_from_numpy
+    env.Environment.instance().f32_matmul_precision = "highest"
+    attach_classifier_head(sd, seed=0)
+    names = sd.variables()
+    log(f"[bert-ln-fit] the fused graph of [bert-ln] + classifier head: "
+        f"{sum(int(sd._values[n].numel()) for n in names)} params in "
+        f"{len(names)} VARIABLEs")
+
+    # ---- parity: one batch-2 step on the card vs the CPU plain path ----
+    t0 = time.perf_counter()
+    parity = fine_tune_feeds(np.random.default_rng(6), FIT_PARITY_BATCH,
+                             BERT_SEQ)
+    loss_name = sd.loss_name
+    loss_g = float(sd.output(parity, [loss_name])[loss_name])
+    grads_g = sd.grad(parity)
+    values = {n: sd.get_value(n) for n in sd._values}
+    cpu = samediff_from_numpy(sd.to_json(), values, "cpu")
+    loss_c = float(cpu.output(parity, [loss_name])[loss_name])
+    grads_c = cpu.grad(parity)
+    cpu._values = {n: t.double() if t.is_floating_point() else t
+                   for n, t in cpu._values.items()}
+    grads_64 = cpu.grad(parity)
+    del cpu, values
+    e_loss = abs(loss_g - loss_c) / abs(loss_c)
+    worst, bad = (0.0, "", 0.0, 0.0), []
+    for n in names:
+        e_card = rel_err(grads_g[n], grads_64[n])
+        e_cpu = rel_err(grads_c[n], grads_64[n])
+        allowed = max(TRAIN_GRAD_TOL, GRAD_NOISE_FACTOR * e_cpu)
+        if e_card / allowed >= worst[0]:
+            worst = (e_card / allowed, n, e_card, e_cpu)
+        if e_card > allowed:
+            bad.append(n)
+    ln_worst = max((rel_err(grads_g[n], grads_64[n]), n) for n in names
+                   if "LayerNorm" in n)
+    log(f"[bert-ln-fit] card vs CPU plain path, one batch-{FIT_PARITY_BATCH}"
+        f" x {BERT_SEQ} step ({time.perf_counter() - t0:.1f} s): loss "
+        f"{loss_g:.6f} vs {loss_c:.6f} (rel err {e_loss:.3g}, tolerance "
+        f"{FIT_LOSS_TOL}); against the CPU float64 gradient the worst "
+        f"card/allowed ratio is {worst[0]:.3g} at {worst[1]} (card "
+        f"{worst[2]:.3g}, CPU float32 {worst[3]:.3g}; allowed "
+        f"max({TRAIN_GRAD_TOL}, {GRAD_NOISE_FACTOR} x CPU float32)); the "
+        f"LayerNorm gammas and betas (K7's sums) at most {ln_worst[0]:.3g} "
+        f"({ln_worst[1]}); {len(names)} VARIABLEs")
+    if e_loss > FIT_LOSS_TOL or bad:
+        raise AssertionError(f"the fused fine-tune step on the card "
+                             f"disagrees with the CPU plain path "
+                             f"(gradients out of bounds: {bad})")
+    del grads_g, grads_c, grads_64
+
+    # ---- the main path: counts from 0, read after the last fit ----
+    feed = fine_tune_feeds(np.random.default_rng(7), FIT_BATCH, BERT_SEQ)
+    sd.fit(feed)  # warm-up: cuBLAS handles, allocator pools, the kernels
+    k1.launches = k1.bwd_launches = k3.launches = 0
+    k3.launches_dq = k3.launches_dkv = k6.launches = k6.bwd_launches = 0
+    fa.reset_counters()
+    fe.reset_counters()
+    per_step = {"k1": BERT_LAYERS, "k2": BERT_LAYERS, "k3": BERT_LAYERS,
+                "k4": BERT_LAYERS, "k5": BERT_LAYERS, "k6": LN_SITES,
+                "k7": LN_SITES}
+    check = FitLaunchCheck(fa, fe, per_step)
+    row = profile_fit(sd, feed, walls=FIT_STEPS - 1, listeners=[check])
+    steps = FIT_STEPS + 1 + 3
+    launches = launch_counts()
+    decisions = {"attention": fa.counters(), "epilogues": fe.counters()}
+    copies = (fa.do_copies, fe.dy_copies)
+    sentinel = sd.resilience_counters()
+    losses = row["losses"]
+    log(f"[bert-ln-fit] fit, batch {FIT_BATCH} x {BERT_SEQ}, {FIT_STEPS} "
+        f"steps in one call: losses " + " ".join(f"{v:.5f}" for v in losses))
+    if launches != {k: steps * v for k, v in per_step.items()} \
+            or not only_fused(fa, fe) or sentinel["bad_total"]:
+        raise AssertionError(f"fused fine-tune path: launches {launches} "
+                             f"for {steps} steps, decisions {decisions}, "
+                             f"sentinel {sentinel}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fine-tune loss not finite and falling: "
+                             f"{losses}")
+    log(f"[bert-ln-fit] step {row['step_ms_median']:.3f} ms median of "
+        f"{FIT_STEPS - 1} ({row['sequences_per_s']:.1f} sequences/s); device "
+        f"{row['device_ms']:.3f} ms per step (busy share "
+        f"{row['device_busy_share']:.3f}); per step K6 "
+        f"{row['k6_device_ms']:.3f}, K7 {row['k7_device_ms']:.3f}, K1 "
+        f"{row['k1_device_ms']:.3f}, K2 {row['k2_device_ms']:.3f}, K3 "
+        f"{row['k3_device_ms']:.3f}, K4 {row['k4_device_ms']:.3f}, K5 "
+        f"{row['k5_device_ms']:.3f} ms; launches per step {per_step} in each "
+        f"of {steps} steps; decisions {decisions}; do/dy copies {copies}; "
+        f"sentinel {sentinel}")
+    log("[bert-ln-fit] top kernels (ms per step): " + "; ".join(
+        f"{k[:60]} {t:.3f} x{c}" for k, t, c in row["top_kernels_ms"][:6]))
+    return {"launches": launches, "steps": steps, "row": row,
+            "parity": (e_loss, worst[0]), "copies": copies}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2107,6 +2578,7 @@ def main() -> int:
     from deeplearning4j_tpu_torch.kernels import affine_act as k1
     from deeplearning4j_tpu_torch.kernels import decode_attention as k9
     from deeplearning4j_tpu_torch.kernels import flash_attention as k3
+    from deeplearning4j_tpu_torch.kernels import layer_norm_act as k6
     from deeplearning4j_tpu_torch.kernels import lstm_cell as k8
     from deeplearning4j_tpu_torch.kernels import multiquery_decode as k10
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
@@ -2140,7 +2612,7 @@ def main() -> int:
     katt = phase_kernel_attn(k3)
     served_bert = phase_bert(k1, k3, fa, env)
     kbwd_attn = phase_kernel_attn_bwd(k3)
-    fitted = phase_bert_fit(k1, k3, fa, env)
+    fitted = phase_bert_fit(k1, k3, fa, fe, env)
     klstm = phase_kernel_lstm(k8)
     served_lstm = phase_lstm_serve(k1, k3, k8, pk, env)
     from deeplearning4j_tpu_torch.tools import profile_generate as pg
@@ -2164,6 +2636,15 @@ def main() -> int:
     spec = phase_generate_spec(counters, gen, paged)
     spec_server = phase_generate_spec_server(counters, server_mod,
                                              gen["net"])
+    kln = phase_kernel_ln(k6)
+    bert_ln = phase_bert_ln(k1, k3, k6, fa, fe, env)
+    bert_ln_fit = phase_bert_ln_fit(k1, k3, k6, fa, fe, env,
+                                    bert_ln.pop("sd"))
+    ln_l, fit_ln = bert_ln["launches"], bert_ln_fit["launches"]
+
+    def ln_paths(k):
+        return {"bert_ln_serve": ln_l[k], "bert_ln_fit": fit_ln[k]}
+    no_ln = {"bert_ln_serve": 0, "bert_ln_fit": 0}
 
     # one batch-32 forward's (training step's) 53 K1 (K2) calls, timed per
     # (rows, C, act) in phases 3 and 6
@@ -2272,7 +2753,41 @@ def main() -> int:
         f"{host10:.4f} ms; at {MQ_GROW_SHAPE}: {t10g[0]:.4f} ms (bound "
         f"{t10g[4]:.4f}, SDPA {t10g[2]:.4f}); at {MQ_LONG_SHAPE}: "
         f"{t10l[0]:.4f} ms (bound {t10l[4]:.4f}, SDPA {t10l[2]:.4f})")
-    lstm_paths = {"lstm_serve": 0, "lstm_stream": 0, **no_gen}
+    t6, t7 = kln["times"]["fwd"], kln["times"]["bwd"]
+    ms6, plain6, lib6, host6, bound6 = (LN_SITES * t for t in t6)
+    ms7, plain7, lib7, host7, bound7 = (LN_SITES * t for t in t7)
+    r6, c6 = LN_PATH_SHAPE
+    by6 = "bytes" if k6.bytes_moved(r6, c6, 4) / k6.H100_BYTES_PER_S >= \
+        k6.flops(r6, c6, "identity") / k6.H100_F32_FLOPS_PER_S \
+        else "operations"
+    by7 = "bytes" if k6.bytes_moved_bwd(r6, c6, 4) / k6.H100_BYTES_PER_S >= \
+        k6.flops_bwd(r6, c6, "identity") / k6.H100_F32_FLOPS_PER_S \
+        else "operations"
+    log(f"[summary] one batch-32 float32 fused BERT-base forward: {LN_SITES} "
+        f"K6 calls, {ms6:.4f} ms on the device (plain {plain6:.4f}, "
+        f"F.layer_norm {lib6:.4f}, bound {bound6:.4f}, {by6}); host enqueue "
+        f"{host6:.4f} ms")
+    log(f"[summary] one batch-32 float32 fused BERT-base fine-tune step: "
+        f"{LN_SITES} K7 calls, {ms7:.4f} ms on the device (plain "
+        f"{plain7:.4f}, native_layer_norm_backward {lib7:.4f}, bound "
+        f"{bound7:.4f}, {by7}); host enqueue {host7:.4f} ms")
+    g1, g2 = kln["gelu"]["fwd"], kln["gelu"]["bwd"]
+    log(f"[summary] the same forward's {BERT_LAYERS} K1 geluexact calls at "
+        f"{LN_GELU_SHAPE}: {BERT_LAYERS * g1[0]:.4f} ms (plain "
+        f"{BERT_LAYERS * g1[1]:.4f}, F.gelu(x + b) {BERT_LAYERS * g1[2]:.4f},"
+        f" bound {BERT_LAYERS * g1[4]:.4f}); the step's {BERT_LAYERS} K2 "
+        f"calls {BERT_LAYERS * g2[0]:.4f} ms (bound "
+        f"{BERT_LAYERS * g2[4]:.4f})")
+
+    def gelu_row(t, lib=True):
+        return {"shape": list(LN_GELU_SHAPE), "act": "geluexact",
+                "calls": BERT_LAYERS, "ms": BERT_LAYERS * t[0],
+                "plain_ms": BERT_LAYERS * t[1],
+                "library_ms": BERT_LAYERS * t[2] if lib else None,
+                "bound_ms": BERT_LAYERS * t[4], "max_abs_err": t[5]}
+    lstm_paths = {"lstm_serve": 0, "lstm_stream": 0, **no_gen, **no_ln}
+    kernel_paths = ["serve", "train", "bert_serve", "bert_fit",
+                    *lstm_paths]
     bwd_timed_as = (
         "device time of one float32 call at BERT-base batch 32 (B=32, "
         "H=12, T=128, d=64, ragged key bias, head-split operands) times the "
@@ -2285,27 +2800,33 @@ def main() -> int:
         "name": "K1 affine_act", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/affine_act.cu",
         "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:167",
-        "launches": serve_launches + trained["launches"][0],
+        "launches": serve_launches + trained["launches"][0] + ln_l["k1"]
+        + fit_ln["k1"],
         "launches_by_path": {"serve": serve_launches,
                              "train": trained["launches"][0],
-                             "bert_serve": 0, "bert_fit": 0, **lstm_paths},
+                             "bert_serve": 0, "bert_fit": 0, **lstm_paths,
+                             **ln_paths("k1")},
         "max_abs_err": max(kern["max_err"].values()),
         "max_abs_err_float32": kern["max_err"][torch.float32],
         "max_abs_err_bfloat16": kern["max_err"][torch.bfloat16],
         "ms": ms, "plain_ms": plain, "bound_ms": bound,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": lib, "host_ms": host,
+        "bert_gelu": dict(gelu_row(g1), library="F.gelu(x + b)"),
         "timed_as": "device time summed over the 53 calls of one batch-32 "
                     "float32 ResNet-50 forward; library_ms is torch.addcmul "
                     "(the affine alone) at the same shapes; host_ms is the "
-                    "wrapper's enqueue time over the same calls",
+                    "wrapper's enqueue time over the same calls; bert_gelu "
+                    "is the 12 bias + exact-GELU calls of one batch-32 "
+                    "fused BERT-base forward",
     }, {
         "name": "K2 affine_act_bwd", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/affine_act_bwd.cu",
         "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:179",
-        "launches": trained["launches"][1],
+        "launches": trained["launches"][1] + fit_ln["k2"],
         "launches_by_path": {"serve": 0, "train": trained["launches"][1],
-                             "bert_serve": 0, "bert_fit": 0, **lstm_paths},
+                             "bert_serve": 0, "bert_fit": 0, **lstm_paths,
+                             **ln_paths("k2")},
         "max_abs_err": max(kbwd["max_err"]["dx_float32"],
                            kbwd["max_err"]["dx_bfloat16"],
                            kbwd["max_err"]["dscale_dshift"]),
@@ -2317,6 +2838,7 @@ def main() -> int:
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "library_ms": None, "host_ms": host2,
         "dy_copies_per_step": trained["dy_copies"],
+        "bert_gelu": gelu_row(g2, lib=False),
         "timed_as": "device time summed over the 53 calls of one batch-32 "
                     "float32 ResNet-50 training step; no single PyTorch "
                     "call computes (dx, dscale, dshift), so library_ms is "
@@ -2326,11 +2848,11 @@ def main() -> int:
         "source": "deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "deeplearning4j_tpu/ops/flash_attention.py:114",
         "launches": served_bert["launches"] + fit_l[0]
-        + sum(k3_gen.values()),
+        + sum(k3_gen.values()) + ln_l["k3"] + fit_ln["k3"],
         "launches_by_path": {"serve": 0, "train": 0,
                              "bert_serve": served_bert["launches"],
                              "bert_fit": fit_l[0], "lstm_serve": 0,
-                             "lstm_stream": 0, **k3_gen},
+                             "lstm_stream": 0, **k3_gen, **ln_paths("k3")},
         "max_abs_err": katt["max_err"]["float32"],
         "max_abs_err_float32": katt["max_err"]["float32"],
         "max_ulp_bfloat16": katt["max_err"]["ulp_bfloat16"],
@@ -2349,9 +2871,10 @@ def main() -> int:
         "name": f"{kname} {cname}", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu",
         "replaces": f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
-        "launches": fit_l[i],
+        "launches": fit_l[i] + fit_ln[f"k{i + 3}"],
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
-                             "bert_fit": fit_l[i], **lstm_paths},
+                             "bert_fit": fit_l[i], **lstm_paths,
+                             "bert_ln_fit": fit_ln[f"k{i + 3}"]},
         "max_abs_err": kbwd_attn["max_err"]["abs_float32"],
         "max_err_float32_of_max1_ref": kbwd_attn["max_err"]["float32"],
         "max_ulp_bfloat16": kbwd_attn["max_err"]["ulp_bfloat16"],
@@ -2375,7 +2898,7 @@ def main() -> int:
                              "bert_fit": 0,
                              "lstm_serve": served_lstm["serve_launches"],
                              "lstm_stream": served_lstm["stream_launches"],
-                             **no_gen},
+                             **no_gen, **no_ln},
         "max_abs_err": klstm["max_err"]["float32"],
         "max_abs_err_float32": klstm["max_err"]["float32"],
         "max_tolerance_share_bfloat16": klstm["max_err"]["ulp_bfloat16"],
@@ -2401,7 +2924,7 @@ def main() -> int:
         "launches": sum(k9_gen.values()),
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
                              "bert_fit": 0, "lstm_serve": 0,
-                             "lstm_stream": 0, **k9_gen},
+                             "lstm_stream": 0, **k9_gen, **no_ln},
         "launches_per_decode_step": GEN_LAYERS,
         "decode_steps_by_path": {
             "generate": rows["bench"]["decode_steps"],
@@ -2439,7 +2962,7 @@ def main() -> int:
         "launches": sum(k10_gen.values()),
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
                              "bert_fit": 0, "lstm_serve": 0,
-                             "lstm_stream": 0, **k10_gen},
+                             "lstm_stream": 0, **k10_gen, **no_ln},
         "launches_per_verify_step": GEN_LAYERS,
         "verify_steps_by_path": {
             "generate_spec": srows["spec"]["verify_steps"]
@@ -2475,6 +2998,71 @@ def main() -> int:
                     "the float [B, 1, k, C] window mask on the same q, k, v; "
                     "host_ms is the wrapper's enqueue time over the same "
                     "calls",
+    }, {
+        "name": "K6 layer_norm_act", "checked": True, "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/layer_norm_act.cu",
+        "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:215",
+        "launches": ln_l["k6"] + fit_ln["k6"],
+        "launches_by_path": {**{k: 0 for k in kernel_paths},
+                             **ln_paths("k6")},
+        "launches_per_forward": LN_SITES,
+        "max_abs_err": kln["max_err"]["y_abs_float32"],
+        "max_abs_err_float32": kln["max_err"]["y_abs_float32"],
+        "max_tolerance_share": {k: kln["max_err"][k]
+                                for k in ("y", "y_float32", "mu", "rstd")},
+        "cases": kln["cases"],
+        "one_pass_variance_min_share": min(
+            v[1] for v in kln["offset"].values()),
+        "offset_rows_max_share": max(v[0] for v in kln["offset"].values()),
+        "deterministic": True,
+        "ms": ms6, "plain_ms": plain6, "bound_ms": bound6, "bound_by": by6,
+        "library_ms": lib6, "host_ms": host6,
+        "library_max_abs_diff": kln["times"]["library_max_abs_diff"][0],
+        "bert_ln": {str(n): {k: r[k] for k in (
+            "wall_ms_median", "sequences_per_s", "device_ms",
+            "device_busy_share", "k6_device_ms", "k1_device_ms",
+            "k3_device_ms")} for n, r in bert_ln["rows"].items()},
+        "bert_ln_rel_err_vs_cpu": bert_ln["rel_err"],
+        "bert_ln_rel_err_vs_unfused": bert_ln["rel_err_unfused"],
+        "bert_batch32_wall_ms_tf_vs_fused": bert_ln["ab"],
+        "timed_as": "device time of one float32 call at BERT-base batch 32 "
+                    "(rows 4096, C 768, identity, eps 1e-12) times the 25 "
+                    "calls of one fused forward; library_ms is "
+                    "torch.nn.functional.layer_norm on the same x, gamma "
+                    "and beta times 25; host_ms is the wrapper's enqueue "
+                    "time over the same calls",
+    }, {
+        "name": "K7 layer_norm_act_bwd", "checked": True, "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/layer_norm_act_bwd.cu",
+        "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:231",
+        "launches": fit_ln["k7"],
+        "launches_by_path": {**{k: 0 for k in kernel_paths},
+                             **ln_paths("k7")},
+        "launches_per_step": LN_SITES,
+        "max_abs_err": kln["max_err"]["dx_abs_float32"],
+        "max_abs_err_dx_float32": kln["max_err"]["dx_abs_float32"],
+        "max_tolerance_share": {k: kln["max_err"][k] for k in (
+            "dx", "dx_float32", "dgamma", "dbeta")},
+        "cases": kln["cases"],
+        "deterministic": True,
+        "ms": ms7, "plain_ms": plain7, "bound_ms": bound7, "bound_by": by7,
+        "library_ms": lib7, "host_ms": host7,
+        "library_max_abs_diff": kln["times"]["library_max_abs_diff"][1],
+        "bert_ln_fit": {k: bert_ln_fit["row"][k] for k in (
+            "step_ms_median", "sequences_per_s", "device_ms",
+            "device_busy_share", "k6_device_ms", "k7_device_ms",
+            "k1_device_ms", "k2_device_ms", "k3_device_ms", "k4_device_ms",
+            "k5_device_ms")},
+        "bert_ln_fit_parity": {"loss_rel_err": bert_ln_fit["parity"][0],
+                               "worst_grad_share": bert_ln_fit["parity"][1]},
+        "dy_copies": bert_ln_fit["copies"][1],
+        "timed_as": "device time of one float32 call at BERT-base batch 32 "
+                    "(rows 4096, C 768, identity) times the 25 calls of one "
+                    "fused fine-tune step; library_ms is "
+                    "torch.ops.aten.native_layer_norm_backward fed the same "
+                    "dy, x, mean, rstd, gamma and beta (dx, dgamma, dbeta) "
+                    "times 25; host_ms is the wrapper's enqueue time over "
+                    "the same calls",
     }]}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

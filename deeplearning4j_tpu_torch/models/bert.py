@@ -34,6 +34,30 @@ The ops of ``last_hidden_state``:
 - GELU as ``0.5 * x * erfc(-x * 0.70710677)``;
 - the dropouts of inference as ``act.identity``.
 
+``spelling="fusable"`` records the same encoder, with the same weights and
+weight names and every other op the same, in the one spelling the JAX
+package's ``autodiff/fusion.py::fuse_epilogues`` rewrites (its own tests
+record it, ``tests/test_fused_epilogues.py::_record_ln_chain`` and
+``_record_gelu_chain``):
+
+- each LayerNorm in keras' folded form with ``axis=(-1,)`` and no
+  StopGradient identity between the mean and ``math.squared_difference``;
+- each GELU as ``(h * (1 + erf(h * 0.70710677))) * 0.5`` on the BiasAdd
+  output.
+
+It exists because it is the only way the JAX package reaches its
+LayerNorm-epilogue kernels (K6 forward, K7 backward): on the ``"tf"``
+spelling the matcher finds no site (the StopGradient identity hides the
+mean, ``axis=(2,)`` cannot be checked against an unrecorded rank, and the
+GELU anchor is ``math.erf`` where HF writes ``math.erfc``), and nothing
+else in the JAX package records ``epilogue.layer_norm_act``. Fused
+(``fuse_attention`` then ``fuse_epilogues``), a BERT-base graph in this
+spelling runs 25 K6 (embeddings, then two per layer), 12 K1 (the
+intermediate dense's bias + exact GELU) and 12 K3 launches per forward,
+and K7, K2, K4 and K5 as many in a fine-tune step's backward. Its values
+agree with the ``"tf"`` spelling's to float32 rounding (erf of ``u``
+against erfc of ``-u``).
+
 Where the import hard-codes the batch (its reshapes and the token-type
 fill hold the frozen batch size), this graph keeps it free
 (``shape.reshape_onnx``'s copied dims, a 3-D ``linalg.mmul`` in place of
@@ -132,12 +156,20 @@ def _init(config: BertConfig, seed: int) -> Dict[str, np.ndarray]:
     return out
 
 
+SPELLINGS = ("tf", "fusable")
+
+
 def bert(config: BertConfig, seed: int = 0, weights: Optional[dict] = None,
-         device=None, seq_len: int = 128) -> SameDiff:
+         device=None, seq_len: int = 128, spelling: str = "tf") -> SameDiff:
     """The encoder's ``last_hidden_state`` graph for ``[B, seq_len]`` int32
     ``input_ids`` and ``attention_mask`` (any B), on ``device`` (``cuda``
-    unless the caller asks for ``cpu``). Returns the unfused graph: apply
-    ``autodiff.fusion.fuse_attention`` to serve it through K3."""
+    unless the caller asks for ``cpu``), in the TF importer's spelling
+    (``"tf"``) or the one ``fuse_epilogues`` rewrites (``"fusable"``).
+    Returns the unfused graph: apply ``autodiff.fusion.fuse_attention`` to
+    serve it through K3, and on a ``"fusable"`` graph
+    ``autodiff.fusion.fuse_epilogues`` to serve it through K6 and K1."""
+    if spelling not in SPELLINGS:
+        raise ValueError(f"spelling {spelling!r} not in {SPELLINGS}")
     if not 0 < seq_len <= config.max_position_embeddings:
         raise ValueError(f"seq_len {seq_len} outside 1.."
                          f"{config.max_position_embeddings}")
@@ -175,14 +207,18 @@ def bert(config: BertConfig, seed: int = 0, weights: Optional[dict] = None,
         return op("math.add", y, w[f"{prefix}/bias"],
                   name=f"{prefix}/BiasAdd")
 
+    tf = spelling == "tf"
+    axis = (2,) if tf else (-1,)
+
     def layer_norm(x, p):
-        mean = op("reduce.mean", x, name=f"{p}/moments/mean", axis=(2,),
+        mean = op("reduce.mean", x, name=f"{p}/moments/mean", axis=axis,
                   keepdims=True)
-        sg = op("act.identity", mean, name=f"{p}/moments/StopGradient")
+        sg = op("act.identity", mean, name=f"{p}/moments/StopGradient") \
+            if tf else mean
         sqd = op("math.squared_difference", x, sg,
                  name=f"{p}/moments/SquaredDifference")
         var = op("reduce.mean", sqd, name=f"{p}/moments/variance",
-                 axis=(2,), keepdims=True)
+                 axis=axis, keepdims=True)
         eps = const(f"{p}/batchnorm/add/y", f32(config.layer_norm_eps))
         inv = op("math.rsqrt",
                  op("math.add", var, eps, name=f"{p}/batchnorm/add"),
@@ -192,6 +228,23 @@ def bert(config: BertConfig, seed: int = 0, weights: Optional[dict] = None,
         mul_2 = op("math.mul", mean, inv2, name=f"{p}/batchnorm/mul_2")
         sub = op("math.sub", w[f"{p}/beta"], mul_2, name=f"{p}/batchnorm/sub")
         return op("math.add", mul_1, sub, name=f"{p}/batchnorm/add_1")
+
+    def gelu(h, g):
+        if tf:  # HF: 0.5 * h * erfc(-h / sqrt(2))
+            half = op("math.mul", const(f"{g}/mul/x", f32(0.5)), h,
+                      name=f"{g}/mul")
+            u = op("math.mul", op("math.neg", h, name=f"{g}/Neg"),
+                   const(f"{g}/Cast/x", f32(1.0 / math.sqrt(2.0))),
+                   name=f"{g}/mul_1")
+            return op("math.mul", half, op("math.erfc", u, name=f"{g}/Erfc"),
+                      name=f"{g}/mul_2")
+        # (h * (1 + erf(h / sqrt(2)))) * 0.5, fuse_epilogues' grouping "a"
+        u = op("math.mul", h, const(f"{g}/Cast/x", f32(1.0 / math.sqrt(2.0))),
+               name=f"{g}/mul_1")
+        f = op("math.add", const(f"{g}/add/x", f32(1.0)),
+               op("math.erf", u, name=f"{g}/Erf"), name=f"{g}/add")
+        return op("math.mul", op("math.mul", h, f, name=f"{g}/mul"),
+                  const(f"{g}/mul_2/y", f32(0.5)), name=f"{g}/mul_2")
 
     def heads_split(x, name):
         r = op("shape.reshape_onnx", x, name=f"{name}_reshape",
@@ -254,15 +307,8 @@ def bert(config: BertConfig, seed: int = 0, weights: Optional[dict] = None,
         x = layer_norm(op("math.add", y, x, name=f"{o}/add"),
                        f"{o}/LayerNorm")
 
-        h = dense(x, f"{p}/intermediate/dense")
-        g = f"{p}/intermediate/Gelu"
-        half = op("math.mul", const(f"{g}/mul/x", f32(0.5)), h,
-                  name=f"{g}/mul")
-        u = op("math.mul", op("math.neg", h, name=f"{g}/Neg"),
-               const(f"{g}/Cast/x", f32(1.0 / math.sqrt(2.0))),
-               name=f"{g}/mul_1")
-        h = op("math.mul", half, op("math.erfc", u, name=f"{g}/Erfc"),
-               name=f"{g}/mul_2")
+        h = gelu(dense(x, f"{p}/intermediate/dense"),
+                 f"{p}/intermediate/Gelu")
         o = f"{p}/output"
         y = op("act.identity", dense(h, f"{o}/dense"),
                name=f"{o}/dropout/Identity")
@@ -274,11 +320,13 @@ def bert(config: BertConfig, seed: int = 0, weights: Optional[dict] = None,
 
 
 def bert_base(seed: int = 0, device=None, seq_len: int = 128,
-              weights: Optional[dict] = None) -> SameDiff:
+              weights: Optional[dict] = None,
+              spelling: str = "tf") -> SameDiff:
     """BERT-base (HF ``BertConfig()``: 12 layers, hidden 768, 12 heads,
-    intermediate 3072, vocab 30522, 512 positions), float32."""
+    intermediate 3072, vocab 30522, 512 positions), float32, in either
+    spelling of :func:`bert`."""
     return bert(BertConfig(), seed=seed, weights=weights, device=device,
-                seq_len=seq_len)
+                seq_len=seq_len, spelling=spelling)
 
 
 def attach_classifier_head(sd: SameDiff, seed,

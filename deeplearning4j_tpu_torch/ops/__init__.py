@@ -9,7 +9,8 @@ is the port's own: nothing here reads or writes the JAX package's.
 
 Besides the catalog the package holds the nn ops, the losses (two of
 which are catalog ops too) and the fused epilogues the ComputationGraph
-path calls directly.
+path calls directly (``epilogue.layer_norm_act`` and ``epilogue.bias_act``
+are catalog ops too: ``fuse_epilogues`` records them).
 """
 
 from __future__ import annotations
@@ -77,4 +78,5 @@ from . import math  # noqa: E402,F401
 from . import reduce  # noqa: E402,F401
 from . import flash_attention  # noqa: E402,F401  (attention.fused_sdpa)
 from . import losses  # noqa: E402,F401  (loss.softmax_ce_logits, ...)
-from . import nnops  # noqa: E402,F401  (lstm_cell)
+from . import nnops  # noqa: E402,F401  (layer_norm, lstm_cell)
+from . import fused_epilogues  # noqa: E402,F401  (epilogue.*)

@@ -1,40 +1,57 @@
-"""Fused epilogues: batch-norm / bias + activation on kernels K1 and K2.
+"""Fused epilogues: batch-norm / bias + activation on kernels K1 and K2,
+LayerNorm + activation on kernels K6 and K7.
 
-Port of the affine half of ``deeplearning4j_tpu/ops/fused_epilogues.py``:
-:func:`bn_act` folds the BN statistics into a per-channel f32 scale and
-shift and runs ``y = act(x*scale + shift)``; :func:`bias_act` runs the same
-with no scale. Both go through :class:`AffineAct`, a
-``torch.autograd.Function`` (the JAX module's custom VJP ``_affine_act``):
-K1 forward, K2 backward, on every device. It saves ``(x2, scale, shift)``
-only; K2 recomputes ``z``. On the CPU its two bodies are the kernels'
-plain versions, so the CPU tests run the wiring the card runs. The
-``[C]``-sized prologue (rsqrt, gamma, mean) stays outside the Function, so
-autograd carries K2's ``dscale``/``dshift`` into gamma, beta, mean and var.
-The activation formulas (``_act_fwd``/``_act_grad`` of the JAX module)
-live beside the kernels, in ``kernels.affine_act``.
+Port of ``deeplearning4j_tpu/ops/fused_epilogues.py``:
+
+- :func:`bn_act` folds the BN statistics into a per-channel f32 scale and
+  shift and runs ``y = act(x*scale + shift)``; :func:`bias_act` runs the
+  same with no scale. Both go through :class:`AffineAct`, a
+  ``torch.autograd.Function`` (the JAX module's custom VJP
+  ``_affine_act``): K1 forward, K2 backward. It saves ``(x2, scale,
+  shift)`` only; K2 recomputes ``z``. The ``[C]``-sized prologue (rsqrt,
+  gamma, mean) stays outside the Function, so autograd carries K2's
+  ``dscale``/``dshift`` into gamma, beta, mean and var.
+- :func:`layer_norm_act` runs LayerNorm over the last axis, the affine
+  and the activation through :class:`LayerNormAct` (the JAX module's
+  ``_ln_act``): K6 forward, saving ``(x2, gamma, beta, mu, rstd)``, the
+  reference's residuals; K7 backward, which gives ``dx`` in x's dtype and
+  ``dgamma``/``dbeta`` cast to gamma's and beta's dtypes.
+- The catalog ops ``epilogue.layer_norm_act`` and ``epilogue.bias_act``
+  are what ``autodiff/fusion.py::fuse_epilogues`` splices into a SameDiff
+  graph.
+
+On the CPU the Functions' bodies are the kernels' plain versions, so the
+CPU tests run the wiring the card runs. The activation formulas
+(``_act_fwd``/``_act_grad`` of the JAX module) live beside the kernels,
+in ``kernels.affine_act``.
 
 Dispatch (every call counts exactly one decision in :func:`counters`; the
 counters are this package's own):
 
-- ``fused``: a CUDA tensor with a foldable activation — K1 launches with
-  the activation folded in (K2 in the backward).
+- ``fused``: a CUDA tensor with a foldable activation — K1 (K6) launches
+  with the activation folded in (K2, K7 in the backward).
 - ``fallback_platform``: a CPU tensor — the kernels' plain versions, the
   same f32 arithmetic.
-- ``fallback_act``: an activation K1 does not implement (see
-  :func:`foldable_act`) — the Function computes the affine with identity,
-  then the catalog activation runs (differentiated by autograd).
+- ``fallback_act``: an activation the kernels do not implement (see
+  :func:`foldable_act`) — the Function computes the affine (the
+  normalization) with identity, then the catalog activation runs
+  (differentiated by autograd).
 
-``dy``'s layout: K2 reads ``dy`` as ``[rows, C]`` row-major memory. The
-gradient autograd hands the Function comes through cuDNN's convolution
-backward, the residual add and pooling, and need not be contiguous; the
-backward then makes one contiguous copy and counts it in ``dy_copies``
-(on every device, so the count is the same on the CPU and the card).
+``dy``'s layout: K2 and K7 read ``dy`` as ``[rows, C]`` row-major memory.
+The gradient autograd hands a Function comes through cuDNN's convolution
+backward, the residual add, pooling or a head split, and need not be
+contiguous; the backward then makes one contiguous copy and counts it in
+``dy_copies`` (on every device, so the count is the same on the CPU and
+the card).
 
-Divergence from the JAX dispatcher: the TPU kernel needed ``rows`` to tile
-its row blocks and fell back to ``nnops.batch_norm`` otherwise
-(``fallback_shape``); K1 and K2 mask the ragged tail themselves, so there
-is no shape fallback. A CUDA tensor of a dtype or layout K1 does not take
-raises instead of falling back.
+Divergences from the JAX dispatcher: the TPU kernels needed ``rows`` to
+tile their row blocks and a VMEM budget, and fell back to
+``nnops.batch_norm``/``nnops.layer_norm`` otherwise (``fallback_shape``,
+``fallback_vmem``); K1, K2, K6 and K7 mask the ragged tail themselves, so
+there is no shape or VMEM fallback. A CUDA tensor of a dtype, layout or
+width the kernels do not take raises instead of falling back (K6 and K7
+take up to ``kernels.layer_norm_act.MAX_COLS`` channels). There is no
+``force``/``off`` mode: the tensor's device decides.
 """
 
 from __future__ import annotations
@@ -44,7 +61,9 @@ import collections
 import torch
 
 from ..kernels import affine_act as _k1
+from ..kernels import layer_norm_act as _k6
 from . import activations as _activations
+from . import register
 
 # canonical (lowercase, underscore-stripped) names K1 implements
 _FOLDABLE = _k1.ACTS
@@ -94,7 +113,7 @@ def _rows(x):
     """The ``[rows, C]`` row-major reading of a channels-last tensor.
 
     On the CPU any layout goes (the plain version broadcasts). On the card
-    K1 reads raw memory, so ``x`` must be contiguous in its logical
+    K1 and K6 read raw memory, so ``x`` must be contiguous in its logical
     (channels-last) order: an NHWC view of NCHW-contiguous memory would be
     read as the wrong ``[rows, C]`` matrix, and copying it here would hide
     a layout fault upstream. That raises instead."""
@@ -103,10 +122,19 @@ def _rows(x):
         return x.reshape(-1, cols)
     if not x.is_contiguous():
         raise ValueError(
-            "fused epilogue: K1 reads channels-last memory as [rows, C]; got "
-            f"shape {tuple(x.shape)} with strides {x.stride()}, which is not "
-            "contiguous in that order")
+            "fused epilogue: the kernels read channels-last memory as [rows, "
+            f"C]; got shape {tuple(x.shape)} with strides {x.stride()}, which "
+            "is not contiguous in that order")
     return x.view(-1, cols)
+
+
+def _decide(x, fold: bool) -> None:
+    if not fold:
+        _counts["fallback_act"] += 1
+    elif x.device.type == "cuda":
+        _counts["fused"] += 1
+    else:
+        _counts["fallback_platform"] += 1
 
 
 class AffineAct(torch.autograd.Function):
@@ -134,12 +162,7 @@ class AffineAct(torch.autograd.Function):
 def _affine(x, scale, shift, act, alpha, axis):
     act_c = _canon(act)
     fold = foldable_act(act, alpha)
-    if not fold:
-        _counts["fallback_act"] += 1
-    elif x.device.type == "cuda":
-        _counts["fused"] += 1
-    else:
-        _counts["fallback_platform"] += 1
+    _decide(x, fold)
     kact = act_c if fold else "identity"
     if x.ndim >= 2 and axis in (-1, x.ndim - 1):
         y = AffineAct.apply(_rows(x), scale, shift, kact).view(x.shape)
@@ -182,3 +205,57 @@ def bias_act(x, b=None, act="identity", axis=-1, alpha=None):
     shift = torch.zeros(x.shape[axis], dtype=f, device=x.device) \
         if b is None else b.to(f).contiguous()
     return _affine(x, None, shift, act, alpha, axis)
+
+
+class LayerNormAct(torch.autograd.Function):
+    """LayerNorm over the rows of ``[rows, C]`` + affine + ``act``: K6
+    forward, K7 backward (their plain versions on the CPU). ``gamma`` and
+    ``beta`` are ``[C]`` vectors of any float dtype; the kernels take them
+    in f32 (f64 for a float64 ``x2``)."""
+
+    @staticmethod
+    def forward(ctx, x2, gamma, beta, eps, act):
+        f = _k1._math_dtype(x2.dtype)
+        g, b = gamma.to(f).contiguous(), beta.to(f).contiguous()
+        y, mu, rstd = _k6.layer_norm_act(x2, g, b, eps, act)
+        ctx.act = act
+        ctx.dtypes = (gamma.dtype, beta.dtype)
+        ctx.save_for_backward(x2, g, b, mu, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        global dy_copies
+        x2, g, b, mu, rstd = ctx.saved_tensors
+        if not dy.is_contiguous():
+            dy = dy.contiguous()
+            dy_copies += 1
+        dx, dg, db = _k6.layer_norm_act_bwd(x2, g, b, mu, rstd, dy, ctx.act)
+        return dx, dg.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]), None, None
+
+
+def layer_norm_act(x, gamma, beta, eps=1e-5, act="identity"):
+    """LayerNorm over the last axis + affine + activation epilogue (the
+    transformer blocks' tail; ``fuse_epilogues`` splices graph-recorded
+    decompositions into it): two-pass mean and variance per row,
+    ``rstd = rsqrt(var + eps)``, ``act((x - mu)*rstd*gamma + beta)``."""
+    fold = foldable_act(act)
+    _decide(x, fold)
+    x2 = _rows(x)
+    y = LayerNormAct.apply(x2, gamma.reshape(-1), beta.reshape(-1),
+                           float(eps), _canon(act) if fold else "identity")
+    y = y.view(x.shape)
+    return y if fold else reference_act(act)(y)
+
+
+# catalog ops the SameDiff rewrite pass splices in (serde round-trips the
+# names and attrs; execution resolves through the registry like every op)
+
+@register("epilogue.layer_norm_act", category="normalization")
+def layer_norm_act_op(x, gamma, beta, eps=1e-5, act="identity"):
+    return layer_norm_act(x, gamma, beta, eps=eps, act=act)
+
+
+@register("epilogue.bias_act", category="activation")
+def bias_act_op(x, b=None, act="identity"):
+    return bias_act(x, b, act=act)

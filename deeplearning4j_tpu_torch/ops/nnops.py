@@ -1,9 +1,11 @@
-"""Neural-network ops: convolution, pooling, batch norm, the LSTM cell.
+"""Neural-network ops: convolution, pooling, batch and layer norm, the LSTM
+cell.
 
 Port of the ``deeplearning4j_tpu/ops/nnops.py`` ops that ResNet serving
-and the recurrent layers use; ``lstm_cell`` is a catalog op, registered
-under the JAX package's name. The convolution stays ``F.conv2d`` (cuDNN
-on the card), as the JAX package leaves it to XLA.
+and the recurrent layers use; ``layer_norm`` and ``lstm_cell`` are
+catalog ops, registered under the JAX package's names. The convolution
+stays ``F.conv2d`` (cuDNN on the card), as the JAX package leaves it to
+XLA.
 
 Layouts match the JAX package at every public function: ``data_format``
 "NCHW" or "NHWC" for activations, OIHW weights for both. An NHWC tensor is
@@ -183,6 +185,21 @@ def batch_norm(x, gamma, beta, mean, var, eps=1e-5, axis=1):
     if beta is not None:
         y = y + beta.reshape(shape)
     return y
+
+
+@register("layer_norm", category="normalization")
+def layer_norm(x, gamma, beta, eps=1e-5, axis=-1):
+    """LayerNorm over ``axis``: the mean and the variance in two passes,
+    ``(x - mean) * rsqrt(var + eps)``, then ``* gamma + beta``, in x's
+    dtype (the JAX package's formula; ``jnp.var`` is two-pass too). A
+    graph records it for a plain LayerNorm (ONNX imports it so). The JAX
+    package falls back to it from ``layer_norm_act``; the port's
+    ``fused_epilogues.layer_norm_act`` runs K6 or its plain version
+    instead, and the tests hold both to this op."""
+    mean = x.mean(axis, keepdim=True)
+    d = x - mean
+    var = (d * d).mean(axis, keepdim=True)
+    return d * torch.rsqrt(var + eps) * gamma + beta
 
 
 # -- recurrence ---------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Where a BERT-base serving request and a fine-tune step spend their time
 on the card.
 
-    python3 -m deeplearning4j_tpu_torch.tools.profile_bert
+    python3 -m deeplearning4j_tpu_torch.tools.profile_bert [--spelling fusable]
 
 Builds BERT-base (HF ``BertConfig()`` geometry, float32, random weights
 from seed 0, sequence length 128) as a SameDiff graph on ``cuda``, fuses
@@ -22,10 +22,18 @@ ending in a synchronize), sequences per second, the device time per step
 and busy share (``torch.profiler`` over 3 steps), the device time and
 launches of K3, K4 and K5, and the top kernels. Precision ``highest``
 (TF32 off). Needs one CUDA card.
+
+``--spelling fusable`` records the graph in the spelling
+``fuse_epilogues`` rewrites (``models.bert.bert(..., spelling=
+"fusable")``), runs ``fuse_attention`` and ``fuse_epilogues`` and prints
+both FusionReports; each line then also splits out the device time and
+launches of K6 and K1 (a request: 25 and 12) and of K7 and K2 (a fine-tune
+step: 25 and 12, beside 25 K6 and 12 K1).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import sys
@@ -35,8 +43,10 @@ import numpy as np
 import torch
 
 from .. import environment as env
-from ..autodiff.fusion import fuse_attention
+from ..autodiff.fusion import fuse_attention, fuse_epilogues
+from ..kernels import affine_act as k1
 from ..kernels import flash_attention as k3
+from ..kernels import layer_norm_act as k6
 from ..models.bert import (ATTENTION_MASK, INPUT_IDS, OUTPUT,
                            attach_classifier_head, bert_base,
                            fine_tune_feeds)
@@ -45,10 +55,34 @@ from .profile_serving import device_us
 REQUESTS = (1, 8, 32)
 SEQ_LEN = 128
 FIT_BATCH = 32
-#: the three attention kernels, by the name of their CUDA function
-ATTN_KERNELS = {"k3": "flash_attn_fwd_kernel",
-                "k4": "flash_attn_bwd_dq_kernel",
-                "k5": "flash_attn_bwd_dkv_kernel"}
+#: the hand-written kernels of the BERT paths, by the name of their CUDA
+#: functions (K2 and K7 are two functions each: partial sums and total)
+KERNELS = {"k3": ("flash_attn_fwd_kernel",),
+           "k4": ("flash_attn_bwd_dq_kernel",),
+           "k5": ("flash_attn_bwd_dkv_kernel",),
+           "k6": ("layer_norm_act_kernel",),
+           "k7": ("layer_norm_act_bwd_",),
+           "k1": ("affine_act_kernel",),
+           "k2": ("affine_act_bwd_",)}
+
+
+def launch_counts() -> dict:
+    """The wrappers' launch counters, by kernel."""
+    return {"k3": k3.launches, "k4": k3.launches_dq, "k5": k3.launches_dkv,
+            "k6": k6.launches, "k7": k6.bwd_launches, "k1": k1.launches,
+            "k2": k1.bwd_launches}
+
+
+def build(spelling: str = "tf", seed: int = 0, seq_len: int = SEQ_LEN):
+    """BERT-base on ``cuda`` in ``spelling``, fused: ``(sd, reports)``,
+    the FusionReports of ``fuse_attention`` and, for ``"fusable"``,
+    ``fuse_epilogues``."""
+    sd = bert_base(seed=seed, device="cuda", seq_len=seq_len,
+                   spelling=spelling)
+    reports = {"attention": fuse_attention(sd)}
+    if spelling == "fusable":
+        reports["epilogues"] = fuse_epilogues(sd)
+    return sd, reports
 
 
 def request(rng, n: int, seq_len: int = SEQ_LEN, vocab: int = 30522) -> dict:
@@ -60,16 +94,18 @@ def request(rng, n: int, seq_len: int = SEQ_LEN, vocab: int = 30522) -> dict:
 
 
 def _kernel_split(prof, reps):
-    """Device ms per step: all kernels, the attention kernels, the top 8."""
+    """Device ms per step: all kernels, each of :data:`KERNELS`, the top
+    8."""
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and device_us(e) > 0]
     dev = sum(device_us(e) for e in kernels) / 1e3 / reps
-    attn = {k: sum(device_us(e) for e in kernels if name in e.key)
-            / 1e3 / reps for k, name in ATTN_KERNELS.items()}
+    split = {k: sum(device_us(e) for e in kernels
+                    if any(n in e.key for n in names)) / 1e3 / reps
+             for k, names in KERNELS.items()}
     top = sorted(kernels, key=device_us, reverse=True)[:8]
-    return dev, attn, [[e.key[:70], device_us(e) / 1e3 / reps,
-                        e.count // reps] for e in top]
+    return dev, split, [[e.key[:70], device_us(e) / 1e3 / reps,
+                         e.count // reps] for e in top]
 
 
 def profile(sd, feeds: dict, reps: int = 3, walls: int = 10) -> dict:
@@ -85,24 +121,26 @@ def profile(sd, feeds: dict, reps: int = 3, walls: int = 10) -> dict:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts):
         sd.output(feeds, [OUTPUT])
-    before = k3.launches
+    before = launch_counts()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(reps):
             sd.output(feeds, [OUTPUT])
-    launches = (k3.launches - before) / reps
-    dev, attn, top = _kernel_split(prof, reps)
+    launches = {k: (v - before[k]) / reps for k, v in launch_counts().items()}
+    dev, split, top = _kernel_split(prof, reps)
     wall = statistics.median(ts)
-    return {
+    row = {
         "request_sequences": n,
         "seq_len": int(feeds[INPUT_IDS].shape[1]),
         "wall_ms_median": wall,
         "device_ms": dev if top else None,
         "device_busy_share": dev / wall if top else None,
-        "k3_device_ms": attn["k3"] if top else None,
-        "k3_launches_per_request": launches,
         "sequences_per_s": n * 1e3 / wall,
         "top_kernels_ms": top,
     }
+    for k in ("k3", "k6", "k1"):
+        row[f"{k}_device_ms"] = split[k] if top else None
+        row[f"{k}_launches_per_request"] = launches[k]
+    return row
 
 
 class StepTimer:
@@ -140,45 +178,54 @@ def profile_fit(sd, feeds: dict, reps: int = 3, walls: int = 11,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts):
         sd.fit(feeds)
-    before = (k3.launches, k3.launches_dq, k3.launches_dkv)
+    before = launch_counts()
     with torch.profiler.profile(activities=acts) as prof:
         sd.fit(feeds, epochs=reps)
         torch.cuda.synchronize()
-    launches = [(a - b) / reps for a, b in zip(
-        (k3.launches, k3.launches_dq, k3.launches_dkv), before)]
-    dev, attn, top = _kernel_split(prof, reps)
-    return {
+    launches = {k: (v - before[k]) / reps for k, v in launch_counts().items()}
+    dev, split, top = _kernel_split(prof, reps)
+    row = {
         "fit_batch": n,
         "seq_len": int(feeds[INPUT_IDS].shape[1]),
         "step_ms_median": wall,
         "sequences_per_s": n * 1e3 / wall,
         "device_ms": dev,
         "device_busy_share": dev / wall,
-        "k3_device_ms": attn["k3"], "k4_device_ms": attn["k4"],
-        "k5_device_ms": attn["k5"],
-        "k3_k4_k5_launches_per_step": launches,
+        "launches_per_step": launches,
         "losses": losses,
         "top_kernels_ms": top,
     }
+    for k in KERNELS:
+        row[f"{k}_device_ms"] = split[k]
+    return row
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--spelling", choices=("tf", "fusable"), default="tf",
+                    help="the graph's spelling (models.bert.bert); "
+                         "'fusable' also runs fuse_epilogues")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_bert: no CUDA device", file=sys.stderr)
         return 1
     old = env.Environment.instance().f32_matmul_precision
     env.Environment.instance().f32_matmul_precision = "highest"
     try:
-        sd = bert_base(seed=0, device="cuda", seq_len=SEQ_LEN)
-        report = fuse_attention(sd)
+        sd, reports = build(args.spelling)
+        fusion = {k: {"report": str(r), "kinds": dict(
+            (kind, r.kinds.count(kind)) for kind in sorted(set(r.kinds)))}
+            for k, r in reports.items()}
         rng = np.random.default_rng(0)
         for n in REQUESTS:
             row = profile(sd, request(rng, n))
-            row["fusion"] = str(report)
+            row["spelling"] = args.spelling
+            row["fusion"] = fusion
             row["card"] = torch.cuda.get_device_name(0)
             print(json.dumps(row), flush=True)
         attach_classifier_head(sd, seed=0)
         row = profile_fit(sd, fine_tune_feeds(rng, FIT_BATCH, SEQ_LEN))
+        row["spelling"] = args.spelling
         row["card"] = torch.cuda.get_device_name(0)
         print(json.dumps(row), flush=True)
     finally:

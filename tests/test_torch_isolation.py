@@ -71,7 +71,8 @@ def test_scan_covers_the_package():
             "lstm_cell.py", "pallas_kernels.py", "recurrent.py", "model.py",
             "zoo.py", "config.py", "serializer.py", "decode_attention.py",
             "attention.py", "sampling.py", "profile_generate.py",
-            "kv_pool.py", "multiquery_decode.py"} <= names
+            "kv_pool.py", "multiquery_decode.py", "layer_norm_act.py",
+            "nnops.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -138,7 +139,9 @@ def test_samediff_entry_points_without_device_raise(no_cuda, tmp_path):
                  lambda: SameDiff.from_json(graph),
                  lambda: SameDiff.load(path),
                  lambda: samediff_from_numpy(graph, {}),
-                 lambda: bert(tiny, seq_len=4), bert_base):
+                 lambda: bert(tiny, seq_len=4),
+                 lambda: bert(tiny, seq_len=4, spelling="fusable"),
+                 bert_base, lambda: bert_base(spelling="fusable")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert SameDiff.load(path, device="cpu").device.type == "cpu"

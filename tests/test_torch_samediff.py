@@ -209,6 +209,14 @@ CASES = [
     # recurrence
     ("lstm_cell", LSTM_ARGS, {}), ("lstm_cell", LSTM_ARGS,
                                    {"forget_bias": 1.0}),
+    # normalization and the epilogues fuse_epilogues records
+    ("layer_norm", (X3, VEC, B[0]), {}),
+    ("layer_norm", (X3 * 3.0 + 2.0, VEC, B[0]), {"eps": 1e-3, "axis": -1}),
+    ("epilogue.layer_norm_act", (X3, VEC, B[0]),
+     {"eps": 1e-5, "act": "gelu"}),
+    ("epilogue.layer_norm_act", (A, VEC, B[1]), {"act": "identity"}),
+    ("epilogue.bias_act", (X3, VEC), {"act": "gelu_exact"}),
+    ("epilogue.bias_act", (A, B[2]), {"act": "sigmoid"}),
 ] + [(f"act.{n}", (A,), {}) for n in (
     "identity", "relu", "relu6", "leakyrelu", "thresholdedrelu", "elu",
     "selu", "gelu", "swish", "mish", "sigmoid", "hardsigmoid", "tanh",
