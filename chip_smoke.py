@@ -33,7 +33,13 @@ Phases, in order; any failure exits non-zero:
    against the port's plain path on the CPU; then ``fit`` on one fixed
    batch of 32 for 12 steps with exactly 53 K1 and 53 K2 launches each, a
    finite and falling loss, the step time, and a ``torch.profiler`` split
-   of three steps (device time, K1 and K2 time);
+   of three steps (device time, K1 and K2 time); then nchw: LeNet's first
+   convolution in DL4J's channels-first layout (``ConvolutionLayer`` 20 x
+   5x5, ReLU) and a ``BatchNormalization`` with a ReLU folded in, batch 64
+   of 1 x 28 x 28, forward and backward, with exactly 2 K1 and 2 K2
+   launches, one
+   counted channels-last copy, and the output and every gradient against
+   the CPU plain path;
 8. kernel-attn against plain: K3 (the flash-attention forward) against its
    plain PyTorch version at (B, H, Tq, Tk, d) = (32, 12, 128, 128, 64),
    (1, 12, 128, 128, 64), ragged (2, 12, 77, 77, 64), (2, 4, 200, 200,
@@ -51,21 +57,27 @@ Phases, in order; any failure exits non-zero:
    decision; the card's ``last_hidden_state`` against the port's plain
    path on the CPU at batch 2; wall time, sequences per second and a
    ``torch.profiler`` split (device time, busy share, K3 time);
-10. kernel-attn-bwd against plain: K4 (dq) and K5 (dk, dv), the
-    flash-attention backward, against their plain PyTorch versions at
-    phase 8's shapes, dtypes, layouts and masks (each fed K3's m and l and
-    ``di = rowsum(o * do)``): a second run bitwise equal, and CUDA-event
-    times on the head-split layout beside their bounds and the backward of
+10. kernel-attn-bwd against plain: the flash-attention backward, K4 (dq)
+    and K5 (dk, dv) fused into one kernel, against its plain PyTorch
+    versions at phase 8's shapes, (2, 4, 96, 300, 32) (three key blocks:
+    dq summed from per-block partials), (2, 3, 50, 70, 48) and (1, 2, 33,
+    150, 96) (head dimensions below the kernel's padded width), its
+    dtypes, layouts and
+    masks (each fed K3's m and l and ``di = rowsum(o * do)``): a second
+    run bitwise equal, the dq-only and dk/dv-only calls giving the same
+    bits, and CUDA-event times in float32 and bfloat16 on the head-split
+    layout beside the fused bound, the plain versions and the backward of
     ``scaled_dot_product_attention`` with the same float mask;
 11. bert-fit: BERT-base as in phase 9 with the fine-tune head of
     ``bench.py`` ``_bert_sd`` (mean pool, 2 classes, softmax cross
     entropy, Adam(2e-5)); one batch-2 step's loss and every VARIABLE's
     gradient on the card against the port's plain path on the CPU (float32
     and float64 copies); then ``sd.fit`` on one fixed batch of 32 x 128
-    (ragged masks) for 12 steps in one call, each step with exactly 12 K3,
-    12 K4 and 12 K5 launches and only ``fused`` decisions, a finite and
-    falling loss, the step time and a ``torch.profiler`` split (device
-    time, busy share, K3/K4/K5 time, top kernels) of 3 more steps;
+    (ragged masks) for 12 steps in one call, each step with exactly 12 K3
+    and 12 fused K4+K5 launches (each writing dq, dk and dv) and only
+    ``fused`` decisions, a finite and falling loss, the step time and a
+    ``torch.profiler`` split (device time, busy share, K3 and K4+K5 time,
+    top kernels) of 3 more steps;
 12. kernel-lstm against plain: K8 (the LSTM step) against its plain
     PyTorch version at (B, F, U) = (32, 77, 256) and (32, 256, 256) (the
     two layers of TextGenerationLSTM at batch 32), (1, 77, 256), ragged
@@ -179,13 +191,14 @@ Phases, in order; any failure exits non-zero:
     phase 11: one batch-2 step's loss and every VARIABLE's gradient on the
     card against the CPU (float32 and float64 copies, phase 11's rule);
     then ``sd.fit`` on one fixed batch of 32 x 128 for 12 steps, each with
-    exactly 25 K6, 25 K7, 12 K1, 12 K2, 12 K3, 12 K4 and 12 K5 launches
+    exactly 25 K6, 25 K7, 12 K1, 12 K2, 12 K3 and 12 fused K4+K5 launches
     and only ``fused`` decisions, a finite and falling loss, the step time
     and a ``torch.profiler`` split of 3 more steps;
 23. summary: a ``{"kernels": [...]}`` line (K1-K10), the ``nvidia-smi``
     name and power limit, and last ``{"ok": true, "device": {...}}``.
 
-The serving path (phases 4-5), the training path (phase 7), the BERT
+The serving path (phases 4-5), the training path and the NCHW block
+(phase 7), the BERT
 serving path (phase 9), the BERT fine-tune path (phase 11), the LSTM
 serving path and the LSTM streaming path (phase 13), the two generative
 mixes (phase 16), the generative server (phase 17), the paged mix (phase
@@ -265,11 +278,26 @@ ATTN_ULP_TOL = 2.0
 #: [B, T, H*d] projection (rows H*d apart), which is what the BERT path
 #: hands K3 and the layout that is timed
 ATTN_LAYOUTS = ("packed", "heads")
-#: K4 and K5 against their plain versions: float32 dq, dk and dv within
-#: 2e-5 of max(1, |ref|) (sums of up to 200 terms of O(1) in another
-#: order; expf may differ from PyTorch's exp by an ulp); 16-bit within
-#: ATTN_ULP_TOL ulps (ds and p are rounded at the same points in both)
+#: the fused backward (K4 + K5) against its plain versions: float32 dq, dk
+#: and dv within 2e-5 of max(1, |ref|) (sums of up to 300 terms of O(1) in
+#: another order; expf may differ from PyTorch's exp by an ulp); 16-bit
+#: within ATTN_ULP_TOL ulps (ds and p are rounded at the same points in
+#: both)
 ATTN_BWD_F32_TOL = 2e-5
+#: backward shapes beyond K3's: Tk = 300 spans three key blocks of the
+#: fused kernel at d = 32, so dq is summed from per-block partials; head
+#: dimensions 48 and 96 leave the kernel's padded columns empty
+ATTN_BWD_EXTRA_SHAPES = ((2, 4, 96, 300, 32), (2, 3, 50, 70, 48),
+                         (1, 2, 33, 150, 96))
+#: the NCHW epilogue check: LeNet's first convolution (5x5 to 20 channels
+#: of 1 x 28 x 28 digits, ReLU), then batch norm and ReLU, at batch 64.
+#: The output against the CPU plain path within NCHW_REL_TOL of max |ref|
+#: (float32, TF32 off; cuDNN and the CPU sum the convolution in other
+#: orders); the gradients by the training gates' rule (TRAIN_GRAD_TOL,
+#: GRAD_NOISE_FACTOR) against a CPU float64 copy, since cuDNN may take a
+#: transform-based algorithm for the weight gradient
+NCHW_BATCH = 64
+NCHW_REL_TOL = 1e-4
 BERT_REQUESTS = (1, 8, 32)
 BERT_SEQ = 128
 BERT_LAYERS = 12
@@ -812,6 +840,54 @@ def phase_train(k1, fe, env, models, graph) -> dict:
             "parity": (e_loss, e_grad, e_bn)}
 
 
+def phase_nchw(k1, fe, env) -> dict:
+    """Channels-first conv + ReLU + BN + ReLU on the card: K1 and K2 take the
+    channels-last view of NCHW activations (two K1 launches forward, two K2
+    backward, one counted copy: the convolution's NCHW output), and the
+    output and every gradient match the CPU plain path."""
+    from deeplearning4j_tpu_torch.tools.nchw_block import nchw_block
+    env.Environment.instance().f32_matmul_precision = "highest"
+    gen = torch.Generator().manual_seed(9)
+    params = {"W": torch.randn(20, 1, 5, 5, generator=gen) * 0.2,
+              "b": torch.randn(20, generator=gen),
+              "gamma": torch.rand(20, generator=gen) + 0.5,
+              "beta": torch.randn(20, generator=gen)}
+    x = torch.rand(NCHW_BATCH, 1, 28, 28, generator=gen)
+    with env.precision("cuda"):
+        nchw_block(x, params, "cuda")  # warm-up: cuDNN's algorithm choice
+        torch.cuda.synchronize()
+        fe.reset_counters()
+        before = (k1.launches, k1.bwd_launches)
+        z, grads = nchw_block(x, params, "cuda")
+        torch.cuda.synchronize()
+        launches = (k1.launches - before[0], k1.bwd_launches - before[1])
+    decisions, copies = fe.counters(), fe.nchw_copies
+    want_z, want = nchw_block(x, params, "cpu")
+    _, want64 = nchw_block(x.double(), {k: v.double()
+                                        for k, v in params.items()}, "cpu")
+    worst = max((rel_err(grads[k].cpu().numpy(), g64.numpy())
+                 / max(TRAIN_GRAD_TOL, GRAD_NOISE_FACTOR
+                       * rel_err(want[k].numpy(), g64.numpy())), k)
+                for k, g64 in want64.items())
+    out_rel = float((z.cpu() - want_z).abs().max() / want_z.abs().max())
+    log(f"[nchw] conv 20x5x5 + ReLU + BN + ReLU on {NCHW_BATCH} x 1 x 28 x 28 "
+        f"NCHW: K1/K2 launches {launches}, decisions {decisions}, "
+        f"channels-last copies {copies}; card vs CPU plain path: out "
+        f"{out_rel:.3g} of max |ref| (tolerance {NCHW_REL_TOL}); against the "
+        f"CPU float64 gradients the worst card/allowed ratio is "
+        f"{worst[0]:.3g} ({worst[1]}; allowed max({TRAIN_GRAD_TOL}, "
+        f"{GRAD_NOISE_FACTOR} x CPU float32))")
+    if launches != (2, 2) or decisions["fused"] != 2 or copies != 1 \
+            or any(v for k, v in decisions.items() if k != "fused"):
+        raise AssertionError(f"NCHW block: K1/K2 launches {launches}, "
+                             f"decisions {decisions}, copies {copies}")
+    if out_rel > NCHW_REL_TOL or worst[0] > 1.0:
+        raise AssertionError("the NCHW block on the card disagrees with the "
+                             "CPU plain path")
+    return {"launches": launches, "rel_err": out_rel,
+            "worst_grad_share": worst[0]}
+
+
 def attn_operand(B, H, T, d, dtype, layout, gen):
     """A [B, H, T, d] operand on the card: packed, or the head split of a
     [B, T, H*d] projection."""
@@ -982,18 +1058,22 @@ def phase_bert(k1, k3, fa, env) -> dict:
 
 
 def check_attn_bwd_case(k3, q, k, v, do, kb, scale, where, err) -> None:
-    """K4 and K5 twice (bitwise equal) against their plain versions, fed
-    K3's m and l; folds the errors into ``err``."""
+    """The fused backward twice (bitwise equal) and its dq-only and
+    dk/dv-only calls (the same bits) against the plain versions, fed K3's
+    m and l; folds the errors into ``err``."""
     o, m, l = k3.flash_attention_fwd(q, k, v, kb, scale)
     di = k3.attention_di(o, do)
     args = (q, k, v, kb, m, l, di, do, scale)
-    got = (k3.flash_attention_bwd_dq(*args),
-           *k3.flash_attention_bwd_dkv(*args))
-    again = (k3.flash_attention_bwd_dq(*args),
+    got = k3.flash_attention_bwd(*args)
+    again = k3.flash_attention_bwd(*args)
+    alone = (k3.flash_attention_bwd_dq(*args),
              *k3.flash_attention_bwd_dkv(*args))
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{where} is not deterministic")
+    if not all(torch.equal(a, b) for a, b in zip(got, alone)):
+        raise AssertionError(f"{where}: the dq-only or dk/dv-only call "
+                             f"differs from the fused one")
     want = (k3.flash_attention_bwd_dq_reference(*args),
             *k3.flash_attention_bwd_dkv_reference(*args))
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -1014,10 +1094,10 @@ def check_attn_bwd_case(k3, q, k, v, do, kb, scale, where, err) -> None:
 
 
 def phase_kernel_attn_bwd(k3) -> dict:
-    """K4 and K5 against their plain versions in both operand layouts,
-    twice per case for determinism; returns the times at BERT-base batch
-    32 (head-split operands, as the BERT path gives them) and the
-    errors."""
+    """The fused backward (K4 + K5) against its plain versions in both
+    operand layouts, twice per case for determinism; returns the times at
+    BERT-base batch 32 (head-split operands, as the BERT path gives them)
+    in float32 and bfloat16, and the errors."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1025,7 +1105,8 @@ def phase_kernel_attn_bwd(k3) -> dict:
     err = {"float32": 0.0, "abs_float32": 0.0, "ulp_bfloat16": 0.0,
            "ulp_float16": 0.0}
     times, cases = {}, 0
-    for B, H, Tq, Tk, d in ATTN_SHAPES:
+    shapes = ATTN_SHAPES + ATTN_BWD_EXTRA_SHAPES
+    for B, H, Tq, Tk, d in shapes:
         lengths = torch.randint(1, Tk + 1, (B,), generator=gen, device=dev)
         ragged = torch.where(torch.arange(Tk, device=dev)[None, :]
                              < lengths[:, None], 0.0, neg).contiguous()
@@ -1040,26 +1121,28 @@ def phase_kernel_attn_bwd(k3) -> dict:
                                 ("masked", masked)):
                     check_attn_bwd_case(
                         k3, q, k, v, do, kb, scale,
-                        f"K4/K5 {str(dtype)[6:]} {(B, H, Tq, Tk, d)} "
+                        f"K4+K5 {str(dtype)[6:]} {(B, H, Tq, Tk, d)} "
                         f"{layout} bias={tag}", err)
                     cases += 1
-            if dtype == torch.float16:
+            if dtype == torch.float16 or (B, H, Tq, Tk, d) != ATTN_SHAPES[0]:
                 continue
-            # timed on the last layout: the head split the BERT path gives
+            # timed at BERT-base batch 32 on the last layout: the head split
+            # the BERT path gives
             o, m, l = k3.flash_attention_fwd(q, k, v, ragged, scale)
             di = k3.attention_di(o, do)
             args = (q, k, v, ragged, m, l, di, do, scale)
-            row = {}
-            for name, fn, plain_fn in (
-                    ("dq", k3.flash_attention_bwd_dq,
-                     k3.flash_attention_bwd_dq_reference),
-                    ("dkv", k3.flash_attention_bwd_dkv,
-                     k3.flash_attention_bwd_dkv_reference)):
-                ms, host = time_ms(lambda: fn(*args))
-                plain, _ = time_ms(lambda: plain_fn(*args))
-                bound, by = k3.bound_ms_bwd(B, H, Tq, Tk, d,
-                                            q.element_size(), name)
-                row[name] = (ms, plain, host, bound, by)
+            ms, host = time_ms(lambda: k3.flash_attention_bwd(*args))
+            dq_ms, _ = time_ms(lambda: k3.flash_attention_bwd_dq(*args))
+            dkv_ms, _ = time_ms(lambda: k3.flash_attention_bwd_dkv(*args))
+            plain, _ = time_ms(lambda: (
+                k3.flash_attention_bwd_dq_reference(*args),
+                k3.flash_attention_bwd_dkv_reference(*args)))
+            plain_dkv, _ = time_ms(
+                lambda: k3.flash_attention_bwd_dkv_reference(*args))
+            bound, by = k3.bound_ms_bwd(B, H, Tq, Tk, d, q.element_size(),
+                                        "fused")
+            bound_dkv, by_dkv = k3.bound_ms_bwd(B, H, Tq, Tk, d,
+                                                q.element_size(), "dkv")
             # the library's backward of the same attention: dq, dk, dv
             # from one autograd.grad of SDPA's output, its forward outside
             qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
@@ -1068,23 +1151,32 @@ def phase_kernel_attn_bwd(k3) -> dict:
                 scale=scale)
             lib, _ = time_ms(lambda: torch.autograd.grad(
                 out, (qs, ks, vs), do, retain_graph=True))
+            lib_dkv, _ = time_ms(lambda: torch.autograd.grad(
+                out, (ks, vs), do, retain_graph=True))
             del qs, ks, vs, out
-            if dtype == torch.float32:
-                times[(B, H, Tq, Tk, d)] = (row, lib)
-            for name, kname in (("dq", "K4"), ("dkv", "K5")):
-                ms, plain, host, bound, by = row[name]
-                log(f"[kernel-attn-bwd] {kname} {str(dtype)[6:]:8s} B={B:2d} "
-                    f"H={H:2d} Tq={Tq:3d} Tk={Tk:3d} d={d:3d} "
-                    f"{ATTN_LAYOUTS[-1]} ms={ms:.5f} plain_ms={plain:.5f} "
-                    f"bound_ms={bound:.5f} ({by}) library_ms={lib:.5f} "
-                    f"(SDPA backward, dq+dk+dv) host_ms={host:.5f}")
+            times[str(dtype)[6:]] = {
+                "ms": ms, "dq_only_ms": dq_ms, "dkv_only_ms": dkv_ms,
+                "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                "bound_by": by, "host_ms": host,
+                "plain_dkv_ms": plain_dkv, "library_dkv_ms": lib_dkv,
+                "bound_dkv_ms": bound_dkv, "bound_dkv_by": by_dkv,
+                "occupancy": k3.bwd_occupancy(d, dtype)}
+            log(f"[kernel-attn-bwd] K4+K5 {str(dtype)[6:]:8s} B={B:2d} "
+                f"H={H:2d} Tq={Tq:3d} Tk={Tk:3d} d={d:3d} "
+                f"{ATTN_LAYOUTS[-1]} ms={ms:.5f} (dq only {dq_ms:.5f}, dk/dv "
+                f"only {dkv_ms:.5f}) plain_ms={plain:.5f} "
+                f"bound_ms={bound:.5f} ({by}) library_ms={lib:.5f} (SDPA "
+                f"backward, dq+dk+dv) host_ms={host:.5f}; resources "
+                f"{times[str(dtype)[6:]]['occupancy']}")
             del q, k, v, do
-    log(f"[kernel-attn-bwd] K4 and K5 match their plain versions and repeat "
-        f"bit for bit: {cases} cases (5 shapes x 3 dtypes x "
+    log(f"[kernel-attn-bwd] the fused K4+K5 matches its plain versions, "
+        f"repeats bit for bit and gives the same bits asked for dq alone or "
+        f"dk and dv alone: {cases} cases ({len(shapes)} shapes x 3 dtypes x "
         f"{len(ATTN_LAYOUTS)} layouts x (no bias, ragged, masked rows)); "
         f"float32 max err {err['float32']:.3g} of max(1, |ref|) (tolerance "
-        f"{ATTN_BWD_F32_TOL}; max abs err {err['abs_float32']:.3g}); bfloat16 {err['ulp_bfloat16']:.3g} ulp, "
-        f"float16 {err['ulp_float16']:.3g} ulp (tolerance {ATTN_ULP_TOL})")
+        f"{ATTN_BWD_F32_TOL}; max abs err {err['abs_float32']:.3g}); "
+        f"bfloat16 {err['ulp_bfloat16']:.3g} ulp, float16 "
+        f"{err['ulp_float16']:.3g} ulp (tolerance {ATTN_ULP_TOL})")
     return {"times": times, "max_err": err, "cases": cases}
 
 
@@ -1180,26 +1272,30 @@ def phase_bert_fit(k1, k3, fa, fe, env) -> dict:
     feed = fine_tune_feeds(np.random.default_rng(7), FIT_BATCH, BERT_SEQ)
     sd.fit(feed)  # warm-up: cuBLAS handles, allocator pools, the kernels
     k1.launches = k1.bwd_launches = 0
-    k3.launches = k3.launches_dq = k3.launches_dkv = 0
+    k3.launches = k3.launches_bwd = k3.launches_dq = k3.launches_dkv = 0
     fa.reset_counters()
     fe.reset_counters()
     check = FitLaunchCheck(fa, fe, {
-        "k1": 0, "k2": 0, "k3": BERT_LAYERS, "k4": BERT_LAYERS,
-        "k5": BERT_LAYERS, "k6": 0, "k7": 0})
+        "k1": 0, "k2": 0, "k3": BERT_LAYERS, "bwd": BERT_LAYERS,
+        "k4": BERT_LAYERS, "k5": BERT_LAYERS, "k6": 0, "k7": 0})
     row = profile_fit(sd, feed, walls=FIT_STEPS - 1, listeners=[check])
     steps = FIT_STEPS + 1 + 3
-    launches = (k3.launches, k3.launches_dq, k3.launches_dkv)
+    # K3, the fused backward, and of those the launches writing dq (K4's
+    # output) and dk and dv (K5's)
+    launches = (k3.launches, k3.launches_bwd, k3.launches_dq,
+                k3.launches_dkv)
     decisions, copies = fa.counters(), fa.do_copies
     sentinel = sd.resilience_counters()
     losses = row["losses"]
     log(f"[bert-fit] fit, batch {FIT_BATCH} x {BERT_SEQ}, {FIT_STEPS} steps "
         f"in one call: losses " + " ".join(f"{v:.5f}" for v in losses))
-    if launches != (steps * BERT_LAYERS,) * 3 \
+    if launches != (steps * BERT_LAYERS,) * 4 \
             or decisions["fused"] != launches[0] \
             or any(v for k, v in decisions.items() if k != "fused") \
             or k1.launches or k1.bwd_launches or copies \
             or sentinel["bad_total"]:
-        raise AssertionError(f"fine-tune path: K3/K4/K5 launches {launches} "
+        raise AssertionError(f"fine-tune path: K3, K4+K5, dq, dk/dv launches "
+                             f"{launches} "
                              f"for {steps} steps, decisions {decisions}, "
                              f"K1/K2 {k1.launches}/{k1.bwd_launches}, do "
                              f"copies {copies}, sentinel {sentinel}")
@@ -1210,9 +1306,9 @@ def phase_bert_fit(k1, k3, fa, fe, env) -> dict:
         f"{FIT_STEPS - 1} ({row['sequences_per_s']:.1f} sequences/s); device "
         f"{row['device_ms']:.3f} ms per step (busy share "
         f"{row['device_busy_share']:.3f}); K3 {row['k3_device_ms']:.3f} ms, "
-        f"K4 {row['k4_device_ms']:.3f} ms, K5 {row['k5_device_ms']:.3f} ms "
-        f"per step; {BERT_LAYERS} K3 + {BERT_LAYERS} K4 + {BERT_LAYERS} K5 "
-        f"launches in each of {steps} steps; decisions {decisions}; "
+        f"K4+K5 {row['bwd_device_ms']:.3f} ms per step; {BERT_LAYERS} K3 + "
+        f"{BERT_LAYERS} fused K4+K5 launches (each writing dq, dk and dv) in "
+        f"each of {steps} steps; decisions {decisions}; "
         f"sentinel {sentinel}")
     log("[bert-fit] top kernels (ms per step): " + "; ".join(
         f"{k[:60]} {t:.3f} x{c}" for k, t, c in row["top_kernels_ms"][:6]))
@@ -2376,7 +2472,7 @@ def phase_bert_ln(k1, k3, k6, fa, fe, env) -> dict:
         sd.output(feeds[n], [OUTPUT])
 
     # ---- the fused BERT serving path: counts from 0, read after the last
-    k1.launches = k1.bwd_launches = k3.launches = 0
+    k1.launches = k1.bwd_launches = k3.launches = k3.launches_bwd = 0
     k3.launches_dq = k3.launches_dkv = k6.launches = k6.bwd_launches = 0
     fa.reset_counters()
     fe.reset_counters()
@@ -2526,11 +2622,13 @@ def phase_bert_ln_fit(k1, k3, k6, fa, fe, env, sd) -> dict:
     feed = fine_tune_feeds(np.random.default_rng(7), FIT_BATCH, BERT_SEQ)
     sd.fit(feed)  # warm-up: cuBLAS handles, allocator pools, the kernels
     k1.launches = k1.bwd_launches = k3.launches = 0
-    k3.launches_dq = k3.launches_dkv = k6.launches = k6.bwd_launches = 0
+    k3.launches_bwd = k3.launches_dq = k3.launches_dkv = 0
+    k6.launches = k6.bwd_launches = 0
     fa.reset_counters()
     fe.reset_counters()
     per_step = {"k1": BERT_LAYERS, "k2": BERT_LAYERS, "k3": BERT_LAYERS,
-                "k4": BERT_LAYERS, "k5": BERT_LAYERS, "k6": LN_SITES,
+                "bwd": BERT_LAYERS, "k4": BERT_LAYERS, "k5": BERT_LAYERS,
+                "k6": LN_SITES,
                 "k7": LN_SITES}
     check = FitLaunchCheck(fa, fe, per_step)
     row = profile_fit(sd, feed, walls=FIT_STEPS - 1, listeners=[check])
@@ -2556,8 +2654,8 @@ def phase_bert_ln_fit(k1, k3, k6, fa, fe, env, sd) -> dict:
         f"{row['device_busy_share']:.3f}); per step K6 "
         f"{row['k6_device_ms']:.3f}, K7 {row['k7_device_ms']:.3f}, K1 "
         f"{row['k1_device_ms']:.3f}, K2 {row['k2_device_ms']:.3f}, K3 "
-        f"{row['k3_device_ms']:.3f}, K4 {row['k4_device_ms']:.3f}, K5 "
-        f"{row['k5_device_ms']:.3f} ms; launches per step {per_step} in each "
+        f"{row['k3_device_ms']:.3f}, K4+K5 {row['bwd_device_ms']:.3f} ms; "
+        f"launches per step {per_step} in each "
         f"of {steps} steps; decisions {decisions}; do/dy copies {copies}; "
         f"sentinel {sentinel}")
     log("[bert-ln-fit] top kernels (ms per step): " + "; ".join(
@@ -2607,6 +2705,7 @@ def main() -> int:
                              f"{k1.bwd_launches} K2 launches")
     del served
     trained = phase_train(k1, fe, env, models, graph)
+    nchw = phase_nchw(k1, fe, env)
     if k3.launches:
         raise AssertionError(f"{k3.launches} K3 launches on the ResNet paths")
     katt = phase_kernel_attn(k3)
@@ -2679,19 +2778,21 @@ def main() -> int:
         f"calls, {ms3:.4f} ms on the device (plain {plain3:.4f}, "
         f"scaled_dot_product_attention {lib3:.4f}, bound {bound3:.4f}, "
         f"{by3}); host enqueue {host3:.4f} ms")
-    rows_bwd, lib_bwd = kbwd_attn["times"][(32, 12, 128, 128, 64)]
-    per_step = {}  # K4 / K5: (ms, plain, host, bound, by) per fine-tune step
-    for name, kname in (("dq", "K4"), ("dkv", "K5")):
-        ms_, plain_, host_, bound_, by_ = rows_bwd[name]
-        per_step[name] = (BERT_LAYERS * ms_, BERT_LAYERS * plain_,
-                          BERT_LAYERS * host_, BERT_LAYERS * bound_, by_)
-        log(f"[summary] one batch-32 float32 BERT-base fine-tune step: "
-            f"{BERT_LAYERS} {kname} calls, {per_step[name][0]:.4f} ms on the "
-            f"device (plain {per_step[name][1]:.4f}, bound "
-            f"{per_step[name][3]:.4f}, {by_}); the backward of "
-            f"scaled_dot_product_attention (dq, dk, dv) "
-            f"{BERT_LAYERS * lib_bwd:.4f}; host enqueue "
-            f"{per_step[name][2]:.4f} ms")
+    # K4 + K5: one fused launch per layer and step, timed in float32 (the
+    # path's dtype) and bfloat16
+    tb32, tb16 = kbwd_attn["times"]["float32"], kbwd_attn["times"]["bfloat16"]
+    per_step = {k: BERT_LAYERS * v for k, v in tb32.items()
+                if k == "ms" or k.endswith("_ms")}
+    log(f"[summary] one batch-32 float32 BERT-base fine-tune step: "
+        f"{BERT_LAYERS} fused K4+K5 calls, {per_step['ms']:.4f} ms on the "
+        f"device ({tb32['ms']:.5f} a call; dq only {per_step['dq_only_ms']:.4f},"
+        f" dk/dv only {per_step['dkv_only_ms']:.4f}; plain "
+        f"{per_step['plain_ms']:.4f}, bound {per_step['bound_ms']:.4f}, "
+        f"{tb32['bound_by']}); the backward of scaled_dot_product_attention "
+        f"(dq, dk, dv) {per_step['library_ms']:.4f}; host enqueue "
+        f"{per_step['host_ms']:.4f} ms; bfloat16 a call {tb16['ms']:.5f} ms "
+        f"(SDPA backward {tb16['library_ms']:.5f}, bound "
+        f"{tb16['bound_ms']:.5f}, {tb16['bound_by']})")
     fit_l = fitted["launches"]
     # one batch-32 request: 256 steps of each of the two layers
     t8 = [klstm["times"][sh] for sh in LSTM_PATH_SHAPES]
@@ -2789,21 +2890,35 @@ def main() -> int:
     kernel_paths = ["serve", "train", "bert_serve", "bert_fit",
                     *lstm_paths]
     bwd_timed_as = (
-        "device time of one float32 call at BERT-base batch 32 (B=32, "
-        "H=12, T=128, d=64, ragged key bias, head-split operands) times the "
-        "12 calls of one fine-tune step; library_ms is the backward of "
+        "K4 and K5 are one fused kernel, and the main path's time is in the "
+        "K4 row only: ms is the device time of one float32 fused call (dq, "
+        "dk and dv) at BERT-base batch 32 (B=32, H=12, T=128, d=64, ragged "
+        "key bias, head-split operands) times the 12 calls of one fine-tune "
+        "step; plain_ms the dq and dk/dv plain versions; bound_ms the fused "
+        "call's (10 G T^2 d flops); library_ms the backward of "
         "torch.nn.functional.scaled_dot_product_attention with the same "
-        "float mask (one torch.autograd.grad of its output giving dq, dk "
-        "and dv together, its forward outside the timed window) times 12; "
-        "host_ms is the wrapper's enqueue time over the same calls")
+        "float mask (one torch.autograd.grad of its output giving dq, dk and "
+        "dv, its forward outside the timed window), all times 12; host_ms "
+        "the wrapper's enqueue time over the same calls; bfloat16 one call "
+        "at the same shape; launches count the launches that wrote the "
+        "row's outputs, fused_launches every launch of the kernel on the "
+        "fine-tune paths")
+    dkv_timed_as = (
+        "K5's outputs come from K4's fused launch on the main path, whose "
+        "time is in the K4 row only; this row's ms is the same kernel asked "
+        "for dk and dv alone (flash_attention_bwd_dkv, a call the main path "
+        "does not make) at the K4 row's shape times 12, plain_ms its plain "
+        "version, bound_ms the dk/dv call's (8 G T^2 d flops), library_ms "
+        "one torch.autograd.grad of SDPA's output for k and v alone")
     print(json.dumps({"kernels": [{
         "name": "K1 affine_act", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/affine_act.cu",
         "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:167",
-        "launches": serve_launches + trained["launches"][0] + ln_l["k1"]
-        + fit_ln["k1"],
+        "launches": serve_launches + trained["launches"][0]
+        + nchw["launches"][0] + ln_l["k1"] + fit_ln["k1"],
         "launches_by_path": {"serve": serve_launches,
                              "train": trained["launches"][0],
+                             "nchw_block": nchw["launches"][0],
                              "bert_serve": 0, "bert_fit": 0, **lstm_paths,
                              **ln_paths("k1")},
         "max_abs_err": max(kern["max_err"].values()),
@@ -2823,8 +2938,10 @@ def main() -> int:
         "name": "K2 affine_act_bwd", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/affine_act_bwd.cu",
         "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:179",
-        "launches": trained["launches"][1] + fit_ln["k2"],
+        "launches": trained["launches"][1] + nchw["launches"][1]
+        + fit_ln["k2"],
         "launches_by_path": {"serve": 0, "train": trained["launches"][1],
+                             "nchw_block": nchw["launches"][1],
                              "bert_serve": 0, "bert_fit": 0, **lstm_paths,
                              **ln_paths("k2")},
         "max_abs_err": max(kbwd["max_err"]["dx_float32"],
@@ -2867,28 +2984,45 @@ def main() -> int:
                     "torch.nn.functional.scaled_dot_product_attention with "
                     "the same float mask at the same shapes; host_ms is the "
                     "wrapper's enqueue time over the same calls",
-    }] + [{
-        "name": f"{kname} {cname}", "checked": True, "route": "cuda",
+    }] + [dict({
+        "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu",
         "replaces": f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
-        "launches": fit_l[i] + fit_ln[f"k{i + 3}"],
+        "launches": fit_l[i] + fit_ln[f"k{i + 2}"],
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
                              "bert_fit": fit_l[i], **lstm_paths,
-                             "bert_ln_fit": fit_ln[f"k{i + 3}"]},
+                             "bert_ln_fit": fit_ln[f"k{i + 2}"]},
+        "fused_launches": fit_l[1] + fit_ln["bwd"],
         "max_abs_err": kbwd_attn["max_err"]["abs_float32"],
         "max_err_float32_of_max1_ref": kbwd_attn["max_err"]["float32"],
         "max_ulp_bfloat16": kbwd_attn["max_err"]["ulp_bfloat16"],
         "max_ulp_float16": kbwd_attn["max_err"]["ulp_float16"],
+        "cases": kbwd_attn["cases"],
         "deterministic": True,
-        "ms": per_step[name][0], "plain_ms": per_step[name][1],
-        "bound_ms": per_step[name][3], "bound_by": per_step[name][4],
-        "library_ms": BERT_LAYERS * lib_bwd, "host_ms": per_step[name][2],
         "fit_step_ms": fitted["row"]["step_ms_median"],
         "fit_device_ms": fitted["row"]["device_ms"],
-        "timed_as": bwd_timed_as,
-    } for i, (name, kname, cname, line) in enumerate(
-        (("dq", "K4", "flash_attn_bwd_dq", 155),
-         ("dkv", "K5", "flash_attn_bwd_dkv", 184)), start=1)] + [{
+    }, **row) for i, line, row in ((2, 155, {
+        "name": "K4 flash_attn_bwd (fused K4+K5)", "fused_with": "K5",
+        "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
+        "bound_ms": per_step["bound_ms"], "bound_by": tb32["bound_by"],
+        "library_ms": per_step["library_ms"],
+        "host_ms": per_step["host_ms"],
+        "dq_only_ms": per_step["dq_only_ms"],
+        "occupancy": tb32["occupancy"],
+        "bfloat16": {k: tb16[k] for k in (
+            "ms", "dq_only_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "occupancy")},
+        "timed_as": bwd_timed_as}), (3, 184, {
+        "name": "K5 flash_attn_bwd_dkv (inside K4's fused launch)",
+        "fused_into": "K4",
+        "ms": per_step["dkv_only_ms"], "plain_ms": per_step["plain_dkv_ms"],
+        "bound_ms": per_step["bound_dkv_ms"],
+        "bound_by": tb32["bound_dkv_by"],
+        "library_ms": per_step["library_dkv_ms"],
+        "bfloat16": {k: tb16[k] for k in (
+            "dkv_only_ms", "plain_dkv_ms", "library_dkv_ms", "bound_dkv_ms",
+            "bound_dkv_by")},
+        "timed_as": dkv_timed_as}))] + [{
         "name": "K8 lstm_cell", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/lstm_cell.cu",
         "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:55",
@@ -3051,8 +3185,8 @@ def main() -> int:
         "bert_ln_fit": {k: bert_ln_fit["row"][k] for k in (
             "step_ms_median", "sequences_per_s", "device_ms",
             "device_busy_share", "k6_device_ms", "k7_device_ms",
-            "k1_device_ms", "k2_device_ms", "k3_device_ms", "k4_device_ms",
-            "k5_device_ms")},
+            "k1_device_ms", "k2_device_ms", "k3_device_ms",
+            "bwd_device_ms")},
         "bert_ln_fit_parity": {"loss_rel_err": bert_ln_fit["parity"][0],
                                "worst_grad_share": bert_ln_fit["parity"][1]},
         "dy_copies": bert_ln_fit["copies"][1],

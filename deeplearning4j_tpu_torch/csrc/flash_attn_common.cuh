@@ -1,16 +1,20 @@
-// Shared by K3 (flash_attn_fwd.cu) and K4/K5 (flash_attn_bwd.cu): operand
-// strides, warp reductions, and the score of a (query, key) pair.
+// Shared by K3 (flash_attn_fwd.cu) and the fused backward K4 + K5
+// (flash_attn_bwd.cu): operand strides, warp reductions, and the score of a
+// (query, key) pair.
 //
 // The backward recomputes the forward's scores and must get them bit for
 // bit: on a fully masked row every score is the clamped bias
 // finfo(float32).min, m is that value, and p = exp(s - m) / l is the uniform
 // 1/Tk only if s - m is exactly 0 (the JAX package's note on its saved
-// softmax statistics, ops/flash_attention.py _fwd_kernel). So every kernel
-// computes a score the same way: the dot product over d in order, one fused
-// multiply-add per term from 0, then s = dot * scale + bias as a rounded
-// product and a rounded sum (no fused multiply-add). The multiply-add of
-// two factors does not depend on their order, so a kernel that holds the
-// query rows (K3, K4) and one that holds the key rows (K5) agree.
+// softmax statistics, ops/flash_attention.py _fwd_kernel). So every f32
+// kernel computes a score the same way: the dot product over d in order, one
+// fused multiply-add per term from 0, then s = dot * scale + bias as a
+// rounded product and a rounded sum (no fused multiply-add). The
+// multiply-add of two factors does not depend on their order, so K3, which
+// walks d with a row of q against a row of k, and the backward, which walks
+// d over a register tile of (query, key) pairs, agree. (The backward's
+// 16-bit kernel takes its scores from the tensor cores; flash_attn_bwd.cu
+// says why a masked row still gets s - m = 0 there.)
 
 #pragma once
 

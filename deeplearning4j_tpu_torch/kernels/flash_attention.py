@@ -1,11 +1,11 @@
 """K3, the flash-attention forward: ``(o, m, l)`` of
-``softmax(q k^T * scale + kb) v``; K4 and K5, its backward: ``dq`` and
-``(dk, dv)``.
+``softmax(q k^T * scale + kb) v``; K4 + K5, its backward fused into one
+kernel: ``dq``, ``dk`` and ``dv``.
 
 Wrappers of ``csrc/flash_attn_fwd.cu`` (K3), which replaces the JAX
 package's ``ops/flash_attention.py::_fwd_kernel``, and of
-``csrc/flash_attn_bwd.cu`` (K4 and K5), which replace ``_bwd_dq_kernel``
-and ``_bwd_dkv_kernel``. ``q`` is ``[B, H, Tq, d]``,
+``csrc/flash_attn_bwd.cu`` (K4 + K5), which replaces both
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``. ``q`` is ``[B, H, Tq, d]``,
 ``k`` and ``v`` ``[B, H, Tk, d]``, in f32, bf16 or f16, each a strided
 view with a contiguous last dimension (the head split of a ``[B, T, H*d]``
 projection is read in place). ``kb`` is an optional f32 key bias
@@ -29,18 +29,27 @@ these are one value per row.
 The backward takes the forward's ``m`` and ``l``, the output gradient
 ``do`` (q's shape and dtype, any strides with a contiguous last dimension)
 and ``di = rowsum(o * do)`` in f32 ``[B*H, Tq]``, which the caller
-computes, as the JAX package does. It recomputes ``p = exp(s - m) * (1 /
-l)`` from scores made exactly as K3 made them and ``ds = p * (dp - di) *
-scale`` with ``dp = do v^T``; :func:`flash_attention_bwd_dq` gives ``dq =
-ds k`` in q's layout, :func:`flash_attention_bwd_dkv` ``dk = ds^T q`` and
-``dv = p^T do`` in k's and v's layouts. ds is rounded to k's (K4) or q's
-(K5) dtype and p to do's before the products, as on the TPU. The same
-CPU/CUDA rule holds: CPU tensors take the plain versions
-(:func:`flash_attention_bwd_reference` computes all three), CUDA tensors
-launch K4 and K5 or raise.
+computes, as the JAX package does. One kernel, ``csrc/flash_attn_bwd.cu``
+(K4 + K5 fused), recomputes ``p = exp(s - m) * (1 / l)`` from the scores
+and ``ds = p * (dp - di) * scale`` with ``dp = do v^T`` once and gives
+``dq = ds k`` in q's layout, ``dk = ds^T q`` and ``dv = p^T do`` in k's
+and v's layouts. ds is rounded to the input dtype and p to do's before the
+products, as on the TPU. :func:`flash_attention_bwd` asks it for all three
+in one launch; :func:`flash_attention_bwd_dq` for dq alone (it skips the
+``p^T do`` and ``ds^T q`` products) and :func:`flash_attention_bwd_dkv`
+for dk and dv alone (it skips ``ds k``). When Tk is above one CTA's key
+block (128 keys, 64 at d > 64), dq is summed from per-block f32 partials
+in a workspace by a second, fixed-order kernel, so reruns are bit-equal.
+The same CPU/CUDA rule holds: CPU tensors take the plain versions
+(:func:`flash_attention_bwd_dq_reference` and
+:func:`flash_attention_bwd_dkv_reference`;
+:func:`flash_attention_bwd_reference` computes all three from ``o``),
+CUDA tensors launch the kernel or raise.
 
-``launches`` counts wrapper calls that launched K3, ``launches_dq`` those
-that launched K4 and ``launches_dkv`` those that launched K5.
+``launches`` counts wrapper calls that launched K3 and ``launches_bwd``
+those that launched the fused backward; of the latter, ``launches_dq``
+counts the launches that wrote dq (K4's output) and ``launches_dkv`` those
+that wrote dk and dv (K5's).
 """
 
 from __future__ import annotations
@@ -62,8 +71,10 @@ MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: Kernel launches since the last reset (plain integers; set them to 0):
-#: K3, K4 and K5.
+#: K3; the fused backward; of those, the ones that wrote dq (K4's output)
+#: and the ones that wrote dk and dv (K5's).
 launches = 0
+launches_bwd = 0
 launches_dq = 0
 launches_dkv = 0
 
@@ -157,7 +168,7 @@ def attention_di(o, do):
 
 
 def flash_attention_bwd_reference(q, k, v, kb, o, m, l, do, scale=None):
-    """K4's and K5's plain versions together: ``(dq, dk, dv)`` from the
+    """The fused backward's plain version: ``(dq, dk, dv)`` from the
     forward's ``o``, ``m`` and ``l`` and the output gradient ``do``."""
     di = attention_di(o, do)
     dq = flash_attention_bwd_dq_reference(q, k, v, kb, m, l, di, do, scale)
@@ -226,34 +237,26 @@ def _check_bwd(q, k, v, kb, m, l, di, do):
 
 @functools.lru_cache(maxsize=None)
 def _bwd_kernels():
+    """The fused backward's entry and its key-block query."""
     lib = _build.load("flash_attn_bwd")
-    fns = []
-    for fn, outs in ((lib.dl4j_flash_attn_bwd_dq, 1),
-                     (lib.dl4j_flash_attn_bwd_dkv, 2)):
-        fn.argtypes = [ctypes.c_void_p] * (8 + outs) + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns.append(fn)
-    return tuple(fns)
+    fn = lib.dl4j_flash_attn_bwd
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    kblock = lib.dl4j_flash_attn_bwd_key_block
+    kblock.argtypes = [ctypes.c_int, ctypes.c_int]
+    kblock.restype = ctypes.c_int
+    return fn, kblock
 
 
-def _bwd_launch(fn, outs, q, k, v, kb, m, l, di, do, scale):
-    """Launch K4 (one output) or K5 (two) into ``outs``."""
-    B, H, Tq, d = q.shape
-    Tk = k.shape[2]
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    strides = (ctypes.c_longlong * (3 * (4 + len(outs))))(*[
-        s for t in (q, k, v, do, *outs) for s in t.stride()[:3]])
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if kb is None else kb.data_ptr(), m.data_ptr(),
-            l.data_ptr(), di.data_ptr(), do.data_ptr(),
-            *[t.data_ptr() for t in outs], B, H, Tq, Tk, d, strides,
-            float(scale), _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention backward kernel launch failed: "
-                           f"CUDA error {rc}")
+def _rows_aligned(ts) -> bool:
+    """True when every tensor's rows start on 16-byte boundaries: base
+    pointer and (batch, head, row) strides. The kernel then stages inputs
+    with 16-byte ``cp.async`` copies and stores f32 outputs 16 bytes at a
+    time (else element by element)."""
+    return all(t.data_ptr() % 16 == 0 and all(
+        s * t.element_size() % 16 == 0 for s in t.stride()[:3]) for t in ts)
 
 
 def _like(t):
@@ -275,35 +278,91 @@ def _route_bwd(q, k, v, kb, m, l, di, do):
     return True
 
 
+def _bwd_launch(q, k, v, kb, m, l, di, do, scale, want_dq, want_dkv):
+    """One launch of the fused backward for ``dq`` and/or ``(dk, dv)``
+    (None where not asked for); checked CUDA tensors."""
+    global launches_bwd, launches_dq, launches_dkv
+    fn, kblock = _bwd_kernels()
+    B, H, Tq, d = q.shape
+    Tk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    dq = _like(q) if want_dq else None
+    dk, dv = (_like(k), _like(v)) if want_dkv else (None, None)
+    if q.numel() == 0 or k.numel() == 0:  # nothing to sum over
+        return tuple(None if t is None else t.zero_() for t in (dq, dk, dv))
+    code = _DTYPE_CODES[q.dtype]
+    nkb = -(-Tk // kblock(d, code))
+    ws = torch.empty((nkb, B * H, Tq, d), dtype=torch.float32,
+                     device=q.device) if want_dq and nkb > 1 else None
+    strides = (ctypes.c_longlong * 21)(*[
+        s for t in (q, k, v, do, dq, dk, dv)
+        for s in ((0, 0, 0) if t is None else t.stride()[:3])])
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(kb), m.data_ptr(),
+            l.data_ptr(), di.data_ptr(), do.data_ptr(), ptr(dq), ptr(dk),
+            ptr(dv), ptr(ws), B, H, Tq, Tk, d, strides, float(scale), code,
+            int(_rows_aligned((q, k, v, do)))
+            | int(want_dkv and _rows_aligned((dk, dv))) << 1,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: "
+                           f"CUDA error {rc}")
+    launches_bwd += 1
+    launches_dq += int(want_dq)
+    launches_dkv += int(want_dkv)
+    return dq, dk, dv
+
+
+def bwd_occupancy(d: int, dtype=torch.float32) -> dict:
+    """The fused backward kernel's resources on the current card at head
+    dimension ``d``: registers and local (spill) bytes a thread, threads
+    and shared-memory bytes a CTA, and the CTAs one SM holds at once
+    (CUDA's occupancy calculator). Needs the card."""
+    fn = _build.load("flash_attn_bwd").dl4j_flash_attn_bwd_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    rc = fn(int(d), _DTYPE_CODES[dtype], out)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward occupancy query "
+                           f"failed: CUDA error {rc}")
+    return dict(zip(("registers", "threads", "smem_bytes", "local_bytes",
+                     "ctas_per_sm"), out))
+
+
+def flash_attention_bwd(q, k, v, kb, m, l, di, do, scale=None):
+    """The fused backward on CUDA tensors, the plain versions on CPU
+    tensors: ``(dq, dk, dv)`` in q's, k's and v's layouts from one launch
+    (see the module docstring)."""
+    if not _route_bwd(q, k, v, kb, m, l, di, do):
+        return (flash_attention_bwd_dq_reference(q, k, v, kb, m, l, di, do,
+                                                 scale),
+                *flash_attention_bwd_dkv_reference(q, k, v, kb, m, l, di, do,
+                                                   scale))
+    return _bwd_launch(q, k, v, kb, m, l, di, do, scale, True, True)
+
+
 def flash_attention_bwd_dq(q, k, v, kb, m, l, di, do, scale=None):
-    """K4 on CUDA tensors, its plain version on CPU tensors: ``dq`` in q's
-    layout (see the module docstring)."""
+    """The fused backward asked for ``dq`` alone on CUDA tensors (K4's
+    output), its plain version on CPU tensors (see the module
+    docstring)."""
     if not _route_bwd(q, k, v, kb, m, l, di, do):
         return flash_attention_bwd_dq_reference(q, k, v, kb, m, l, di, do,
                                                 scale)
-    global launches_dq
-    dq = _like(q)
-    if q.numel() == 0 or k.shape[2] == 0:
-        return dq.zero_()
-    _bwd_launch(_bwd_kernels()[0], (dq,), q, k, v, kb, m, l, di, do, scale)
-    launches_dq += 1
-    return dq
+    return _bwd_launch(q, k, v, kb, m, l, di, do, scale, True, False)[0]
 
 
 def flash_attention_bwd_dkv(q, k, v, kb, m, l, di, do, scale=None):
-    """K5 on CUDA tensors, its plain version on CPU tensors: ``(dk, dv)``
-    in k's and v's layouts (see the module docstring)."""
+    """The fused backward asked for ``(dk, dv)`` alone on CUDA tensors
+    (K5's outputs), its plain version on CPU tensors (see the module
+    docstring)."""
     if not _route_bwd(q, k, v, kb, m, l, di, do):
         return flash_attention_bwd_dkv_reference(q, k, v, kb, m, l, di, do,
                                                  scale)
-    global launches_dkv
-    dk, dv = _like(k), _like(v)
-    if k.numel() == 0 or q.shape[2] == 0:
-        return dk.zero_(), dv.zero_()
-    _bwd_launch(_bwd_kernels()[1], (dk, dv), q, k, v, kb, m, l, di, do,
-                scale)
-    launches_dkv += 1
-    return dk, dv
+    return _bwd_launch(q, k, v, kb, m, l, di, do, scale, False, True)[1:]
 
 
 def flash_attention_fwd(q, k, v, kb=None, scale=None):
@@ -370,34 +429,46 @@ def bound_ms(B: int, H: int, Tq: int, Tk: int, d: int, itemsize: int,
         "bytes" if t_bytes >= t_ops else "operations"
 
 
+_BWD_KERNELS = ("dq", "dkv", "fused")
+
+
+def _bwd_kernel_name(kernel: str) -> str:
+    if kernel not in _BWD_KERNELS:
+        raise ValueError(f"kernel {kernel!r} is 'dq' (K4's work), 'dkv' "
+                         "(K5's) or 'fused' (both in one launch)")
+    return kernel
+
+
 def bytes_moved_bwd(B: int, H: int, Tq: int, Tk: int, d: int, itemsize: int,
                     kernel: str, has_bias: bool = True) -> int:
-    """Least device-memory traffic of one K4 (``kernel="dq"``) or K5
-    (``"dkv"``) call: q, k, v, do, m, l, di and kb read once; dq, or dk
-    and dv, written once."""
+    """Least device-memory traffic of one backward call for dq
+    (``kernel="dq"``), for dk and dv (``"dkv"``) or for all three
+    (``"fused"``): q, k, v, do, m, l, di and kb read once; the outputs
+    written once."""
+    kernel = _bwd_kernel_name(kernel)
     G = B * H
     reads = (2 * G * Tq * d + 2 * G * Tk * d) * itemsize + 3 * G * Tq * 4 \
         + (B * Tk * 4 if has_bias else 0)
-    writes = G * Tq * d * itemsize if kernel == "dq" \
-        else 2 * G * Tk * d * itemsize
+    writes = (G * Tq * d * (kernel != "dkv")
+              + 2 * G * Tk * d * (kernel != "dq")) * itemsize
     return reads + writes
 
 
 def flops_bwd(B: int, H: int, Tq: int, Tk: int, d: int, kernel: str) -> int:
-    """Operations of one K4 (``"dq"``) or K5 (``"dkv"``) call: the
-    multiply-adds of ``q k^T``, ``do v^T`` and ``ds k`` (6 G Tq Tk d), or
-    of ``q k^T``, ``do v^T``, ``p^T do`` and ``ds^T q`` (8 G Tq Tk d). The
-    few elementwise operations per score are left out, so the bound stays
-    a lower bound."""
-    if kernel not in ("dq", "dkv"):
-        raise ValueError(f"kernel {kernel!r} is 'dq' (K4) or 'dkv' (K5)")
-    return (6 if kernel == "dq" else 8) * B * H * Tq * Tk * d
+    """Operations of one backward call: the multiply-adds of ``q k^T``,
+    ``do v^T`` and ``ds k`` for dq (``"dq"``, 6 G Tq Tk d); of ``q k^T``,
+    ``do v^T``, ``p^T do`` and ``ds^T q`` for dk and dv (``"dkv"``, 8 G Tq
+    Tk d); of the five products once for all three (``"fused"``, 10 G Tq
+    Tk d). The few elementwise operations per score are left out, so the
+    bound stays a lower bound."""
+    per = {"dq": 6, "dkv": 8, "fused": 10}[_bwd_kernel_name(kernel)]
+    return per * B * H * Tq * Tk * d
 
 
 def bound_ms_bwd(B: int, H: int, Tq: int, Tk: int, d: int, itemsize: int,
                  kernel: str, has_bias: bool = True) -> tuple:
-    """``(ms, "bytes" or "operations")`` for one K4 (``"dq"``) or K5
-    (``"dkv"``) call, as :func:`bound_ms` for K3."""
+    """``(ms, "bytes" or "operations")`` for one backward call (``"dq"``,
+    ``"dkv"`` or ``"fused"``), as :func:`bound_ms` for K3."""
     rate = H100_F32_FLOPS_PER_S if itemsize == 4 else H100_16BIT_FLOPS_PER_S
     t_bytes = bytes_moved_bwd(B, H, Tq, Tk, d, itemsize, kernel, has_bias) \
         / H100_BYTES_PER_S

@@ -12,13 +12,15 @@ Port of the dispatch half of ``deeplearning4j_tpu/ops/flash_attention.py``:
 - ``_FlashAttention``, the autograd node of the fused route (the JAX
   package's ``_flash`` custom VJP): its forward launches K3 and saves q,
   k, v, the key bias, o, m and l; its backward computes ``di =
-  rowsum(o * do)`` in f32 with a torch op and launches K4 (dq) and K5
-  (dk, dv).
+  rowsum(o * do)`` in f32 with a torch op and launches the fused
+  backward (K4 + K5) once for dq, dk and dv (or for dq alone, or dk and
+  dv alone, when only those are needed).
 
 Decisions (one per call; the counters are this package's own):
 
 - ``fused``: a CUDA tensor in mode ``auto`` with no bias or a key-reducible
-  one (``[B or 1, 1, 1, Tk]``): K3 runs, and K4 and K5 in the backward.
+  one (``[B or 1, 1, 1, Tk]``): K3 runs, and the fused K4 + K5 in the
+  backward.
 - ``fallback_mode``: mode ``off`` on CPU tensors (the reference path). On
   CUDA tensors mode ``off`` raises a ValueError: the card has no route
   around K3/K4/K5 but the bias one below.
@@ -223,7 +225,7 @@ def _route(q, k, v, bias) -> Optional[str]:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The fused route as an autograd node: K3 forward, K4 and K5
+    """The fused route as an autograd node: K3 forward, the fused K4 + K5
     backward (the JAX package's ``_flash_fwd``/``_flash_bwd``)."""
 
     @staticmethod
@@ -237,16 +239,20 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         global do_copies
         q, k, v, kb, o, m, l = ctx.saved_tensors
-        if do.stride(-1) != 1:  # the kernels read rows in place
+        if do.stride(-1) != 1:  # the kernel reads rows in place
             do = do.contiguous()
             do_copies += 1
         di = _k3.attention_di(o, do)
         args = (q, k, v, kb, m, l, di, do, ctx.scale)
-        dq = _k3.flash_attention_bwd_dq(*args) \
-            if ctx.needs_input_grad[0] else None
-        dk, dv = _k3.flash_attention_bwd_dkv(*args) \
-            if ctx.needs_input_grad[1] or ctx.needs_input_grad[2] \
-            else (None, None)
+        want_dq = ctx.needs_input_grad[0]
+        want_dkv = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        dq = dk = dv = None
+        if want_dq and want_dkv:  # one launch for all three
+            dq, dk, dv = _k3.flash_attention_bwd(*args)
+        elif want_dq:
+            dq = _k3.flash_attention_bwd_dq(*args)
+        elif want_dkv:
+            dk, dv = _k3.flash_attention_bwd_dkv(*args)
         # the key bias is a mask-derived constant: no gradient
         return dq, dk, dv, None, None
 

@@ -36,6 +36,21 @@ counters are this package's own):
   :func:`foldable_act`) — the Function computes the affine (the
   normalization) with identity, then the catalog activation runs
   (differentiated by autograd).
+- ``fallback_dtype``: an integer or bool CPU tensor — the JAX
+  dispatcher's fallback formula (``x + b``, ``nnops.batch_norm`` or
+  ``nnops.layer_norm``, then the catalog activation), which promotes as
+  jnp does (``bias_act(int32 x, act="gelu_exact")`` is float32). An
+  integer or bool CUDA tensor is cast to the float dtype that formula
+  returns (read on meta tensors) and takes the kernels, counted
+  ``fused``; where the formula stays integer (``bias_act(int32 x, int32
+  b, act="relu")``) it raises, as no kernel computes in integers.
+
+Channels-first ``x`` (``axis`` not last, NCHW): K1 and K2 read its
+channels-last view, on the card as on the CPU. A tensor in
+``torch.channels_last`` memory gives that view for free; any other takes
+one contiguous copy, counted in ``nchw_copies``. cuDNN keeps a
+convolution's output in its input's memory format, so after a network's
+first copy the layers hand each other channels-last tensors.
 
 ``dy``'s layout: K2 and K7 read ``dy`` as ``[rows, C]`` row-major memory.
 The gradient autograd hands a Function comes through cuDNN's convolution
@@ -63,17 +78,23 @@ import torch
 from ..kernels import affine_act as _k1
 from ..kernels import layer_norm_act as _k6
 from . import activations as _activations
+from . import nnops as _nnops
 from . import register
 
 # canonical (lowercase, underscore-stripped) names K1 implements
 _FOLDABLE = _k1.ACTS
 
-_COUNTER_KEYS = ("fused", "fallback_platform", "fallback_act")
+_COUNTER_KEYS = ("fused", "fallback_platform", "fallback_act",
+                 "fallback_dtype")
 _counts = collections.Counter()
 
 #: contiguous copies of a non-contiguous ``dy`` made by the backward since
 #: the last :func:`reset_counters` (a plain integer)
 dy_copies = 0
+#: channels-last copies of a channels-first ``x`` (NCHW not already in
+#: ``torch.channels_last`` memory) made since the last reset (a plain
+#: integer)
+nchw_copies = 0
 
 
 def _canon(act) -> str:
@@ -103,10 +124,11 @@ def counters() -> dict:
 
 
 def reset_counters() -> None:
-    """Zero the decision counters and ``dy_copies``."""
-    global dy_copies
+    """Zero the decision counters, ``dy_copies`` and ``nchw_copies``."""
+    global dy_copies, nchw_copies
     _counts.clear()
     dy_copies = 0
+    nchw_copies = 0
 
 
 def _rows(x):
@@ -160,24 +182,53 @@ class AffineAct(torch.autograd.Function):
 
 
 def _affine(x, scale, shift, act, alpha, axis):
+    global nchw_copies
     act_c = _canon(act)
     fold = foldable_act(act, alpha)
     _decide(x, fold)
     kact = act_c if fold else "identity"
     if x.ndim >= 2 and axis in (-1, x.ndim - 1):
         y = AffineAct.apply(_rows(x), scale, shift, kact).view(x.shape)
-    elif x.device.type == "cpu":
-        # channels not last (NCHW): the plain versions over a channels-last
-        # copy, moved back
-        xt = x.movedim(axis, -1)
-        y = AffineAct.apply(xt.reshape(-1, xt.shape[-1]), scale, shift,
-                            kact).view(xt.shape).movedim(-1, axis)
     else:
-        raise ValueError(f"fused epilogue: K1 takes channels-last tensors; "
-                         f"channel axis {axis} of shape {tuple(x.shape)}")
+        # channels not last (NCHW): K1 and K2 (or their plain versions)
+        # read the channels-last view, moved back after. A tensor already
+        # in channels-last memory gives that view for free; any other takes
+        # one contiguous copy
+        xt = x.movedim(axis, -1)
+        if not xt.is_contiguous():
+            xt = xt.contiguous()
+            nchw_copies += 1
+        y = AffineAct.apply(xt.view(-1, xt.shape[-1]), scale, shift,
+                            kact).view(xt.shape).movedim(-1, axis)
     if fold:
         return y
     return reference_act(act, alpha)(y)
+
+
+def _promote(x, plain, *params):
+    """``(x, None)`` for a float ``x``. An integer or bool ``x`` (the
+    kernels take floats only) promotes as the JAX dispatcher's fallback
+    formula ``plain(x, *params)`` does: on the CPU that formula runs
+    (``fallback_dtype``) and ``(None, y)`` returns its result; on the card
+    its result dtype is read on meta tensors, and ``(x cast to it, None)``
+    sends the cast to the kernels. An integer result raises there."""
+    if x.is_floating_point():
+        return x, None
+    if x.device.type == "cpu":
+        _counts["fallback_dtype"] += 1
+        return None, plain(x, *params)
+    f = plain(*(None if t is None else torch.empty(
+        t.shape, dtype=t.dtype, device="meta") for t in (x, *params))).dtype
+    if not f.is_floating_point:
+        raise ValueError(
+            f"fused epilogue: a {x.dtype} x gives a {f} result here, and the "
+            "kernels compute in float32, bfloat16 or float16 only")
+    return x.to(f), None
+
+
+def _then_act(y, act, alpha=None):
+    return y if _canon(act) == "identity" and alpha is None \
+        else reference_act(act, alpha)(y)
 
 
 def bn_act(x, gamma, beta, mean, var, eps=1e-5, axis=-1, act="identity",
@@ -186,6 +237,11 @@ def bn_act(x, gamma, beta, mean, var, eps=1e-5, axis=-1, act="identity",
     The statistics fold into per-channel scale/shift in f32 (as the JAX
     package does; f64 for a float64 ``x``): ``scale = gamma * rsqrt(var +
     eps)``, ``shift = beta - mean * scale``."""
+    x, y = _promote(x, lambda x, *p: _then_act(
+        _nnops.batch_norm(x, *p, eps, axis), act, alpha),
+        gamma, beta, mean, var)
+    if y is not None:
+        return y
     f = _k1._math_dtype(x.dtype)
     inv = torch.rsqrt(var.to(f) + eps)
     scale = inv if gamma is None else inv * gamma.to(f)
@@ -201,6 +257,16 @@ def bias_act(x, b=None, act="identity", axis=-1, alpha=None):
     is a ``[C]`` vector over ``axis``, or None."""
     if b is None and _canon(act) == "identity" and alpha is None:
         return x  # nothing to fuse; keeps the dispatch mix meaningful
+
+    def plain(x, b):
+        if b is not None:
+            shape = [1] * x.ndim
+            shape[axis] = b.shape[0]
+            x = x + b.reshape(shape)
+        return _then_act(x, act, alpha)
+    x, y = _promote(x, plain, b)
+    if y is not None:
+        return y
     f = _k1._math_dtype(x.dtype)
     shift = torch.zeros(x.shape[axis], dtype=f, device=x.device) \
         if b is None else b.to(f).contiguous()
@@ -239,6 +305,10 @@ def layer_norm_act(x, gamma, beta, eps=1e-5, act="identity"):
     transformer blocks' tail; ``fuse_epilogues`` splices graph-recorded
     decompositions into it): two-pass mean and variance per row,
     ``rstd = rsqrt(var + eps)``, ``act((x - mu)*rstd*gamma + beta)``."""
+    x, y = _promote(x, lambda x, g, b: _then_act(
+        _nnops.layer_norm(x, g, b, eps, axis=-1), act), gamma, beta)
+    if y is not None:
+        return y
     fold = foldable_act(act)
     _decide(x, fold)
     x2 = _rows(x)

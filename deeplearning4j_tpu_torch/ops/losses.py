@@ -103,7 +103,14 @@ def sparse_mcxent(labels, predictions, mask=None, weights=None):
 
 def softmax_cross_entropy_with_logits(labels, logits, mask=None,
                                       weights=None):
-    """Softmax + cross entropy on logits, the Output layer's stable path."""
+    """Softmax + cross entropy on logits, the Output layer's stable path.
+    Integer logits go in as float32, as ``jax.nn.log_softmax`` promotes
+    them (bool logits raise, as there)."""
+    if logits.dtype == torch.bool:
+        raise TypeError("softmax_ce_logits: bool logits (jax.nn.log_softmax "
+                        "refuses them too)")
+    if not logits.is_floating_point():
+        logits = logits.float()
     logp = torch.log_softmax(logits, dim=-1)
     return _per_example(_sum_outputs(-labels * logp, weights), mask)
 

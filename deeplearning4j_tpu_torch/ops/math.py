@@ -13,7 +13,28 @@ outputs, ``jnp.split`` sections, negative slice steps.
 
 ``linalg.mmul`` and the other contractions run under the caller's
 precision policy (``environment.precision``): SameDiff.output applies it
-around the whole graph.
+around the whole graph. They promote their operands to one dtype as jnp
+does, and bools contract to bool.
+
+Integer and bool inputs follow jnp's promotions: ``linalg.norm``,
+``det``, ``inverse``, ``solve`` and ``cholesky`` (which factors the
+symmetric part, as jnp does) compute in float32; ``linalg.trace`` of
+bools and narrow integers is int32; ``math.pow`` and ``math.fmod`` take
+bools as int32 (``fmod`` of integers by zero is 0; of two bools by zero,
+XLA's dividend); ``scatter.segment_max``/``segment_min`` of bools are
+any/all; ``sort.top_k`` and ``sort.in_top_k`` order ties as
+``lax.top_k`` does (the lower index first) and take bools.
+
+Recorded divergences, the other way: where jnp raises TypeError on an
+integer or bool input, these ops accept it. ``math.rsqrt`` and
+``act.sigmoid`` (int32 and bool), and ``act.softmax``,
+``act.logsoftmax``, ``act.softmax_onnx_legacy`` and ``act.rationaltanh``
+(bool) promote it to float32, as the activations promote integer and
+bool inputs as a class; ``math.sign`` of bools returns
+them; ``scatter.add``, ``scatter.segment_sum`` and
+``scatter.segment_mean`` take bool data (any, and a float32 mean);
+``nnops.lstm_cell`` takes int32 operands. None of them is reached from a
+float graph.
 """
 
 from __future__ import annotations
@@ -118,7 +139,13 @@ def mod(x, y):
     return torch.remainder(x, y)
 
 
-register("math.pow", category="pairwise")(torch.pow)
+@register("math.pow", category="pairwise")
+def pow_(x, y):
+    """``jnp.power``: a bool operand counts as int32 (two bools give int32;
+    torch has no bool power)."""
+    x = _int32(x) if isinstance(x, torch.Tensor) else x
+    y = _int32(y) if isinstance(y, torch.Tensor) else y
+    return torch.pow(x, y)
 register("math.maximum", category="pairwise")(torch.maximum)
 register("math.minimum", category="pairwise")(torch.minimum)
 
@@ -148,6 +175,17 @@ def squared_difference(a, b):
 
 @register("math.fmod", category="pairwise")
 def fmod(a, b):
+    """``jnp.fmod`` (the sign of the dividend); integers by zero give 0, as
+    jnp does (the remainder by the safe divisor 1), where torch raises.
+    Two bools are not integers to jnp: they skip that replacement, and
+    XLA's remainder by zero is the dividend (in int32)."""
+    a = _t(a, b if isinstance(b, torch.Tensor) else None)
+    b = _t(b, a)
+    if not (a.is_floating_point() or b.is_floating_point()):
+        bools = a.dtype == torch.bool and b.dtype == torch.bool
+        a, zero, safe = _int_operands(a, b)
+        r = torch.fmod(a, safe)
+        return torch.where(zero, a, r) if bools else r
     return torch.fmod(a, b)
 
 
@@ -243,6 +281,18 @@ def where(condition, x, y):
 
 
 # -- blas / linalg ------------------------------------------------------------
+def _contract(fn, *operands):
+    """``fn`` (a matmul, tensordot or einsum) over operands promoted to one
+    dtype as jnp promotes them; bools contract to bool (any nonzero
+    product, summed exactly in float32)."""
+    dt = operands[0].dtype
+    for t in operands[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    if dt == torch.bool:
+        return fn(*(t.float() for t in operands)) != 0
+    return fn(*(t.to(dt) for t in operands))
+
+
 @register("linalg.mmul", category="blas")
 def mmul(a, b, transpose_a=False, transpose_b=False):
     """DL4J mmul (gemm), batched over leading dims as ``jnp.matmul``."""
@@ -250,7 +300,7 @@ def mmul(a, b, transpose_a=False, transpose_b=False):
         a = a.transpose(-1, -2)
     if transpose_b:
         b = b.transpose(-1, -2)
-    return torch.matmul(a, b)
+    return _contract(torch.matmul, a, b)
 
 
 @register("linalg.tensordot", category="blas")
@@ -258,12 +308,12 @@ def tensordot(a, b, axes=2):
     if isinstance(axes, (list, tuple)):
         axes = [list(x) if isinstance(x, (list, tuple)) else [x]
                 for x in axes]
-    return torch.tensordot(a, b, dims=axes)
+    return _contract(lambda x, y: torch.tensordot(x, y, dims=axes), a, b)
 
 
 @register("linalg.einsum", category="blas")
 def einsum(*operands, equation):
-    return torch.einsum(equation, *operands)
+    return _contract(lambda *ts: torch.einsum(equation, *ts), *operands)
 
 
 register("linalg.outer", category="blas")(torch.outer)
@@ -277,20 +327,42 @@ def diag_part(a, offset=0, axis1=0, axis2=1):
 
 @register("linalg.trace", category="linalg")
 def trace(a, offset=0, axis1=0, axis2=1):
-    return torch.diagonal(a, offset=offset, dim1=axis1, dim2=axis2).sum(-1)
+    """``jnp.trace``: bool and narrow integer traces sum in int32 (torch's
+    sum widens them to int64)."""
+    out = torch.diagonal(a, offset=offset, dim1=axis1, dim2=axis2).sum(-1)
+    if a.dtype in (torch.bool, torch.int8, torch.int16, torch.int32):
+        return out.to(torch.int32)
+    return out
 
 
-register("linalg.inverse", category="linalg")(torch.linalg.inv)
-register("linalg.cholesky", category="linalg")(torch.linalg.cholesky)
-register("linalg.solve", category="linalg")(torch.linalg.solve)
-register("linalg.det", category="linalg")(torch.linalg.det)
+@register("linalg.inverse", category="linalg")
+def inverse(a):
+    return torch.linalg.inv(_float(a))
+
+
+@register("linalg.cholesky", category="linalg")
+def cholesky(a):
+    """``jnp.linalg.cholesky``, which factors the symmetric part ``(a +
+    a^T) / 2`` (torch reads the lower triangle alone)."""
+    a = _float(a)
+    return torch.linalg.cholesky((a + a.mT) / 2)
+
+
+@register("linalg.solve", category="linalg")
+def solve(a, b):
+    return torch.linalg.solve(_float(a), _float(b))
+
+
+@register("linalg.det", category="linalg")
+def det(a):
+    return torch.linalg.det(_float(a))
 
 
 @register("linalg.norm", category="linalg")
 def norm(x, ord=None, axis=None, keepdims=False):
     if isinstance(axis, list):
         axis = tuple(axis)
-    return torch.linalg.norm(x, ord=ord, dim=axis, keepdim=keepdims)
+    return torch.linalg.norm(_float(x), ord=ord, dim=axis, keepdim=keepdims)
 
 
 # -- shape / structural -------------------------------------------------------
@@ -598,16 +670,24 @@ def argsort(a, axis=-1):
     return torch.argsort(a, dim=axis, stable=True).to(torch.int32)
 
 
+def _top_k(a, k: int):
+    """The k largest along the last axis in ``lax.top_k``'s order: a stable
+    descending sort, so equal values keep the lower index first
+    (``torch.topk`` orders ties arbitrarily and refuses bools on the CPU)."""
+    v, i = torch.sort(a, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
 @register("sort.top_k", category="sort", differentiable=False)
 def top_k(a, k):
     """values, int32 indices of the k largest along the last axis."""
-    v, i = torch.topk(a, int(k), dim=-1)
+    v, i = _top_k(a, int(k))
     return v, i.to(torch.int32)
 
 
 @register("sort.in_top_k", category="sort", differentiable=False)
 def in_top_k(predictions, targets, k):
-    _, idx = torch.topk(predictions, int(k), dim=-1)
+    _, idx = _top_k(predictions, int(k))
     return (idx == targets.long().unsqueeze(-1)).any(dim=-1)
 
 
@@ -653,6 +733,10 @@ def _segment(data, segment_ids, num_segments, reduce: str):
     if reduce == "sum":
         return torch.zeros(shape, dtype=data.dtype,
                            device=data.device).index_add_(0, ids, data)
+    if data.dtype == torch.bool and reduce in ("amax", "amin"):
+        # bool max / min are any / all; an empty segment is the identity
+        return _segment(data.to(torch.uint8), ids, num_segments,
+                        reduce).bool()
     if data.is_floating_point():
         init = {"amax": float("-inf"), "amin": float("inf"),
                 "prod": 1.0}[reduce]

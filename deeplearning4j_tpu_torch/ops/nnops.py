@@ -195,7 +195,10 @@ def layer_norm(x, gamma, beta, eps=1e-5, axis=-1):
     graph records it for a plain LayerNorm (ONNX imports it so). The JAX
     package falls back to it from ``layer_norm_act``; the port's
     ``fused_epilogues.layer_norm_act`` runs K6 or its plain version
-    instead, and the tests hold both to this op."""
+    instead, and the tests hold both to this op. An integer or bool ``x``
+    normalizes in float32, as jnp's mean promotes it."""
+    if not x.is_floating_point():
+        x = x.float()
     mean = x.mean(axis, keepdim=True)
     d = x - mean
     var = (d * d).mean(axis, keepdim=True)

@@ -20,7 +20,8 @@ line for a ``sd.fit`` step on one fixed batch of 32 sequences
 warm-up step, host clock between the steps of one ``fit`` call, each
 ending in a synchronize), sequences per second, the device time per step
 and busy share (``torch.profiler`` over 3 steps), the device time and
-launches of K3, K4 and K5, and the top kernels. Precision ``highest``
+launches of K3 and of the fused backward (K4 + K5, one launch writing dq,
+dk and dv), and the top kernels. Precision ``highest``
 (TF32 off). Needs one CUDA card.
 
 ``--spelling fusable`` records the graph in the spelling
@@ -56,10 +57,10 @@ REQUESTS = (1, 8, 32)
 SEQ_LEN = 128
 FIT_BATCH = 32
 #: the hand-written kernels of the BERT paths, by the name of their CUDA
-#: functions (K2 and K7 are two functions each: partial sums and total)
+#: functions (K2 and K7 are two functions each: partial sums and total;
+#: "bwd" is the fused flash-attention backward, K4 + K5 in one kernel)
 KERNELS = {"k3": ("flash_attn_fwd_kernel",),
-           "k4": ("flash_attn_bwd_dq_kernel",),
-           "k5": ("flash_attn_bwd_dkv_kernel",),
+           "bwd": ("flash_attn_bwd_",),
            "k6": ("layer_norm_act_kernel",),
            "k7": ("layer_norm_act_bwd_",),
            "k1": ("affine_act_kernel",),
@@ -67,10 +68,12 @@ KERNELS = {"k3": ("flash_attn_fwd_kernel",),
 
 
 def launch_counts() -> dict:
-    """The wrappers' launch counters, by kernel."""
-    return {"k3": k3.launches, "k4": k3.launches_dq, "k5": k3.launches_dkv,
-            "k6": k6.launches, "k7": k6.bwd_launches, "k1": k1.launches,
-            "k2": k1.bwd_launches}
+    """The wrappers' launch counters, by kernel: ``bwd`` counts launches of
+    the fused flash-attention backward, ``k4`` and ``k5`` those of them
+    that wrote dq, and dk and dv."""
+    return {"k3": k3.launches, "bwd": k3.launches_bwd, "k4": k3.launches_dq,
+            "k5": k3.launches_dkv, "k6": k6.launches, "k7": k6.bwd_launches,
+            "k1": k1.launches, "k2": k1.bwd_launches}
 
 
 def build(spelling: str = "tf", seed: int = 0, seq_len: int = SEQ_LEN):

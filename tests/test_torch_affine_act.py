@@ -18,6 +18,7 @@ import torch
 
 from deeplearning4j_tpu_torch.kernels import _build
 from deeplearning4j_tpu_torch.kernels import affine_act as k1
+from deeplearning4j_tpu_torch.tools.nchw_block import nchw_block
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -141,3 +142,88 @@ def test_k2_matches_plain_on_card(cuda_device, rows, cols, dtype):
                     continue
                 assert torch.equal(g, a)  # deterministic
                 assert bool(((g - w).abs() <= 1e-4 * mag + 1e-6).all())
+
+
+@pytest.mark.cuda
+def test_nchw_conv_bn_relu_runs_k1_k2_on_card(cuda_device):
+    """Channels-first conv (+ ReLU) and batch norm (+ ReLU) run K1 and K2
+    on the card (two K1 launches forward, two K2 backward, one counted
+    channels-last copy: the conv's NCHW output; BN then gets channels-last
+    memory) and match the CPU plain path: the output within 1e-4 of max
+    |ref| (float32 with TF32 off; cuDNN and the CPU sum the convolution in
+    other orders); each gradient, against a CPU float64 copy, within
+    max(1e-3, 2 x the CPU float32 error), the card gates' rule (cuDNN may
+    take a transform-based algorithm for the weight gradient)."""
+    from deeplearning4j_tpu_torch.ops import fused_epilogues as fe
+    gen = torch.Generator().manual_seed(3)
+    params = {"W": torch.randn(20, 1, 5, 5, generator=gen) * 0.2,
+              "b": torch.randn(20, generator=gen),
+              "gamma": torch.rand(20, generator=gen) + 0.5,
+              "beta": torch.randn(20, generator=gen)}
+    x = torch.randn(16, 1, 28, 28, generator=gen)
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        fe.reset_counters()
+        before = (k1.launches, k1.bwd_launches)
+        z, grads = nchw_block(x, params, cuda_device)
+        torch.cuda.synchronize()
+        assert (k1.launches - before[0], k1.bwd_launches - before[1]) == (2, 2)
+        assert fe.counters()["fused"] == 2 and fe.nchw_copies == 1
+        want_z, want_grads = nchw_block(x, params, "cpu")
+        _, grads64 = nchw_block(x.double(), {k: v.double() for k, v in
+                                              params.items()}, "cpu")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+    assert float((z.cpu() - want_z).abs().max() / want_z.abs().max()) <= 1e-4
+
+    def rel(a, b):
+        return float((a.double() - b).norm() / b.norm())
+    for k, g64 in grads64.items():
+        assert rel(grads[k].cpu(), g64) <= max(1e-3,
+                                               2 * rel(want_grads[k], g64))
+
+
+def test_nchw_block_on_the_cpu_follows_float64():
+    """The NCHW check block's CPU plain path (the reference of its card
+    test): float32 output within 1e-5 of max |float64|, and every
+    gradient present and within 1e-4 relative of float64's."""
+    gen = torch.Generator().manual_seed(3)
+    params = {"W": torch.randn(4, 1, 5, 5, generator=gen) * 0.2,
+              "b": torch.randn(4, generator=gen),
+              "gamma": torch.rand(4, generator=gen) + 0.5,
+              "beta": torch.randn(4, generator=gen)}
+    x = torch.randn(2, 1, 8, 8, generator=gen)
+    z, grads = nchw_block(x, params, "cpu")
+    z64, grads64 = nchw_block(x.double(), {k: v.double() for k, v in
+                                           params.items()}, "cpu")
+    assert z.shape == (2, 4, 8, 8) and set(grads) == {"x", *params}
+    assert float((z.double() - z64).abs().max() / z64.abs().max()) <= 1e-5
+    for k, g64 in grads64.items():
+        assert float((grads[k].double() - g64).norm() / g64.norm()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_integer_x_on_card_is_cast_into_k1(cuda_device):
+    """An int32 CUDA x goes through K1 as float32, the dtype the plain
+    formula returns (one launch, counted ``fused``), and equals the CPU
+    route within 1e-6; an x whose formula stays integer raises."""
+    from deeplearning4j_tpu_torch.ops import fused_epilogues as fe
+    x = torch.arange(-12, 12, dtype=torch.int32).reshape(4, 6)
+    b = torch.linspace(-1.0, 1.0, 6)
+    fe.reset_counters()
+    before = k1.launches
+    got = fe.bias_act(x.to(cuda_device), b.to(cuda_device),
+                      act="gelu_exact")
+    torch.cuda.synchronize()
+    assert k1.launches - before == 1 and fe.counters()["fused"] == 1
+    want = fe.bias_act(x, b, act="gelu_exact")
+    assert got.dtype == want.dtype == torch.float32
+    assert float((got.cpu() - want).abs().max()) <= 1e-6
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        fe.bias_act(x.to(cuda_device), torch.ones(6, dtype=torch.int32,
+                                                  device=cuda_device),
+                    act="relu")

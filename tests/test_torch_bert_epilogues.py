@@ -120,7 +120,7 @@ def test_fused_output_matches_jax_auto_and_force():
     layers = TINY["num_hidden_layers"]
     assert fe.counters() == {"fused": 0,
                              "fallback_platform": 3 * layers + 1,
-                             "fallback_act": 0}
+                             "fallback_act": 0, "fallback_dtype": 0}
     assert got.shape == (BATCH, SEQ, TINY["hidden_size"])
     np.testing.assert_allclose(got, _out(jsd), atol=PARITY_TOL,
                                rtol=PARITY_TOL)

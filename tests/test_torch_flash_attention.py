@@ -176,8 +176,9 @@ def _plain(t):
 
 @pytest.fixture
 def stub_kernel(monkeypatch):
-    """K3's, K4's and K5's wrappers replaced by their plain versions; the
-    list records K3's key biases, then "dq" and "dkv" for K4 and K5."""
+    """K3's and the backward's wrappers replaced by their plain versions;
+    the list records K3's key biases, then "bwd" for the fused backward
+    (or "dq" and "dkv" for its dq-only and dk/dv-only calls)."""
     calls = []
 
     def fwd(q, k, v, kb=None, scale=None):
@@ -195,6 +196,12 @@ def stub_kernel(monkeypatch):
         "dq", k3.flash_attention_bwd_dq_reference))
     monkeypatch.setattr(k3, "flash_attention_bwd_dkv", bwd(
         "dkv", k3.flash_attention_bwd_dkv_reference))
+
+    def fused(*args):
+        plain = [_plain(a) for a in args[:-1]]
+        return (bwd("bwd", k3.flash_attention_bwd_dq_reference)(*args),
+                *k3.flash_attention_bwd_dkv_reference(*plain, args[-1]))
+    monkeypatch.setattr(k3, "flash_attention_bwd", fused)
     return calls
 
 
@@ -253,9 +260,10 @@ def test_mode_starts_auto_whatever_the_environment():
 
 @pytest.mark.parametrize("bias_kind", BIASES)
 def test_fused_backward_runs(stub_kernel, bias_kind):
-    """The fused route differentiates through K4 and K5 (stubbed by their
-    plain versions): dq, dk and dv match jax.grad of the JAX package's
-    flash kernel in interpret mode within 1e-5; the key bias gets none."""
+    """The fused route differentiates through one fused K4 + K5 call
+    (stubbed by the plain versions): dq, dk and dv match jax.grad of the
+    JAX package's flash kernel in interpret mode within 1e-5; the key bias
+    gets none."""
     import jax
     q, k, v, bias = _inputs((2, 3, 16, 24, 8), bias_kind, seed=2)
     w = np.random.default_rng(3).standard_normal((2, 3, 16, 8)).astype(
@@ -271,7 +279,7 @@ def test_fused_backward_runs(stub_kernel, bias_kind):
     y = fa.attention(tq, tk, tv, tb)
     (y * _torch(w)).sum().backward()
     assert fa.counters()["fused"] == 1 and fa.do_copies == 0
-    assert stub_kernel[1:] == ["dq", "dkv"]
+    assert stub_kernel[1:] == ["bwd"]
     for got, ref in zip((tq, tk, tv), want):
         np.testing.assert_allclose(got.grad.as_subclass(torch.Tensor).numpy(),
                                    _np(ref), atol=F32_ATOL, rtol=0)

@@ -113,6 +113,25 @@ def test_float32_matches_jax_kernels(shape, bias_kind):
 
 @pytest.mark.parametrize("bias_kind", BIASES)
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_fused_wrapper_on_cpu_matches_jax_kernels(shape, bias_kind):
+    """``flash_attention_bwd`` (the fused K4 + K5 entry) takes the plain
+    versions on CPU tensors, launches nothing, and gives the JAX package's
+    dq, dk and dv (its kernels in interpret mode) within 1e-5."""
+    q, k, v, do, kb = _inputs(shape, bias_kind, seed=6)
+    o, m, l, *want = _jax_backward(q, k, v, do, kb, jnp.float32)
+    t = lambda a: None if a is None else torch.from_numpy(np.array(a))  # noqa
+    di = k3.attention_di(t(o), t(do))
+    before = (k3.launches_bwd, k3.launches_dq, k3.launches_dkv)
+    got = k3.flash_attention_bwd(t(q), t(k), t(v), t(kb), t(m), t(l), di,
+                                 t(do))
+    assert (k3.launches_bwd, k3.launches_dq, k3.launches_dkv) == before
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("bias_kind", BIASES)
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
 def test_bfloat16_matches_jax_kernels(shape, bias_kind):
     q, k, v, do, kb = _inputs(shape, bias_kind, seed=1)
     o, m, l, *want = _jax_backward(q, k, v, do, kb, jnp.bfloat16)
@@ -143,19 +162,22 @@ def test_ragged_lengths_match_autograd_of_the_reference(shape):
 
 
 def test_wrappers_split_the_plain_version():
-    """The CPU route of K4's and K5's wrappers is the plain version."""
+    """The CPU route of the backward's wrappers (fused, dq-only, dk/dv-only)
+    is the plain version."""
     q, k, v, do, kb = (None if a is None else torch.from_numpy(a)
                        for a in _inputs((2, 3, 16, 24, 8), "ragged", seed=3))
     o, m, l = k3.flash_attention_fwd_reference(q, k, v, kb)
     di = k3.attention_di(o, do)
     assert di.shape == (6, 16) and di.is_contiguous()
-    before = (k3.launches_dq, k3.launches_dkv)
+    before = (k3.launches_bwd, k3.launches_dq, k3.launches_dkv)
     dq = k3.flash_attention_bwd_dq(q, k, v, kb, m, l, di, do)
     dk, dv = k3.flash_attention_bwd_dkv(q, k, v, kb, m, l, di, do)
-    assert (k3.launches_dq, k3.launches_dkv) == before  # no launch on CPU
-    for g, w in zip((dq, dk, dv), k3.flash_attention_bwd_reference(
+    fused = k3.flash_attention_bwd(q, k, v, kb, m, l, di, do)
+    # no launch on CPU
+    assert (k3.launches_bwd, k3.launches_dq, k3.launches_dkv) == before
+    for g, f, w in zip((dq, dk, dv), fused, k3.flash_attention_bwd_reference(
             q, k, v, kb, o, m, l, do)):
-        assert torch.equal(g, w)
+        assert torch.equal(g, w) and torch.equal(f, w)
 
 
 def test_autograd_node_gradcheck_float64():

@@ -1,7 +1,7 @@
-"""K3's, K4's and K5's module without JAX: the wrappers' checks on a
-machine without a card, the bound arithmetic, the build description, and
-(marked ``cuda``, skipped without a card) the kernels against their plain
-versions on the card. This file imports no JAX, so ``pytest --noconftest
+"""K3's and the fused backward's (K4 + K5) module without JAX: the
+wrappers' checks on a machine without a card, the bound arithmetic, the
+build description, and (marked ``cuda``, skipped without a card) the
+kernels against their plain versions on the card. This file imports no JAX, so ``pytest --noconftest
 tests/test_torch_flash_attn_kernel.py -m cuda`` runs on the card's
 machine.
 
@@ -11,10 +11,11 @@ expf may differ from PyTorch's exp by an ulp) and within 2 ulps of the
 output dtype in bfloat16 and float16 (``ulp_error``: p and o are rounded
 at the same points in the kernel and its plain version); ``m`` within
 2e-5 of max(1, |m|) and ``l`` within 2e-5 relative; a second run
-bit-equal. K4 and K5 (dq, dk, dv) are held to the same bounds: 2e-5
+bit-equal. The fused backward (dq, dk, dv; and its dq-only and dk/dv-only
+calls, bit-equal to the fused one) is held to the same bounds: 2e-5
 absolute in float32 (the magnitudes are O(1) at these inputs; the sums
 run in other orders) and 2 ulps in bfloat16 and float16 (ds and p are
-rounded at the same points in the kernels and the plain version)."""
+rounded at the same points in the kernel and the plain versions)."""
 
 import pytest
 import torch
@@ -57,8 +58,12 @@ def plain_forbidden(monkeypatch):
     k3._bwd_kernels.cache_clear()
 
 
+BWD_WRAPPERS = ["flash_attention_bwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv"]
+
+
 def _bwd_args(B=1, H=2, Tq=4, Tk=4, d=8, **over):
-    """Arguments of K4's and K5's wrappers as stand-in CUDA tensors, with
+    """Arguments of the backward's wrappers as stand-in CUDA tensors, with
     any of them replaced."""
     args = {"q": torch.ones(B, H, Tq, d), "k": torch.ones(B, H, Tk, d),
             "v": torch.ones(B, H, Tk, d), "kb": None,
@@ -101,8 +106,7 @@ def test_cuda_wrapper_checks_the_key_bias(plain_forbidden):
             k3.flash_attention_fwd(q, q, q, _fake(kb))
 
 
-@pytest.mark.parametrize("fn", ["flash_attention_bwd_dq",
-                                "flash_attention_bwd_dkv"])
+@pytest.mark.parametrize("fn", BWD_WRAPPERS)
 def test_cuda_backward_never_reaches_the_plain_version(plain_forbidden, fn):
     with pytest.raises(RuntimeError, match="nvcc"):
         getattr(k3, fn)(*_bwd_args())
@@ -122,9 +126,9 @@ def test_cuda_backward_never_reaches_the_plain_version(plain_forbidden, fn):
 ])
 def test_cuda_backward_raises_on_what_k4_k5_cannot_take(plain_forbidden,
                                                         over, match):
-    for fn in (k3.flash_attention_bwd_dq, k3.flash_attention_bwd_dkv):
+    for fn in BWD_WRAPPERS:
         with pytest.raises((TypeError, ValueError), match=match):
-            fn(*_bwd_args(**over))
+            getattr(k3, fn)(*_bwd_args(**over))
 
 
 def test_backward_bound_from_the_issue_arithmetic():
@@ -147,6 +151,37 @@ def test_backward_bound_from_the_issue_arithmetic():
     assert abs(ms - 0.0481) < 0.0001 and by == "operations"
     with pytest.raises(ValueError, match="dkv"):
         k3.flops_bwd(1, 1, 1, 1, 1, "dk")
+
+
+def test_fused_backward_bound_arithmetic():
+    """The fused kernel at BERT-base batch 32: 10 G T^2 d = 4.027 GFLOP,
+    0.0601 ms a launch at 67 TFLOP/s and 0.721 ms for the 12 launches of a
+    fine-tune step (operations; its 88.7 MB take 0.0265 ms at 3.35 TB/s);
+    in bf16 the 44.7 MB bound it at 0.0133 ms."""
+    G = 384
+    assert k3.flops_bwd(32, 12, 128, 128, 64, "fused") == \
+        10 * G * 128 * 128 * 64
+    assert abs(k3.flops_bwd(32, 12, 128, 128, 64, "fused") / 1e9 - 4.027) \
+        < 0.001
+    qkvdo = 4 * G * 128 * 64
+    rows = 3 * G * 128 * 4
+    outs = 3 * G * 128 * 64
+    for itemsize, mb in ((4, 88.69), (2, 44.65)):
+        got = k3.bytes_moved_bwd(32, 12, 128, 128, 64, itemsize, "fused")
+        assert got == (qkvdo + outs) * itemsize + rows + 32 * 128 * 4
+        assert abs(got / 1e6 - mb) < 0.01
+    ms, by = k3.bound_ms_bwd(32, 12, 128, 128, 64, 4, "fused")
+    assert abs(ms - 0.0601) < 0.0001 and by == "operations"
+    assert abs(12 * ms - 0.721) < 0.001
+    bytes_ms = k3.bytes_moved_bwd(32, 12, 128, 128, 64, 4, "fused") \
+        / k3.H100_BYTES_PER_S * 1e3
+    assert abs(bytes_ms - 0.0265) < 0.0001
+    ms, by = k3.bound_ms_bwd(32, 12, 128, 128, 64, 2, "fused")
+    assert abs(ms - 0.0133) < 0.0001 and by == "bytes"
+    # the fused launch's bytes are the two kernels' less the shared reads
+    assert k3.bytes_moved_bwd(2, 3, 16, 24, 8, 4, "fused", False) == \
+        k3.bytes_moved_bwd(2, 3, 16, 24, 8, 4, "dq", False) \
+        + 2 * 6 * 24 * 8 * 4
 
 
 def test_bound_from_the_issue_arithmetic():
@@ -283,9 +318,16 @@ def _bwd_case(gen, dev, shape, dtype, layout):
 @pytest.mark.parametrize("shape", [(2, 12, 128, 128, 64),
                                    (2, 12, 77, 77, 64),
                                    (2, 4, 200, 200, 128),
-                                   (3, 2, 16, 24, 32), (1, 1, 1, 1, 1)],
+                                   (3, 2, 16, 24, 32), (1, 1, 1, 1, 1),
+                                   (2, 3, 40, 300, 64), (2, 3, 50, 70, 48),
+                                   (1, 2, 33, 150, 96)],
                          ids=str)
 def test_k4_k5_match_plain_on_card(cuda_device, shape, dtype, layout):
+    """The fused backward, twice (bit-equal), against the plain versions;
+    its dq-only and dk/dv-only calls give the same bits. (2, 4, 200, 200,
+    128), (2, 3, 40, 300, 64) and (1, 2, 33, 150, 96) span several key
+    blocks, so dq is summed from per-block partials; d = 48 and 96 leave
+    the kernel's padded columns empty."""
     gen = torch.Generator(device=cuda_device).manual_seed(sum(shape) + 1)
     q, k, v, do, kb = _bwd_case(gen, cuda_device, shape, dtype, layout)
     old = torch.backends.cuda.matmul.allow_tf32
@@ -294,22 +336,21 @@ def test_k4_k5_match_plain_on_card(cuda_device, shape, dtype, layout):
         for bias in (None, kb):
             o, m, l = k3.flash_attention_fwd(q, k, v, bias)
             di = k3.attention_di(o, do)
-            before = (k3.launches_dq, k3.launches_dkv)
-            got = (k3.flash_attention_bwd_dq(q, k, v, bias, m, l, di, do),
-                   *k3.flash_attention_bwd_dkv(q, k, v, bias, m, l, di, do))
-            again = (k3.flash_attention_bwd_dq(q, k, v, bias, m, l, di, do),
-                     *k3.flash_attention_bwd_dkv(q, k, v, bias, m, l, di,
-                                                 do))
+            args = (q, k, v, bias, m, l, di, do)
+            before = (k3.launches_bwd, k3.launches_dq, k3.launches_dkv)
+            got = k3.flash_attention_bwd(*args)
+            again = k3.flash_attention_bwd(*args)
+            alone = (k3.flash_attention_bwd_dq(*args),
+                     *k3.flash_attention_bwd_dkv(*args))
             torch.cuda.synchronize()
-            assert (k3.launches_dq, k3.launches_dkv) == (before[0] + 2,
-                                                         before[1] + 2)
+            assert (k3.launches_bwd, k3.launches_dq, k3.launches_dkv) == (
+                before[0] + 4, before[1] + 3, before[2] + 3)
             assert all(torch.equal(a, b) for a, b in zip(got, again))
+            assert all(torch.equal(a, b) for a, b in zip(got, alone))
             assert [t.stride() for t in got] == [q.stride(), k.stride(),
                                                  v.stride()]
-            want = (k3.flash_attention_bwd_dq_reference(
-                q, k, v, bias, m, l, di, do),
-                *k3.flash_attention_bwd_dkv_reference(
-                    q, k, v, bias, m, l, di, do))
+            want = (k3.flash_attention_bwd_dq_reference(*args),
+                    *k3.flash_attention_bwd_dkv_reference(*args))
             for g, w in zip(got, want):
                 if dtype == torch.float32:
                     assert float((g - w).abs().max()) <= 2e-5
@@ -321,20 +362,21 @@ def test_k4_k5_match_plain_on_card(cuda_device, shape, dtype, layout):
 
 @pytest.mark.cuda
 def test_fused_attention_trains_on_card(cuda_device):
-    """The dispatcher's fused route end to end on the card: one K3, one
-    K4 and one K5 launch, gradients as the plain versions give them, no
-    gradient for the key bias, and mode 'off' refused."""
+    """The dispatcher's fused route end to end on the card: one K3 and
+    one fused backward launch (writing dq, dk and dv), gradients as the
+    plain versions give them, no gradient for the key bias, and mode 'off'
+    refused."""
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     q, k, v, do, kb = _bwd_case(gen, cuda_device, (2, 4, 40, 40, 32),
                                 torch.float32, "heads")
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     bias = kb[:, None, None, :].clone().requires_grad_()
-    before = (k3.launches, k3.launches_dq, k3.launches_dkv)
+    before = (k3.launches, k3.launches_bwd, k3.launches_dq, k3.launches_dkv)
     fa.attention(q, k, v, bias).backward(do)
     torch.cuda.synchronize()
-    assert (k3.launches, k3.launches_dq, k3.launches_dkv) == tuple(
-        b + 1 for b in before)
+    assert (k3.launches, k3.launches_bwd, k3.launches_dq,
+            k3.launches_dkv) == tuple(b + 1 for b in before)
     assert bias.grad is None
     o, m, l = k3.flash_attention_fwd_reference(q, k, v, kb)
     want = k3.flash_attention_bwd_reference(q.detach(), k.detach(),

@@ -214,12 +214,12 @@ def test_dispatch_counts_one_decision_per_call():
     fe.reset_counters()
     y = fe.layer_norm_act(x, g, b, 1e-5, act="gelu_exact")
     assert fe.counters() == {"fused": 0, "fallback_platform": 1,
-                             "fallback_act": 0}
+                             "fallback_act": 0, "fallback_dtype": 0}
     want = fe.reference_act("gelu_exact")(nnops.layer_norm(x, g, b, 1e-5))
     torch.testing.assert_close(y, want, atol=1e-5, rtol=1e-5)
     y = fe.layer_norm_act(x, g, b, 1e-5, act="elu")
     assert fe.counters() == {"fused": 0, "fallback_platform": 1,
-                             "fallback_act": 1}
+                             "fallback_act": 1, "fallback_dtype": 0}
     torch.testing.assert_close(
         y, torch.nn.functional.elu(nnops.layer_norm(x, g, b, 1e-5)),
         atol=1e-5, rtol=1e-5)
@@ -450,5 +450,5 @@ def test_cuda_tensor_reaches_k6_and_k7(cuda_device):
     torch.cuda.synchronize()
     assert (k6.launches, k6.bwd_launches) == (before[0] + 1, before[1] + 1)
     assert fe.counters() == {"fused": 1, "fallback_platform": 0,
-                             "fallback_act": 0}
+                             "fallback_act": 0, "fallback_dtype": 0}
     assert x.grad is not None and g.grad is not None

@@ -120,7 +120,7 @@ def test_every_bn_launches_one_epilogue(ref, carried):
     fe.reset_counters()
     carried.output(ref["x"])
     assert fe.counters() == {"fused": 0, "fallback_platform": n_bn,
-                             "fallback_act": 0}
+                             "fallback_act": 0, "fallback_dtype": 0}
 
 
 def test_configuration_json_round_trips(ref, loaded):
