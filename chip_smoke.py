@@ -48,7 +48,8 @@ Phases, in order; any failure exits non-zero:
    operands and on the head split of a ``[B, T, H*d]`` projection (the
    layout the BERT path gives): ``o``, ``m`` and ``l``, a second run
    bitwise equal, and CUDA-event times on the head-split layout beside the
-   bound and ``scaled_dot_product_attention`` with the same float mask;
+   bound and ``scaled_dot_product_attention`` with the same float mask,
+   with K3's registers, shared memory and CTAs an SM;
 9. bert: BERT-base (HF ``BertConfig()``: 12 layers, hidden 768, 12 heads,
    float32, seed 0, random weights, TF32 off) recorded as a SameDiff
    graph, ``fuse_attention`` reporting 12 matched and 0 unmatched, then
@@ -85,8 +86,10 @@ Phases, in order; any failure exits non-zero:
     in float32, bfloat16 and float16 with forget_bias 1.0, on contiguous
     and row-strided x: h' and c' within ``lstm_cell.tolerance``, a second
     run bitwise equal, and CUDA-event times at the path's shapes beside
-    the bound and ``torch.lstm_cell`` (operands reordered outside the
-    timed window);
+    the bound, ``torch.lstm_cell`` (operands reordered outside the timed
+    window) and an empty kernel launched with K8's grid, cluster and
+    shared memory (the floor of any launch), with K8's cluster geometry,
+    registers, shared memory, CTAs an SM and clusters the card holds;
 13. lstm-serve: TextGenerationLSTM at the zoo's width (vocab 77, 2 x
     ``LSTM(256, use_pallas_cell=True)``, ``RnnOutputLayer(77)``, float32,
     seed 0, random weights, TF32 off) through ``InferenceEngine.output``:
@@ -935,7 +938,7 @@ def phase_kernel_attn(k3) -> dict:
     neg = float(torch.finfo(torch.float32).min)
     err = {"float32": 0.0, "ulp_bfloat16": 0.0, "ulp_float16": 0.0,
            "m_rel": 0.0, "l_rel": 0.0}
-    times, cases = {}, 0
+    times, per_dtype, cases = {}, {}, 0
     for B, H, Tq, Tk, d in ATTN_SHAPES:
         lengths = torch.randint(1, Tk + 1, (B,), generator=gen, device=dev)
         ragged = torch.where(torch.arange(Tk, device=dev)[None, :]
@@ -966,12 +969,19 @@ def phase_kernel_attn(k3) -> dict:
             lib, _ = time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask4, scale=scale))
             bound, by = k3.bound_ms(B, H, Tq, Tk, d, q.element_size())
+            occ = k3.fwd_occupancy(d, dtype)
             if dtype == torch.float32:
                 times[(B, H, Tq, Tk, d)] = (ms, plain, lib, host, bound, by)
+            if (B, H, Tq, Tk, d) == ATTN_SHAPES[0]:
+                per_dtype[str(dtype)[6:]] = {
+                    "ms": ms, "plain_ms": plain, "library_ms": lib,
+                    "bound_ms": bound, "bound_by": by, "host_ms": host,
+                    "occupancy": occ}
             log(f"[kernel-attn] K3 {str(dtype)[6:]:8s} B={B:2d} H={H:2d} "
                 f"Tq={Tq:3d} Tk={Tk:3d} d={d:3d} {ATTN_LAYOUTS[-1]} "
                 f"ms={ms:.5f} plain_ms={plain:.5f} bound_ms={bound:.5f} "
-                f"({by}) library_ms={lib:.5f} host_ms={host:.5f}")
+                f"({by}) library_ms={lib:.5f} host_ms={host:.5f}; resources "
+                f"{occ}")
             del q, k, v
     log(f"[kernel-attn] K3 matches its plain version and repeats bit for "
         f"bit: {cases} cases (5 shapes x 3 dtypes x {len(ATTN_LAYOUTS)} "
@@ -980,7 +990,8 @@ def phase_kernel_attn(k3) -> dict:
         f"{err['ulp_bfloat16']:.3g} ulp, float16 {err['ulp_float16']:.3g} "
         f"ulp (tolerance {ATTN_ULP_TOL}); m {err['m_rel']:.3g}, l "
         f"{err['l_rel']:.3g} relative")
-    return {"times": times, "max_err": err, "cases": cases}
+    return {"times": times, "bert_b32": per_dtype, "max_err": err,
+            "cases": cases}
 
 
 def phase_bert(k1, k3, fa, env) -> dict:
@@ -1323,7 +1334,7 @@ def phase_kernel_lstm(k8) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(8)
     err = {"float32": 0.0, "ulp_bfloat16": 0.0, "ulp_float16": 0.0}
-    times, cases = {}, 0
+    times, shapes, cases = {}, {}, 0
     torch.backends.cuda.matmul.allow_tf32 = False
     for B, F, U in LSTM_SHAPES:
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
@@ -1372,12 +1383,24 @@ def phase_kernel_lstm(k8) -> dict:
                 lib, _ = time_ms(lambda: torch.lstm_cell(x, (h, c), *ops),
                                  reps=50)
                 bound, by = k8.bound_ms(B, F, U, x.element_size())
+                # the same launch with an empty kernel: what any launch
+                # costs under this timing
+                floor, _ = time_ms(lambda: k8.launch_floor(B, F, U, dtype),
+                                   reps=50)
+                geo = k8.geometry(B, F, U, x.element_size())
+                occ = k8.occupancy(B, F, U, dtype)
                 if dtype == torch.float32:
                     times[(B, F, U)] = (ms, plain, lib, host, bound, by)
+                    shapes[(B, F, U)] = {"floor_ms": floor, "geometry": geo,
+                                         "occupancy": occ}
                 log(f"[kernel-lstm] K8 {str(dtype)[6:]:8s} B={B:3d} F={F:3d} "
                     f"U={U:3d} strided ms={ms:.5f} plain_ms={plain:.5f} "
                     f"bound_ms={bound:.5f} ({by}) library_ms={lib:.5f} "
-                    f"host_ms={host:.5f}")
+                    f"host_ms={host:.5f} floor_ms={floor:.5f} (an empty "
+                    f"kernel launched the same way); cluster "
+                    f"{geo['cluster']} x {geo['ctas'] // geo['cluster']}, "
+                    f"slice {geo['slice']}, {geo['row_tile']} rows a CTA; "
+                    f"resources {occ}")
             del seq, h, c, w, rw, b
     log(f"[kernel-lstm] K8 matches its plain version and repeats bit for "
         f"bit: {cases} cases ({len(LSTM_SHAPES)} shapes x 3 dtypes x "
@@ -1386,7 +1409,8 @@ def phase_kernel_lstm(k8) -> dict:
         f"max(1, |ref|)); 16-bit worst {err['ulp_bfloat16']:.3g} (bfloat16)"
         f", {err['ulp_float16']:.3g} (float16) of the tolerance (1 ulp, or "
         f"the float32 bound near 0)")
-    return {"times": times, "max_err": err, "cases": cases}
+    return {"times": times, "shapes": shapes, "max_err": err,
+            "cases": cases}
 
 
 def phase_lstm_serve(k1, k3, k8, pk, env) -> dict:
@@ -1427,10 +1451,11 @@ def phase_lstm_serve(k1, k3, k8, pk, env) -> dict:
             raise AssertionError(f"request of {n}: bad output {y.shape}")
         before = k8.launches
         row = pl.profile(net, x, lengths)
-        requests += 10 + 1 + 3
-        if k8.launches - before != 14 * 2 * LSTM_T_BUCKET:
+        requests += row["requests_run"]
+        if k8.launches - before != row["requests_run"] * 2 * LSTM_T_BUCKET:
             raise AssertionError(f"request of {n}: {k8.launches - before} K8 "
-                                 "launches in 14 profiled requests")
+                                 f"launches in {row['requests_run']} "
+                                 f"profiled requests")
         rows[n] = row
         log(f"[lstm-serve] request of {n:2d} x {pl.SEQ_LEN} characters "
             f"(lengths {int(lengths.min())}..{int(lengths.max())}, "
@@ -2774,10 +2799,13 @@ def main() -> int:
     t3 = katt["times"][(32, 12, 128, 128, 64)]
     ms3, plain3, lib3, host3, bound3 = (BERT_LAYERS * t for t in t3[:5])
     by3 = t3[5]
+    k3_b16 = katt["bert_b32"]["bfloat16"]
     log(f"[summary] one batch-32 float32 BERT-base forward: {BERT_LAYERS} K3 "
         f"calls, {ms3:.4f} ms on the device (plain {plain3:.4f}, "
         f"scaled_dot_product_attention {lib3:.4f}, bound {bound3:.4f}, "
-        f"{by3}); host enqueue {host3:.4f} ms")
+        f"{by3}; {bound3 / ms3:.1%} of the bound); host enqueue "
+        f"{host3:.4f} ms; bfloat16 a call {k3_b16['ms']:.5f} ms (SDPA "
+        f"{k3_b16['library_ms']:.5f}, bound {k3_b16['bound_ms']:.5f})")
     # K4 + K5: one fused launch per layer and step, timed in float32 (the
     # path's dtype) and bfloat16
     tb32, tb16 = kbwd_attn["times"]["float32"], kbwd_attn["times"]["bfloat16"]
@@ -2802,11 +2830,14 @@ def main() -> int:
     b8_ops = sum(k8.flops(B, F, U) for B, F, U in LSTM_PATH_SHAPES) * (
         k8.H100_BYTES_PER_S / k8.H100_F32_FLOPS_PER_S)
     by8 = "bytes" if b8_bytes >= b8_ops else "operations"
+    floor8 = LSTM_T_BUCKET * sum(klstm["shapes"][sh]["floor_ms"]
+                                 for sh in LSTM_PATH_SHAPES)
     log(f"[summary] one batch-32 float32 TextGenerationLSTM request (200 "
         f"characters, time bucket {LSTM_T_BUCKET}): {2 * LSTM_T_BUCKET} K8 "
         f"calls, {ms8:.4f} ms on the device (plain {plain8:.4f}, "
-        f"torch.lstm_cell {lib8:.4f}, bound {bound8:.4f}, {by8}); host "
-        f"enqueue {host8:.4f} ms; a whole-sequence torch.nn.LSTM "
+        f"torch.lstm_cell {lib8:.4f}, bound {bound8:.4f}, {by8}; the same "
+        f"launches of an empty kernel {floor8:.4f}); host enqueue "
+        f"{host8:.4f} ms; a whole-sequence torch.nn.LSTM "
         f"{served_lstm['cudnn_ms']:.4f} ms")
     rows = gen["rows"]
     srows = spec["rows"]
@@ -2977,6 +3008,8 @@ def main() -> int:
         "deterministic": True,
         "ms": ms3, "plain_ms": plain3, "bound_ms": bound3, "bound_by": by3,
         "library_ms": lib3, "host_ms": host3,
+        "occupancy": katt["bert_b32"]["float32"]["occupancy"],
+        "bfloat16": k3_b16,
         "bert_rel_err_vs_cpu": served_bert["rel_err"],
         "timed_as": "device time of one float32 call at BERT-base batch 32 "
                     "(B=32, H=12, T=128, d=64, ragged key bias) times the 12 "
@@ -3040,6 +3073,10 @@ def main() -> int:
         "deterministic": True,
         "ms": ms8, "plain_ms": plain8, "bound_ms": bound8, "bound_by": by8,
         "library_ms": lib8, "host_ms": host8,
+        "floor_ms": floor8,
+        "by_shape": {str(sh): {"ms": klstm["times"][sh][0],
+                               **klstm["shapes"][sh]}
+                     for sh in LSTM_PATH_SHAPES},
         "cudnn_lstm_sequence_ms": served_lstm["cudnn_ms"],
         "lstm_rel_err_vs_cpu": served_lstm["rel_err"],
         "lstm_streams_rel_err_vs_cpu": served_lstm["rel_err_streams"],
@@ -3050,7 +3087,9 @@ def main() -> int:
                     "steps of one batch-32 request; library_ms is "
                     "torch.lstm_cell on the same operands reordered to its "
                     "gate order; host_ms is the wrapper's enqueue time over "
-                    "the same calls",
+                    "the same calls; floor_ms is an empty kernel launched "
+                    "with K8's grid, cluster and shared memory, timed the "
+                    "same way",
     }, {
         "name": "K9 decode_attn", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/decode_attn.cu",

@@ -103,63 +103,6 @@ struct Args {
   int vec_out;  // and every row of dk and dv
 };
 
-// ---- asynchronous copies -------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, of which the first `bytes` are read
-// and the rest are zero.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Rows [r0, r0 + N) of a [T, d] operand (row stride ts elements, last
-// dimension contiguous) into shared memory rows RS elements apart, D columns,
-// zero beyond `rows` and beyond d, by the block's NT threads: one cp.async
-// per 16 bytes when `vec`, else element by element.
-template <typename T, int N, int D, int RS, int NT>
-__device__ __forceinline__ void stage(T* __restrict__ dst,
-                                      const T* __restrict__ src, long long ts,
-                                      int r0, int rows, int d, bool vec) {
-  if (vec) {
-    constexpr int E = 16 / (int)sizeof(T);  // elements per copy
-    constexpr int C = D / E;                // copies per row
-    for (int i = threadIdx.x; i < N * C; i += NT) {
-      const int r = i / C;
-      const int c = (i - r * C) * E;
-      const bool in = r0 + r < rows && c < d;
-      const int n = in ? min(E, d - c) : 0;
-      cp_async16(dst + r * RS + c, in ? src + (r0 + r) * ts + c : src,
-                 n * (int)sizeof(T));
-    }
-  } else {
-    for (int i = threadIdx.x; i < N * D; i += NT) {
-      const int r = i / D;
-      const int c = i - r * D;
-      dst[r * RS + c] = (r0 + r < rows && c < d) ? src[(r0 + r) * ts + c]
-                                                 : from_f32<T>(0.0f);
-    }
-  }
-}
-
 // m, l and di of query rows [q0, q0 + N) of head row g into st[0..N),
 // st[N..2N), st[2N..3N), zero past Tq (needs 3N threads).
 template <int N>
@@ -534,57 +477,6 @@ flash_attn_bwd_f32_kernel(const Args a) {
 
 // ---- bf16 / f16: tensor cores (mma.sync m16n8k16) -------------------------
 
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi);
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)) : "memory");
-}
-
-// c += a b for one 16 x 8 x 16 tile: a row-major 16 x 16, b 16 x 8 as two
-// registers (k pairs of one column), c f32.
-template <typename T>
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1);
-template <>
-__device__ __forceinline__ void mma<__nv_bfloat16>(float (&c)[4],
-                                                   const uint32_t (&a)[4],
-                                                   uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-template <>
-__device__ __forceinline__ void mma<__half>(float (&c)[4],
-                                            const uint32_t (&a)[4],
-                                            uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Tiles and shared-memory layout of the 16-bit kernel (byte offsets).
 template <int D>
 struct MmaLayout {
@@ -610,17 +502,6 @@ struct MmaLayout {
   static constexpr int FDO = FQ + 4 * BQ * FS;
   static constexpr size_t BYTES = (size_t)FDO + 4 * BQ * FS;
 };
-
-// N rows of D 16-bit elements (row stride RS) to f32 rows (stride FS).
-template <typename T, int N, int D, int RS, int FS, int NT>
-__device__ __forceinline__ void widen(float* __restrict__ dst,
-                                      const T* __restrict__ src) {
-  for (int i = threadIdx.x; i < N * D; i += NT) {
-    const int r = i / D;
-    const int c = i - r * D;
-    dst[r * FS + c] = to_f32<T>(src[r * RS + c]);
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(MmaLayout<D>::NT, 1)
@@ -903,13 +784,6 @@ flash_attn_bwd_dq_sum_kernel(const float* __restrict__ ws, T* __restrict__ dq,
 
 // ---- launches --------------------------------------------------------------
 
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;  // within the default dynamic cap
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 template <typename T, int D>
 int launch(const Args& a, int G, cudaStream_t stream) {
   const dim3 grid((unsigned)G, (unsigned)a.nkb);
@@ -942,24 +816,6 @@ int launch_d(const Args& a, int G, cudaStream_t s) {
   if (a.d <= 32) return launch<T, 32>(a, G, s);
   if (a.d <= 64) return launch<T, 64>(a, G, s);
   return launch<T, 128>(a, G, s);
-}
-
-// The resources of the fused kernel launch<T, D> makes: out[0] registers a
-// thread, out[1] threads a CTA, out[2] shared-memory bytes a CTA (static and
-// dynamic), out[3] local (spill) bytes a thread, out[4] the CTAs one SM holds
-// at once (CUDA's occupancy calculator).
-template <typename Kernel>
-int occupancy_of(Kernel kernel, int threads, size_t bytes, int* out) {
-  int e;
-  if ((e = allow_smem(kernel, bytes)) != 0) return e;
-  cudaFuncAttributes fa;
-  if ((e = (int)cudaFuncGetAttributes(&fa, kernel)) != 0) return e;
-  out[0] = fa.numRegs;
-  out[1] = threads;
-  out[2] = (int)(fa.sharedSizeBytes + bytes);
-  out[3] = (int)fa.localSizeBytes;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], kernel,
-                                                            threads, bytes);
 }
 
 template <typename T, int D>

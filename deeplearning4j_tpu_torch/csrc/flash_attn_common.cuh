@@ -1,6 +1,8 @@
 // Shared by K3 (flash_attn_fwd.cu) and the fused backward K4 + K5
-// (flash_attn_bwd.cu): operand strides, warp reductions, and the score of a
-// (query, key) pair.
+// (flash_attn_bwd.cu): operand strides, warp reductions, the score of a
+// (query, key) pair, the staging of their tiles by asynchronous copies
+// (cp_async.cuh), and the 16-bit tensor-core product (ldmatrix,
+// mma.sync.m16n8k16).
 //
 // The backward recomputes the forward's scores and must get them bit for
 // bit: on a fully masked row every score is the clamped bias
@@ -20,7 +22,9 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
+#include "cp_async.cuh"
 #include "epilogue_act.cuh"
 
 namespace dl4j {
@@ -43,67 +47,132 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// s[r] = rows[r] . vec over D floats: rows are R rows `stride` floats apart,
-// vec one row, both in shared memory and 16-byte aligned. The terms are
-// added in order c = 0 .. D-1 with one fused multiply-add each, starting
-// from 0; zero padding beyond d adds nothing.
-template <int D, int R>
-__device__ __forceinline__ void row_dots(const float* __restrict__ rows,
-                                         int stride,
-                                         const float* __restrict__ vec,
-                                         float (&s)[R]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) s[r] = 0.0f;
-#pragma unroll 4
-  for (int c = 0; c < D; c += 4) {
-    const float4 b = *reinterpret_cast<const float4*>(vec + c);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(rows + r * stride + c);
-      s[r] = fmaf(a.x, b.x, s[r]);
-      s[r] = fmaf(a.y, b.y, s[r]);
-      s[r] = fmaf(a.z, b.z, s[r]);
-      s[r] = fmaf(a.w, b.w, s[r]);
-    }
-  }
-}
-
 // The score from its dot product: a rounded product, then a rounded sum.
 __device__ __forceinline__ float score(float dot, float scale, float bias) {
   return __fadd_rn(__fmul_rn(dot, scale), bias);
 }
 
-// Rows [r0, r0 + N) of a [T, d] operand (row stride ts, last dimension
-// contiguous) into shared memory as f32 rows `stride` floats apart, zero
-// beyond T and beyond d (up to D columns), by the block's NT threads. N, D
-// and NT are compile-time constants so that the loop unrolls and its loads
-// are all in flight together.
-template <typename T, int D, int N, int NT>
-__device__ __forceinline__ void stage_rows(float* __restrict__ dst, int stride,
-                                           const T* __restrict__ src,
-                                           long long ts, int r0, int rows,
-                                           int d) {
-  for (int i = threadIdx.x; i < N * D; i += NT) {
-    const int r = i / D;
-    const int c = i - r * D;
-    dst[r * stride + c] = (r0 + r < rows && c < d)
-        ? to_f32<T>(src[(r0 + r) * ts + c]) : 0.0f;
+// ---- asynchronous copies ---------------------------------------------------
+
+// Rows [r0, r0 + N) of a [T, d] operand (row stride ts elements, last
+// dimension contiguous) into shared memory rows RS elements apart, D columns,
+// zero beyond `rows` and beyond d, by the block's NT threads: one cp.async
+// per 16 bytes when `vec`, else element by element.
+template <typename T, int N, int D, int RS, int NT>
+__device__ __forceinline__ void stage(T* __restrict__ dst,
+                                      const T* __restrict__ src, long long ts,
+                                      int r0, int rows, int d, bool vec) {
+  if (vec) {
+    constexpr int E = 16 / (int)sizeof(T);  // elements per copy
+    constexpr int C = D / E;                // copies per row
+    for (int i = threadIdx.x; i < N * C; i += NT) {
+      const int r = i / C;
+      const int c = (i - r * C) * E;
+      const bool in = r0 + r < rows && c < d;
+      const int n = in ? min(E, d - c) : 0;
+      cp_async16(dst + r * RS + c, in ? src + (r0 + r) * ts + c : src,
+                 n * (int)sizeof(T));
+    }
+  } else {
+    for (int i = threadIdx.x; i < N * D; i += NT) {
+      const int r = i / D;
+      const int c = i - r * D;
+      dst[r * RS + c] = (r0 + r < rows && c < d) ? src[(r0 + r) * ts + c]
+                                                 : from_f32<T>(0.0f);
+    }
   }
 }
 
-// The same rows of two operands at once (k and v, or q and do).
-template <typename T, int D, int N, int NT>
-__device__ __forceinline__ void stage_row_pairs(
-    float* __restrict__ da, float* __restrict__ db, int stride,
-    const T* __restrict__ a, long long as, const T* __restrict__ b,
-    long long bs, int r0, int rows, int d) {
+// N rows of D 16-bit elements (row stride RS) to f32 rows (stride FS).
+template <typename T, int N, int D, int RS, int FS, int NT>
+__device__ __forceinline__ void widen(float* __restrict__ dst,
+                                      const T* __restrict__ src) {
   for (int i = threadIdx.x; i < N * D; i += NT) {
     const int r = i / D;
     const int c = i - r * D;
-    const bool in = r0 + r < rows && c < d;
-    da[r * stride + c] = in ? to_f32<T>(a[(r0 + r) * as + c]) : 0.0f;
-    db[r * stride + c] = in ? to_f32<T>(b[(r0 + r) * bs + c]) : 0.0f;
+    dst[r * FS + c] = to_f32<T>(src[r * RS + c]);
   }
+}
+
+// ---- 16-bit tensor-core products -------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)) : "memory");
+}
+
+// c += a b for one 16 x 8 x 16 tile: a row-major 16 x 16, b 16 x 8 as two
+// registers (k pairs of one column), c f32.
+template <typename T>
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma<__nv_bfloat16>(float (&c)[4],
+                                                   const uint32_t (&a)[4],
+                                                   uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <>
+__device__ __forceinline__ void mma<__half>(float (&c)[4],
+                                            const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- launches ----------------------------------------------------------------
+
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;  // within the default dynamic cap
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The resources of a kernel launched with `threads` threads and `bytes` of
+// dynamic shared memory: out[0] registers a thread, out[1] threads a CTA,
+// out[2] shared-memory bytes a CTA (static and dynamic), out[3] local
+// (spill) bytes a thread, out[4] the CTAs one SM holds at once (CUDA's
+// occupancy calculator).
+template <typename Kernel>
+int occupancy_of(Kernel kernel, int threads, size_t bytes, int* out) {
+  int e;
+  if ((e = allow_smem(kernel, bytes)) != 0) return e;
+  cudaFuncAttributes fa;
+  if ((e = (int)cudaFuncGetAttributes(&fa, kernel)) != 0) return e;
+  out[0] = fa.numRegs;
+  out[1] = threads;
+  out[2] = (int)(fa.sharedSizeBytes + bytes);
+  out[3] = (int)fa.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], kernel,
+                                                            threads, bytes);
 }
 
 }  // namespace dl4j

@@ -16,11 +16,18 @@ row max of the scores and the row sum of ``exp(s - m)`` (1 where that
 sum is 0). The TPU kernel kept ``m`` and ``l`` replicated over 128 lanes;
 these are one value per row.
 
+K3 runs one CTA of ``FWD_THREADS`` threads per (batch*head, block of
+``FWD_QUERY_ROWS`` query rows) and walks the keys in tiles of
+:func:`key_tile` keys, staged by ``cp.async`` into a double buffer; each
+thread holds a register tile of scores and of ``o`` (bf16/f16: ``p v`` on
+the tensor cores). :func:`fwd_geometry` states the tiles and the shared
+memory, :func:`fwd_occupancy` what the card makes of them.
+
 - A CPU tensor takes the plain version, :func:`flash_attention_fwd_reference`:
-  the kernel's arithmetic in PyTorch, key tile by key tile (``KEY_TILE``
-  keys, the kernel's tile), with the same online-softmax rescaling and the
-  same roundings (p rounded to v's dtype before ``p v``, ``o`` rounded
-  once), so the two differ only in the order of f32 sums.
+  the kernel's arithmetic in PyTorch, key tile by key tile (the kernel's
+  :func:`key_tile`), with the same online-softmax rescaling and the same
+  roundings (p rounded to v's dtype before ``p v``, ``o`` rounded once),
+  so the two differ only in the order of f32 sums.
 - A CUDA tensor launches K3, or raises: a dtype other than f32/bf16/f16,
   a head dimension above ``MAX_HEAD_DIM``, mismatched shapes, a last
   dimension that is not contiguous, a failed build or a refused launch.
@@ -64,10 +71,13 @@ from . import _build
 from .affine_act import (H100_16BIT_FLOPS_PER_S, H100_BYTES_PER_S,
                          H100_F32_FLOPS_PER_S)
 
-#: keys per tile of the kernel (one per lane of a warp)
+#: keys per tile of the backward's plain versions and of K10's
 KEY_TILE = 32
 #: the largest head dimension the kernel takes
 MAX_HEAD_DIM = 128
+#: K3's CTA: threads, and query rows it covers
+FWD_THREADS = 256
+FWD_QUERY_ROWS = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: Kernel launches since the last reset (plain integers; set them to 0):
@@ -79,11 +89,55 @@ launches_dq = 0
 launches_dkv = 0
 
 
+def key_tile(d: int) -> int:
+    """Keys per tile of K3 at head dimension ``d``: 64, or 32 above 64 so
+    that two CTAs still fit one SM."""
+    return 64 if d <= 64 else 32
+
+
+def _padded_head_dim(d: int) -> int:
+    """The head dimension K3 is compiled for: 32, 64 or 128."""
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dimension {d} is outside "
+                         f"1..{MAX_HEAD_DIM}, the kernel's limit")
+    return 32 if d <= 32 else 64 if d <= 64 else 128
+
+
+def fwd_geometry(d: int, dtype=torch.float32) -> dict:
+    """K3's tiles and shared memory at head dimension ``d`` (its
+    ``Layout``): threads and query rows a CTA, keys a tile, and the
+    dynamic shared-memory bytes of one CTA. float32: q, two buffers of k
+    and of v and the p tile, all f32; 16 bits: f32 copies of q and of one
+    k tile for the scores, 16-bit q, two buffers of 16-bit k and v, the
+    16-bit p tile, and two f32 rows (alpha, l). Both: two buffers of the
+    key bias. Rows are padded (f32 by 4 floats, 16-bit by 8 elements) so
+    that 16-byte reads spread over the banks."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash_attention: dtype {dtype} not supported "
+                        "(float32, bfloat16, float16)")
+    D = _padded_head_dim(d)
+    bk = key_tile(d)
+    f32 = dtype == torch.float32
+    fs, hs = D + 4, D + 8
+    ps = bk + 16 if f32 else bk + 8
+    q_rows = FWD_QUERY_ROWS
+    n = 4 * q_rows * fs + 4 * bk * fs * (2 if f32 else 1)
+    if f32:
+        n += 4 * 2 * bk * fs
+    else:
+        n += 2 * q_rows * hs + 2 * (2 * 2 * bk * hs)
+    n += (4 if f32 else 2) * q_rows * ps + 4 * 2 * bk \
+        + (0 if f32 else 4 * 2 * q_rows)
+    return {"threads": FWD_THREADS, "query_rows": q_rows, "key_tile": bk,
+            "head_dim": D, "smem_bytes": n}
+
+
 def flash_attention_fwd_reference(q, k, v, kb=None, scale=None):
     """K3's plain version: ``(o, m, l)`` computed tile by tile as the
-    kernel does, in f32 (f64 for f64 inputs). Runs wherever its tensors
-    are; matmuls follow the global TF32 switch, so hold it against the
-    kernel with TF32 off."""
+    kernel does (:func:`key_tile` keys a tile, so a 16-bit p is rounded
+    against the same running max), in f32 (f64 for f64 inputs). Runs
+    wherever its tensors are; matmuls follow the global TF32 switch, so
+    hold it against the kernel with TF32 off."""
     B, H, Tq, d = q.shape
     Tk = k.shape[2]
     if scale is None:
@@ -93,8 +147,9 @@ def flash_attention_fwd_reference(q, k, v, kb=None, scale=None):
     m = torch.full((B, H, Tq), -math.inf, dtype=ct, device=q.device)
     l = torch.zeros((B, H, Tq), dtype=ct, device=q.device)
     acc = torch.zeros((B, H, Tq, d), dtype=ct, device=q.device)
-    for j0 in range(0, Tk, KEY_TILE):
-        j1 = min(j0 + KEY_TILE, Tk)
+    bk = key_tile(d)
+    for j0 in range(0, Tk, bk):
+        j1 = min(j0 + bk, Tk)
         s = torch.matmul(qf, kf[:, :, j0:j1].transpose(-1, -2)) * scale
         if kb is not None:
             s = s + kb[:, None, None, j0:j1].to(ct)
@@ -252,9 +307,10 @@ def _bwd_kernels():
 
 def _rows_aligned(ts) -> bool:
     """True when every tensor's rows start on 16-byte boundaries: base
-    pointer and (batch, head, row) strides. The kernel then stages inputs
-    with 16-byte ``cp.async`` copies and stores f32 outputs 16 bytes at a
-    time (else element by element)."""
+    pointer and (batch, head, row) strides. The kernels then stage inputs
+    with 16-byte ``cp.async`` copies and store f32 outputs 16 bytes at a
+    time (else element by element). The backward is given this choice; K3
+    makes the same one itself from its pointers and strides."""
     return all(t.data_ptr() % 16 == 0 and all(
         s * t.element_size() % 16 == 0 for s in t.stride()[:3]) for t in ts)
 
@@ -316,21 +372,35 @@ def _bwd_launch(q, k, v, kb, m, l, di, do, scale, want_dq, want_dkv):
     return dq, dk, dv
 
 
+def _occupancy(lib: str, fn: str, d: int, dtype) -> dict:
+    f = getattr(_build.load(lib), fn)
+    f.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    rc = f(int(d), _DTYPE_CODES[dtype], out)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention occupancy query ({fn}) failed:"
+                           f" CUDA error {rc}")
+    return dict(zip(("registers", "threads", "smem_bytes", "local_bytes",
+                     "ctas_per_sm"), out))
+
+
+def fwd_occupancy(d: int, dtype=torch.float32) -> dict:
+    """K3's resources on the current card at head dimension ``d``:
+    registers and local (spill) bytes a thread, threads and shared-memory
+    bytes a CTA, and the CTAs one SM holds at once (CUDA's occupancy
+    calculator). Needs the card."""
+    return _occupancy("flash_attn_fwd", "dl4j_flash_attn_fwd_occupancy", d,
+                      dtype)
+
+
 def bwd_occupancy(d: int, dtype=torch.float32) -> dict:
     """The fused backward kernel's resources on the current card at head
     dimension ``d``: registers and local (spill) bytes a thread, threads
     and shared-memory bytes a CTA, and the CTAs one SM holds at once
     (CUDA's occupancy calculator). Needs the card."""
-    fn = _build.load("flash_attn_bwd").dl4j_flash_attn_bwd_occupancy
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 5)()
-    rc = fn(int(d), _DTYPE_CODES[dtype], out)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention backward occupancy query "
-                           f"failed: CUDA error {rc}")
-    return dict(zip(("registers", "threads", "smem_bytes", "local_bytes",
-                     "ctas_per_sm"), out))
+    return _occupancy("flash_attn_bwd", "dl4j_flash_attn_bwd_occupancy", d,
+                      dtype)
 
 
 def flash_attention_bwd(q, k, v, kb, m, l, di, do, scale=None):

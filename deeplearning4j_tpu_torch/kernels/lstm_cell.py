@@ -19,6 +19,14 @@ each rounded once. Forward only, as on the TPU.
   a failed build or a refused launch. No CUDA call gives way to the plain
   version.
 
+K8 runs as thread-block clusters (:func:`geometry`): a cluster of 1-8
+CTAs owns ``UNIT_TILE`` units and up to 32 batch rows, each CTA stages its
+slice of the reduction axis ``[x | h]`` and of the weights in one round of
+``cp.async`` copies (16 bytes a copy when :func:`vec_flags` allows, else 4),
+and the slices' partial sums meet through distributed shared memory in
+rank order. :func:`occupancy` and :func:`launch_floor` (an empty kernel
+launched the same way) read the card.
+
 ``launches`` counts wrapper calls that launched K8.
 """
 
@@ -34,10 +42,18 @@ from . import _build
 from .affine_act import (H100_16BIT_FLOPS_PER_S, H100_BYTES_PER_S,
                          H100_F32_FLOPS_PER_S)
 
-#: units per block of the kernel (its kUnits)
+#: units per cluster of the kernel (its kUnits)
 UNIT_TILE = 8
-#: the most batch rows one block takes (its largest BT)
-MAX_ROW_TILE = 8
+#: the kernel's threads a CTA, the reduction elements a CTA aims at, the
+#: largest (portable) cluster, and the dynamic shared memory a CTA may use
+#: on an H100
+THREADS = 256
+SLICE_TARGET = 128
+MAX_CLUSTER = 8
+SMEM_LIMIT = 232448
+#: (row group, column group) tiles of a sub-slice; a CTA's 256 threads
+#: take THREADS // PAIRS sub-slices of its slice
+PAIRS = 64
 #: K8 against its plain version: float32 within F32_TOL x max(1, |ref|)
 #: (sums of up to F + U products in another order; expf and tanhf may
 #: differ from PyTorch's by an ulp)
@@ -64,18 +80,55 @@ def lstm_cell_reference(x, h, c, w, rw, b, forget_bias=0.0):
     return h_new.to(x.dtype), c_new.to(x.dtype)
 
 
-def row_tile(batch: int) -> int:
-    """Batch rows per block: the least power of two that covers ``batch``,
-    at most ``MAX_ROW_TILE``."""
-    t = 1
-    while t < batch and t < MAX_ROW_TILE:
-        t *= 2
-    return t
+def geometry(B: int, F: int, U: int, itemsize: int) -> dict:
+    """K8's launch at this shape (the kernel's ``geometry``): the cluster
+    size (the fewest CTAs, a power of two up to ``MAX_CLUSTER``, that cut
+    the reduction axis of ``F + U`` into slices of at most
+    ``SLICE_TARGET``), the slice each CTA reduces over (a multiple of 16,
+    so that each of its 4 sub-slices is read 4 elements at a time), the
+    batch rows a CTA takes (8 when ``B <= 8``, else 32), the grid
+    (clusters x unit tiles, row tiles), the CTAs, and the dynamic shared
+    memory of a CTA: the rows of ``[x | h]`` (padded by 16 bytes), the
+    weight rows, the partial sums of the 4 sub-slices and the rank's sum
+    (rows x units x 4 gates in f32 each). Raises ValueError for a shape
+    whose slice does not fit in a CTA's shared memory or whose row tiles
+    overflow the grid."""
+    if B <= 0 or F < 0 or U <= 0:
+        raise ValueError(f"lstm_cell: shape (B={B}, F={F}, U={U}) is empty")
+    K = F + U
+    cs = 1
+    while cs < MAX_CLUSTER and -(-K // cs) > SLICE_TARGET:
+        cs *= 2
+    ks = -(-(-(-K // cs)) // 16) * 16
+    rt = 8 if B <= 8 else 32
+    smem = rt * (ks + 16 // itemsize) * itemsize + ks * 4 * UNIT_TILE \
+        * itemsize + (THREADS // PAIRS + 1) * rt * UNIT_TILE * 16
+    grid = (cs * -(-U // UNIT_TILE), -(-B // rt))
+    if smem > SMEM_LIMIT or grid[1] > 65535:
+        raise ValueError(f"lstm_cell: (B={B}, F={F}, U={U}) needs {smem} "
+                         f"bytes of shared memory a CTA and {grid[1]} row "
+                         f"tiles; the kernel's limit is {SMEM_LIMIT} bytes "
+                         "and 65535 row tiles")
+    return {"cluster": cs, "slice": ks, "row_tile": rt, "grid": grid,
+            "ctas": grid[0] * grid[1], "smem_bytes": smem}
 
 
-def grid(batch: int, units: int) -> tuple:
-    """The kernel's grid ``(unit tiles, row tiles)``."""
-    return -(-units // UNIT_TILE), -(-batch // row_tile(batch))
+def _aligned(t, n: int) -> bool:
+    return t.data_ptr() % 16 == 0 and n * t.element_size() % 16 == 0
+
+
+def vec_flags(x, h, w, rw) -> int:
+    """The kernel's copy widths: bit 0 when the rows of ``[x | h]`` go by
+    16-byte copies (x and h start on 16 bytes, and their row strides and F
+    are multiples of 16 bytes, so no copy straddles x and h), bit 1 when
+    the weight rows do (W and RW start on 16 bytes and U is a multiple of
+    16 bytes, so each gate's columns start on 16 bytes). Else 4-byte copies
+    (f32) or element loads (16 bits)."""
+    F, U = x.shape[1], rw.shape[0]
+    xh = (_aligned(x, x.stride(0)) and _aligned(h, h.stride(0))
+          and F * x.element_size() % 16 == 0)
+    wv = _aligned(w, U) and _aligned(rw, U)
+    return int(xh) | int(wv) << 1
 
 
 def _check(x, h, c, w, rw, b):
@@ -121,6 +174,51 @@ def _kernel():
     return fn
 
 
+def _query(name: str, n: int, B: int, F: int, U: int, dtype) -> list:
+    """One of the library's shape queries (``dl4j_lstm_cell_<name>``),
+    its ``n`` integers."""
+    fn = getattr(_build.load("lstm_cell"), f"dl4j_lstm_cell_{name}")
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * n)()
+    rc = fn(B, F, U, _DTYPE_CODES[dtype], out)
+    if rc != 0:
+        raise RuntimeError(f"lstm_cell {name} query failed: CUDA error {rc}")
+    return list(out)
+
+
+def kernel_geometry(B: int, F: int, U: int, dtype=torch.float32) -> dict:
+    """:func:`geometry` as the compiled library computes it (a card test
+    holds the two equal)."""
+    cs, ks, rt, gx, gy, smem = _query("geometry", 6, B, F, U, dtype)
+    return {"cluster": cs, "slice": ks, "row_tile": rt, "grid": (gx, gy),
+            "ctas": gx * gy, "smem_bytes": smem}
+
+
+def occupancy(B: int, F: int, U: int, dtype=torch.float32) -> dict:
+    """K8's resources on the current card at this shape: registers and
+    local (spill) bytes a thread, threads and shared-memory bytes a CTA,
+    the CTAs one SM holds at once and the clusters the card holds at once
+    (CUDA's occupancy calculator). Needs the card."""
+    return dict(zip(("registers", "threads", "smem_bytes", "local_bytes",
+                     "ctas_per_sm", "clusters"),
+                    _query("occupancy", 6, B, F, U, dtype)))
+
+
+def launch_floor(B: int, F: int, U: int, dtype=torch.float32,
+                 device=None) -> None:
+    """Launch an empty kernel with K8's grid, threads, cluster and shared
+    memory at this shape on the current stream: the fixed cost of one K8
+    launch, for timing beside it. Not counted in ``launches``."""
+    fn = _build.load("lstm_cell").dl4j_lstm_cell_floor
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(B, F, U, _DTYPE_CODES[dtype],
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lstm_cell floor launch failed: CUDA error {rc}")
+
+
 def lstm_cell(x, h, c, w, rw, b, forget_bias=0.0):
     """K8 on CUDA tensors, the plain version on CPU tensors."""
     if x.device.type == "cpu":
@@ -132,15 +230,17 @@ def lstm_cell(x, h, c, w, rw, b, forget_bias=0.0):
     _check(x, h, c, w, rw, b)
     B, F = x.shape
     U = rw.shape[0]
-    fn = _kernel()
     h_new = x.new_empty((B, U))
     c_new = torch.empty_like(h_new)
     if B == 0 or U == 0:
         return h_new, c_new
+    geometry(B, F, U, x.element_size())  # raises beyond the kernel's limits
+    fn = _kernel()
     rc = fn(x.data_ptr(), x.stride(0), h.data_ptr(), h.stride(0),
             c.data_ptr(), c.stride(0), w.data_ptr(), rw.data_ptr(),
             b.data_ptr(), h_new.data_ptr(), c_new.data_ptr(), B, F, U,
-            float(forget_bias), _DTYPE_CODES[x.dtype], row_tile(B),
+            float(forget_bias), _DTYPE_CODES[x.dtype],
+            vec_flags(x, h, w, rw),
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lstm_cell kernel launch failed: CUDA error {rc}")

@@ -1,0 +1,217 @@
+"""K3 and K8 of this checkout against those of another checkout, timed in
+turns on one card.
+
+    python3 -m deeplearning4j_tpu_torch.tools.compare_kernels --other DIR
+
+DIR is another checkout of the repository (for instance the parent commit
+unpacked with ``git archive``). Its ``csrc/flash_attn_fwd.cu`` and
+``csrc/lstm_cell.cu`` are compiled with this checkout's ``nvcc`` flags
+into ``build/other/`` and loaded beside this checkout's kernels. Then, on
+the same inputs (seed 0; TF32 off):
+
+- K3 at BERT-base batch 32, (B, H, Tq, Tk, d) = (32, 12, 128, 128, 64),
+  head-split operands and a ragged key bias, in float32 and bfloat16;
+- K8 at TextGenerationLSTM's two layers at batch 32, (B, F, U) = (32, 77,
+  256) and (32, 256, 256), float32, x read through a row stride, and the
+  empty kernel launched as K8 (``lstm_cell.launch_floor``);
+
+each case is timed as other, this, this, other, ``--rounds`` times (CUDA
+events around each call, calls queued behind a sleep kernel, median of
+``--reps``), and printed as one JSON line with the card's name and power
+limit, every reading, the two kernels' medians and their largest output
+difference. A checkout from before K8's cluster design (no
+``dl4j_lstm_cell_geometry``) takes a row tile where this one takes its copy
+widths. Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import statistics
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from ..kernels import _build
+from ..kernels import lstm_cell as k8
+
+ATTN_SHAPE = (32, 12, 128, 128, 64)
+LSTM_SHAPES = ((32, 77, 256), (32, 256, 256))
+FORGET_BIAS = 1.0
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, warm: int = 3) -> float:
+    """The median device time of one call of ``fn`` over ``reps`` calls
+    (CUDA events around each; the calls are queued behind a sleep kernel,
+    so the events bracket the device's work and not the host's)."""
+    for _ in range(warm):
+        fn()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    for a, b in ev:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+
+def build_other(root: Path) -> dict:
+    """The other checkout's K3 and K8 libraries, built into build/other/."""
+    out = _build.BUILD_DIR / "other"
+    out.mkdir(parents=True, exist_ok=True)
+    libs, procs = {}, []
+    for name in ("flash_attn_fwd", "lstm_cell"):
+        src = root / "deeplearning4j_tpu_torch" / "csrc" / f"{name}.cu"
+        lib = out / f"lib{name}-{time.time_ns()}.so"
+        procs.append((name, lib, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for name, lib, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the other {name}:\n{log}")
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def attn_fn(lib, q, k, v, kb, scale):
+    """A call of ``lib``'s K3 entry (the signature both checkouts share)
+    returning ``(o, m, l)``."""
+    fn = lib.dl4j_flash_attn_fwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    B, H, Tq, d = q.shape
+    Tk = k.shape[2]
+    o = torch.empty_like(q)
+    m = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    strides = (ctypes.c_longlong * 12)(*[
+        s for t in (q, k, v, o) for s in t.stride()[:3]])
+    code = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}[q.dtype]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(),
+                o.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, Tq, Tk, d,
+                strides, scale, code, stream)
+        if rc != 0:
+            raise RuntimeError(f"K3 launch failed: CUDA error {rc}")
+        return o, m, l
+    return call
+
+
+def lstm_fn(lib, x, h, c, w, rw, b):
+    """A call of ``lib``'s K8 entry returning ``(h', c')``: its last int
+    is the copy widths (``lstm_cell.vec_flags``), or for a library from
+    before the cluster design, the row tile (the least power of two that
+    covers B, at most 8)."""
+    fn = lib.dl4j_lstm_cell
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] * 3 + [
+        ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    B, F = x.shape
+    U = rw.shape[0]
+    if hasattr(lib, "dl4j_lstm_cell_geometry"):
+        last = k8.vec_flags(x, h, w, rw)
+    else:
+        last = min(8, 1 << max(0, math.ceil(math.log2(B))))
+    h_new = torch.empty((B, U), dtype=x.dtype, device=x.device)
+    c_new = torch.empty_like(h_new)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rc = fn(x.data_ptr(), x.stride(0), h.data_ptr(), h.stride(0),
+                c.data_ptr(), c.stride(0), w.data_ptr(), rw.data_ptr(),
+                b.data_ptr(), h_new.data_ptr(), c_new.data_ptr(), B, F, U,
+                FORGET_BIAS, 0, last, stream)
+        if rc != 0:
+            raise RuntimeError(f"K8 launch failed: CUDA error {rc}")
+        return h_new, c_new
+    return call
+
+
+def in_turns(other, this, rounds: int, reps: int) -> dict:
+    """other, this, this, other, ``rounds`` times; the largest difference of
+    the two kernels' outputs."""
+    got = {"other": [], "this": []}
+    for _ in range(rounds):
+        for who in ("other", "this", "this", "other"):
+            got[who].append(time_ms(other if who == "other" else this, reps))
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(other(), this()))
+    return {"other_ms": got["other"], "this_ms": got["this"],
+            "other_median_ms": statistics.median(got["other"]),
+            "this_median_ms": statistics.median(got["this"]),
+            "max_abs_diff": diff}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", required=True, type=Path)
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--reps", type=int, default=50)
+    a = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_kernels needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    name = card()
+    other = build_other(a.other.resolve())
+    this = {n: _build.load(n) for n in ("flash_attn_fwd", "lstm_cell")}
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    B, H, Tq, Tk, d = ATTN_SHAPE
+    lengths = torch.randint(1, Tk + 1, (B,), generator=gen, device=dev)
+    kb = torch.where(torch.arange(Tk, device=dev)[None, :] < lengths[:, None],
+                     0.0, float(torch.finfo(torch.float32).min)).contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(B, T, H, d, generator=gen, device=dev)
+                   .to(dtype).transpose(1, 2) for T in (Tq, Tk, Tk))
+        row = in_turns(attn_fn(other["flash_attn_fwd"], q, k, v, kb,
+                               1.0 / math.sqrt(d)),
+                       attn_fn(this["flash_attn_fwd"], q, k, v, kb,
+                               1.0 / math.sqrt(d)), a.rounds, a.reps)
+        print(json.dumps({"kernel": "K3", "shape": ATTN_SHAPE,
+                          "dtype": str(dtype)[6:], "layout": "heads",
+                          "card": name, **row}), flush=True)
+
+    for B, F, U in LSTM_SHAPES:
+        seq = torch.rand(B, 3, F, generator=gen, device=dev) * 2 - 1
+        x = seq[:, 1]
+        h = torch.rand(B, U, generator=gen, device=dev) * 2 - 1
+        c = torch.randn(B, U, generator=gen, device=dev)
+        w = torch.randn(F, 4 * U, generator=gen, device=dev) \
+            * (2.0 / (F + U)) ** 0.5
+        rw = torch.randn(U, 4 * U, generator=gen, device=dev) \
+            * (1.0 / U) ** 0.5
+        b = torch.randn(4 * U, generator=gen, device=dev) * 0.1
+        row = in_turns(lstm_fn(other["lstm_cell"], x, h, c, w, rw, b),
+                       lstm_fn(this["lstm_cell"], x, h, c, w, rw, b),
+                       a.rounds, a.reps)
+        floor = time_ms(lambda: k8.launch_floor(B, F, U), a.reps)
+        print(json.dumps({"kernel": "K8", "shape": (B, F, U),
+                          "dtype": "float32", "layout": "strided",
+                          "card": name, "floor_ms": floor, **row}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -113,16 +113,32 @@ def _kernel_split(prof, reps):
                         e.count // reps] for e in top]
 
 
+#: profiled windows tried before a split is given up: the tracer has been
+#: seen to return a window with no device records
+PROFILE_ATTEMPTS = 3
+
+
 def _profiled(fn, reps):
+    """``(profile, K8 launches per call, calls of fn made)``: one call under
+    a profiler that pays the tracer's start-up, then ``reps`` calls under
+    the one that is read. A window with no device records is taken again,
+    up to ``PROFILE_ATTEMPTS`` times; raises if none has any."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts):
-        fn()
-    before = k8.launches
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
+    calls = 0
+    for _ in range(PROFILE_ATTEMPTS):
+        with torch.profiler.profile(activities=acts):
             fn()
-    return prof, (k8.launches - before) / reps
+        before = k8.launches
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+        calls += 1 + reps
+        if any(e.device_type == torch.autograd.DeviceType.CUDA
+               and device_us(e) > 0 for e in prof.key_averages()):
+            return prof, (k8.launches - before) / reps, calls
+    raise RuntimeError(f"torch.profiler recorded no device time in "
+                       f"{PROFILE_ATTEMPTS} windows")
 
 
 def profile(net, x, lengths, reps: int = 3, walls: int = 10) -> dict:
@@ -134,7 +150,8 @@ def profile(net, x, lengths, reps: int = 3, walls: int = 10) -> dict:
         t0 = time.perf_counter()
         eng.output(x, lengths=lengths)
         ts.append((time.perf_counter() - t0) * 1e3)
-    prof, launches = _profiled(lambda: eng.output(x, lengths=lengths), reps)
+    prof, launches, calls = _profiled(lambda: eng.output(x, lengths=lengths),
+                                      reps)
     dev, lstm, top = _kernel_split(prof, reps)
     wall = statistics.median(ts)
     n = x.shape[0]
@@ -147,6 +164,7 @@ def profile(net, x, lengths, reps: int = 3, walls: int = 10) -> dict:
         "device_busy_share": dev / wall if top else None,
         "k8_device_ms": lstm if top else None,
         "k8_launches_per_request": launches,
+        "requests_run": walls + calls,
         "sequences_per_s": n * 1e3 / wall,
         "characters_per_s": float(np.sum(lengths)) * 1e3 / wall,
         "top_kernels_ms": top,
@@ -160,7 +178,7 @@ def profile_generation(net, prompt: np.ndarray, steps: int = GEN_STEPS,
     generate(net, prompt, steps)
     wall = statistics.median(generate.step_ms)
     nxt = one_hot(np.zeros(prompt.shape[0], np.int64))
-    prof, launches = _profiled(lambda: net.rnn_time_step(nxt), reps)
+    prof, launches, _ = _profiled(lambda: net.rnn_time_step(nxt), reps)
     dev, lstm, top = _kernel_split(prof, reps)
     return {
         "streams": int(prompt.shape[0]),

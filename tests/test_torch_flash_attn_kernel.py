@@ -208,6 +208,88 @@ def test_build_describes_k3_k4_k5(name):
     assert (_build.CSRC / "flash_attn_common.cuh").is_file()
 
 
+@pytest.mark.parametrize("d,dtype,key_tile,smem", [
+    (64, torch.float32, 64, 108032), (64, torch.bfloat16, 64, 91136),
+    (32, torch.float32, 64, 67072), (48, torch.float16, 64, 91136),
+    (128, torch.float32, 32, 113920), (96, torch.bfloat16, 32, 108800)])
+def test_fwd_geometry_keeps_two_ctas_an_sm(d, dtype, key_tile, smem):
+    """K3's tiles and shared memory: 256 threads and 64 query rows a CTA,
+    key tiles of 64 (32 above d = 64), and a layout two CTAs of which fit
+    one SM (BERT-base's d = 64 in float32: q, two buffers of k and of v,
+    p and two of the bias, 17,408 + 34,816 + 34,816 + 20,480 + 512 =
+    108,032 bytes)."""
+    g = k3.fwd_geometry(d, dtype)
+    assert (g["threads"], g["query_rows"]) == (256, 64)
+    assert g["key_tile"] == key_tile == k3.key_tile(d)
+    assert g["smem_bytes"] == smem
+    # an H100 SM has 233,472 bytes; CUDA keeps 1,024 back per CTA
+    assert 2 * (smem + 1024) <= 233472
+
+
+def test_fwd_geometry_refuses_what_k3_cannot_take():
+    for d in (0, 129):
+        with pytest.raises(ValueError, match="1..128"):
+            k3.fwd_geometry(d)
+    with pytest.raises(TypeError, match="dtype"):
+        k3.fwd_geometry(64, torch.float64)
+
+
+def _tiled_bf16(q, k, v, tile):
+    """The online softmax over key tiles of ``tile`` keys, p rounded to
+    bfloat16 before p v (scale 1, no bias)."""
+    B, H, Tq, d = q.shape
+    m = torch.full((B, H, Tq), -float("inf"))
+    l = torch.zeros(B, H, Tq)
+    acc = torch.zeros(B, H, Tq, d)
+    for j0 in range(0, k.shape[2], tile):
+        s = torch.matmul(q.float(), k[:, :, j0:j0 + tile].float()
+                         .transpose(-1, -2))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.matmul(
+            p.to(torch.bfloat16).float(), v[:, :, j0:j0 + tile].float())
+        m = m_new
+    return (acc / l[..., None]).to(torch.bfloat16)
+
+
+def test_plain_version_walks_the_kernels_key_tiles():
+    """The plain version rounds a 16-bit p against the running max of the
+    kernel's key tiles (64 keys at d = 64): keys 32-39 raise the max, so
+    tiles of 32 would round p of keys 0-31 against another max and give
+    other bits."""
+    q = torch.zeros(1, 1, 4, 64, dtype=torch.bfloat16)
+    q[..., 0] = torch.tensor([1.0, 2.0, 3.0, 0.5])
+    k = torch.zeros(1, 1, 40, 64, dtype=torch.bfloat16)
+    k[0, 0, 32:, 0] = 1.0
+    v = torch.randn(1, 1, 40, 64,
+                    generator=torch.Generator().manual_seed(0)).to(
+        torch.bfloat16)
+    o = k3.flash_attention_fwd_reference(q, k, v, scale=1.0)[0]
+    assert k3.key_tile(64) == 64
+    assert torch.equal(o, _tiled_bf16(q, k, v, 64))
+    assert not torch.equal(o, _tiled_bf16(q, k, v, 32))
+
+
+@pytest.mark.parametrize("make,aligned", [
+    (lambda: torch.ones(2, 3, 5, 8), True),                  # rows of 32 B
+    (lambda: torch.ones(2, 5, 3 * 64).view(2, 5, 3, 64).transpose(1, 2),
+     True),                                                  # head split
+    (lambda: torch.ones(2, 3, 5, 6), False),                 # rows of 24 B
+    (lambda: torch.ones(2, 3, 5, 9)[..., 1:], False),        # offset start
+    (lambda: torch.ones(2, 3, 5, 8, dtype=torch.bfloat16), True),
+    (lambda: torch.ones(2, 3, 5, 4, dtype=torch.float16), False),
+])
+def test_rows_aligned_chooses_the_copy_width(make, aligned):
+    """16-byte copies only when every row starts on 16 bytes (base pointer
+    and the batch, head and row strides); else element by element. K3
+    applies the same rule to q, k and v inside its entry point."""
+    t = make()
+    assert k3._rows_aligned((t,)) is aligned
+    assert k3._rows_aligned((torch.ones(1, 1, 2, 4), t)) is aligned
+
+
 def test_ulp_error_counts_ulps():
     want = torch.tensor([1.0, 0.5, -2.0, 0.0], dtype=torch.bfloat16)
     assert k3.ulp_error(want, want) == 0.0
@@ -280,6 +362,42 @@ def test_k3_reads_strided_head_views_on_card(cuda_device):
     want = k3.flash_attention_fwd(q.contiguous(), k.contiguous(),
                                   v.contiguous())[0]
     assert torch.equal(o, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_k3_resources_match_its_geometry_on_card(cuda_device, d, dtype):
+    """The compiled kernel's threads and shared memory are fwd_geometry's,
+    it keeps within the registers of two CTAs an SM, and the card holds
+    two of its CTAs an SM."""
+    occ = k3.fwd_occupancy(d, dtype)
+    g = k3.fwd_geometry(d, dtype)
+    assert occ["threads"] == g["threads"]
+    assert occ["smem_bytes"] == g["smem_bytes"]
+    assert occ["registers"] <= 128
+    assert occ["ctas_per_sm"] >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_element_path_gives_the_copy_path_bits_on_card(cuda_device,
+                                                          dtype):
+    """Operands whose rows do not start on 16 bytes take the element path;
+    its output is bit for bit that of the 16-byte copies."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(3, 2, 4, 150, 65, generator=gen,
+                    device=cuda_device).to(dtype)
+    q, k, v = (x[i, ..., 1:] for i in range(3))  # rows start 1 element in
+    kb = torch.zeros(2, 150, device=cuda_device)
+    kb[1, 100:] = NEG
+    assert not k3._rows_aligned((q,))
+    got = k3.flash_attention_fwd(q, k, v, kb)
+    want = k3.flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), kb)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda

@@ -12,10 +12,14 @@ version on the card.
    libraries' f32 sums in another order differ by more than a 16-bit
    ulp).
 2. The wrapper's CPU route (the plain version, no launch counted), the
-   dispatch's counted decisions, the bound arithmetic, the grid, the
-   ``torch.lstm_cell`` operand reordering, and the build description.
+   dispatch's counted decisions, the bound arithmetic, the cluster
+   geometry, the shared-memory budget, the copy widths (``vec_flags``), the
+   limits that raise, the ``torch.lstm_cell`` operand reordering, and the
+   build description.
 3. On the card: K8 against its plain version (the same tolerance), read
-   through a row stride, rerun bitwise equal, and what it refuses.
+   through a row stride, rerun bitwise equal, the kernel's own geometry
+   and resources, the empty-kernel floor, the copy widths giving the same
+   bits, and what it refuses.
 
 JAX is imported only by the tests that compare with it, so ``python3 -m
 pytest --noconftest tests/test_torch_lstm_cell.py -m cuda`` runs on a
@@ -220,11 +224,114 @@ def test_bound_arithmetic():
 
 
 def test_grid_spreads_the_serving_shapes():
-    assert [k8.row_tile(b) for b in (1, 2, 3, 8, 32, 512)] == \
-        [1, 2, 4, 8, 8, 8]
-    assert k8.grid(32, 256) == (32, 4)      # 128 blocks
-    assert k8.grid(1, 256) == (32, 1)
-    assert k8.grid(3, 100) == (13, 1)
+    """At TextGenerationLSTM's shapes a cluster of 4 CTAs splits the
+    reduction axis (333 -> slices of 96, 512 -> 128) and 32 unit tiles x 4
+    ranks give 128 CTAs, one per SM, with all 32 rows in one CTA, so each
+    weight is read once a step; (512, 512, 512) takes clusters of 8 and 16
+    row tiles."""
+    g = k8.geometry(32, 256, 256, 4)
+    assert (g["cluster"], g["slice"], g["row_tile"]) == (4, 128, 32)
+    assert g["grid"] == (128, 1) and g["ctas"] == 128
+    g = k8.geometry(32, 77, 256, 4)
+    assert (g["cluster"], g["slice"], g["row_tile"]) == (4, 96, 32)
+    assert g["grid"] == (128, 1) and g["ctas"] == 128
+    g = k8.geometry(512, 512, 512, 4)
+    assert (g["cluster"], g["slice"], g["row_tile"]) == (8, 128, 32)
+    assert g["grid"] == (512, 16) and g["ctas"] == 8192
+    assert k8.geometry(1, 77, 256, 4)["row_tile"] == 8
+    assert k8.geometry(8, 256, 256, 2)["grid"] == (128, 1)
+    g = k8.geometry(3, 50, 100, 4)
+    assert (g["cluster"], g["slice"], g["grid"]) == (2, 80, (26, 1))
+
+
+@pytest.mark.parametrize("K,cluster", [(1, 1), (128, 1), (129, 2),
+                                       (256, 2), (333, 4), (512, 4),
+                                       (513, 8), (1024, 8), (4000, 8)])
+def test_cluster_cuts_the_reduction_into_slices(K, cluster):
+    """The fewest CTAs (a power of two, at most 8) whose slices are at most
+    128 long; each slice a multiple of 16 elements (4 sub-slices read 4
+    at a time), all of them covering F + U."""
+    g = k8.geometry(32, K // 2, K - K // 2, 4)
+    assert g["cluster"] == cluster
+    assert g["slice"] % 16 == 0 and g["cluster"] * g["slice"] >= K
+    assert g["slice"] - 16 < -(-K // g["cluster"]) <= g["slice"]
+    if cluster < k8.MAX_CLUSTER:
+        assert g["slice"] <= k8.SLICE_TARGET
+
+
+def test_shared_memory_budget():
+    """A CTA's shared memory: the [x | h] rows padded by 16 bytes, the
+    weight rows of 4 x 8 columns, the partial sums of 4 sub-slices and the
+    rank's sum (4 gates f32 per row and unit each). Layer 2 of the path in
+    float32 (slice 128, 32 rows): 16,896 + 16,384 + 16,384 + 4,096
+    bytes."""
+    assert k8.geometry(32, 256, 256, 4)["smem_bytes"] == \
+        32 * 132 * 4 + 128 * 32 * 4 + 5 * 32 * 8 * 16 == 53_760
+    assert k8.geometry(32, 77, 256, 4)["smem_bytes"] == \
+        32 * 100 * 4 + 96 * 32 * 4 + 5 * 32 * 8 * 16
+    assert k8.geometry(8, 77, 256, 2)["smem_bytes"] == \
+        8 * 104 * 2 + 96 * 32 * 2 + 5 * 8 * 8 * 16
+    for shape in ((32, 6000, 520), (32, 6000, 528)):  # slices of 816
+        assert k8.geometry(*shape, 4)["smem_bytes"] <= k8.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("shape,itemsize,match", [
+    ((32, 6000, 1024), 4, "shared memory"),
+    ((32, 6000, 540), 4, "shared memory"),       # slices of 832
+    ((32, 12000, 4096), 2, "shared memory"),
+    ((32 * 65536, 77, 256), 4, "row tiles"),
+    ((0, 77, 256), 4, "empty"),
+    ((4, 3, 0), 4, "empty"),
+])
+def test_geometry_raises_beyond_the_kernels_limits(shape, itemsize, match):
+    with pytest.raises(ValueError, match=match):
+        k8.geometry(*shape, itemsize)
+
+
+class _FakeCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: it walks the wrapper's
+    CUDA branch on a machine without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+def test_cuda_wrapper_raises_beyond_the_limits_before_a_launch(monkeypatch):
+    monkeypatch.setattr(k8, "_kernel", lambda: (_ for _ in ()).throw(
+        AssertionError("the kernel was reached")))
+    B, F, U = 32, 6000, 1024  # slices of 880: 246,272 bytes a CTA
+    ops = [torch.empty(*shape) for shape in (
+        (B, F), (B, U), (B, U), (F, 4 * U), (U, 4 * U), (4 * U,))]
+    with pytest.raises(ValueError, match="shared memory"):
+        k8.lstm_cell(*[t.as_subclass(_FakeCuda) for t in ops])
+
+
+@pytest.mark.parametrize("B,F,U,dtype,strided,flags", [
+    (32, 77, 256, torch.float32, True, 0b10),    # F = 77: 4-byte copies
+    (32, 256, 256, torch.float32, True, 0b11),   # x[:, t] of [B, 3, 256]
+    (32, 256, 256, torch.float32, False, 0b11),
+    (8, 77, 256, torch.bfloat16, False, 0b10),   # 154 bytes a row
+    (8, 256, 256, torch.float16, True, 0b11),
+    (3, 50, 100, torch.float32, False, 0b10),    # 200-byte rows of x
+    (3, 48, 100, torch.bfloat16, False, 0b00),   # U = 100: 200 bytes
+    (3, 48, 100, torch.float32, False, 0b11),    # U = 100: 400 bytes
+])
+def test_vec_flags_choose_the_copy_width(B, F, U, dtype, strided, flags):
+    x, h, c, w, rw, b = _torch(_operands(B, F, U), dtype)
+    if strided:
+        x = torch.stack([x, x, x], dim=1)[:, 1]
+    assert k8.vec_flags(x, h, w, rw) == flags
+
+
+def test_vec_flags_see_an_offset_start():
+    x, h, c, w, rw, b = _torch(_operands(4, 64, 64), torch.float32)
+    assert k8.vec_flags(x, h, w, rw) == 0b11
+    shifted = torch.zeros(4, 65)[:, 1:]
+    shifted.copy_(x)
+    assert k8.vec_flags(shifted, h, w, rw) == 0b10
+    w_shifted = torch.zeros(64 * 256 + 1)[1:].view(64, 256)
+    assert k8.vec_flags(x, h, w_shifted, rw) == 0b01
 
 
 def test_build_describes_k8():
@@ -276,6 +383,56 @@ def test_k8_matches_plain_on_card(cuda_device, B, F, U, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("B,F,U", [(32, 77, 256), (32, 256, 256),
+                                   (8, 77, 256), (1, 77, 256), (3, 50, 100),
+                                   (512, 512, 512), (32, 6000, 520)],
+                         ids=str)
+def test_k8_geometry_matches_the_kernel_on_card(cuda_device, B, F, U,
+                                                dtype):
+    """The compiled kernel computes geometry() as the host does, launches
+    at that shape, and the card holds its CTAs and clusters."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert k8.kernel_geometry(B, F, U, dtype) == k8.geometry(B, F, U,
+                                                             itemsize)
+    occ = k8.occupancy(B, F, U, dtype)
+    assert occ["threads"] == k8.THREADS
+    assert occ["smem_bytes"] == k8.geometry(B, F, U, itemsize)["smem_bytes"]
+    assert occ["ctas_per_sm"] >= 1 and occ["clusters"] >= 1
+
+
+@pytest.mark.cuda
+def test_k8_floor_launches_uncounted_on_card(cuda_device):
+    before = k8.launches
+    for shape in ((32, 77, 256), (32, 256, 256), (512, 512, 512)):
+        k8.launch_floor(*shape)
+    torch.cuda.synchronize()
+    assert k8.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_k8_copy_widths_give_the_same_bits_on_card(cuda_device, dtype):
+    """x and the weights whose rows do not start on 16 bytes take 4-byte
+    copies (f32) or element loads (16 bits); the result is bit for bit that
+    of the 16-byte copies."""
+    ops = [t.to(cuda_device) for t in _torch(_operands(32, 256, 256), dtype)]
+    x, h, c, w, rw, b = ops
+    x_off = torch.zeros(32, 257, dtype=dtype, device=cuda_device)[:, 1:]
+    x_off.copy_(x)
+    w_off = torch.zeros(256 * 1024 + 8, dtype=dtype,
+                        device=cuda_device)[1:256 * 1024 + 1].view(256, 1024)
+    w_off.copy_(w)
+    assert k8.vec_flags(x, h, w, rw) == 0b11
+    assert k8.vec_flags(x_off, h, w_off, rw) == 0b00
+    want = k8.lstm_cell(x, h, c, w, rw, b, forget_bias=1.0)
+    got = k8.lstm_cell(x_off, h, c, w_off, rw, b, forget_bias=1.0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, v) for g, v in zip(got, want))
+
+
+@pytest.mark.cuda
 def test_k8_refuses_what_it_cannot_take_on_card(cuda_device):
     ops = [t.to(cuda_device) for t in _torch(_operands(2, 3, 4),
                                              torch.float32)]
@@ -286,6 +443,11 @@ def test_k8_refuses_what_it_cannot_take_on_card(cuda_device):
         k8.lstm_cell(x, h, c, w.t().contiguous().t(), rw, b)
     with pytest.raises(TypeError, match="every operand"):
         k8.lstm_cell(x, h, c, w, rw, b.half())
+    B, F, U = 32, 6000, 1024
+    big = [torch.empty(*shape, device=cuda_device) for shape in (
+        (B, F), (B, U), (B, U), (F, 4 * U), (U, 4 * U), (4 * U,))]
+    with pytest.raises(ValueError, match="shared memory"):
+        k8.lstm_cell(*big)
     pk.reset_counters()
     pk.lstm_cell_fused(*ops)
     torch.cuda.synchronize()

@@ -272,3 +272,16 @@ def test_profile_lstm_drives_the_card_path_on_the_cpu():
     np.testing.assert_array_equal(ins[:, 4:].argmax(-1),
                                   outs[:, 3:6].argmax(-1))
     np.testing.assert_allclose(outs, net.output(ins), rtol=1e-6, atol=1e-6)
+
+
+def test_profile_lstm_retakes_windows_without_device_time():
+    """A profiled window in which the tracer recorded no device time is
+    taken again, up to ``PROFILE_ATTEMPTS`` windows, then the split gives
+    up; on the CPU no window has device time. Every call of the profiled
+    function is counted, so a caller can hold its launches exactly."""
+    from deeplearning4j_tpu_torch.tools import profile_lstm as pl
+    calls = []
+    with pytest.raises(RuntimeError, match="no device time"):
+        pl._profiled(lambda: calls.append(1), reps=2)
+    assert len(calls) == pl.PROFILE_ATTEMPTS * (1 + 2)
+
