@@ -107,27 +107,32 @@ Phases, in order; any failure exits non-zero:
     a length-masked KV cache) against its plain PyTorch version at (B, H,
     C, d) = (8, 4, 128, 64) (the generative path's), (32, 4, 1024, 64),
     BERT-base heads (32, 12, 512, 64) and (32, 12, 4096, 64), (4, 8, 2048,
-    128) and a ragged (3, 2, 200, 32), with ragged lengths including 1, C
-    and 0 (uniform weights), in float32, bfloat16 and float16, with q
-    packed and as the head split of a ``[B, 1, H*d]`` projection: within
-    ``decode_attention.tolerance``, a second run bitwise equal, and
+    128), a ragged (3, 2, 200, 32) and (32, 12, 64, 64) (split counts 2,
+    5, 2, 2, 8, 4 and 1), with ragged lengths including 1, C and 0
+    (uniform weights), in float32, bfloat16 and float16, with q packed and
+    as the head split of a ``[B, 1, H*d]`` projection: within
+    ``decode_attention.tolerance``, a second run bitwise equal, one device
+    kernel a call at every split count (``torch.profiler``), and
     CUDA-event times at the path's shape and lengths and at (32, 12, 4096,
-    64) beside the bound, the plain version and
+    64) beside the bound, the plain version,
     ``scaled_dot_product_attention`` with the float ``[B, 1, 1, C]``
-    length mask;
+    length mask and an empty kernel launched as K9 is (``floor_ms``);
 15. kernel-mq-decode against plain: K10 (the speculative verify window,
     multi-query decode attention) against its plain PyTorch version at
     (B, H, k, C, d) = (8, 4, 4, 128, 64) (the speculative mix's), (32, 4,
     4, 1024, 64) (the speculative growth mix's largest cache), (32, 12,
-    4, 4096, 64), windows of 2 and 8 at (8, 4, k, 512, 64) and a C that
-    is not a power of two, (3, 2, 4, 200, 32), with ragged lengths
-    including 0, C - k and a row whose whole window is masked, in float32,
-    bfloat16 and float16, with q packed and as the head split of a [B, k,
-    H*d] projection: within ``multiquery_decode.tolerance``, a second run
-    bitwise equal, the bfloat16 tolerance rejecting a kernel that drops one
-    split's keys, and CUDA-event times at the three first shapes beside
-    the bound, the plain version and ``scaled_dot_product_attention`` with
-    the float ``[B, 1, k, C]`` window mask;
+    4, 4096, 64), windows of 2 and 8 at (8, 4, k, 512, 64), a C that is
+    not a power of two, (3, 2, 4, 200, 32), and (32, 12, 4, 64, 64) (split
+    counts 2, 5, 2, 8, 8, 4 and 1), with ragged lengths including 0, C - k
+    and a row whose whole window is masked, in float32, bfloat16 and
+    float16, with q packed and as the head split of a [B, k, H*d]
+    projection: within ``multiquery_decode.tolerance``, a second run
+    bitwise equal, one device kernel a call at every split count
+    (``torch.profiler``), the bfloat16 tolerance rejecting a kernel that
+    drops one split's keys, and CUDA-event times at the three first shapes
+    beside the bound, the plain version, ``scaled_dot_product_attention``
+    with the float ``[B, 1, k, C]`` window mask and an empty kernel
+    launched as K10 is (``floor_ms``);
 16. generate: the JAX package's generative-serving model
     (``tools/profile_generate.py``: V = 256, three ``SelfAttentionLayer(
     256, 4 heads)`` blocks, float32, seed 0, random weights, TF32 off):
@@ -335,18 +340,24 @@ LSTM_STREAM_TOL = 1e-6
 #: with sums in other orders
 LSTM_REL_TOL = 1e-4
 #: K9's shapes (B, H, C, d): the generative path's, a longer cache at
-#: batch 32, BERT-base heads at two cache lengths, a 128-wide head, and a
-#: ragged one; the first is the path's and the fourth the long one timed
+#: batch 32, BERT-base heads at two cache lengths, a 128-wide head, a
+#: ragged one, and BERT-base heads at a cache of one split; the first is
+#: the path's and the fourth the long one timed. Their split counts are
+#: 2, 5, 2, 2, 8 (the cluster cap), 4 and 1
 DECODE_SHAPES = ((8, 4, 128, 64), (32, 4, 1024, 64), (32, 12, 512, 64),
-                 (32, 12, 4096, 64), (4, 8, 2048, 128), (3, 2, 200, 32))
+                 (32, 12, 4096, 64), (4, 8, 2048, 128), (3, 2, 200, 32),
+                 (32, 12, 64, 64))
 DECODE_PATH_SHAPE = DECODE_SHAPES[0]
 DECODE_LONG_SHAPE = DECODE_SHAPES[3]
 #: K10's shapes (B, H, k, C, d): the speculative mix's verify window (8
 #: slots, cache 128), the speculative growth mix's at its largest cache,
-#: BERT-base heads at a long cache, windows of 2 and 8 at one shape, and a
-#: cache length that is not a power of two; the first three are timed
+#: BERT-base heads at a long cache, windows of 2 and 8 at one shape, a
+#: cache length that is not a power of two, and BERT-base heads at a cache
+#: of one split; the first three are timed. Their split counts are 2, 5,
+#: 2, 8 (the cluster cap), 8, 4 and 1
 MQ_SHAPES = ((8, 4, 4, 128, 64), (32, 4, 4, 1024, 64), (32, 12, 4, 4096, 64),
-             (8, 4, 2, 512, 64), (8, 4, 8, 512, 64), (3, 2, 4, 200, 32))
+             (8, 4, 2, 512, 64), (8, 4, 8, 512, 64), (3, 2, 4, 200, 32),
+             (32, 12, 4, 64, 64))
 MQ_PATH_SHAPE, MQ_GROW_SHAPE, MQ_LONG_SHAPE = MQ_TIMED = MQ_SHAPES[:3]
 #: K9 launches per decode step of the generative model (three attention
 #: layers), K10 launches per verify step, and K3 launches per prefill
@@ -1582,19 +1593,37 @@ def phase_lstm_serve(k1, k3, k8, pk, env) -> dict:
             "requests": requests}
 
 
+def one_kernel_a_call(kernel: str, shapes, name: str) -> dict:
+    """Hold one call of ``kernel``'s wrapper at each of ``shapes`` in each
+    dtype to one device kernel, ``name``, as ``torch.profiler`` records it
+    in a fresh process (``tools/count_kernels.py`` says why); returns
+    ``{split count: kernels a call}``."""
+    from deeplearning4j_tpu_torch.tools import count_kernels
+    per_split = {}
+    for _, shape, dtype, splits, names in count_kernels.count_in_subprocess(
+            [[kernel, list(s), dt] for s in shapes
+             for dt in ("float32", "bfloat16", "float16")]):
+        if len(names) != 1 or name not in names[0]:
+            raise AssertionError(f"{kernel} {dtype} {tuple(shape)}: one call "
+                                 f"launched {names}, not one {name}")
+        per_split[splits] = len(names)
+    return per_split
+
+
 def phase_kernel_decode(k9, path_lengths) -> dict:
     """K9 against its plain version at DECODE_SHAPES x 3 dtypes x (packed,
-    head-split q), twice per case for determinism; returns the float32
-    times at the path's shape (``path_lengths``, the lengths of a decode
-    step halfway through the bench's mix) and at the long one, and the
-    errors."""
+    head-split q), twice per case for determinism, one kernel a call at
+    every shape and dtype (``torch.profiler``); returns the float32 times at
+    the path's shape (``path_lengths``, the lengths of a decode step
+    halfway through the bench's mix) and at the long one, with an empty
+    kernel launched as K9 is beside them, and the errors."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(9)
     neg = float(torch.finfo(torch.float32).min)
     err = {"float32": 0.0, "tol_share_bfloat16": 0.0,
            "tol_share_float16": 0.0}
-    times, cases = {}, 0
+    times, floors, cases = {}, {}, 0
     for B, H, C, d in DECODE_SHAPES:
         ln = torch.randint(1, C + 1, (B,), generator=gen, device=dev)
         ln[0], ln[1] = 1, C
@@ -1646,13 +1675,20 @@ def phase_kernel_decode(k9, path_lengths) -> dict:
                 q, k, v, attn_mask=mask.to(dtype)))
             bound, by = k9.bound_ms(tl.cpu().numpy(), H, C, d,
                                     q.element_size())
+            # the same launch with an empty kernel: what any launch costs
+            # under this timing
+            floor, _ = time_ms(lambda: k9.launch_floor(B, H, C, d, dtype))
             if dtype == torch.float32:
                 times[(B, H, C, d)] = (ms, plain, lib, host, bound, by)
+                floors[(B, H, C, d)] = floor
             log(f"[kernel-decode] K9 {str(dtype)[6:]:8s} B={B:2d} H={H:2d} "
                 f"C={C:4d} d={d:3d} heads splits={k9.num_splits(B, H, C)} "
-                f"lengths {int(tl.min())}..{int(tl.max())} ms={ms:.5f} "
+                f"threads={k9.cta_threads(B, H, C)} lengths "
+                f"{int(tl.min())}..{int(tl.max())} ms={ms:.5f} "
                 f"plain_ms={plain:.5f} bound_ms={bound:.5f} ({by}) "
-                f"library_ms={lib:.5f} host_ms={host:.5f}")
+                f"library_ms={lib:.5f} host_ms={host:.5f} "
+                f"floor_ms={floor:.5f} (an empty kernel launched the same "
+                f"way)")
             del q, k, v
     log(f"[kernel-decode] K9 matches its plain version and repeats bit for "
         f"bit: {cases} cases ({len(DECODE_SHAPES)} shapes x 3 dtypes x "
@@ -1665,7 +1701,12 @@ def phase_kernel_decode(k9, path_lengths) -> dict:
         f"drops one split's keys at {DECODE_LONG_SHAPE}: "
         f"{power['rejected']} of {power['rows']} (b, h, dropped split) rows"
         f", the least {power['min_violation']:.3g} x the tolerance")
-    return {"times": times, "max_err": err, "cases": cases, "power": power}
+    per_split = one_kernel_a_call("K9", DECODE_SHAPES, "decode_attn_kernel")
+    log(f"[kernel-decode] kernels one call launches (torch.profiler, "
+        f"{len(DECODE_SHAPES)} shapes x 3 dtypes), by split count: "
+        f"{dict(sorted(per_split.items()))}")
+    return {"times": times, "floors": floors, "per_split": per_split,
+            "max_err": err, "cases": cases, "power": power}
 
 
 def tolerance_power(k9, q, k, v, ln, ref) -> dict:
@@ -1902,16 +1943,18 @@ def window_mask_bias(k10, ln, n_queries: int, C: int, dtype):
 
 def phase_kernel_mq(k10, k9, path_lengths) -> dict:
     """K10 against its plain version at MQ_SHAPES x 3 dtypes x (packed,
-    head-split q), twice per case for determinism; ``path_lengths`` maps
-    a timed shape to the lengths (before the window) of a verify step
-    halfway through its mix. Returns the float32 times, the errors and the
-    bfloat16 dropped-split check."""
+    head-split q), twice per case for determinism, one kernel a call at
+    every shape and dtype (``torch.profiler``); ``path_lengths`` maps a timed
+    shape to the lengths (before the window) of a verify step halfway
+    through its mix. Returns the float32 times with an empty kernel
+    launched as K10 is beside them, the errors and the bfloat16
+    dropped-split check."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(10)
     err = {"float32": 0.0, "tol_share_bfloat16": 0.0,
            "tol_share_float16": 0.0}
-    times, cases, power = {}, 0, None
+    times, floors, cases, power = {}, {}, 0, None
     for B, H, kq, C, d in MQ_SHAPES:
         ln = torch.randint(0, C - kq + 1, (B,), generator=gen, device=dev)
         ln[0], ln[1] = 0, C - kq
@@ -1963,14 +2006,20 @@ def phase_kernel_mq(k10, k9, path_lengths) -> dict:
                 q, k, v, attn_mask=mask))
             bound, by = k10.bound_ms(tl.cpu().numpy(), H, kq, C, d,
                                      q.element_size())
+            floor, _ = time_ms(
+                lambda: k10.launch_floor(B, H, kq, C, d, dtype))
             if dtype == torch.float32:
                 times[shape] = (ms, plain, lib, host, bound, by)
+                floors[shape] = floor
             log(f"[kernel-mq-decode] K10 {str(dtype)[6:]:8s} B={B:2d} "
                 f"H={H:2d} k={kq} C={C:4d} d={d:3d} heads splits="
-                f"{k9.num_splits(B, H, C)} lengths {int(tl.min())}.."
-                f"{int(tl.max())} ms={ms:.5f} plain_ms={plain:.5f} "
-                f"bound_ms={bound:.5f} ({by}) library_ms={lib:.5f} "
-                f"host_ms={host:.5f}")
+                f"{k9.num_splits(B, H, C)} smem="
+                f"{k10.smem_bytes(B, H, kq, C, d, dtype)} lengths "
+                f"{int(tl.min())}..{int(tl.max())} ms={ms:.5f} "
+                f"plain_ms={plain:.5f} bound_ms={bound:.5f} ({by}) "
+                f"library_ms={lib:.5f} host_ms={host:.5f} "
+                f"floor_ms={floor:.5f} (an empty kernel launched the same "
+                f"way)")
             del q, k, v
     log(f"[kernel-mq-decode] K10 matches its plain version and repeats bit "
         f"for bit: {cases} cases ({len(MQ_SHAPES)} shapes x 3 dtypes x "
@@ -1984,7 +2033,12 @@ def phase_kernel_mq(k10, k9, path_lengths) -> dict:
         f"drops one split's keys at {MQ_LONG_SHAPE}: {power['rejected']} of "
         f"{power['rows']} (b, h, query, dropped split) rows, the least "
         f"{power['min_violation']:.3g} x the tolerance")
-    return {"times": times, "max_err": err, "cases": cases, "power": power}
+    per_split = one_kernel_a_call("K10", MQ_SHAPES, "mq_decode_kernel")
+    log(f"[kernel-mq-decode] kernels one call launches (torch.profiler, "
+        f"{len(MQ_SHAPES)} shapes x 3 dtypes), by split count: "
+        f"{dict(sorted(per_split.items()))}")
+    return {"times": times, "floors": floors, "per_split": per_split,
+            "max_err": err, "cases": cases, "power": power}
 
 
 def mq_tolerance_power(k10, k9, q, k, v, ln, ref) -> dict:
@@ -2864,27 +2918,33 @@ def main() -> int:
     ms9, plain9, lib9, host9, bound9 = (GEN_LAYERS * t for t in t9[:5])
     by9 = t9[5]
     t9l = kdec["times"][DECODE_LONG_SHAPE]
+    floor9 = GEN_LAYERS * kdec["floors"][DECODE_PATH_SHAPE]
     log(f"[summary] one float32 decode step of the generative model (8 "
         f"slots, cache 128, lengths {min(path_lengths)}..."
         f"{max(path_lengths)}): {GEN_LAYERS} K9 calls, {ms9:.4f} ms on the "
         f"device (plain {plain9:.4f}, scaled_dot_product_attention "
-        f"{lib9:.4f}, bound {bound9:.4f}, {by9}); host enqueue {host9:.4f} "
-        f"ms; at {DECODE_LONG_SHAPE}: {t9l[0]:.4f} ms (bound {t9l[4]:.4f}, "
-        f"SDPA {t9l[2]:.4f})")
+        f"{lib9:.4f}, bound {bound9:.4f}, {by9}; the same launches of an "
+        f"empty kernel {floor9:.4f}); host enqueue {host9:.4f} ms; at "
+        f"{DECODE_LONG_SHAPE}: {t9l[0]:.4f} ms (bound {t9l[4]:.4f}, SDPA "
+        f"{t9l[2]:.4f}, empty kernel "
+        f"{kdec['floors'][DECODE_LONG_SHAPE]:.4f})")
     # one verify step of the speculative mix: 3 K10 calls at the path's
     # shape
     t10 = kmq["times"][MQ_PATH_SHAPE]
     ms10, plain10, lib10, host10, bound10 = (GEN_LAYERS * t for t in t10[:5])
     by10 = t10[5]
     t10g, t10l = kmq["times"][MQ_GROW_SHAPE], kmq["times"][MQ_LONG_SHAPE]
+    floor10 = GEN_LAYERS * kmq["floors"][MQ_PATH_SHAPE]
     log(f"[summary] one float32 verify step of the speculative mix (8 slots,"
         f" cache 128, k = {pg.SPECULATE_K}, lengths {mq_lengths[MQ_PATH_SHAPE][0]}"
         f" before the window): {GEN_LAYERS} K10 calls, {ms10:.4f} ms on the "
         f"device (plain {plain10:.4f}, scaled_dot_product_attention "
-        f"{lib10:.4f}, bound {bound10:.4f}, {by10}); host enqueue "
-        f"{host10:.4f} ms; at {MQ_GROW_SHAPE}: {t10g[0]:.4f} ms (bound "
-        f"{t10g[4]:.4f}, SDPA {t10g[2]:.4f}); at {MQ_LONG_SHAPE}: "
-        f"{t10l[0]:.4f} ms (bound {t10l[4]:.4f}, SDPA {t10l[2]:.4f})")
+        f"{lib10:.4f}, bound {bound10:.4f}, {by10}; the same launches of an "
+        f"empty kernel {floor10:.4f}); host enqueue {host10:.4f} ms; at "
+        f"{MQ_GROW_SHAPE}: {t10g[0]:.4f} ms (bound {t10g[4]:.4f}, SDPA "
+        f"{t10g[2]:.4f}); at {MQ_LONG_SHAPE}: {t10l[0]:.4f} ms (bound "
+        f"{t10l[4]:.4f}, SDPA {t10l[2]:.4f}, empty kernel "
+        f"{kmq['floors'][MQ_LONG_SHAPE]:.4f})")
     t6, t7 = kln["times"]["fwd"], kln["times"]["bwd"]
     ms6, plain6, lib6, host6, bound6 = (LN_SITES * t for t in t6)
     ms7, plain7, lib7, host7, bound7 = (LN_SITES * t for t in t7)
@@ -3108,10 +3168,12 @@ def main() -> int:
         "max_tolerance_share_float16": kdec["max_err"]["tol_share_float16"],
         "deterministic": True,
         "ms": ms9, "plain_ms": plain9, "bound_ms": bound9, "bound_by": by9,
-        "library_ms": lib9, "host_ms": host9,
+        "library_ms": lib9, "host_ms": host9, "floor_ms": floor9,
+        "kernels_per_call_by_splits": kdec["per_split"],
         "long_cache": {"shape": list(DECODE_LONG_SHAPE), "ms": t9l[0],
                        "plain_ms": t9l[1], "library_ms": t9l[2],
-                       "bound_ms": t9l[4], "bound_by": t9l[5]},
+                       "bound_ms": t9l[4], "bound_by": t9l[5],
+                       "floor_ms": kdec["floors"][DECODE_LONG_SHAPE]},
         "generate": {tag: {k: r[k] for k in (
             "tokens_per_s", "wall_ms_median", "ttft_ms_p50", "ttft_ms_p99",
             "tpot_ms_p50", "tpot_ms_p99", "device_ms", "device_busy_share",
@@ -3127,7 +3189,9 @@ def main() -> int:
                     "is torch.nn.functional.scaled_dot_product_attention "
                     "with the float [B, 1, 1, C] length mask on the same "
                     "q, k, v; host_ms is the wrapper's enqueue time over "
-                    "the same calls",
+                    "the same calls; floor_ms is an empty kernel launched "
+                    "with K9's grid, threads and cluster, timed the same "
+                    "way",
     }, {
         "name": "K10 mq_decode_attn", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/mq_decode_attn.cu",
@@ -3148,12 +3212,16 @@ def main() -> int:
         "deterministic": True,
         "ms": ms10, "plain_ms": plain10, "bound_ms": bound10,
         "bound_by": by10, "library_ms": lib10, "host_ms": host10,
+        "floor_ms": floor10,
+        "kernels_per_call_by_splits": kmq["per_split"],
         "grow_cache": {"shape": list(MQ_GROW_SHAPE), "ms": t10g[0],
                        "plain_ms": t10g[1], "library_ms": t10g[2],
-                       "bound_ms": t10g[4], "bound_by": t10g[5]},
+                       "bound_ms": t10g[4], "bound_by": t10g[5],
+                       "floor_ms": kmq["floors"][MQ_GROW_SHAPE]},
         "long_cache": {"shape": list(MQ_LONG_SHAPE), "ms": t10l[0],
                        "plain_ms": t10l[1], "library_ms": t10l[2],
-                       "bound_ms": t10l[4], "bound_by": t10l[5]},
+                       "bound_ms": t10l[4], "bound_by": t10l[5],
+                       "floor_ms": kmq["floors"][MQ_LONG_SHAPE]},
         "generate": {tag: {k: r[k] for k in (
             "tokens_per_s", "wall_ms_median", "ttft_ms_p50", "ttft_ms_p99",
             "tpot_ms_p50", "tpot_ms_p99", "device_ms", "device_busy_share",
@@ -3170,7 +3238,9 @@ def main() -> int:
                     "torch.nn.functional.scaled_dot_product_attention with "
                     "the float [B, 1, k, C] window mask on the same q, k, v; "
                     "host_ms is the wrapper's enqueue time over the same "
-                    "calls",
+                    "calls; floor_ms is an empty kernel launched with "
+                    "K10's grid, threads, cluster and shared memory, timed "
+                    "the same way",
     }, {
         "name": "K6 layer_norm_act", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/layer_norm_act.cu",

@@ -1,6 +1,6 @@
 // Asynchronous copies from device memory to shared memory (cp.async), shared
-// by the kernels that stage their operands ahead of use: K3 and the fused
-// K4 + K5 (through flash_attn_common.cuh) and K8.
+// by the kernels that stage their operands ahead of use: K3, the fused
+// K4 + K5 and K10 (through flash_attn_common.cuh) and K8.
 
 #pragma once
 

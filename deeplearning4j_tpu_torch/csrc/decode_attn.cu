@@ -28,39 +28,46 @@
 // plus q, o and lengths over 3.35 TB/s. The TPU kernel streams the whole
 // bucket and masks it; this one reads nothing past L.
 //
-// Design (split-KV): a single query row would leave most of the card idle
-// with one CTA per (b, h), so the grid is (B*H, splits) and each CTA takes
-// a contiguous chunk of the row's L valid keys. The number of splits is
-// picked on the host from the cache length C (an upper bound of L that
-// needs no device read), B*H, and the 132 SMs (kernels/decode_attention.py
-// ::num_splits): enough CTAs for about four per SM, at least 64 keys of C
-// per split, at most 64 splits. Inside a CTA of 4 warps, a key is owned by
-// a group of D/VEC lanes, each holding VEC consecutive columns (VEC = 16
-// bytes of the element type, one 16-byte load per lane where d, the
-// pointers and the strides allow); a warp holds 32*VEC/D such groups. A
-// group's dot product is an in-order fmaf chain over its lane's columns
-// summed over the group by xor shuffles, so every lane of the group has the
-// same score. Each group keeps its own online softmax (m, l, and its
+// Design (split-KV in one launch): a single query row would leave most of
+// the card idle with one CTA per (b, h), so the grid is (B*H, splits) and
+// each CTA takes a contiguous chunk of the row's L valid keys. The number
+// of splits is picked on the host from the cache length C (an upper bound
+// of L that needs no device read), B*H, and the 132 SMs
+// (kernels/decode_attention.py::num_splits): enough CTAs for about four
+// per SM, at least 64 keys of C per split, at most 8 splits, the portable
+// cluster size. Where the grid has fewer than two CTAs an SM the CTA has 8
+// warps, else 4 (the host's choice, `threads`). Inside a CTA, a key is
+// owned by a group of D/VEC lanes, each holding VEC consecutive columns
+// (VEC = 16 bytes of the element type, one 16-byte load per lane where d,
+// the pointers and the strides allow); a warp holds 32*VEC/D such groups.
+// A group's dot product is an in-order fmaf chain over its lane's columns
+// summed over the group by xor shuffles, so every lane of the group has
+// the same score. Each group keeps its own online softmax (m, l, and its
 // lane's VEC columns of the p v sum), four keys per step with all their
 // loads issued first. The groups of a warp, then the warps of the CTA, are
-// merged in a fixed order; with one split the CTA writes o, else it writes
-// (m, l, acc) to f32 scratch and a second kernel merges the splits of a
-// row in split order. No atomics: a rerun is bitwise equal.
+// merged in a fixed order. With one split the CTA writes o. Else the
+// splits of a row form one thread-block cluster of (1, splits, 1) CTAs:
+// each rank stores its merged (m, l, acc[d]) into its own slot of rank 0's
+// shared memory (distributed shared memory), and after one cluster barrier
+// rank 0 merges the slots in rank order and writes o. One kernel, no
+// device-memory scratch, no atomics: a rerun is bitwise equal.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
 #include "flash_attn_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace dl4j;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
 constexpr int kUnroll = 4;  // keys per group per step, loads issued first
-constexpr int kMaxSplits = 64;
+constexpr int kMaxSplits = 8;  // the portable cluster size
 
 // Online-softmax state of one key group: running max, running sum, and the
 // lane's columns of the p v sum.
@@ -111,28 +118,37 @@ __device__ __forceinline__ void load_cols(float (&dst)[VEC],
   }
 }
 
-template <typename T, int D, bool VEC_OK>
-__global__ void __launch_bounds__(kThreads)
+// One slot of rank 0's shared memory per rank of a cluster: the rank's
+// merged state.
+template <int D>
+struct Slot {
+  float m, l, acc[D];
+};
+
+template <typename T, int D, int W, bool VEC_OK>
+__global__ void __launch_bounds__(32 * W)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ lengths,
-                   T* __restrict__ o, float* __restrict__ part_m,
-                   float* __restrict__ part_l, float* __restrict__ part_acc,
-                   int H, int C, int d, Strides qs, Strides ks, Strides vs,
-                   Strides os, float scale) {
+                   T* __restrict__ o, int H, int C, int d, Strides qs,
+                   Strides ks, Strides vs, Strides os, float scale) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int LPK = D / VEC;            // lanes per key group
   static_assert(LPK >= 1 && LPK <= 32, "head tile");
   constexpr int KPW = 32 / LPK;           // key groups per warp
-  constexpr int NG = kWarps * KPW;        // key groups per CTA
+  constexpr int NG = W * KPW;             // key groups per CTA
 
-  __shared__ float sm_m[kWarps], sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][D];
+  __shared__ float sm_m[W], sm_l[W];
+  __shared__ float sm_acc[W][D];
+  __shared__ Slot<D> slots[kMaxSplits];   // rank 0's, filled by every rank
+
+  // the cluster spans the grid's y: rank = split
+  const int splits = gridDim.y;
+  if (splits > 1) cluster_arrive();  // waited on before the remote stores
 
   const int g = blockIdx.x;
   const int b = g / H;
   const int h = g - b * H;
   const int split = blockIdx.y;
-  const int splits = gridDim.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int grp = lane / LPK;             // key group within the warp
@@ -225,125 +241,139 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  // the warps, merged in order 0..3; one thread per column
+  // the warps, merged in order; one thread per column (every thread stays
+  // for the cluster barriers)
   const int c = threadIdx.x;
-  if (c >= d) return;
+  const bool col = c < d;
   State<1> w;
-  w.m = sm_m[0];
-  w.l = sm_l[0];
-  w.acc[0] = sm_acc[0][c];
+  if (col) {
+    w.m = sm_m[0];
+    w.l = sm_l[0];
+    w.acc[0] = sm_acc[0][c];
 #pragma unroll
-  for (int i = 1; i < kWarps; ++i) {
-    const float a2[1] = {sm_acc[i][c]};
-    merge<1>(w, sm_m[i], sm_l[i], a2);
+    for (int i = 1; i < W; ++i) {
+      const float a2[1] = {sm_acc[i][c]};
+      merge<1>(w, sm_m[i], sm_l[i], a2);
+    }
   }
+  T* out = o + b * os.b + h * os.h;
   if (splits == 1) {
-    const float safe = w.l == 0.0f ? 1.0f : w.l;
-    o[b * os.b + h * os.h + c] = from_f32<T>(w.acc[0] / safe);
+    if (col) out[c] = from_f32<T>(w.acc[0] / (w.l == 0.0f ? 1.0f : w.l));
     return;
   }
-  const long long p = (long long)g * splits + split;
-  part_acc[p * d + c] = w.acc[0];
-  if (c == 0) {
-    part_m[p] = w.m;
-    part_l[p] = w.l;
-  }
-}
 
-// The splits of each (b, h) merged in split order, then o = acc / l,
-// rounded once.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_attn_combine(const float* __restrict__ part_m,
-                    const float* __restrict__ part_l,
-                    const float* __restrict__ part_acc, T* __restrict__ o,
-                    int H, int d, int splits, Strides os) {
-  const int g = blockIdx.x;
-  const int b = g / H;
-  const int h = g - b * H;
-  for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    const long long p0 = (long long)g * splits;
-    State<1> w;
-    w.m = part_m[p0];
-    w.l = part_l[p0];
-    w.acc[0] = part_acc[p0 * d + c];
-    for (int s = 1; s < splits; ++s) {
-      const float a2[1] = {part_acc[(p0 + s) * d + c]};
-      merge<1>(w, part_m[p0 + s], part_l[p0 + s], a2);
+  // this rank's state into its slot of rank 0's shared memory
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_wait();  // every CTA of the cluster has started
+  Slot<D>* dst = cluster.map_shared_rank(&slots[split], 0);
+  if (col) {
+    dst->acc[c] = w.acc[0];
+    if (c == 0) {
+      dst->m = w.m;
+      dst->l = w.l;
     }
-    const float safe = w.l == 0.0f ? 1.0f : w.l;
-    o[b * os.b + h * os.h + c] = from_f32<T>(w.acc[0] / safe);
   }
+  cluster.sync();  // every rank's slot has arrived
+  if (split != 0 || !col) return;
+
+  // rank 0: the splits merged in rank order, then o = acc / l, rounded once
+  w.m = slots[0].m;
+  w.l = slots[0].l;
+  w.acc[0] = slots[0].acc[c];
+  for (int r = 1; r < splits; ++r) {
+    const float a2[1] = {slots[r].acc[c]};
+    merge<1>(w, slots[r].m, slots[r].l, a2);
+  }
+  out[c] = from_f32<T>(w.acc[0] / (w.l == 0.0f ? 1.0f : w.l));
 }
 
-template <typename T, int D, bool VEC_OK>
-int launch(const void* q, const void* k, const void* v, const int* lengths,
-           void* o, float* pm, float* pl, float* pacc, int B, int H, int C,
-           int d, int splits, const long long* st, float scale,
-           cudaStream_t stream) {
-  const Strides qs{st[0], st[1], 0}, ks{st[2], st[3], st[4]},
-      vs{st[5], st[6], st[7]}, os{st[8], st[9], 0};
-  const dim3 grid((unsigned)(B * H), (unsigned)splits);
-  decode_attn_kernel<T, D, VEC_OK><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(o), pm, pl, pacc, H,
-      C, d, qs, ks, vs, os, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return (int)e;
-  decode_attn_combine<T><<<B * H, kThreads, 0, stream>>>(
-      pm, pl, pacc, static_cast<T*>(o), H, d, splits, os);
-  return (int)cudaGetLastError();
-}
+// An empty kernel launched as K9 is: the fixed cost of a launch.
+__global__ void decode_attn_floor_kernel() {}
 
-template <typename T, bool VEC_OK>
-int launch_d(const void* q, const void* k, const void* v, const int* lengths,
-             void* o, float* pm, float* pl, float* pacc, int B, int H, int C,
-             int d, int splits, const long long* st, float scale,
-             cudaStream_t stream) {
-  if (d <= 32)
-    return launch<T, 32, VEC_OK>(q, k, v, lengths, o, pm, pl, pacc, B, H, C,
-                                 d, splits, st, scale, stream);
-  if (d <= 64)
-    return launch<T, 64, VEC_OK>(q, k, v, lengths, o, pm, pl, pacc, B, H, C,
-                                 d, splits, st, scale, stream);
-  return launch<T, 128, VEC_OK>(q, k, v, lengths, o, pm, pl, pacc, B, H, C,
-                                d, splits, st, scale, stream);
+template <typename T, int D>
+const void* pick_w(int threads, bool vec_ok) {
+  if (threads == 256)
+    return vec_ok ? (const void*)decode_attn_kernel<T, D, 8, true>
+                  : (const void*)decode_attn_kernel<T, D, 8, false>;
+  return vec_ok ? (const void*)decode_attn_kernel<T, D, 4, true>
+                : (const void*)decode_attn_kernel<T, D, 4, false>;
 }
 
 template <typename T>
-int launch_t(const void* q, const void* k, const void* v, const int* lengths,
-             void* o, float* pm, float* pl, float* pacc, int B, int H, int C,
-             int d, int splits, const long long* st, float scale, int vec_ok,
-             cudaStream_t stream) {
-  return vec_ok ? launch_d<T, true>(q, k, v, lengths, o, pm, pl, pacc, B, H,
-                                    C, d, splits, st, scale, stream)
-                : launch_d<T, false>(q, k, v, lengths, o, pm, pl, pacc, B, H,
-                                     C, d, splits, st, scale, stream);
+const void* pick_d(int d, int threads, bool vec_ok) {
+  if (d <= 32) return pick_w<T, 32>(threads, vec_ok);
+  if (d <= 64) return pick_w<T, 64>(threads, vec_ok);
+  return pick_w<T, 128>(threads, vec_ok);
+}
+
+// The kernel instance for (dtype, d, threads, vec_ok).
+const void* pick(int dtype, int d, int threads, bool vec_ok) {
+  switch (dtype) {
+    case 0: return pick_d<float>(d, threads, vec_ok);
+    case 1: return pick_d<__nv_bfloat16>(d, threads, vec_ok);
+    default: return pick_d<__half>(d, threads, vec_ok);
+  }
+}
+
+bool valid(int B, int H, int C, int d, int splits, int threads, int dtype) {
+  return B > 0 && H > 0 && C > 0 && d > 0 && d <= 128 && splits >= 1 &&
+         splits <= kMaxSplits && (threads == 128 || threads == 256) &&
+         dtype >= 0 && dtype <= 2 && (long long)B * H <= 2147483647LL;
 }
 
 }  // namespace
 
 // strides: 10 element strides: (batch, head) of q, (batch, head, row) of k
-// and v, (batch, head) of o. part_m, part_l: f32 [B*H*splits]; part_acc:
-// f32 [B*H*splits*d] (unused, may be null, when splits == 1). vec_ok: d,
-// the pointers and the strides allow 16-byte loads. dtype: 0 = f32, 1 =
-// bf16, 2 = f16. Returns the CUDA error of the launches (0 on success), or
-// cudaErrorInvalidValue for a shape, head dimension (1..128), split count
-// (1..64) or dtype the kernel does not take.
+// and v, (batch, head) of o. splits: the CTAs (one cluster) of each (b, h)
+// row; threads: 128 or 256 a CTA. vec_ok: d, the pointers and the strides
+// allow 16-byte loads. dtype: 0 = f32, 1 = bf16, 2 = f16. Returns the CUDA
+// error of the launch (0 on success), or cudaErrorInvalidValue for a shape,
+// head dimension (1..128), split count (1..8), thread count or dtype the
+// kernel does not take.
 extern "C" int dl4j_decode_attn(const void* q, const void* k, const void* v,
-                                const int* lengths, void* o, float* part_m,
-                                float* part_l, float* part_acc, int B, int H,
-                                int C, int d, int splits,
+                                const int* lengths, void* o, int B, int H,
+                                int C, int d, int splits, int threads,
                                 const long long* strides, float scale,
                                 int vec_ok, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || C <= 0 || d <= 0 || d > 128 || splits < 1 ||
-      splits > kMaxSplits || (long long)B * H > 2147483647LL)
+  if (!valid(B, H, C, d, splits, threads, dtype))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch_t<float>(q, k, v, lengths, o, part_m, part_l, part_acc, B, H, C, d, splits, strides, scale, vec_ok, st);
-    case 1: return launch_t<__nv_bfloat16>(q, k, v, lengths, o, part_m, part_l, part_acc, B, H, C, d, splits, strides, scale, vec_ok, st);
-    case 2: return launch_t<__half>(q, k, v, lengths, o, part_m, part_l, part_acc, B, H, C, d, splits, strides, scale, vec_ok, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const long long* st = strides;
+  Strides qs{st[0], st[1], 0}, ks{st[2], st[3], st[4]},
+      vs{st[5], st[6], st[7]}, os{st[8], st[9], 0};
+  void* args[] = {(void*)&q, (void*)&k, (void*)&v, (void*)&lengths,
+                  (void*)&o, (void*)&H, (void*)&C, (void*)&d,
+                  (void*)&qs, (void*)&ks, (void*)&vs, (void*)&os,
+                  (void*)&scale};
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(
+      dim3((unsigned)(B * H), (unsigned)splits), dim3(threads), 0,
+      static_cast<cudaStream_t>(stream), 1, (unsigned)splits, attr);
+  int e;
+  if ((e = (int)cudaLaunchKernelExC(&cfg, pick(dtype, d, threads,
+                                                  vec_ok != 0),
+                                     args)) != 0)
+    return e;
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel with K9's grid, block, cluster and shared memory at this
+// shape, on `stream`: what a launch costs before any work. Returns the CUDA
+// error of the launch.
+extern "C" int dl4j_decode_attn_floor(int B, int H, int C, int d, int splits,
+                                      int threads, int dtype, void* stream) {
+  if (!valid(B, H, C, d, splits, threads, dtype))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes fa;
+  int e;
+  if ((e = (int)cudaFuncGetAttributes(&fa, pick(dtype, d, threads, true))) !=
+      0)
+    return e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(
+      dim3((unsigned)(B * H), (unsigned)splits), dim3(threads),
+      fa.sharedSizeBytes, static_cast<cudaStream_t>(stream), 1,
+      (unsigned)splits, attr);
+  if ((e = (int)cudaLaunchKernelEx(&cfg, decode_attn_floor_kernel)) != 0)
+    return e;
+  return (int)cudaGetLastError();
 }

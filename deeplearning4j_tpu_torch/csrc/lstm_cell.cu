@@ -64,6 +64,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
 #include "cp_async.cuh"
 #include "epilogue_act.cuh"
 
@@ -125,17 +126,6 @@ Geometry geometry(int B, int F, int U, int itemsize) {
   const int rt = B <= 8 ? 8 : 32;
   return Geometry{cs, slice, rt, cs * ((U + kUnits - 1) / kUnits),
                   (B + rt - 1) / rt, smem_bytes(rt, slice, itemsize)};
-}
-
-// The two halves of a cluster barrier with no memory ordering: a CTA
-// arrives when it starts and waits before it first writes to another CTA's
-// shared memory, so that every CTA of the cluster is running by then.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // Four consecutive elements of shared memory as f32 (16 bytes in f32, 8 in

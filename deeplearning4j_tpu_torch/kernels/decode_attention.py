@@ -27,15 +27,17 @@ output is ``[B, H, 1, d]`` in q's dtype, contiguous.
   dimension that is not contiguous, a failed build or a refused launch. No
   CUDA call gives way to the plain version.
 
-K9 splits each row's valid keys over :func:`num_splits` CTAs and merges
-them in a fixed order (no atomics): a rerun is bitwise equal. In f32 it
-agrees with the plain version within ``F32_TOL``; in 16-bit within
+K9 splits each row's valid keys over :func:`num_splits` CTAs, which form
+one thread-block cluster; each pushes its partial softmax state into rank
+0's shared memory and rank 0 merges them in rank order. One kernel a call,
+no scratch in device memory, no atomics: a rerun is bitwise equal. In f32
+it agrees with the plain version within ``F32_TOL``; in 16-bit within
 :func:`tolerance`, ``4 u (sum p |v| / l + |o|)`` per element (p is rounded
 against each split's running max, not the plain version's, so bitwise
 equality is not expected there).
 
-``launches`` counts wrapper calls that launched K9 (the combine kernel
-that follows a split launch is part of the same call).
+``launches`` counts wrapper calls that launched K9. :func:`launch_floor`
+launches an empty kernel the way K9 is launched, for timing beside it.
 """
 
 from __future__ import annotations
@@ -54,9 +56,12 @@ from .flash_attention import MAX_HEAD_DIM, flash_attention_fwd_reference
 
 #: SMs of an H100 SXM; :func:`num_splits` aims at four CTAs on each
 SMS = 132
-#: the fewest cache rows (of C) one split is given, and the most splits
+#: the fewest cache rows (of C) one split is given, and the most splits:
+#: the splits of a row form one cluster, at most the portable 8 CTAs
 MIN_KEYS_PER_SPLIT = 64
-MAX_SPLITS = 64
+MAX_SPLITS = 8
+#: a grid of fewer CTAs than this takes 256 threads a CTA, else 128
+WIDE_BELOW = 2 * SMS
 #: K9 against its plain version in float32: within F32_TOL x max(1,
 #: |ref|) (the JAX package's decode kernel-vs-reference contract is 1e-5;
 #: the sums run in another order and expf may differ by an ulp)
@@ -90,13 +95,20 @@ def decode_attention_reference(q, k, v, lengths, scale=None):
 
 
 def num_splits(B: int, H: int, C: int) -> int:
-    """The CTAs each (batch, head) row's keys are split over: enough for
-    about four CTAs on each of the ``SMS`` SMs, at least
+    """The CTAs (one cluster) each (batch, head) row's keys are split
+    over: enough for about four CTAs on each of the ``SMS`` SMs, at least
     ``MIN_KEYS_PER_SPLIT`` of the ``C`` cache rows each, at most
     ``MAX_SPLITS``. Picked from the cache length, an upper bound of every
     row's L, so the host reads no length off the device."""
     want = -(-4 * SMS // max(1, B * H))
     return max(1, min(want, -(-C // MIN_KEYS_PER_SPLIT), MAX_SPLITS))
+
+
+def cta_threads(B: int, H: int, C: int) -> int:
+    """Threads a K9 CTA: 256 where the grid of ``B H num_splits`` CTAs
+    has fewer than ``WIDE_BELOW`` (each CTA then walks its chunk in fewer
+    rounds), else 128."""
+    return 256 if B * H * num_splits(B, H, C) < WIDE_BELOW else 128
 
 
 def _check(q, k, v, lengths):
@@ -136,7 +148,7 @@ def _check(q, k, v, lengths):
 def _kernel():
     lib = _build.load("decode_attn")
     fn = lib.dl4j_decode_attn
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -166,30 +178,37 @@ def decode_attention(q, k, v, lengths, scale=None):
     C = k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    o = torch.empty((B, H, 1, d), dtype=q.dtype, device=q.device)
+    o = q.new_empty((B, H, 1, d))
     if o.numel() == 0 or C == 0:  # the plain version's 0 / 1
         return o.zero_()
-    splits = num_splits(B, H, C)
-    part_m = part_l = part_acc = None
-    if splits > 1:  # one f32 scratch: acc [B*H*splits, d], then m, then l
-        n = B * H * splits
-        scratch = torch.empty(n * (d + 2), dtype=torch.float32,
-                              device=q.device)
-        part_acc, part_m, part_l = scratch.split((n * d, n, n))
     strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
         o.stride(0), o.stride(1))
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            o.data_ptr(), *[None if t is None else t.data_ptr()
-                            for t in (part_m, part_l, part_acc)],
-            B, H, C, d, splits, strides, float(scale), int(_vec_ok(k, v)),
-            _DTYPE_CODES[q.dtype],
+            o.data_ptr(), B, H, C, d, num_splits(B, H, C),
+            cta_threads(B, H, C), strides, float(scale),
+            int(_vec_ok(k, v)), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")
     launches += 1
     return o
+
+
+def launch_floor(B: int, H: int, C: int, d: int, dtype=torch.float32,
+                 device=None) -> None:
+    """Launch an empty kernel with K9's grid, threads, cluster and shared
+    memory at this shape on the current stream: the fixed cost of one K9
+    launch, for timing beside it. Not counted in ``launches``."""
+    fn = _build.load("decode_attn").dl4j_decode_attn_floor
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(B, H, C, d, num_splits(B, H, C), cta_threads(B, H, C),
+            _DTYPE_CODES[dtype], torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention floor launch failed: CUDA "
+                           f"error {rc}")
 
 
 def _valid_rows(lengths, C: int) -> np.ndarray:

@@ -31,14 +31,18 @@ gives), in f32, bf16 or f16; ``lengths`` int32 ``[B]``. The output is
 
 K10 splits each row's keys over :func:`num_splits` CTAs (K9's count, from
 the cache length and never from the lengths, so the host reads nothing
-off the device) and merges them per query row in a fixed order (no
-atomics): a rerun is bitwise equal. In f32 it agrees with the plain
-version within ``F32_TOL``; in 16-bit within :func:`tolerance`, K9's
-``4 u (sum p |v| / l + |o|)`` per element taken over each query row's own
-window.
+off the device), which form one thread-block cluster. Each CTA walks its
+chunk in tiles of k and v staged in shared memory by asynchronous copies
+(a double buffer), one thread per (query, key) dot product; the CTAs push
+their per-query softmax states into rank 0's shared memory, which merges
+them in rank order. One kernel a call, no scratch in device memory, no
+atomics: a rerun is bitwise equal. In f32 it agrees with the plain version
+within ``F32_TOL``; in 16-bit within :func:`tolerance`, K9's ``4 u (sum p
+|v| / l + |o|)`` per element taken over each query row's own window.
 
-``launches`` counts wrapper calls that launched K10's main kernel and
-``combine_launches`` those that launched its split combine after it.
+``launches`` counts wrapper calls that launched K10. :func:`launch_floor`
+launches an empty kernel the way K10 is launched, for timing beside it;
+:func:`smem_bytes` is one CTA's shared memory.
 """
 
 from __future__ import annotations
@@ -64,10 +68,8 @@ F32_TOL = 2e-5
 _NEG = float(torch.finfo(torch.float32).min)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-#: Main-kernel launches since the last reset, and split-combine launches
-#: (plain integers; set them to 0).
+#: Kernel launches since the last reset (a plain integer; set it to 0).
 launches = 0
-combine_launches = 0
 
 
 def window_mask(lengths, n_queries: int, cache_len: int):
@@ -161,7 +163,7 @@ def _check(q, k, v, lengths):
 def _kernel():
     lib = _build.load("mq_decode_attn")
     fn = lib.dl4j_mq_decode_attn
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -176,38 +178,52 @@ def multiquery_decode(q, k, v, lengths, scale=None):
     if q.device.type != "cuda":
         raise ValueError(f"multiquery_decode: tensors on {q.device} are not "
                          "supported (cuda or cpu)")
-    global launches, combine_launches
+    global launches
     _check(q, k, v, lengths)
     fn = _kernel()
     B, H, Tq, d = q.shape
     C = k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    o = torch.empty((B, H, Tq, d), dtype=q.dtype, device=q.device)
+    o = q.new_empty((B, H, Tq, d))
     if o.numel() == 0 or C == 0:  # the plain version's 0 / 1
         return o.zero_()
-    splits = num_splits(B, H, C)
-    part_m = part_l = part_acc = None
-    if splits > 1:  # one f32 scratch: acc [B*H*splits*Tq, d], then m, l
-        n = B * H * splits * Tq
-        scratch = torch.empty(n * (d + 2), dtype=torch.float32,
-                              device=q.device)
-        part_acc, part_m, part_l = scratch.split((n * d, n, n))
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            o.data_ptr(), *[None if t is None else t.data_ptr()
-                            for t in (part_m, part_l, part_acc)],
-            B, H, C, d, Tq, splits, strides, float(scale),
-            int(_vec_ok(k, v)), _DTYPE_CODES[q.dtype],
+            o.data_ptr(), B, H, C, d, Tq, num_splits(B, H, C), strides,
+            float(scale), int(_vec_ok(k, v)), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"multiquery_decode kernel launch failed: CUDA "
                            f"error {rc}")
     launches += 1
-    if splits > 1:
-        combine_launches += 1
     return o
+
+
+def launch_floor(B: int, H: int, Tq: int, C: int, d: int,
+                 dtype=torch.float32, device=None) -> None:
+    """Launch an empty kernel with K10's grid, threads, cluster and shared
+    memory at this shape on the current stream: the fixed cost of one K10
+    launch, for timing beside it. Not counted in ``launches``."""
+    fn = _build.load("mq_decode_attn").dl4j_mq_decode_attn_floor
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(B, H, C, d, Tq, num_splits(B, H, C), _DTYPE_CODES[dtype],
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"multiquery_decode floor launch failed: CUDA "
+                           f"error {rc}")
+
+
+def smem_bytes(B: int, H: int, Tq: int, C: int, d: int,
+               dtype=torch.float32) -> int:
+    """The shared memory of one K10 CTA at this shape, as the compiled
+    library reckons it."""
+    fn = _build.load("mq_decode_attn").dl4j_mq_decode_attn_smem
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    return int(fn(B, H, d, Tq, num_splits(B, H, C), _DTYPE_CODES[dtype]))
 
 
 def valid_rows(lengths, n_queries: int, C: int) -> np.ndarray:

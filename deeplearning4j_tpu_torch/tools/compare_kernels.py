@@ -1,11 +1,12 @@
-"""K3 and K8 of this checkout against those of another checkout, timed in
-turns on one card.
+"""K3, K8, K9 and K10 of this checkout against those of another checkout,
+timed in turns on one card.
 
     python3 -m deeplearning4j_tpu_torch.tools.compare_kernels --other DIR
 
 DIR is another checkout of the repository (for instance the parent commit
-unpacked with ``git archive``). Its ``csrc/flash_attn_fwd.cu`` and
-``csrc/lstm_cell.cu`` are compiled with this checkout's ``nvcc`` flags
+unpacked with ``git archive``). Its ``csrc/flash_attn_fwd.cu``,
+``csrc/lstm_cell.cu``, ``csrc/decode_attn.cu`` and
+``csrc/mq_decode_attn.cu`` are compiled with this checkout's ``nvcc`` flags
 into ``build/other/`` and loaded beside this checkout's kernels. Then, on
 the same inputs (seed 0; TF32 off):
 
@@ -14,14 +15,27 @@ the same inputs (seed 0; TF32 off):
 - K8 at TextGenerationLSTM's two layers at batch 32, (B, F, U) = (32, 77,
   256) and (32, 256, 256), float32, x read through a row stride, and the
   empty kernel launched as K8 (``lstm_cell.launch_floor``);
+- K9 at ``chip_smoke.py``'s decode shapes (B, H, C, d), head-split q: the
+  generative path's (8, 4, 128, 64) at the lengths of a decode step
+  halfway through the bench's mix and the long (32, 12, 4096, 64) in
+  float32 and bfloat16, the other five in float32;
+- K10 at its verify shapes (B, H, k, C, d): the speculative mix's (8, 4,
+  4, 128, 64), the speculative growth mix's (32, 4, 4, 1024, 64) and the
+  long (32, 12, 4, 4096, 64) in float32 and bfloat16, the other four in
+  float32;
 
 each case is timed as other, this, this, other, ``--rounds`` times (CUDA
 events around each call, calls queued behind a sleep kernel, median of
 ``--reps``), and printed as one JSON line with the card's name and power
 limit, every reading, the two kernels' medians and their largest output
-difference. A checkout from before K8's cluster design (no
+difference; K9 and K10 lines also carry the empty kernel launched as this
+checkout's is (``floor_ms``) and, at the path shapes in float32,
+``scaled_dot_product_attention`` with the same float mask (``sdpa_ms``).
+A checkout from before K8's cluster design (no
 ``dl4j_lstm_cell_geometry``) takes a row tile where this one takes its copy
-widths. Needs one CUDA card.
+widths; one from before the one-launch K9 and K10 (no
+``dl4j_decode_attn_floor``) takes f32 scratch for its split states and
+its own split rule (at most 64 splits). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -38,11 +52,30 @@ from pathlib import Path
 import torch
 
 from ..kernels import _build
+from ..kernels import decode_attention as k9
 from ..kernels import lstm_cell as k8
+from ..kernels import multiquery_decode as k10
+from . import profile_generate as pg
 
 ATTN_SHAPE = (32, 12, 128, 128, 64)
 LSTM_SHAPES = ((32, 77, 256), (32, 256, 256))
 FORGET_BIAS = 1.0
+#: chip_smoke.py's K9 shapes (B, H, C, d) and K10 shapes (B, H, k, C, d);
+#: the first of each is the path's, and the named ones run in bfloat16 too
+DECODE_SHAPES = ((8, 4, 128, 64), (32, 4, 1024, 64), (32, 12, 512, 64),
+                 (32, 12, 4096, 64), (4, 8, 2048, 128), (3, 2, 200, 32),
+                 (32, 12, 64, 64))
+DECODE_PATH_SHAPE, DECODE_LONG_SHAPE = DECODE_SHAPES[0], DECODE_SHAPES[3]
+MQ_SHAPES = ((8, 4, 4, 128, 64), (32, 4, 4, 1024, 64), (32, 12, 4, 4096, 64),
+             (8, 4, 2, 512, 64), (8, 4, 8, 512, 64), (3, 2, 4, 200, 32),
+             (32, 12, 4, 64, 64))
+MQ_PATH_SHAPE, MQ_GROW_SHAPE, MQ_LONG_SHAPE = MQ_SHAPES[:3]
+#: a checkout from before the one-launch K9 and K10: its split cap
+OLD_MAX_SPLITS = 64
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+KERNEL_LIBS = ("flash_attn_fwd", "lstm_cell", "decode_attn", "mq_decode_attn")
 
 
 def card() -> str:
@@ -71,11 +104,12 @@ def time_ms(fn, reps: int, warm: int = 3) -> float:
 
 
 def build_other(root: Path) -> dict:
-    """The other checkout's K3 and K8 libraries, built into build/other/."""
+    """The other checkout's K3, K8, K9 and K10 libraries, built into
+    build/other/."""
     out = _build.BUILD_DIR / "other"
     out.mkdir(parents=True, exist_ok=True)
     libs, procs = {}, []
-    for name in ("flash_attn_fwd", "lstm_cell"):
+    for name in KERNEL_LIBS:
         src = root / "deeplearning4j_tpu_torch" / "csrc" / f"{name}.cu"
         lib = out / f"lib{name}-{time.time_ns()}.so"
         procs.append((name, lib, subprocess.Popen(
@@ -147,6 +181,105 @@ def lstm_fn(lib, x, h, c, w, rw, b):
     return call
 
 
+def decode_fn(lib, q, k, v, lengths, multi: bool):
+    """A call of ``lib``'s K9 entry (``multi`` False) or K10 entry
+    returning ``(o,)``. A library with a launch floor is the one-launch
+    design (this checkout's signature and split rule); one without takes
+    f32 scratch for its split states and splits a row over at most 64
+    CTAs."""
+    name = "dl4j_mq_decode_attn" if multi else "dl4j_decode_attn"
+    fn = getattr(lib, name)
+    one_launch = hasattr(lib, "dl4j_decode_attn_floor") or hasattr(
+        lib, "dl4j_mq_decode_attn_floor")
+    B, H, Tq, d = q.shape
+    C = k.shape[2]
+    o = torch.empty((B, H, Tq, d), dtype=q.dtype, device=q.device)
+    if multi:
+        strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    else:
+        strides = [*q.stride()[:2], *k.stride()[:3], *v.stride()[:3],
+                   *o.stride()[:2]]
+    st = (ctypes.c_longlong * len(strides))(*strides)
+    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            o.data_ptr()]
+    shape = [B, H, C, d] + ([Tq] if multi else [])
+    if one_launch:
+        splits = k9.num_splits(B, H, C)
+        ints = shape + [splits] + ([] if multi else
+                                   [k9.cta_threads(B, H, C)])
+        ptrs = head
+    else:
+        want = -(-4 * k9.SMS // (B * H))
+        splits = max(1, min(want, -(-C // k9.MIN_KEYS_PER_SPLIT),
+                            OLD_MAX_SPLITS))
+        n = B * H * splits * (Tq if multi else 1)
+        scratch = torch.empty(n * (d + 2), dtype=torch.float32,
+                              device=q.device)
+        acc, m, l = scratch.split((n * d, n, n))
+        ints = shape + [splits]
+        ptrs = head + [m.data_ptr(), l.data_ptr(), acc.data_ptr()]
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(
+        ints) + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    vec = int(k9._vec_ok(k, v))
+
+    def call():
+        rc = fn(*ptrs, *ints, st, 1.0 / math.sqrt(d), vec, _CODES[q.dtype],
+                stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        return (o,)
+    return call
+
+
+def decode_cases(gen, dev) -> list:
+    """``(kernel, shape, dtype, lengths)`` of the K9 and K10 cases: the
+    path shapes at the lengths of a step halfway through their mixes (as
+    ``chip_smoke.py`` times them), the others at lengths drawn from
+    ``gen`` in [C/2, C] (before the window for K10)."""
+    path = {
+        DECODE_PATH_SHAPE: [len(p) + pg.BENCH["max_new_tokens"] // 2 + 1
+                            for p in pg.prompts(*pg.BENCH_PROMPTS)],
+        MQ_PATH_SHAPE: [pg.SYSTEM_PROMPT_LEN
+                        + pg.PAGED["max_new_tokens"] // 2] * MQ_PATH_SHAPE[0],
+        MQ_GROW_SHAPE: [len(p) + pg.GROW["max_new_tokens"] // 2
+                        for p in pg.prompts(*pg.GROW_PROMPTS)]}
+    named = (DECODE_PATH_SHAPE, DECODE_LONG_SHAPE, MQ_PATH_SHAPE,
+             MQ_GROW_SHAPE, MQ_LONG_SHAPE)
+    cases = []
+    for kernel, shapes in (("K9", DECODE_SHAPES), ("K10", MQ_SHAPES)):
+        for shape in shapes:
+            B, C = shape[0], shape[-2]
+            top = C if kernel == "K9" else C - shape[2]
+            ln = path.get(shape) or torch.randint(
+                C // 2, top + 1, (B,), generator=gen, device=dev).tolist()
+            ln = torch.tensor(ln, dtype=torch.int32, device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                if dtype == torch.float32 or shape in named:
+                    cases.append((kernel, shape, dtype, ln))
+    return cases
+
+
+def sdpa_ms(q, k, v, lengths, multi: bool, reps: int) -> float:
+    """``scaled_dot_product_attention`` on the same q, k, v with the
+    float length (K9) or window (K10) mask, as ``chip_smoke.py`` times
+    it."""
+    import torch.nn.functional as F
+    C = k.shape[2]
+    if multi:
+        keep, uniform = k10.window_mask(lengths, q.shape[2], C)
+        keep = keep | uniform[:, :, None]
+    else:
+        keep = (torch.arange(C, device=q.device)[None, :]
+                < lengths[:, None])[:, None, :]
+    mask = torch.where(keep, 0.0, float(torch.finfo(torch.float32).min))
+    mask = mask[:, None].to(q.dtype)
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), reps)
+
+
 def in_turns(other, this, rounds: int, reps: int) -> dict:
     """other, this, this, other, ``rounds`` times; the largest difference of
     the two kernels' outputs."""
@@ -174,7 +307,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     name = card()
     other = build_other(a.other.resolve())
-    this = {n: _build.load(n) for n in ("flash_attn_fwd", "lstm_cell")}
+    this = {n: _build.load(n) for n in KERNEL_LIBS}
     gen = torch.Generator(device=dev).manual_seed(0)
 
     B, H, Tq, Tk, d = ATTN_SHAPE
@@ -209,6 +342,36 @@ def main(argv=None) -> int:
         print(json.dumps({"kernel": "K8", "shape": (B, F, U),
                           "dtype": "float32", "layout": "strided",
                           "card": name, "floor_ms": floor, **row}),
+              flush=True)
+
+    for kernel, shape, dtype, ln in decode_cases(gen, dev):
+        multi = kernel == "K10"
+        B, H = shape[:2]
+        C, d = shape[-2:]
+        Tq = shape[2] if multi else 1
+        q = torch.randn(B, Tq, H, d, generator=gen, device=dev).to(
+            dtype).transpose(1, 2)
+        k, v = (torch.randn(B, H, C, d, generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        lib = "mq_decode_attn" if multi else "decode_attn"
+        row = in_turns(decode_fn(other[lib], q, k, v, ln, multi),
+                       decode_fn(this[lib], q, k, v, ln, multi),
+                       a.rounds, a.reps)
+        if multi:
+            floor = time_ms(lambda: k10.launch_floor(B, H, Tq, C, d, dtype),
+                            a.reps)
+        else:
+            floor = time_ms(lambda: k9.launch_floor(B, H, C, d, dtype),
+                            a.reps)
+        extra = {}
+        if shape in (DECODE_PATH_SHAPE, MQ_PATH_SHAPE) \
+                and dtype == torch.float32:
+            extra["sdpa_ms"] = sdpa_ms(q, k, v, ln, multi, a.reps)
+        print(json.dumps({"kernel": kernel, "shape": shape,
+                          "dtype": str(dtype)[6:], "layout": "heads",
+                          "splits": k9.num_splits(B, H, C),
+                          "lengths": [int(ln.min()), int(ln.max())],
+                          "card": name, "floor_ms": floor, **extra, **row}),
               flush=True)
     return 0
 

@@ -32,11 +32,10 @@ second, TTFT and TPOT p50/p99 (ms) over those runs, the engine's prefills,
 decode and verify steps and the draft's decode steps per run, the page
 pool's and the speculation's counters where the mix has them, and for one
 more run under ``torch.profiler``: the device time, the busy share (device
-time over the median wall), the device time of K9 (``csrc/decode_attn.cu``:
-the split kernel and its combine), of K10 (``csrc/mq_decode_attn.cu``,
-likewise) and of K3 (``csrc/flash_attn_fwd.cu``), and the kernels that
-took the most device time. Precision ``highest`` (TF32 off). Needs one
-CUDA card.
+time over the median wall), the device time of K9 (``csrc/decode_attn.cu``),
+of K10 (``csrc/mq_decode_attn.cu``) and of K3 (``csrc/flash_attn_fwd.cu``),
+one kernel a call each, and the kernels that took the most device time.
+Precision ``highest`` (TF32 off). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -73,9 +72,9 @@ SYSTEM_PROMPT_LEN = 90
 SPECULATE_K = 4
 #: the growth mix made paged and speculative
 GROW_PAGED = dict(GROW, paged=True, page_size=16)
-#: K9's, K10's and K3's CUDA functions
-K9_KERNELS = ("decode_attn_kernel", "decode_attn_combine")
-K10_KERNELS = ("mq_decode_kernel", "mq_decode_combine")
+#: K9's, K10's and K3's CUDA kernels
+K9_KERNEL = "decode_attn_kernel"
+K10_KERNEL = "mq_decode_kernel"
 K3_KERNEL = "flash_attn_fwd_kernel"
 #: a greedy card token may differ from the CPU's argmax only where the
 #: CPU's top two probabilities are closer than this share of the top one:
@@ -153,13 +152,12 @@ def _kernel_split(prof):
                if e.device_type == torch.autograd.DeviceType.CUDA
                and device_us(e) > 0]
 
-    def ms(names):
-        return sum(device_us(e) for e in kernels
-                   if any(k in e.key for k in names)) / 1e3
+    def ms(name):
+        return sum(device_us(e) for e in kernels if name in e.key) / 1e3
 
     top = sorted(kernels, key=device_us, reverse=True)[:8]
-    return (sum(device_us(e) for e in kernels) / 1e3, ms(K9_KERNELS),
-            ms(K10_KERNELS), ms((K3_KERNEL,)),
+    return (sum(device_us(e) for e in kernels) / 1e3, ms(K9_KERNEL),
+            ms(K10_KERNEL), ms(K3_KERNEL),
             [[e.key[:70], device_us(e) / 1e3, e.count] for e in top])
 
 

@@ -20,12 +20,16 @@ the card.
    ``reference_decode_multiquery`` bit for bit against JAX's.
 3. The dispatch's decisions on CPU tensors, its refusals on CUDA ones
    (a stand-in tensor that reports a CUDA device), K9's wrapper checks,
-   the split rule and the bound arithmetic.
-4. On the card: K9 against its plain version, rerun bitwise equal.
+   one launch a call with no scratch (the kernel stubbed), the split rule
+   and the bound arithmetic.
+4. On the card: K9 against its plain version, rerun bitwise equal, one
+   kernel a call at split counts 1, 2 and the cluster cap.
 
 JAX is imported only by the tests that compare with it, so ``python3 -m
 pytest --noconftest tests/test_torch_decode_attention.py -m cuda`` runs on
 a machine with the card and no JAX."""
+
+import types
 
 import numpy as np
 import pytest
@@ -308,6 +312,44 @@ def test_k9_wrapper_checks_before_launch(plain_forbidden):
                             k, v, ln)
 
 
+@pytest.fixture
+def stub_launch(monkeypatch):
+    """K9's and K10's kernel entries replaced by a recorder of their
+    arguments (and the CUDA stream by a stand-in): the wrappers' CUDA
+    branch without a card."""
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+    monkeypatch.setattr(k9, "_kernel", lambda: entry)
+    monkeypatch.setattr(k10, "_kernel", lambda: entry)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None:
+                        types.SimpleNamespace(cuda_stream=7))
+    return calls
+
+
+@pytest.mark.parametrize("C", [16, 256], ids=["one-split", "four-splits"])
+def test_k9_launches_once_a_call_without_scratch(stub_launch, C):
+    """One entry call a wrapper call, whatever the split count, with the
+    five operands as its only pointers: no scratch, no combine launch."""
+    B, H, d = 2, 2, 8
+    q, k, v = (_fake(torch.from_numpy(a)) for a in _operands(B, H, C, d))
+    ln = _fake(torch.tensor([3, C], dtype=torch.int32))
+    before = k9.launches
+    o = k9.decode_attention(q, k, v, ln)
+    assert k9.launches == before + 1 and len(stub_launch) == 1
+    args = stub_launch[0]
+    assert args[:5] == tuple(t.data_ptr() for t in (q, k, v, ln, o))
+    splits = k9.num_splits(B, H, C)
+    assert splits == (1 if C == 16 else 4)
+    assert args[5:11] == (B, H, C, d, splits, k9.cta_threads(B, H, C))
+    assert list(args[11]) == [*q.stride()[:2], *k.stride()[:3],
+                              *v.stride()[:3], *o.stride()[:2]]
+    assert args[12:] == (pytest.approx(d ** -0.5), 1, 0, 7)
+    assert tuple(o.shape) == (B, H, 1, d)
+
+
 def test_cpu_wrapper_runs_the_plain_version_without_a_launch():
     q, k, v, ln = _cpu_case()
     before = k9.launches
@@ -339,14 +381,43 @@ def test_tolerance_rejects_a_dropped_split(dtype):
     assert splits == 4 and rows == 4 * (B - 1) * H
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_tolerance_rejects_a_dropped_split_at_the_cap(dtype):
+    """As above, at a shape whose rows take the most splits, one cluster
+    of ``MAX_SPLITS`` CTAs each."""
+    B, H, C, d = 2, 3, 1024, 32
+    q, k, v = [torch.from_numpy(a).to(dtype)
+               for a in _operands(B, H, C, d, seed=4)]
+    ln = torch.from_numpy(_lengths(B, C, seed=4))
+    ref = k9.decode_attention_reference(q, k, v, ln)
+    tol = k9.tolerance(ref, q, k, v, ln)
+    splits = k9.num_splits(B, H, C)
+    rows = 0
+    for which in range(splits):
+        bad, partial = k9.dropped_split_reference(q, k, v, ln, which)
+        viol = ((bad.double() - ref.double()).abs() / tol).amax((2, 3))
+        rows += viol[partial].numel()
+        assert (viol[partial] > 1.0).all(), (which, viol)
+    # the L = C row loses part of its keys to each split, the L = 1 row
+    # none
+    assert splits == k9.MAX_SPLITS and rows == splits * H
+
+
 def test_split_rule_and_bound():
-    # about four CTAs per SM, at least 64 cache rows per split, at most 64
+    # about four CTAs per SM, at least 64 cache rows per split, at most the
+    # portable cluster size of 8
+    assert k9.MAX_SPLITS == 8
     assert k9.num_splits(8, 4, 128) == 2
     assert k9.num_splits(32, 4, 1024) == 5
     assert k9.num_splits(32, 12, 4096) == 2
-    assert k9.num_splits(4, 8, 2048) == 17
+    assert k9.num_splits(4, 8, 2048) == 8
     assert k9.num_splits(1, 1, 1 << 20) == k9.MAX_SPLITS
     assert k9.num_splits(512, 16, 64) == 1
+    # 256 threads a CTA below two CTAs an SM, else 128
+    assert k9.cta_threads(8, 4, 128) == 256        # 64 CTAs
+    assert k9.cta_threads(4, 8, 2048) == 256       # 256 CTAs
+    assert k9.cta_threads(32, 4, 1024) == 128      # 640 CTAs
+    assert k9.cta_threads(32, 12, 4096) == 128     # 768 CTAs
     ln = [0, 5, 300]  # L = 0 reads all C rows; L past C reads C
     assert k9.bytes_moved(ln, 2, 128, 64, 4) == \
         2 * (128 + 5 + 128) * 2 * 64 * 4 + 2 * 3 * 2 * 64 * 4 + 4 * 3
@@ -355,6 +426,21 @@ def test_split_rule_and_bound():
     assert by == "bytes"
     assert ms == pytest.approx(1e3 * k9.bytes_moved(ln, 2, 128, 64, 4)
                                / k9.H100_BYTES_PER_S)
+
+
+def test_vec_ok_takes_16_byte_rows_only():
+    """K9 and K10 copy k and v 16 bytes at a time only where d, the
+    pointers and the strides fall on 16 bytes; the card tests' d = 6 case
+    takes the element path in every dtype."""
+    for dtype, n in ((torch.float32, 4), (torch.bfloat16, 8),
+                     (torch.float16, 8)):
+        k = torch.zeros(3 * 2 * 100 * n + 1, dtype=dtype)
+        rows = k[:-1].view(3, 2, 100, n)
+        assert k9._vec_ok(rows, rows)
+        shifted = k[1:].view(3, 2, 100, n)  # one element off 16 bytes
+        assert not k9._vec_ok(rows, shifted)
+        six = torch.zeros(3, 2, 100, 6, dtype=dtype)
+        assert not k9._vec_ok(six, six)
 
 
 def test_build_lists_the_decode_source():
@@ -377,7 +463,7 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("B,H,C,d", [(8, 4, 128, 64), (32, 12, 512, 64),
                                      (4, 8, 2048, 128), (3, 2, 200, 32),
-                                     (2, 1, 1, 8)], ids=str)
+                                     (2, 1, 1, 8), (3, 2, 100, 6)], ids=str)
 def test_k9_matches_plain_on_card(cuda_device, B, H, C, d, dtype):
     q, k, v = [torch.from_numpy(a).to(cuda_device, dtype)
                for a in _operands(B, H, C, d)]
@@ -400,3 +486,43 @@ def test_k9_matches_plain_on_card(cuda_device, B, H, C, d, dtype):
             assert k9.max_violation(got, ref, qq, k, v, ln) <= 1.0
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+#: (B, H, C, d, splits): one split, two, and the cluster cap
+SPLIT_CASES = [(32, 12, 64, 64, 1), (8, 4, 128, 64, 2), (2, 3, 1024, 64, 8)]
+
+
+@pytest.fixture(scope="module")
+def kernels_a_call():
+    """``{(shape, dtype name): device kernels of one call}`` for every
+    SPLIT_CASES shape and dtype, from ``torch.profiler`` in a fresh process
+    (``tools/count_kernels.py`` says why)."""
+    if not torch.cuda.is_available():
+        pytest.skip("K9 is CUDA C++ with no CPU mode; needs an NVIDIA card "
+                    "and nvcc")
+    from deeplearning4j_tpu_torch.tools import count_kernels
+    got = count_kernels.count_in_subprocess(
+        [["K9", list(c[:4]), str(dt)[6:]] for c in SPLIT_CASES
+         for dt in DTYPES])
+    return {(tuple(shape), dtype): names for _, shape, dtype, _, names in got}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("B,H,C,d,splits", SPLIT_CASES, ids=str)
+def test_k9_one_kernel_at_each_split_count(cuda_device, kernels_a_call, B, H,
+                                           C, d, splits, dtype):
+    """One split, two, and the cluster cap: K9 against its plain version,
+    and ``torch.profiler`` sees one kernel a call."""
+    assert k9.num_splits(B, H, C) == splits
+    names = kernels_a_call[((B, H, C, d), str(dtype)[6:])]
+    assert len(names) == 1 and "decode_attn_kernel" in names[0], names
+    q, k, v = [torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _operands(B, H, C, d, seed=5)]
+    ln = torch.from_numpy(_lengths(B, C, seed=5)).to(cuda_device)
+    before = k9.launches
+    got = k9.decode_attention(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert k9.launches == before + 1
+    ref = k9.decode_attention_reference(q, k, v, ln)
+    assert k9.max_violation(got, ref, q, k, v, ln) <= 1.0

@@ -19,17 +19,21 @@ the card.
    i equals a single-query decode at ``lengths + 1 + i``, and rows past a
    query's window (poisoned with +-999) change nothing.
 3. The tolerance rejects a kernel that drops one split's keys in every
-   affected (b, h, query) row.
+   affected (b, h, query) row, also at the cluster cap of 8 splits.
 4. The dispatch's decisions on CPU tensors, its route on CUDA ones (a
    stand-in tensor that reports a CUDA device reaches K10's wrapper and
    never its plain version; mode ``off`` raises), the wrapper's limits
    (a window above 16 rows, a head dimension above 128, another dtype:
-   ValueErrors naming the limit) and the bound arithmetic.
-5. On the card: K10 against its plain version, rerun bitwise equal.
+   ValueErrors naming the limit), one launch a call with no scratch (the
+   kernel stubbed) and the bound arithmetic.
+5. On the card: K10 against its plain version, rerun bitwise equal, one
+   kernel a call at split counts 1, 2 and the cluster cap.
 
 JAX is imported only by the tests that compare with it, so ``python3 -m
 pytest --noconftest tests/test_torch_multiquery_decode.py -m cuda`` runs on
 a machine with the card and no JAX."""
+
+import types
 
 import numpy as np
 import pytest
@@ -185,6 +189,27 @@ def test_tolerance_rejects_a_dropped_split(dtype):
     assert splits == 4 and rows > 0
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_tolerance_rejects_a_dropped_split_at_the_cap(dtype):
+    """As above, at a shape whose rows take the most splits, one cluster
+    of ``MAX_SPLITS`` CTAs each."""
+    B, H, Tq, C, d = 3, 2, 4, 1024, 32
+    q, k, v = [torch.from_numpy(a).to(dtype)
+               for a in _operands(B, H, Tq, C, d, seed=4)]
+    ln = torch.tensor([1020, 500, -2], dtype=torch.int32)
+    ref = k10.multiquery_decode_reference(q, k, v, ln)
+    tol = k10.tolerance(ref, q, k, v, ln)
+    splits = k9.num_splits(B, H, C)
+    rows = 0
+    for which in range(splits):
+        bad, partial = k10.dropped_split_reference(q, k, v, ln, which)
+        viol = ((bad.double() - ref.double()).abs() / tol).amax(-1)
+        sel = partial[:, None, :].expand(B, H, Tq)
+        rows += int(sel.sum())
+        assert (viol[sel] > 1.0).all(), (which, viol)
+    assert splits == k9.MAX_SPLITS and rows > 0
+
+
 def test_window_mask_and_valid_rows():
     keep, uniform = k10.window_mask(torch.tensor([0, 5, -2]), 3, 8)
     assert keep.shape == (3, 3, 8) and uniform.shape == (3, 3)
@@ -287,6 +312,43 @@ def test_k10_wrapper_limits_raise_before_launch(plain_forbidden):
                               k, v, ln)
 
 
+@pytest.fixture
+def stub_launch(monkeypatch):
+    """K10's kernel entry replaced by a recorder of its arguments (and the
+    CUDA stream by a stand-in): the wrapper's CUDA branch without a card."""
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+    monkeypatch.setattr(k10, "_kernel", lambda: entry)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None:
+                        types.SimpleNamespace(cuda_stream=7))
+    return calls
+
+
+@pytest.mark.parametrize("C", [16, 256], ids=["one-split", "four-splits"])
+def test_k10_launches_once_a_call_without_scratch(stub_launch, C):
+    """One entry call a wrapper call, whatever the split count, with the
+    five operands as its only pointers: no scratch, no combine launch."""
+    B, H, Tq, d = 2, 2, 3, 8
+    q, k, v = (_fake(torch.from_numpy(a))
+               for a in _operands(B, H, Tq, C, d))
+    ln = _fake(torch.tensor([3, C - Tq], dtype=torch.int32))
+    before = k10.launches
+    o = k10.multiquery_decode(q, k, v, ln)
+    assert k10.launches == before + 1 and len(stub_launch) == 1
+    args = stub_launch[0]
+    assert args[:5] == tuple(t.data_ptr() for t in (q, k, v, ln, o))
+    splits = k9.num_splits(B, H, C)
+    assert splits == (1 if C == 16 else 4)
+    assert args[5:11] == (B, H, C, d, Tq, splits)
+    assert list(args[11]) == [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    assert args[12:] == (pytest.approx(d ** -0.5), 1, 0, 7)
+    assert tuple(o.shape) == (B, H, Tq, d)
+    assert not hasattr(k10, "combine_launches")
+
+
 def test_bound_arithmetic():
     ln = [0, 5, 300, -3]  # L + k rows; past C reads C; a masked query: C
     rows = 4 + 9 + 128 + 128
@@ -321,7 +383,8 @@ def cuda_device():
                                         (32, 4, 4, 1024, 64),
                                         (4, 8, 8, 2048, 128),
                                         (3, 2, 2, 200, 32),
-                                        (2, 1, 16, 24, 8)], ids=str)
+                                        (2, 1, 16, 24, 8),
+                                        (3, 2, 4, 100, 6)], ids=str)
 def test_k10_matches_plain_on_card(cuda_device, B, H, Tq, C, d, dtype):
     q, k, v = [torch.from_numpy(a).to(cuda_device, dtype)
                for a in _operands(B, H, Tq, C, d)]
@@ -344,3 +407,45 @@ def test_k10_matches_plain_on_card(cuda_device, B, H, Tq, C, d, dtype):
             assert k10.max_violation(got, ref, qq, k, v, ln) <= 1.0
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+#: (B, H, k, C, d, splits): one split, two, and the cluster cap (the last
+#: at the kernel's largest shared memory, 16 queries of d = 128)
+SPLIT_CASES = [(32, 12, 4, 64, 64, 1), (8, 4, 4, 128, 64, 2),
+               (2, 3, 4, 1024, 64, 8), (2, 3, 16, 1024, 128, 8)]
+
+
+@pytest.fixture(scope="module")
+def kernels_a_call():
+    """``{(shape, dtype name): device kernels of one call}`` for every
+    SPLIT_CASES shape and dtype, from ``torch.profiler`` in a fresh process
+    (``tools/count_kernels.py`` says why)."""
+    if not torch.cuda.is_available():
+        pytest.skip("K10 is CUDA C++ with no CPU mode; needs an NVIDIA card "
+                    "and nvcc")
+    from deeplearning4j_tpu_torch.tools import count_kernels
+    got = count_kernels.count_in_subprocess(
+        [["K10", list(c[:5]), str(dt)[6:]] for c in SPLIT_CASES
+         for dt in DTYPES])
+    return {(tuple(shape), dtype): names for _, shape, dtype, _, names in got}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("B,H,Tq,C,d,splits", SPLIT_CASES, ids=str)
+def test_k10_one_kernel_at_each_split_count(cuda_device, kernels_a_call, B, H,
+                                            Tq, C, d, splits, dtype):
+    """One split, two, and the cluster cap: K10 against its plain version,
+    and ``torch.profiler`` sees one kernel a call."""
+    assert k9.num_splits(B, H, C) == splits
+    names = kernels_a_call[((B, H, Tq, C, d), str(dtype)[6:])]
+    assert len(names) == 1 and "mq_decode_kernel" in names[0], names
+    q, k, v = [torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _operands(B, H, Tq, C, d, seed=5)]
+    ln = torch.from_numpy(_lengths(B, Tq, C, seed=5)).to(cuda_device)
+    before = k10.launches
+    got = k10.multiquery_decode(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert k10.launches == before + 1
+    ref = k10.multiquery_decode_reference(q, k, v, ln)
+    assert k10.max_violation(got, ref, q, k, v, ln) <= 1.0
