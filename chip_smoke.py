@@ -13,8 +13,10 @@ Phases, in order; any failure exits non-zero:
 3. kernel against plain: K1 (the BN-affine + activation epilogue) against
    its plain PyTorch version for all 7 activations in float32 and bfloat16
    at the 9 distinct ``[rows, C]`` shapes of ResNet-50 at batch 32 plus
-   one ragged shape, with CUDA-event times beside the memory bound and
-   ``torch.addcmul`` (the one PyTorch call computing the identity case);
+   one ragged shape, and at LeNet's two (its convolutions' outputs at
+   batch 125, with and without scale), a second run bitwise equal, with
+   CUDA-event times beside the memory bound and ``torch.addcmul`` (the one
+   PyTorch call computing the identity case);
 4. serve: a full-width ResNet-50 (224x224x3, 1000 classes, float32, seed
    0, random weights, TF32 off) through ``InferenceEngine``: warm-up,
    ragged requests of 1, 3, 7 and 32 images with exactly 53 K1 launches
@@ -23,7 +25,7 @@ Phases, in order; any failure exits non-zero:
 5. server: ``JsonModelServer`` on localhost answering POST /predict, each
    answer held against ``net.output``;
 6. kernel-bwd against plain: K2 (the affine-epilogue backward) against its
-   plain PyTorch version at the same 10 shapes, 7 activations, float32 and
+   plain PyTorch version at the same 12 shapes, 7 activations, float32 and
    bfloat16, with and without ``scale``: ``dx``, ``dscale`` and
    ``dshift``, a second run bitwise equal, and CUDA-event times beside
    the memory bound;
@@ -39,7 +41,18 @@ Phases, in order; any failure exits non-zero:
    of 1 x 28 x 28, forward and backward, with exactly 2 K1 and 2 K2
    launches, one
    counted channels-last copy, and the output and every gradient against
-   the CPU plain path;
+   the CPU plain path; then lenet: zoo ``lenet()`` (conv 5x5 (20) -> max
+   pool -> conv 5x5 (50) -> max pool -> dense 500 -> softmax 10, NCHW,
+   Adam(1e-3), l2(5e-5), float32, seed 123) trained through
+   ``MultiLayerNetwork.fit`` on synthetic MNIST: its first 3 batch-125
+   steps on the card against the CPU plain path from the same weights
+   (every parameter's gradient of the first batch within 5e-6 relative
+   leaf by leaf, the losses within 1e-3), then 3 epochs of 8000 digits
+   with 2 K1 + 2 K2 launches and one counted channels-last copy a step and
+   only ``fused`` decisions, ``evaluate`` on 2000 test digits (2 K1 a forward)
+   reaching at least 0.95, the step time, images/s and a
+   ``torch.profiler`` split (device time, busy share of the unprofiled
+   step, K1 and K2);
 8. kernel-attn against plain: K3 (the flash-attention forward) against its
    plain PyTorch version at (B, H, Tq, Tk, d) = (32, 12, 128, 128, 64),
    (1, 12, 128, 128, 64), ragged (2, 12, 77, 77, 64), (2, 4, 200, 200,
@@ -181,7 +194,11 @@ Phases, in order; any failure exits non-zero:
     ``1000 + N(0, 1)``, where K6 holds and a one-pass variance in float32
     is rejected for every activation; CUDA-event times at (4096, 768)
     beside the bounds, the plain versions, ``F.layer_norm`` and
-    ``native_layer_norm_backward`` (fed the same mean and rstd); and K1
+    ``native_layer_norm_backward`` (fed the same mean and rstd), K7 in
+    float32 and bfloat16 beside an empty kernel launched as K7 is, with its
+    registers, shared memory and CTAs an SM; one device
+    kernel a K7 call at every shape and dtype (``torch.profiler``, a fresh
+    process); and K1
     and K2 with the exact GELU at (4096, 3072), the fused graph's 12
     ``bias_act`` sites, beside their bounds and ``F.gelu(x + b)``;
 21. bert-ln: BERT-base as in phase 9, recorded with
@@ -205,8 +222,8 @@ Phases, in order; any failure exits non-zero:
 23. summary: a ``{"kernels": [...]}`` line (K1-K10), the ``nvidia-smi``
     name and power limit, and last ``{"ok": true, "device": {...}}``.
 
-The serving path (phases 4-5), the training path and the NCHW block
-(phase 7), the BERT
+The serving path (phases 4-5), the training path, the NCHW block and
+LeNet's fit and evaluation (phase 7), the BERT
 serving path (phase 9), the BERT fine-tune path (phase 11), the LSTM
 serving path and the LSTM streaming path (phase 13), the two generative
 mixes (phase 16), the generative server (phase 17), the paged mix (phase
@@ -306,6 +323,28 @@ ATTN_BWD_EXTRA_SHAPES = ((2, 4, 96, 300, 32), (2, 3, 50, 70, 48),
 #: transform-based algorithm for the weight gradient
 NCHW_BATCH = 64
 NCHW_REL_TOL = 1e-4
+#: LeNet on synthetic MNIST through MultiLayerNetwork.fit: the JAX
+#: package's synthetic tier (tests/test_lenet_mnist.py: batch 125, 8000
+#: training and 2000 test digits, 3 epochs, accuracy >= 0.95); the card's
+#: first steps against the port's CPU plain path from the same weights,
+#: each loss within LENET_LOSS_TOL relative (float32, TF32 off; cuDNN and
+#: the CPU sum the convolutions in other orders)
+LENET_BATCH = 125
+LENET_TRAIN = 8000
+LENET_TEST = 2000
+LENET_TEST_BATCH = 500
+LENET_EPOCHS = 3
+LENET_MIN_ACCURACY = 0.95
+LENET_PARITY_STEPS = 3
+LENET_LOSS_TOL = 1e-3
+#: every parameter's gradient of the first batch, card against the CPU
+#: plain path, whole-leaf relative error: float32, TF32 off, the
+#: convolutions summed in other orders; measured at most 6.5e-07 (conv 1's
+#: W) on an H100, so a few times that
+LENET_GRAD_TOL = 5e-6
+LENET_SEED = 123
+#: K1 and K2 launches per LeNet step: its two convolutions' bias_act
+LENET_CONVS = 2
 BERT_REQUESTS = (1, 8, 32)
 BERT_SEQ = 128
 BERT_LAYERS = 12
@@ -461,32 +500,96 @@ def phase_build(build) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
-def phase_kernel(k1) -> dict:
-    """K1 against its plain version; returns the per-(rows, C, act) float32
-    times {(rows, cols, act): (ms, plain_ms, library_ms)} and errors."""
+def lenet_epilogue_calls(models, batch: int):
+    """The (rows, C, act) of each K1 (and K2) call of a LeNet step at
+    ``batch``: each convolution's [C, H, W] output as channels-last rows,
+    from the configuration's own shape inference. LeNet's ``bias_act`` has
+    no scale."""
+    from deeplearning4j_tpu_torch.nn.config import _infer_shape
+    from deeplearning4j_tpu_torch.nn.layers.conv import ConvolutionLayer
+    conf = models.lenet_config()
+    shape, calls = conf.input_shape, []
+    for layer in conf.layers:
+        shape = _infer_shape(layer, shape)
+        if isinstance(layer, ConvolutionLayer):
+            c, h, w = shape
+            calls.append((batch * h * w, c, layer.activation))
+    return calls
+
+
+def lenet_step_calls(phase: dict) -> dict:
+    """A kernel's float32 times summed over the calls of one LeNet step
+    (batch 125), from [kernel] or [kernel-bwd]."""
+    t = phase["lenet_times"].values()
+    return {"ms": sum(v[0] for v in t), "plain_ms": sum(v[1] for v in t),
+            "bound_ms": sum(v[2] for v in t),
+            "shapes": [list(k) for k in phase["lenet_times"]]}
+
+
+def check_k1_case(k1, x, s, shift, act, where, max_err) -> None:
+    """K1 twice (bitwise equal) against its plain version, element by
+    element; folds the error into ``max_err``."""
+    y = k1.affine_act(x, s, shift, act)
+    again = k1.affine_act(x, s, shift, act)
+    torch.cuda.synchronize()
+    if not torch.equal(y, again):
+        raise AssertionError(f"{where} is not deterministic")
+    ref = k1.affine_act_reference(x, s, shift, act)
+    atol, rtol = k1.ulp_tolerance(x.dtype)
+    err = (y.float() - ref.float()).abs()
+    bad = err > atol + rtol * ref.float().abs()
+    if bool(bad.any()):
+        i = int(bad.flatten().nonzero()[0])
+        raise AssertionError(
+            f"{where} disagrees with its plain version at flat index {i}: "
+            f"{float(y.flatten()[i])} vs {float(ref.flatten()[i])}")
+    max_err[x.dtype] = max(max_err[x.dtype], float(err.max()))
+
+
+def phase_kernel(k1, lenet_calls) -> dict:
+    """K1 against its plain version, twice per case for determinism, at
+    ResNet-50's shapes (with scale) and at LeNet's (``lenet_calls``, with
+    and without scale: LeNet's calls have none); returns the
+    per-(rows, C, act) float32 times {(rows, cols, act): (ms, plain_ms,
+    library_ms, host_ms)}, LeNet's path calls' {(rows, cols, act): (ms,
+    plain_ms, bound_ms)} and errors."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    times, max_err = {}, {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for rows, cols in SHAPES:
+    times, lenet_times = {}, {}
+    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = 0
+    shapes = [(r, c, None) for r, c in SHAPES] + list(lenet_calls)
+    for rows, cols, path_act in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(rows, cols, generator=gen, device=dev).to(dtype)
             scale = torch.rand(cols, generator=gen, device=dev) + 0.5
             shift = torch.randn(cols, generator=gen, device=dev)
-            atol, rtol = k1.ulp_tolerance(dtype)
             for act in k1.ACTS:
-                y = k1.affine_act(x, scale, shift, act)
-                torch.cuda.synchronize()
-                ref = k1.affine_act_reference(x, scale, shift, act)
-                err = (y.float() - ref.float()).abs()
-                bad = err > atol + rtol * ref.float().abs()
-                if bool(bad.any()):
-                    i = int(bad.flatten().nonzero()[0])
-                    raise AssertionError(
-                        f"K1 {act} {dtype} ({rows}, {cols}) disagrees with "
-                        f"its plain version at flat index {i}: "
-                        f"{float(y.flatten()[i])} vs {float(ref.flatten()[i])}")
-                max_err[dtype] = max(max_err[dtype], float(err.max()))
+                for s in (scale,) if path_act is None else (scale, None):
+                    check_k1_case(k1, x, s, shift, act,
+                                  f"K1 {act} {dtype} ({rows}, {cols}) "
+                                  f"scale={s is not None}", max_err)
+                    cases += 1
             itemsize = x.element_size()
+            if path_act is not None:
+                # LeNet's own call: no scale, its activation
+                ms, host = time_ms(
+                    lambda: k1.affine_act(x, None, shift, path_act))
+                plain, _ = time_ms(lambda: k1.affine_act_reference(
+                    x, None, shift, path_act))
+                bound = 1e3 * max(
+                    k1.bytes_moved(rows, cols, itemsize, False)
+                    / k1.H100_BYTES_PER_S,
+                    k1.flops(rows, cols, path_act, False)
+                    / k1.H100_F32_FLOPS_PER_S)
+                if dtype == torch.float32:
+                    lenet_times[(rows, cols, path_act)] = (ms, plain, bound)
+                log(f"[kernel] K1 {str(dtype)[6:]:8s} act={path_act:8s} "
+                    f"rows={rows:6d} C={cols:4d} no scale (LeNet) "
+                    f"ms={ms:.5f} plain_ms={plain:.5f} bound_ms={bound:.5f}"
+                    f" host_ms={host:.5f}")
+                del x
+                continue
             bound = k1.bound_ms(rows, cols, itemsize, "relu")
             for act in ("identity", "relu"):
                 ms, host = time_ms(
@@ -505,11 +608,12 @@ def phase_kernel(k1) -> dict:
                     f"library_ms={'null' if lib is None else f'{lib:.5f}'} "
                     f"host_ms={host:.5f}")
             del x
-    log(f"[kernel] K1 matches its plain version: 10 shapes x 7 activations "
-        f"x (float32, bfloat16); max abs err float32 "
-        f"{max_err[torch.float32]:.3g}, bfloat16 "
-        f"{max_err[torch.bfloat16]:.3g}")
-    return {"times": times, "max_err": max_err}
+    log(f"[kernel] K1 matches its plain version and repeats bit for bit: "
+        f"{cases} cases (10 ResNet-50 shapes x 7 activations x (float32, "
+        f"bfloat16) with scale; LeNet's {len(lenet_calls)} x 7 x 2 with and "
+        f"without); max abs err float32 {max_err[torch.float32]:.3g}, "
+        f"bfloat16 {max_err[torch.bfloat16]:.3g}")
+    return {"times": times, "lenet_times": lenet_times, "max_err": max_err}
 
 
 def k1_path_calls(net, batch: int):
@@ -631,62 +735,82 @@ def phase_server(k1, server_mod, net) -> int:
     return forwards
 
 
-def phase_kernel_bwd(k1) -> dict:
-    """K2 against its plain version, twice per case for determinism;
-    returns float32 times {(rows, cols, act): (ms, plain_ms)} and errors."""
+def check_k2_case(k1, x, s, shift, dy, act, where, err) -> None:
+    """K2 twice (bitwise equal) against its plain version: dx element by
+    element, dscale and dshift per channel against the column's sum of
+    |term| (K2_SUM_TOL); folds the errors into ``err``."""
+    got = k1.affine_act_bwd(x, s, shift, dy, act)
+    again = k1.affine_act_bwd(x, s, shift, dy, act)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError(f"{where} is not deterministic")
+    want = k1.affine_act_bwd_reference(x, s, shift, dy, act)
+    atol, rtol = k1.ulp_tolerance(x.dtype)
+    e = (got[0].float() - want[0].float()).abs()
+    if bool((e > atol + rtol * want[0].float().abs()).any()):
+        raise AssertionError(f"{where}: dx disagrees, max abs err "
+                             f"{float(e.max())}")
+    key = "dx_" + str(x.dtype)[6:]
+    err[key] = max(err[key], float(e.max()))
+    # per-channel sums of |term|: the scale of each sum
+    xf = x.float()
+    z = xf * s + shift if s is not None else xf + shift
+    dz = (dy.float() * k1.act_grad(act, z)).abs()
+    scales = [dz.sum(0)] + ([] if s is None else [(dz * xf.abs()).sum(0)])
+    pairs = [(got[2], want[2])] + ([] if s is None else [(got[1], want[1])])
+    for (g, w), mag in zip(pairs, scales):
+        d = (g - w).abs()
+        if bool((d > K2_SUM_TOL * mag + 1e-6).any()):
+            raise AssertionError(f"{where}: a column sum disagrees, max abs "
+                                 f"err {float(d.max())}")
+        err["dscale_dshift"] = max(err["dscale_dshift"], float(d.max()))
+        err["dscale_dshift_rel"] = max(err["dscale_dshift_rel"],
+                                       float((d / (mag + 1e-30)).max()))
+
+
+def phase_kernel_bwd(k1, lenet_calls) -> dict:
+    """K2 against its plain version, twice per case for determinism, at
+    ResNet-50's shapes and LeNet's (``lenet_calls``), with and without
+    scale; returns float32 times {(rows, cols, act): (ms, plain_ms,
+    host_ms)}, LeNet's path calls' {(rows, cols, act): (ms, plain_ms,
+    bound_ms)} and errors."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    times = {}
+    times, lenet_times = {}, {}
     err = {"dx_float32": 0.0, "dx_bfloat16": 0.0, "dscale_dshift": 0.0,
            "dscale_dshift_rel": 0.0}
     cases = 0
-    for rows, cols in SHAPES:
+    shapes = [(r, c, None) for r, c in SHAPES] + list(lenet_calls)
+    for rows, cols, path_act in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(rows, cols, generator=gen, device=dev).to(dtype)
             dy = torch.randn(rows, cols, generator=gen, device=dev).to(dtype)
             scale = torch.rand(cols, generator=gen, device=dev) + 0.5
             shift = torch.randn(cols, generator=gen, device=dev)
-            atol, rtol = k1.ulp_tolerance(dtype)
             for act in k1.ACTS:
                 for s in (scale, None):
-                    got = k1.affine_act_bwd(x, s, shift, dy, act)
-                    again = k1.affine_act_bwd(x, s, shift, dy, act)
-                    torch.cuda.synchronize()
-                    for a, b in zip(got, again):
-                        if a is not None and not torch.equal(a, b):
-                            raise AssertionError(
-                                f"K2 {act} {dtype} ({rows}, {cols}) is not "
-                                "deterministic")
-                    want = k1.affine_act_bwd_reference(x, s, shift, dy, act)
-                    where = f"K2 {act} {dtype} ({rows}, {cols}) " \
-                            f"scale={s is not None}"
-                    e = (got[0].float() - want[0].float()).abs()
-                    if bool((e > atol + rtol * want[0].float().abs()).any()):
-                        raise AssertionError(f"{where}: dx disagrees, max "
-                                             f"abs err {float(e.max())}")
-                    key = "dx_" + str(dtype)[6:]
-                    err[key] = max(err[key], float(e.max()))
-                    # per-channel sums of |term|: the scale of each sum
-                    xf = x.float()
-                    z = xf * s + shift if s is not None else xf + shift
-                    dz = (dy.float() * k1.act_grad(act, z)).abs()
-                    scales = [dz.sum(0)] + ([] if s is None
-                                            else [(dz * xf.abs()).sum(0)])
-                    pairs = [(got[2], want[2])] + (
-                        [] if s is None else [(got[1], want[1])])
-                    for (g, w), mag in zip(pairs, scales):
-                        d = (g - w).abs()
-                        if bool((d > K2_SUM_TOL * mag + 1e-6).any()):
-                            raise AssertionError(
-                                f"{where}: a column sum disagrees, max abs "
-                                f"err {float(d.max())}")
-                        err["dscale_dshift"] = max(err["dscale_dshift"],
-                                                   float(d.max()))
-                        err["dscale_dshift_rel"] = max(
-                            err["dscale_dshift_rel"],
-                            float((d / (mag + 1e-30)).max()))
+                    check_k2_case(k1, x, s, shift, dy, act,
+                                  f"K2 {act} {dtype} ({rows}, {cols}) "
+                                  f"scale={s is not None}", err)
                     cases += 1
             itemsize = x.element_size()
+            if path_act is not None:
+                # LeNet's own call: no scale, its activation
+                bound = k1.bound_ms_bwd(rows, cols, itemsize, path_act,
+                                        has_scale=False)
+                ms, host = time_ms(lambda: k1.affine_act_bwd(
+                    x, None, shift, dy, path_act))
+                plain, _ = time_ms(lambda: k1.affine_act_bwd_reference(
+                    x, None, shift, dy, path_act))
+                if dtype == torch.float32:
+                    lenet_times[(rows, cols, path_act)] = (ms, plain, bound)
+                log(f"[kernel-bwd] K2 {str(dtype)[6:]:8s} act={path_act:8s} "
+                    f"rows={rows:6d} C={cols:4d} no scale (LeNet) "
+                    f"ms={ms:.5f} plain_ms={plain:.5f} bound_ms={bound:.5f}"
+                    f" host_ms={host:.5f}")
+                del x, dy
+                continue
             for act in ("identity", "relu"):
                 bound = k1.bound_ms_bwd(rows, cols, itemsize, act)
                 ms, host = time_ms(
@@ -702,13 +826,13 @@ def phase_kernel_bwd(k1) -> dict:
                     f"library_ms=null host_ms={host:.5f}")
             del x, dy
     log(f"[kernel-bwd] K2 matches its plain version and repeats bit for "
-        f"bit: {cases} cases (10 shapes x 7 activations x (float32, "
-        f"bfloat16) x (scale, no scale)); max abs err dx float32 "
-        f"{err['dx_float32']:.3g}, bfloat16 {err['dx_bfloat16']:.3g}; "
-        f"dscale/dshift {err['dscale_dshift']:.3g} (at most "
-        f"{err['dscale_dshift_rel']:.3g} of the column's sum of |term|, "
-        f"tolerance {K2_SUM_TOL})")
-    return {"times": times, "max_err": err}
+        f"bit: {cases} cases (10 ResNet-50 and {len(lenet_calls)} LeNet "
+        f"shapes x 7 activations x (float32, bfloat16) x (scale, no "
+        f"scale)); max abs err dx float32 {err['dx_float32']:.3g}, bfloat16 "
+        f"{err['dx_bfloat16']:.3g}; dscale/dshift {err['dscale_dshift']:.3g}"
+        f" (at most {err['dscale_dshift_rel']:.3g} of the column's sum of "
+        f"|term|, tolerance {K2_SUM_TOL})")
+    return {"times": times, "lenet_times": lenet_times, "max_err": err}
 
 
 def _batch(rng, n):
@@ -900,6 +1024,171 @@ def phase_nchw(k1, fe, env) -> dict:
                              "CPU plain path")
     return {"launches": launches, "rel_err": out_rel,
             "worst_grad_share": worst[0]}
+
+
+def phase_lenet(k1, fe, env, models) -> dict:
+    """LeNet (zoo ``lenet()``, full width, NCHW, Adam(1e-3), l2(5e-5),
+    float32, TF32 off) trained through ``MultiLayerNetwork.fit`` on
+    synthetic MNIST: the card's first steps against the CPU plain path
+    from the same weights; then 3 epochs of batch 125 with the launch
+    counts set to 0 just before and read just after (2 K1 + 2 K2 a step,
+    one channels-last copy a step, only ``fused`` decisions); the test
+    accuracy; step time, images/s and a ``torch.profiler`` split."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.mnist import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.tools.profile_serving import device_us
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t0 = time.perf_counter()
+    train = MnistDataSetIterator(LENET_BATCH, num_examples=LENET_TRAIN)
+    test = MnistDataSetIterator(LENET_TEST_BATCH, train=False,
+                                num_examples=LENET_TEST)
+    render_s = time.perf_counter() - t0
+
+    # ---- parity: the first steps on the card vs the CPU plain path ----
+    first = [DataSet(d.features, d.labels)
+             for _, d in zip(range(LENET_PARITY_STEPS), train)]
+    train.reset()
+    card = models.lenet(seed=LENET_SEED)
+    cpu = models.lenet(seed=LENET_SEED, device="cpu")
+    cpu.params = {k: {n: t.detach().cpu().clone() for n, t in p.items()}
+                  for k, p in card.params.items()}
+    # every parameter's gradient of the first batch, leaf by leaf
+    x0, y0 = first[0].features, first[0].labels
+    g_card = card._value_and_grad(card._tensor(x0), card._tensor(y0))[1]
+    g_cpu = cpu._value_and_grad(cpu._tensor(x0), cpu._tensor(y0))[1]
+    torch.cuda.synchronize()
+    grad_err = tree_max_rel(g_card, g_cpu)
+    log(f"[lenet] card vs CPU plain path, every parameter's gradient of the "
+        f"first batch: worst whole-leaf rel err {grad_err[0]:.3g} "
+        f"({grad_err[1]}; tolerance {LENET_GRAD_TOL}); per leaf "
+        + ", ".join(
+            f"{v}/{k} {rel_err(g_card[v][k].cpu().numpy(), g.numpy()):.3g}"
+            for v, leaves in g_cpu.items() for k, g in leaves.items()))
+    if grad_err[0] > LENET_GRAD_TOL:
+        raise AssertionError(f"LeNet gradient {grad_err[1]} on the card "
+                             "disagrees with the CPU plain path")
+    del g_card, g_cpu
+    per_step, losses = [], []
+    for ds in first:
+        before = (k1.launches, k1.bwd_launches)
+        fe.reset_counters()
+        card.fit(ds)
+        torch.cuda.synchronize()
+        per_step.append((k1.launches - before[0],
+                         k1.bwd_launches - before[1], fe.nchw_copies,
+                         dict(fe.counters())))
+        cpu.fit(ds)
+        losses.append((card.score(), cpu.score()))
+    loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+    log(f"[lenet] card vs CPU plain path, the first {LENET_PARITY_STEPS} "
+        f"batch-{LENET_BATCH} steps from the same weights: losses "
+        + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in losses)
+        + f" (worst rel err {loss_err:.3g}, tolerance {LENET_LOSS_TOL}); "
+        f"K1, K2, channels-last copies a step: "
+        f"{[p[:3] for p in per_step]}")
+    if loss_err > LENET_LOSS_TOL:
+        raise AssertionError("LeNet training on the card disagrees with the "
+                             "CPU plain path")
+    for k1n, k2n, copies, decisions in per_step:
+        if (k1n, k2n, copies) != (LENET_CONVS, LENET_CONVS, 1) or any(
+                v for k, v in decisions.items() if k != "fused"):
+            raise AssertionError(f"LeNet step: K1/K2 {k1n}/{k2n}, copies "
+                                 f"{copies}, decisions {decisions}")
+    del card, cpu
+
+    # ---- the main path: counts from 0, read after the last epoch ----
+    net = models.lenet(seed=LENET_SEED)
+    k1.launches = 0
+    k1.bwd_launches = 0
+    fe.reset_counters()
+    epoch_ms = []
+    for _ in range(LENET_EPOCHS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        net.fit(train)
+        torch.cuda.synchronize()
+        epoch_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = (k1.launches, k1.bwd_launches)
+    copies, decisions = fe.nchw_copies, dict(fe.counters())
+    steps = net.iteration
+    loss = net.score()
+    sentinel = net.resilience_counters()
+    if steps != LENET_EPOCHS * -(-LENET_TRAIN // LENET_BATCH) or \
+            launches != (LENET_CONVS * steps,) * 2 or copies != steps or \
+            decisions["fused"] != LENET_CONVS * steps or any(
+                v for k, v in decisions.items() if k != "fused") or \
+            sentinel["bad_total"] or not np.isfinite(loss):
+        raise AssertionError(f"LeNet fit: {steps} steps, K1/K2 {launches}, "
+                             f"copies {copies}, decisions {decisions}, "
+                             f"sentinel {sentinel}, loss {loss}")
+
+    # ---- evaluation: one forward (2 K1) a test batch ----
+    k1.launches = 0
+    k1.bwd_launches = 0
+    ev = net.evaluate(test)
+    eval_launches = (k1.launches, k1.bwd_launches)
+    forwards = -(-LENET_TEST // LENET_TEST_BATCH)
+    acc = ev.accuracy()
+    if eval_launches != (LENET_CONVS * forwards, 0):
+        raise AssertionError(f"LeNet evaluate: K1/K2 {eval_launches} for "
+                             f"{forwards} forwards")
+
+    # ---- device split of 5 steps (after one that starts the tracer) ----
+    batches = [DataSet(d.features, d.labels)
+               for _, d in zip(range(6), train)]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        net.fit(batches[0])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        for ds in batches[1:]:
+            net.fit(ds)
+        torch.cuda.synchronize()
+    prof_ms = (time.perf_counter() - t1) * 1e3 / (len(batches) - 1)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and device_us(e) > 0]
+    reps = len(batches) - 1
+    dev_ms = sum(device_us(e) for e in kernels) / 1e3 / reps
+    k1_ms = sum(device_us(e) for e in kernels
+                if "affine_act_kernel" in e.key) / 1e3 / reps
+    k2_ms = sum(device_us(e) for e in kernels
+                if "affine_act_bwd" in e.key) / 1e3 / reps
+    top = sorted(kernels, key=device_us, reverse=True)[:6]
+    per_epoch = steps // LENET_EPOCHS
+    step_ms = statistics.median(epoch_ms) / per_epoch
+    log(f"[lenet] fit: {LENET_EPOCHS} epochs x {per_epoch} steps of batch "
+        f"{LENET_BATCH} on {train.source} MNIST ({LENET_TRAIN} digits, "
+        f"rendered in {render_s:.1f} s): epochs "
+        + " ".join(f"{v:.1f}" for v in epoch_ms)
+        + f" ms, {step_ms:.4f} ms a step ({LENET_BATCH * 1e3 / step_ms:.1f}"
+        f" images/s), last loss {loss:.4f}; K1/K2 launches {launches} "
+        f"({LENET_CONVS} + {LENET_CONVS} a step), channels-last copies "
+        f"{copies}, decisions {decisions}, sentinel {sentinel}")
+    log(f"[lenet] evaluate on {LENET_TEST} test digits: accuracy {acc:.4f} "
+        f"(at least {LENET_MIN_ACCURACY}), {eval_launches[0]} K1 launches "
+        f"for {forwards} forwards")
+    # the busy share is the profiled device time over the unprofiled step
+    # (the tracer slows the host's side of a step down twofold)
+    log(f"[lenet] profiled steps: device {dev_ms:.4f} ms a step (busy share "
+        f"{dev_ms / step_ms:.3f} of the unprofiled {step_ms:.4f} ms step; "
+        f"{dev_ms / prof_ms:.3f} of the {prof_ms:.4f} ms profiled step), K1 "
+        f"{k1_ms:.4f} ms + K2 {k2_ms:.4f} ms; top kernels (ms a step): "
+        + "; ".join(f"{e.key[:50]} {device_us(e) / 1e3 / reps:.4f} "
+                    f"x{e.count // reps}" for e in top))
+    log(f"[lenet] {smi_line()}")
+    if acc < LENET_MIN_ACCURACY:
+        raise AssertionError(f"LeNet synthetic-MNIST accuracy {acc:.4f} < "
+                             f"{LENET_MIN_ACCURACY}")
+    return {"launches": launches, "eval_launches": eval_launches,
+            "steps": steps, "accuracy": acc, "step_ms": step_ms,
+            "images_per_s": LENET_BATCH * 1e3 / step_ms,
+            "device_ms": dev_ms, "busy_share": dev_ms / step_ms,
+            "profiled_step_ms": prof_ms, "grad_rel_err": grad_err[0],
+            "k1_ms": k1_ms, "k2_ms": k2_ms, "loss_rel_err": loss_err,
+            "source": train.source}
 
 
 def attn_operand(B, H, T, d, dtype, layout, gen):
@@ -2455,9 +2744,14 @@ def phase_kernel_ln(k6) -> dict:
         mu2, rs2 = mu[:, None], rstd[:, None]
         lib2, _ = time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
             dyt, xt, [cols], mu2, rs2, gt, bt, [True, True, True]))
+        floor2, _ = time_ms(lambda: k6.bwd_launch_floor(rows, cols, dtype))
+        occ = k6.bwd_occupancy(rows, cols, dtype)
         item = xt.element_size()
         bound = k6.bound_ms(rows, cols, item, "identity")
         bound2 = k6.bound_ms_bwd(rows, cols, item, "identity")
+        times[f"bwd_{str(dtype)[6:]}"] = {
+            "ms": ms2, "plain_ms": plain2, "library_ms": lib2,
+            "bound_ms": bound2, "floor_ms": floor2, "occupancy": occ}
         if dtype == torch.float32:
             times["fwd"] = (ms, plain, lib, host, bound)
             times["bwd"] = (ms2, plain2, lib2, host2, bound2)
@@ -2475,9 +2769,17 @@ def phase_kernel_ln(k6) -> dict:
             f"(bytes) library_ms={lib:.5f} (F.layer_norm) host_ms={host:.5f}")
         log(f"[kernel-ln-bwd] K7 {str(dtype)[6:]:8s} act=identity rows={rows}"
             f" C={cols} ms={ms2:.5f} plain_ms={plain2:.5f} bound_ms="
-            f"{bound2:.5f} (bytes) library_ms={lib2:.5f} "
-            f"(native_layer_norm_backward) host_ms={host2:.5f}")
+            f"{bound2:.5f} (bytes, {bound2 / ms2:.1%} of it) library_ms="
+            f"{lib2:.5f} (native_layer_norm_backward) host_ms={host2:.5f}; "
+            f"an empty kernel launched the same way {floor2:.5f}; "
+            f"{occ['registers']} registers, {occ['smem_bytes']} B shared "
+            f"memory, {occ['ctas_per_sm']} CTAs an SM, "
+            f"{occ['local_bytes']} B local; layout {occ['layout']}")
         del xt, dyt
+    per_call = one_kernel_a_call("K7", LN_SHAPES, "layer_norm_act_bwd")
+    log(f"[kernel-ln-bwd] kernels one K7 call launches (torch.profiler, a "
+        f"fresh process, {len(LN_SHAPES)} shapes x 3 dtypes), by CTA "
+        f"count: {per_call}")
     log(f"[kernel-ln] F.layer_norm and native_layer_norm_backward on the same "
         f"float32 inputs differ from K6's y and K7's dx by at most "
         f"{times['library_max_abs_diff'][0]:.3g} and "
@@ -2524,7 +2826,7 @@ def phase_kernel_ln(k6) -> dict:
         f"(bytes) library_ms=null host_ms={host2:.5f}; max abs err dx "
         f"{e2:.3g}")
     return {"times": times, "max_err": err, "cases": cases,
-            "offset": offset, "gelu": gelu}
+            "offset": offset, "gelu": gelu, "bwd_per_call": per_call}
 
 
 def phase_bert_ln(k1, k3, k6, fa, fe, env) -> dict:
@@ -2766,8 +3068,9 @@ def main() -> int:
 
     phase_toolchain(build)
     phase_build(build)
-    kern = phase_kernel(k1)
-    kbwd = phase_kernel_bwd(k1)
+    lenet_calls = lenet_epilogue_calls(models, LENET_BATCH)
+    kern = phase_kernel(k1, lenet_calls)
+    kbwd = phase_kernel_bwd(k1, lenet_calls)
     served = phase_serve(k1, fe, env, models, graph)
     forwards = served["forwards"] + phase_server(k1, server_mod,
                                                  served["net"])
@@ -2785,6 +3088,7 @@ def main() -> int:
     del served
     trained = phase_train(k1, fe, env, models, graph)
     nchw = phase_nchw(k1, fe, env)
+    lenet_row = phase_lenet(k1, fe, env, models)
     if k3.launches:
         raise AssertionError(f"{k3.launches} K3 launches on the ResNet paths")
     katt = phase_kernel_attn(k3)
@@ -2959,10 +3263,16 @@ def main() -> int:
         f"K6 calls, {ms6:.4f} ms on the device (plain {plain6:.4f}, "
         f"F.layer_norm {lib6:.4f}, bound {bound6:.4f}, {by6}); host enqueue "
         f"{host6:.4f} ms")
+    b7 = kln["times"]["bwd_bfloat16"]
     log(f"[summary] one batch-32 float32 fused BERT-base fine-tune step: "
         f"{LN_SITES} K7 calls, {ms7:.4f} ms on the device (plain "
         f"{plain7:.4f}, native_layer_norm_backward {lib7:.4f}, bound "
-        f"{bound7:.4f}, {by7}); host enqueue {host7:.4f} ms")
+        f"{bound7:.4f}, {by7}, {bound7 / ms7:.1%} of it; the same launches "
+        f"of an empty kernel "
+        f"{LN_SITES * kln['times']['bwd_float32']['floor_ms']:.4f}); host "
+        f"enqueue {host7:.4f} ms; bfloat16 a call {b7['ms']:.5f} ms "
+        f"(native_layer_norm_backward {b7['library_ms']:.5f}, bound "
+        f"{b7['bound_ms']:.5f})")
     g1, g2 = kln["gelu"]["fwd"], kln["gelu"]["bwd"]
     log(f"[summary] the same forward's {BERT_LAYERS} K1 geluexact calls at "
         f"{LN_GELU_SHAPE}: {BERT_LAYERS * g1[0]:.4f} ms (plain "
@@ -3006,10 +3316,13 @@ def main() -> int:
         "source": "deeplearning4j_tpu_torch/csrc/affine_act.cu",
         "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:167",
         "launches": serve_launches + trained["launches"][0]
-        + nchw["launches"][0] + ln_l["k1"] + fit_ln["k1"],
+        + nchw["launches"][0] + lenet_row["launches"][0]
+        + lenet_row["eval_launches"][0] + ln_l["k1"] + fit_ln["k1"],
         "launches_by_path": {"serve": serve_launches,
                              "train": trained["launches"][0],
                              "nchw_block": nchw["launches"][0],
+                             "lenet_fit": lenet_row["launches"][0],
+                             "lenet_eval": lenet_row["eval_launches"][0],
                              "bert_serve": 0, "bert_fit": 0, **lstm_paths,
                              **ln_paths("k1")},
         "max_abs_err": max(kern["max_err"].values()),
@@ -3019,6 +3332,7 @@ def main() -> int:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": lib, "host_ms": host,
         "bert_gelu": dict(gelu_row(g1), library="F.gelu(x + b)"),
+        "lenet_step_calls": lenet_step_calls(kern),
         "timed_as": "device time summed over the 53 calls of one batch-32 "
                     "float32 ResNet-50 forward; library_ms is torch.addcmul "
                     "(the affine alone) at the same shapes; host_ms is the "
@@ -3030,9 +3344,11 @@ def main() -> int:
         "source": "deeplearning4j_tpu_torch/csrc/affine_act_bwd.cu",
         "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:179",
         "launches": trained["launches"][1] + nchw["launches"][1]
-        + fit_ln["k2"],
+        + lenet_row["launches"][1] + fit_ln["k2"],
         "launches_by_path": {"serve": 0, "train": trained["launches"][1],
                              "nchw_block": nchw["launches"][1],
+                             "lenet_fit": lenet_row["launches"][1],
+                             "lenet_eval": 0,
                              "bert_serve": 0, "bert_fit": 0, **lstm_paths,
                              **ln_paths("k2")},
         "max_abs_err": max(kbwd["max_err"]["dx_float32"],
@@ -3046,6 +3362,11 @@ def main() -> int:
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "library_ms": None, "host_ms": host2,
         "dy_copies_per_step": trained["dy_copies"],
+        "lenet": {k: lenet_row[k] for k in (
+            "steps", "accuracy", "step_ms", "images_per_s", "device_ms",
+            "busy_share", "profiled_step_ms", "k1_ms", "k2_ms",
+            "loss_rel_err", "grad_rel_err", "source")},
+        "lenet_step_calls": lenet_step_calls(kbwd),
         "bert_gelu": gelu_row(g2, lib=False),
         "timed_as": "device time summed over the 53 calls of one batch-32 "
                     "float32 ResNet-50 training step; no single PyTorch "
@@ -3290,6 +3611,10 @@ def main() -> int:
         "deterministic": True,
         "ms": ms7, "plain_ms": plain7, "bound_ms": bound7, "bound_by": by7,
         "library_ms": lib7, "host_ms": host7,
+        "floor_ms": LN_SITES * kln["times"]["bwd_float32"]["floor_ms"],
+        "occupancy": kln["times"]["bwd_float32"]["occupancy"],
+        "bfloat16": kln["times"]["bwd_bfloat16"],
+        "kernels_per_call_by_ctas": kln["bwd_per_call"],
         "library_max_abs_diff": kln["times"]["library_max_abs_diff"][1],
         "bert_ln_fit": {k: bert_ln_fit["row"][k] for k in (
             "step_ms_median", "sequences_per_s", "device_ms",

@@ -2,7 +2,7 @@
 // (flash_attn_bwd.cu): operand strides, warp reductions, the score of a
 // (query, key) pair, the staging of their tiles by asynchronous copies
 // (cp_async.cuh), and the 16-bit tensor-core product (ldmatrix,
-// mma.sync.m16n8k16).
+// mma.sync.m16n8k16). The launch helpers come from launch.cuh.
 //
 // The backward recomputes the forward's scores and must get them bit for
 // bit: on a fully masked row every score is the clamped bias
@@ -26,6 +26,7 @@
 
 #include "cp_async.cuh"
 #include "epilogue_act.cuh"
+#include "launch.cuh"
 
 namespace dl4j {
 
@@ -145,34 +146,6 @@ __device__ __forceinline__ void mma<__half>(float (&c)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ---- launches ----------------------------------------------------------------
-
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;  // within the default dynamic cap
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-// The resources of a kernel launched with `threads` threads and `bytes` of
-// dynamic shared memory: out[0] registers a thread, out[1] threads a CTA,
-// out[2] shared-memory bytes a CTA (static and dynamic), out[3] local
-// (spill) bytes a thread, out[4] the CTAs one SM holds at once (CUDA's
-// occupancy calculator).
-template <typename Kernel>
-int occupancy_of(Kernel kernel, int threads, size_t bytes, int* out) {
-  int e;
-  if ((e = allow_smem(kernel, bytes)) != 0) return e;
-  cudaFuncAttributes fa;
-  if ((e = (int)cudaFuncGetAttributes(&fa, kernel)) != 0) return e;
-  out[0] = fa.numRegs;
-  out[1] = threads;
-  out[2] = (int)(fa.sharedSizeBytes + bytes);
-  out[3] = (int)fa.localSizeBytes;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], kernel,
-                                                            threads, bytes);
 }
 
 }  // namespace dl4j

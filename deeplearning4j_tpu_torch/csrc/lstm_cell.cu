@@ -67,6 +67,7 @@
 #include "cluster.cuh"
 #include "cp_async.cuh"
 #include "epilogue_act.cuh"
+#include "launch.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -378,17 +379,11 @@ cudaLaunchConfig_t config(const Geometry& g, cudaStream_t stream,
   return cfg;
 }
 
-int allow_smem(const void* fn, const Geometry& g) {
-  if (g.smem <= 48 * 1024) return 0;  // within the default dynamic cap
-  return (int)cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
-}
-
 template <typename T, int RT>
 int launch_rt(const Args& a, const Geometry& g, cudaStream_t stream) {
   auto kernel = lstm_cell_kernel<T, RT>;
   int e;
-  if ((e = allow_smem((const void*)kernel, g)) != 0) return e;
+  if ((e = allow_smem(kernel, g.smem)) != 0) return e;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = config(g, stream, attr);
   if ((e = (int)cudaLaunchKernelEx(&cfg, kernel, a)) != 0) return e;
@@ -444,16 +439,7 @@ extern "C" int dl4j_lstm_cell_occupancy(int B, int F, int U, int dtype,
     default: fn = (const void*)lstm_cell_kernel<__half, 32>; break;
   }
   int e;
-  if ((e = allow_smem(fn, g)) != 0) return e;
-  cudaFuncAttributes fa;
-  if ((e = (int)cudaFuncGetAttributes(&fa, fn)) != 0) return e;
-  out[0] = fa.numRegs;
-  out[1] = kThreads;
-  out[2] = (int)(fa.sharedSizeBytes + g.smem);
-  out[3] = (int)fa.localSizeBytes;
-  if ((e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &out[4], fn, kThreads, g.smem)) != 0)
-    return e;
+  if ((e = occupancy_of(fn, kThreads, g.smem, out)) != 0) return e;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = config(g, nullptr, attr);
   return (int)cudaOccupancyMaxActiveClusters(&out[5], fn, &cfg);
@@ -468,7 +454,7 @@ extern "C" int dl4j_lstm_cell_floor(int B, int F, int U, int dtype,
   if (!valid(B, F, U, dtype, &g)) return (int)cudaErrorInvalidValue;
   const void* fn = (const void*)lstm_cell_floor_kernel;
   int e;
-  if ((e = allow_smem(fn, g)) != 0) return e;
+  if ((e = allow_smem(fn, g.smem)) != 0) return e;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       config(g, static_cast<cudaStream_t>(stream), attr);

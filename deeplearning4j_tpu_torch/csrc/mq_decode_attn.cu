@@ -482,11 +482,7 @@ Instance pick(int B, int H, int d, int nq, int splits, int dtype) {
 int configure(const Instance& in, int B, int H, int splits,
               cudaStream_t stream, cudaLaunchAttribute* attr,
               cudaLaunchConfig_t* cfg) {
-  if (in.smem > 48 * 1024) {
-    const int e = (int)cudaFuncSetAttribute(
-        in.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)in.smem);
-    if (e != 0) return e;
-  }
+  if (const int e = allow_smem(in.fn, in.smem)) return e;
   *cfg = cluster_config(dim3((unsigned)(B * H), (unsigned)splits),
                         dim3(kThreads), in.smem, stream, 1,
                         (unsigned)splits, attr);

@@ -5,9 +5,10 @@ Port of the in-memory part of ``deeplearning4j_tpu/data/dataset.py``:
 (:class:`DataSetIterator`, :class:`MultiDataSetIterator`) and their numpy
 and list implementations, with the same resumable ``(epoch, pos)`` cursor.
 Data stays host-side numpy until the training step moves a batch to the
-model's device. The prefetching ``AsyncDataSetIterator``, per-batch
-preprocessors (normalizers) and DataSet's split/shuffle helpers come with
-a later slice.
+model's device. A :class:`DataSetIterator` takes a per-batch
+preprocessor (a normalizer of ``data/normalizers.py``) as in the JAX
+package. The prefetching ``AsyncDataSetIterator`` and DataSet's
+split/shuffle helpers come with a later slice.
 """
 
 from __future__ import annotations
@@ -28,6 +29,12 @@ class DataSet:
 
     def num_examples(self) -> int:
         return int(self.features.shape[0])
+
+    def copy(self) -> "DataSet":
+        """Shallow copy: a new DataSet over the same arrays (normalizers
+        reassign fields, they do not write into the arrays)."""
+        return DataSet(self.features, self.labels, self.features_mask,
+                       self.labels_mask)
 
 
 class MultiDataSet:
@@ -133,6 +140,8 @@ class DataSetIterator:
     ``state()`` returns a small JSON-able dict and ``set_state()`` resumes
     iteration exactly there."""
 
+    pre_processor = None  # a normalizer, applied to every batch
+
     def __iter__(self) -> Iterator[DataSet]:
         raise NotImplementedError
 
@@ -141,6 +150,17 @@ class DataSetIterator:
 
     def batch_size(self) -> int:
         raise NotImplementedError
+
+    def set_pre_processor(self, pp) -> "DataSetIterator":
+        """Attach a per-batch preprocessor (DL4J ``setPreProcessor``): each
+        yielded DataSet passes through ``pp.transform`` first."""
+        self.pre_processor = pp
+        return self
+
+    def _pp(self, ds: DataSet) -> DataSet:
+        if self.pre_processor is not None:
+            self.pre_processor.transform(ds)
+        return ds
 
     def state(self) -> dict:
         """Restorable cursor. Default: empty (non-resumable iterators)."""
@@ -207,11 +227,11 @@ class NumpyDataSetIterator(DataSetIterator):
         while self._pos < end:
             j = idx[self._pos:self._pos + self._bs]
             self._pos += self._bs
-            yield DataSet(
+            yield self._pp(DataSet(
                 self._f[j],
                 None if self._l is None else self._l[j],
                 None if self._fm is None else self._fm[j],
-                None if self._lm is None else self._lm[j])
+                None if self._lm is None else self._lm[j]))
         self._epoch += 1
         self._pos = 0
 
@@ -239,5 +259,6 @@ class ListDataSetIterator(DataSetIterator):
         while self._pos < len(self._batches):
             b = self._batches[self._pos]
             self._pos += 1
-            yield b
+            yield self._pp(b.copy()) if self.pre_processor is not None \
+                else b
         self._pos = 0

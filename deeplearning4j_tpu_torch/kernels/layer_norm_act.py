@@ -26,14 +26,18 @@ float64 (on the CPU) and then compute in float64; the kernels refuse it.
   version.
 
 ``launches`` and ``bwd_launches`` count wrapper calls that launched K6 and
-K7 (plain-version calls are not counted; one K7 call is two CUDA kernels,
-the partial sums and their fixed-order total).
+K7 (plain-version calls are not counted; one K7 call is one CUDA kernel,
+its column sums merged inside the launch behind a grid barrier).
+:func:`bwd_layout` is K7's launch layout, :func:`bwd_occupancy` what the
+card makes of it and :func:`bwd_launch_floor` an empty kernel launched
+the same way.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -120,12 +124,20 @@ def _kernel():
     return fn
 
 
+#: K7's layout arguments: rows, cols, act, dtype, nv, wpr, stages, ctas,
+#: rows_per_cta, staged
+_LAYOUT_ARGTYPES = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_bwd():
-    fn = _build.load("layer_norm_act_bwd").dl4j_layer_norm_act_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+def _kernel_bwd(entry="dl4j_layer_norm_act_bwd"):
+    fn = getattr(_build.load("layer_norm_act_bwd"), entry)
+    head = {"dl4j_layer_norm_act_bwd": [ctypes.c_void_p] * 11}.get(entry, [])
+    tail = {"dl4j_layer_norm_act_bwd_occupancy": [ctypes.c_void_p]}.get(
+        entry, [ctypes.c_void_p])
+    fn.argtypes = head + _LAYOUT_ARGTYPES + tail
     fn.restype = ctypes.c_int
     return fn
 
@@ -165,17 +177,86 @@ def layer_norm_act(x2, gamma, beta, eps, act="identity"):
     return y, mu, rstd
 
 
-def bwd_grid(rows: int, cols: int, sms: int) -> tuple:
-    """K7's first-stage layout ``(nv, wpr, blocks)`` for a ``[rows, cols]``
-    call: the row layout of :func:`row_config`, and ``blocks`` blocks of
-    consecutive rows (four row groups a block up to 1024 columns, one
-    above), four blocks per SM but no more than the row groups fill. A
-    function of the shape and the card only, so the reduction order, and
-    the sums, are the same on every run."""
+#: K7's deepest ring of staged rows, and its CTA (one an SM)
+BWD_MAX_STAGES = 3
+BWD_THREADS = 256
+#: shared memory an SM has for its CTAs, and what the card reserves a CTA
+#: (H100)
+SMEM_PER_SM = 228 * 1024
+SMEM_RESERVED_PER_CTA = 1024
+#: what a K7 CTA leaves of its share for the card's reservation and the
+#: kernel's static shared memory
+BWD_SMEM_SLACK = 2 * SMEM_RESERVED_PER_CTA
+
+
+def bwd_smem_bytes(cols: int, itemsize: int, threads: int, groups: int,
+                   stages: int, staged: bool) -> int:
+    """K7's dynamic shared memory a CTA (``smem_bytes`` in the source):
+    gamma and beta, each thread's (mu, rstd) slot of every stage, and the
+    larger of the row ring and the groups' column sums; at least a float a
+    thread (the merge's warp sums)."""
+    gb = 8 * cols
+    mr = 8 * threads * stages if staged else 0
+    ring = groups * stages * 2 * cols * itemsize if staged else 0
+    red = 8 * groups * cols if groups > 1 else 0
+    return max(gb + mr + max(ring, red), 4 * threads)
+
+
+def bwd_layout(rows: int, cols: int, sms: int) -> dict:
+    """K7's launch layout for a ``[rows, cols]`` call on a card of ``sms``
+    SMs; a function of these three alone, so the sum order, and the sums,
+    are the same on every run.
+
+    - ``nv``, ``wpr``: :func:`row_config`'s row layout; ``groups`` =
+      rows in flight in a CTA of ``threads`` = 256;
+    - ``stages``: the ring's depth, the most (2 or 3) whose float32 rows
+      fit one CTA an SM;
+    - ``ctas``: one CTA for each ``groups`` rows, at most one an SM (the
+      launch is cooperative: every CTA resident at once), each owning
+      ``rows_per_cta`` consecutive rows (the last ones fewer or none)."""
     nv, wpr = row_config(cols)
-    groups = max(4 // wpr, 1)
-    blocks = min(-(-rows // groups), sms * 4, 65535)
-    return nv, wpr, max(1, blocks)
+    groups = BWD_THREADS // (32 * wpr)
+    budget = SMEM_PER_SM - BWD_SMEM_SLACK
+    stages = next((s for s in range(BWD_MAX_STAGES, 2, -1)
+                   if bwd_smem_bytes(cols, 4, BWD_THREADS, groups, s, True)
+                   <= budget), 2)
+    ctas = max(1, min(-(-rows // groups), sms))
+    return {"nv": nv, "wpr": wpr, "threads": BWD_THREADS, "groups": groups,
+            "stages": stages, "ctas": ctas,
+            "rows_per_cta": max(1, -(-rows // ctas))}
+
+
+def bwd_staged(x2, dy, dx) -> bool:
+    """Whether K7 stages rows through its shared-memory ring: a row's
+    bytes a multiple of 16 and x, dy and dx 16-byte aligned."""
+    return (x2.shape[1] * x2.element_size()) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (x2, dy, dx))
+
+
+def _layout_args(rows, cols, act, dtype, lay, staged) -> tuple:
+    return (rows, cols, ACTS.index(act), _DTYPE_CODES[dtype], lay["nv"],
+            lay["wpr"], lay["stages"], lay["ctas"], lay["rows_per_cta"],
+            int(staged))
+
+
+_workspaces: dict = {}
+_workspaces_lock = threading.Lock()
+
+
+def _workspace(device, stream, ctas: int, cols: int):
+    """K7's per-(device, stream) workspace, reused across calls: the grid
+    barrier's two counters (int32, the first zero between calls) and at
+    least ``ctas * 2 * cols`` floats of the CTAs' column sums."""
+    key = (device, stream)
+    need = 2 * ctas * cols
+    with _workspaces_lock:
+        ws = _workspaces.get(key)
+        if ws is None or ws[1].numel() < need:
+            bar = ws[0] if ws is not None else torch.zeros(
+                2, dtype=torch.int32, device=device)
+            ws = _workspaces[key] = (bar, torch.empty(
+                need, dtype=torch.float32, device=device))
+        return ws
 
 
 def _check_bwd(x2, gamma, beta, mu, rstd, dy, act):
@@ -210,19 +291,63 @@ def layer_norm_act_bwd(x2, gamma, beta, mu, rstd, dy, act="identity"):
     if rows == 0:
         return dx, torch.zeros(cols, **f32), torch.zeros(cols, **f32)
     dgamma, dbeta = torch.empty(cols, **f32), torch.empty(cols, **f32)
-    nv, wpr, blocks = bwd_grid(rows, cols, _sm_count(_device_index(x2)))
-    partials = torch.empty((2, blocks, cols), **f32)
+    lay = bwd_layout(rows, cols, _sm_count(_device_index(x2)))
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    bar, part = _workspace(x2.device, stream, lay["ctas"], cols)
     rc = fn(
         x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mu.data_ptr(),
         rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
-        dbeta.data_ptr(), partials.data_ptr(), rows, cols, ACTS.index(act),
-        _DTYPE_CODES[x2.dtype], nv, wpr, blocks,
-        torch.cuda.current_stream(x2.device).cuda_stream)
+        dbeta.data_ptr(), part.data_ptr(), bar.data_ptr(),
+        *_layout_args(rows, cols, act, x2.dtype, lay,
+                      bwd_staged(x2, dy, dx)), stream)
     if rc != 0:
         raise RuntimeError(
             f"layer_norm_act_bwd kernel launch failed: CUDA error {rc}")
     bwd_launches += 1
     return dx, dgamma, dbeta
+
+
+def _staged_for(cols: int, dtype) -> bool:
+    """Whether K7 stages rows of ``cols`` values of ``dtype`` (16-byte
+    aligned tensors, as the caching allocator gives them)."""
+    return (cols * _ITEMSIZE[dtype]) % 16 == 0
+
+
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
+
+
+def bwd_occupancy(rows: int, cols: int, dtype=torch.float32,
+                  act: str = "identity") -> dict:
+    """K7's resources on the current card at this shape: registers and
+    local (spill) bytes a thread, threads and shared-memory bytes a CTA and
+    the CTAs one SM holds at once (CUDA's occupancy calculator), beside
+    :func:`bwd_layout`. Needs the card."""
+    lay = bwd_layout(rows, cols, _sm_count(torch.cuda.current_device()))
+    staged = _staged_for(cols, dtype)
+    out = (ctypes.c_int * 5)()
+    rc = _kernel_bwd("dl4j_layer_norm_act_bwd_occupancy")(
+        *_layout_args(rows, cols, act, dtype, lay, staged), out)
+    if rc != 0:
+        raise RuntimeError(f"layer_norm_act_bwd occupancy query failed: "
+                           f"CUDA error {rc}")
+    return {**dict(zip(("registers", "threads", "smem_bytes", "local_bytes",
+                        "ctas_per_sm"), out)), "layout": lay}
+
+
+def bwd_launch_floor(rows: int, cols: int, dtype=torch.float32,
+                     act: str = "identity") -> None:
+    """Launch an empty kernel with K7's grid, threads, cooperative launch
+    and shared memory at this shape on the current stream: the fixed cost
+    of one K7 launch, for timing beside it. Not counted in
+    ``bwd_launches``."""
+    lay = bwd_layout(rows, cols, _sm_count(torch.cuda.current_device()))
+    staged = _staged_for(cols, dtype)
+    rc = _kernel_bwd("dl4j_layer_norm_act_bwd_floor")(
+        *_layout_args(rows, cols, act, dtype, lay, staged),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"layer_norm_act_bwd floor launch failed: CUDA "
+                           f"error {rc}")
 
 
 # ----------------------------------------------------------------- bounds

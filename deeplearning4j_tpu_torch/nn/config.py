@@ -9,11 +9,13 @@ the recurrent layers) and ``graph_builder()``. The updater is an
 ``nn.updaters.Updater`` (the builder also takes an updater's name, or its
 serialized dict as a JAX ``configuration.json`` holds it).
 
-Not in this slice: the automatic ``FlattenLayer`` at a conv -> dense seam
-of a sequential network (``build`` raises ``NotImplementedError`` for a
-convolutional input type feeding dense layers; it comes with the LeNet
-slice, ``ROADMAP.md`` Queue 1), and the builder's ``optimization_algo``
-(the solvers; the configuration keeps and serializes the fields).
+``build()`` inserts a ``FlattenLayer`` at every convolution -> dense seam
+of a sequential network (DL4J's CnnToFeedForwardPreProcessor, the JAX
+package's ``_auto_flatten``), propagating the shape through each layer's
+own ``initialize`` on the ``meta`` device.
+
+Not in this slice: the builder's ``optimization_algo`` (the solvers; the
+configuration keeps and serializes the fields).
 """
 
 from __future__ import annotations
@@ -22,11 +24,13 @@ import dataclasses
 import json
 from typing import Any, List, Optional, Tuple
 
+import torch
+
 from . import constraints as _constraints
 from . import gradnorm as _gn
 from . import updaters as _upd
 from .layers.base import Layer
-from .layers.core import DenseLayer, OutputLayer
+from .layers.core import DenseLayer, FlattenLayer, OutputLayer
 
 
 class InputType:
@@ -240,14 +244,7 @@ class NeuralNetConfiguration:
 
     def build(self) -> MultiLayerConfiguration:
         shape = self._input_shape
-        if shape is not None and len(shape) == 3 and any(
-                isinstance(l, (DenseLayer, OutputLayer))
-                for l in self._layers):
-            raise NotImplementedError(
-                "a convolutional input type feeding dense layers needs the "
-                "automatic FlattenLayer, which comes with the LeNet slice "
-                "of the port (ROADMAP.md Queue 1)")
-        layers = list(self._layers)
+        layers = _auto_flatten(self._layers, shape)
         if self._tbptt:
             layers = [stamp_tbptt(l, self._tbptt) for l in layers]
         return MultiLayerConfiguration(
@@ -259,6 +256,43 @@ class NeuralNetConfiguration:
             gradient_normalization_threshold=self._grad_norm_threshold,
             tbptt_length=self._tbptt, constraints=self._constraints or None,
             workspace_mode=self._workspace_mode)
+
+
+def _auto_flatten(layers: List[Layer], input_shape) -> List[Layer]:
+    """Insert a FlattenLayer at every CNN -> dense seam (DL4J's
+    CnnToFeedForwardPreProcessor auto-add): before a Dense or Output layer
+    whose input is rank 3 (``[C, H, W]`` or ``[H, W, C]``). Recurrent
+    ``[T, F]`` inputs keep per-step dense application. The shape is
+    propagated through each layer's own ``initialize``."""
+    if input_shape is None:
+        return list(layers)
+    out: List[Layer] = []
+    shape: Optional[Tuple[int, ...]] = tuple(input_shape)
+    for l in layers:
+        if (isinstance(l, (DenseLayer, OutputLayer)) and shape is not None
+                and len(shape) == 3):
+            fl = FlattenLayer()
+            out.append(fl)
+            shape = _infer_shape(fl, shape)
+        out.append(l)
+        shape = _infer_shape(l, shape) if shape is not None else None
+    return out
+
+
+def _infer_shape(layer: Layer, input_shape, dtype="FLOAT"):
+    """The output shape of ``layer`` on ``input_shape`` (no batch axis),
+    from the layer's own ``initialize`` with its parameters made on the
+    ``meta`` device (drawn from a throwaway generator), or None where a
+    dimension is dynamic (-1, a recurrent input of unknown length). A
+    layer whose ``initialize`` fails on a static shape is a configuration
+    error and raises here, at ``build()``."""
+    if input_shape is None or any(int(s) < 0 for s in input_shape):
+        return None
+    from .. import dtypes as _dt
+    _, _, out = layer.initialize(torch.Generator(), tuple(input_shape),
+                                 _dt.param_dtype(dtype),
+                                 torch.device("meta"))
+    return tuple(int(s) for s in out)
 
 
 def stamp_tbptt(layer: Layer, tbptt: int) -> Layer:

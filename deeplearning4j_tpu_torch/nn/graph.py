@@ -41,9 +41,9 @@ from ..data.dataset import (DataSet, DataSetIterator, MultiDataSet,
                             MultiDataSetIterator, NumpyMultiDataSetIterator)
 from ..ops import losses as _loss
 from ..runtime import sentinel as _sent
-from ..utils import tree as _tree
 from . import constraints as _constraints
 from . import gradnorm as _gn
+from . import training as _training
 from . import updaters as _upd
 from .layers.core import _BaseOutput
 from .vertices import GraphVertex, LayerVertex
@@ -398,31 +398,11 @@ class ComputationGraph:
     def _regularization(self, params):
         """The l1/l2 penalty over every layer's ``W`` (the layer's own
         coefficient, else the network's)."""
-        total = 0.0
-        for name in self._topo:
-            v, _ = self._vertex_map[name]
-            lyr = v.layer if isinstance(v, LayerVertex) else None
-            l1 = (getattr(lyr, "l1", 0.0) or self.conf.l1) if lyr \
-                else self.conf.l1
-            l2 = (getattr(lyr, "l2", 0.0) or self.conf.l2) if lyr \
-                else self.conf.l2
-            if not (l1 or l2):
-                continue
-            w = params.get(name, {}).get("W")
-            if w is None:
-                continue
-            if l1:
-                total = total + l1 * torch.sum(torch.abs(w))
-            if l2:
-                total = total + 0.5 * l2 * torch.sum(torch.square(w))
-        return total
-
-    def _clip(self, grads):
-        """Gradient normalization and clipping: ``(grads, clip_events)``."""
-        return _gn.clip_with_events(
-            self.conf.gradient_normalization,
-            self.conf.gradient_normalization_threshold,
-            self.conf.gradient_clip_value, self.conf.gradient_clip_l2, grads)
+        return _training.regularization(self.conf, (
+            (v.layer if isinstance(v, LayerVertex) else None,
+             params.get(name, {}))
+            for name in self._topo
+            for v in (self._vertex_map[name][0],)))
 
     def _check_trainable(self):
         """Raise for what ``fit`` cannot do in this slice."""
@@ -465,45 +445,15 @@ class ComputationGraph:
         """``(loss, grads, new BN state)`` at the current params: one
         training forward and ``torch.autograd.grad``. ``grads`` is keyed
         like ``params``; a param the loss does not reach gets zeros."""
-        leaves = []
-
-        def track(t):
-            t = t.detach()
-            if t.is_floating_point():
-                t.requires_grad_(True)
-                leaves.append(t)
-            return t
-
-        params = _tree.tmap(track, self.params)
-        loss, new_state = self._loss(params, self.state, xs, ys, fms, lms)
-        found = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
-
-        def grad_of(t):
-            if not t.is_floating_point():
-                return torch.zeros_like(t)
-            g = next(found)
-            return torch.zeros_like(t) if g is None else g
-
-        grads = _tree.tmap(grad_of, params)
-        return loss.detach(), grads, new_state
+        return _training.value_and_grad(
+            self.params,
+            lambda p: self._loss(p, self.state, xs, ys, fms, lms))
 
     def _train_step(self, xs, ys, fms, lms):
-        """One step, inside one precision context. Returns the loss (a
-        device tensor)."""
-        with _env.precision(self.device):
-            loss, grads, new_state = self._value_and_grad(xs, ys, fms, lms)
-            with torch.no_grad():
-                grads, clip_events = self._clip(grads)
-                # a bad step leaves params, updater state and BN state as
-                # they were
-                if self._sentinel.verdict(loss, grads, clip_events):
-                    params, self.updater_state = _upd.apply_leafwise(
-                        self.conf.updater, grads, self.updater_state,
-                        self.params, self.iteration)
-                    self.params = _constraints.apply_constraints(
-                        self.conf.constraints, params)
-                    self.state = new_state
-        return loss
+        """One step, inside one precision context (``nn/training.py``).
+        Returns the loss (a device tensor)."""
+        return _training.train_step(
+            self, lambda p: self._loss(p, self.state, xs, ys, fms, lms))
 
     def fit(self, data, labels=None, epochs: int = 1,
             resilience=None) -> "ComputationGraph":

@@ -1,12 +1,17 @@
-"""Core feed-forward layers: Dense, Activation, Output, Loss.
+"""Core feed-forward layers: Dense, Activation, Dropout, Flatten, Output,
+Loss.
 
-Port of ``DenseLayer``, ``ActivationLayer``, ``OutputLayer`` and
-``LossLayer`` from ``deeplearning4j_tpu/nn/layers/core.py``, each marked
-``decode_pointwise`` as there (:35, :65, :276, :309; the port has no
-``DropoutLayer`` or ``ElementWiseMultiplicationLayer`` yet). Parameter
-names and layouts follow DL4J: ``W`` is ``[nIn, nOut]``, ``b`` is
-``[nOut]``. In training the loss heads return their pre-activation and
+Port of ``DenseLayer``, ``ActivationLayer``, ``DropoutLayer``,
+``FlattenLayer``, ``OutputLayer`` and ``LossLayer`` from
+``deeplearning4j_tpu/nn/layers/core.py``, the pointwise ones marked
+``decode_pointwise`` as there (:35, :65, :83, :276, :309; the port has no
+``ElementWiseMultiplicationLayer`` yet). Parameter names and layouts
+follow DL4J: ``W`` is ``[nIn, nOut]``, ``b`` is ``[nOut]``. In training
+the loss heads return their pre-activation and
 :meth:`_BaseOutput.loss_value` computes the loss from it.
+
+A layer with ``needs_rng = True`` (Dropout) takes the model's
+``torch.Generator`` as ``rng`` in ``apply``; the others take no rng.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch
 from ... import dtypes as _dt
 from ...ops import activations as _act
 from ...ops import losses as _loss
+from ...ops import nnops
 from .. import weights as _winit
 from .base import Layer, layer
 
@@ -70,6 +76,46 @@ class ActivationLayer(Layer):
         if self.alpha is not None:
             return fn(x, self.alpha), state, mask
         return fn(x), state, mask
+
+
+@layer("dropout")
+class DropoutLayer(Layer):
+    """DL4J DropoutLayer. As in the JAX package, ``rate`` is the DROP rate
+    (DL4J's config value is the retain probability). Training with a
+    generator drops; inference, or no generator, is the identity."""
+    decode_pointwise = True  # inference identity
+    needs_rng = True
+    rate: float = 0.5
+    name: Optional[str] = None
+
+    def has_params(self):
+        return False
+
+    def apply(self, params, x, state, *, train=False, mask=None, rng=None):
+        if not train or rng is None:
+            return x, state, mask
+        return nnops.dropout(x, self.rate, rng), state, mask
+
+
+@layer("flatten")
+class FlattenLayer(Layer):
+    """DL4J's CnnToFeedForwardPreProcessor as a layer (the builder inserts
+    it at a convolution -> dense seam): ``[B, ...]`` to ``[B, prod(...)]``
+    in the logical order of the input's axes (C, H, W for NCHW), whatever
+    its memory layout (a channels-last tensor is copied, not viewed)."""
+    name: Optional[str] = None
+
+    def has_params(self):
+        return False
+
+    def initialize(self, gen, input_shape, dtype, device):
+        flat = 1
+        for s in input_shape:
+            flat *= int(s)
+        return {}, {}, (flat,)
+
+    def apply(self, params, x, state, *, train=False, mask=None):
+        return x.reshape(x.shape[0], -1), state, mask
 
 
 class _BaseOutput:

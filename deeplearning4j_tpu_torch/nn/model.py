@@ -1,10 +1,16 @@
-"""MultiLayerNetwork: the sequential network engine, its serving half.
+"""MultiLayerNetwork: the sequential network engine.
 
 Port of ``deeplearning4j_tpu/nn/model.py``: ``init``, ``num_params``, the
-eager layer walk ``_forward`` (with the mask, and the BN + activation fold
-plan, the same plan the JAX package makes), ``feed_forward``, ``output``
-(through the bucketed :class:`~..serving.engine.InferenceEngine`, with
-sequence buckets and masks), ``predict``, the streaming ``rnn_time_step``
+eager layer walk ``_forward`` (with the mask, the BN + activation fold
+plan, the same plan the JAX package makes, and the model's dropout
+generator in training), ``feed_forward``, ``output`` (through the bucketed
+:class:`~..serving.engine.InferenceEngine`, with sequence buckets and
+masks; ``train=True`` runs the training forward, dropout included),
+``predict``, the training half (``fit``, ``score``, ``evaluate``: the
+loss of ``_build_loss_fn`` with the l1/l2 term, the step of
+``_build_train_step`` with clipping, the divergence sentinel, the updater
+and the constraints, shared with ``ComputationGraph`` through
+``nn/training.py``), the streaming ``rnn_time_step``
 / ``rnn_clear_previous_state``, ``save``/``load``, and the
 autoregressive decode walk of the generative-serving slice (the JAX
 module's :880-1053): ``decode_cache_spec``, ``init_decode_cache``,
@@ -21,10 +27,17 @@ string) and then by parameter name, exactly as the JAX package keys
 ``net.params`` and ``net.state``, so its ``coefficients.npz`` loads
 unchanged; the updater state is keyed by slot, then the same way.
 
+The dropout generator is a ``torch.Generator`` on the model's device
+seeded from ``conf.seed``: its masks are not the JAX package's threefry
+bits (the tests compare dropout by distribution).
+
 Not in this slice (each raises ``NotImplementedError`` naming the
-``ROADMAP.md`` Queue 1 slice that ports it): ``fit``, ``score``,
-``evaluate`` and training-mode ``output`` (the LeNet slice), and
-``quantize_params`` and the int8 KV cache (int8 serving).
+``ROADMAP.md`` Queue 1 slice that ports it): ``fit(resilience=...)``, the
+training listeners, the solver path (an ``optimization_algo`` other than
+SGD), ``fit_on_device``, micro-batch accumulation (``accum_steps``),
+``workspace_mode`` rematerialization, 16-bit (mixed-precision) training,
+``tbptt_length`` (recurrent training), and ``quantize_params`` and the
+int8 KV cache (int8 serving).
 """
 
 from __future__ import annotations
@@ -36,9 +49,17 @@ import torch
 
 from .. import dtypes as _dt
 from .. import environment as _env
+from ..data.dataset import DataSet, DataSetIterator, NumpyDataSetIterator
+from ..ops import losses as _loss
+from ..runtime import sentinel as _sent
+from . import training as _training
 from .config import MultiLayerConfiguration
 
-_TRAINING = "the LeNet slice of the port (ROADMAP.md Queue 1)"
+_LATER = "a later slice of the port (ROADMAP.md Queue 1)"
+_RECURRENT = ("the recurrent-training slice of the port (ROADMAP.md Queue 1 "
+              "item 2)")
+_BREADTH = "the training-breadth slice of the port (ROADMAP.md Queue 1 item 3)"
+_RUNTIME = "the runtime slice of the port (ROADMAP.md Queue 1 item 9)"
 _INT8 = "the int8-serving slice of the port (ROADMAP.md Queue 1)"
 
 
@@ -59,6 +80,9 @@ class MultiLayerNetwork:
         self._rnn_step_fn = None
         self._rnn_stream = None
         self._decode_plan = None
+        self._score = None
+        self._sentinel = _sent.Sentinel()
+        self._rng = None
 
     # ------------------------------------------------------------------ init
     def init(self, device=None) -> "MultiLayerNetwork":
@@ -88,6 +112,7 @@ class MultiLayerNetwork:
             if self.conf.updater else {}
         self.device = device
         self._inference_engine = None
+        self._rng = None
         self.rnn_clear_previous_state()
         return self
 
@@ -97,11 +122,12 @@ class MultiLayerNetwork:
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, x, state, *, train=False, mask=None,
-                 collect=False):
+                 collect=False, rng=None):
         """The eager layer walk. Returns ``(out, new_state, mask)``, or
         ``(acts, new_state, mask)`` with ``collect=True`` (``acts`` is
         ``[input, layer0_out, ...]``, feedForward semantics, with no
-        epilogue fold)."""
+        epilogue fold). ``rng``, a ``torch.Generator`` on x's device, feeds
+        the stochastic layers (dropout) in training."""
         dt = _dt.resolve(self.conf.dtype)
         if dt.is_floating_point and x.is_floating_point() and x.dtype != dt:
             x = x.to(dt)  # cast inputs to the network dtype (DL4J)
@@ -116,6 +142,8 @@ class MultiLayerNetwork:
             if i in skip:
                 continue  # activation folded into the previous BN
             kw = {"fold_act": fold[i]} if i in fold else {}
+            if getattr(layer, "needs_rng", False):
+                kw["rng"] = rng
             x, s_new, mask = layer.apply(params.get(si, {}), x,
                                          state.get(si, {}), train=train,
                                          mask=mask, **kw)
@@ -164,14 +192,16 @@ class MultiLayerNetwork:
             self.init()
 
     # ------------------------------------------------------------- inference
-    def feed_forward(self, x, train: bool = False):
+    def feed_forward(self, x, train: bool = False, rng=None):
         """Per-layer activations for input ``x`` (DL4J ``feedForward()``):
-        the input first, then every layer's output, as tensors."""
+        the input first, then every layer's output, as tensors. ``rng`` (a
+        ``torch.Generator`` on the model's device) feeds dropout when
+        ``train=True``; None keeps it the identity."""
         self._ensure_init()
         with torch.inference_mode(), _env.precision(self.device):
             acts, _, _ = self._forward(self.params, self._tensor(x),
                                        self.state, train=train,
-                                       collect=True)
+                                       collect=True, rng=rng)
         return acts
 
     def inference_engine(self, **kwargs):
@@ -192,11 +222,19 @@ class MultiLayerNetwork:
         """Output activations as numpy (DL4J ``output()``), through the
         bucketed engine: ragged batch sizes pad to power-of-two buckets,
         and a sequence input's time axis to its power-of-two bucket with
-        the padded steps masked."""
-        if train:
-            raise NotImplementedError(
-                f"training-mode output comes with {_TRAINING}")
-        return self.inference_engine().output(x)
+        the padded steps masked. ``train=True`` runs the training forward
+        (batch statistics, dropout from the model's generator) and leaves
+        the layer state as it was."""
+        if not train:
+            return self.inference_engine().output(x)
+        self._ensure_init()
+        with torch.inference_mode(), _env.precision(self.device):
+            out, _, _ = self._forward(self.params, self._tensor(x),
+                                      self.state, train=True,
+                                      rng=self._generator())
+            if out.dtype in (torch.bfloat16, torch.float16):
+                out = out.float()
+            return out.cpu().numpy()
 
     def predict(self, x) -> np.ndarray:
         """Class indices (DL4J ``predict()``)."""
@@ -269,19 +307,168 @@ class MultiLayerNetwork:
 
         return step
 
+    # --------------------------------------------------------------- training
+    @property
+    def _out_layer(self):
+        """The loss head (the last layer), or None."""
+        last = self.layers[-1] if self.layers else None
+        return last if hasattr(last, "loss_value") else None
+
+    def _generator(self) -> torch.Generator:
+        """The model's dropout generator on its device, seeded from
+        ``conf.seed`` at first use after ``init``."""
+        if self._rng is None:
+            self._rng = torch.Generator(device=self.device).manual_seed(
+                int(self.conf.seed))
+        return self._rng
+
+    def _regularization(self, params):
+        """Per-layer l1/l2 on ``W`` (DL4J regularizes W, not b)."""
+        return _training.regularization(
+            self.conf, ((layer, params.get(str(i), {}))
+                        for i, layer in enumerate(self.layers)))
+
+    def _clip(self, grads):
+        """Gradient normalization and clipping: ``(grads, clip_events)``."""
+        return _training.clip(self.conf, grads)
+
+    def _build_loss_fn(self):
+        """The training loss ``(params, state, x, y, fmask, lmask, rng) ->
+        (loss, new_state)``: the training forward, the output layer's loss
+        on the combined label and propagated masks, plus l1/l2."""
+        out_layer = self._out_layer
+
+        def loss_fn(params, state, x, y, fmask, lmask, rng):
+            out, new_state, out_mask = self._forward(
+                params, x, state, train=True, mask=fmask, rng=rng)
+            lm = _loss.combine_masks(lmask, out_mask)
+            data_loss = out_layer.loss_value(
+                out, y, mask=lm,
+                weights=getattr(out_layer, "loss_weights", None))
+            return data_loss + self._regularization(params), new_state
+
+        return loss_fn
+
+    def _check_trainable(self):
+        """Raise for what ``fit`` cannot do in this slice."""
+        if self._out_layer is None:
+            raise ValueError("last layer must be an OutputLayer/LossLayer "
+                             "to fit()")
+        if self.conf.updater is None:
+            raise ValueError("fit() needs an updater in the configuration")
+        algo = (self.conf.optimization_algo or "SGD").upper()
+        if algo not in ("SGD", "STOCHASTIC_GRADIENT_DESCENT"):
+            raise NotImplementedError(
+                f"optimization_algo={self.conf.optimization_algo!r} (the "
+                f"solver path) comes with {_BREADTH}")
+        if self.conf.workspace_mode not in ("none", "", None):
+            raise NotImplementedError(
+                f"workspace_mode={self.conf.workspace_mode!r} "
+                f"(rematerialization) comes with {_BREADTH}")
+        if _dt.is_mixed(self.conf.dtype):
+            raise NotImplementedError(
+                f"training a {self.conf.dtype} network (mixed precision, "
+                f"the fused master-cast updater) comes with {_BREADTH}")
+        if self.conf.tbptt_length:
+            raise NotImplementedError(
+                f"tbptt_length (recurrent training) comes with {_RECURRENT}")
+
+    def _build_train_step(self, accum_steps: int = 1):
+        """The eager step ``(x, y, fmask, lmask) -> loss`` (a device
+        tensor): ``nn/training.py``'s step on :meth:`_build_loss_fn` with
+        the model's generator. Only ``accum_steps=1``."""
+        if accum_steps != 1:
+            raise NotImplementedError(
+                f"accum_steps={accum_steps} (micro-batch accumulation) "
+                f"comes with {_BREADTH}")
+        loss_fn = self._build_loss_fn()
+
+        def step(x, y, fmask, lmask):
+            rng = self._generator()
+            return _training.train_step(
+                self, lambda p: loss_fn(p, self.state, x, y, fmask, lmask,
+                                        rng))
+        return step
+
+    def _value_and_grad(self, x, y, fmask=None, lmask=None, rng=None):
+        """``(loss, grads, new_state)`` at the current params: one training
+        forward (dropout from ``rng``, None: the identity) and
+        ``torch.autograd.grad``."""
+        loss_fn = self._build_loss_fn()
+        with _env.precision(self.device):
+            return _training.value_and_grad(
+                self.params, lambda p: loss_fn(p, self.state, x, y, fmask,
+                                               lmask, rng))
+
+    def fit(self, data, labels=None, epochs: int = 1,
+            resilience=None) -> "MultiLayerNetwork":
+        """DL4J ``fit()`` on a DataSetIterator, a DataSet, or (features,
+        labels) arrays, for ``epochs`` passes. An uninitialized net is
+        initialized on ``cuda`` first."""
+        if resilience is not None:
+            raise NotImplementedError(
+                f"fit(resilience=...) comes with {_LATER}")
+        if not self.params and not self.state:
+            self.init()
+        self._check_trainable()
+        step = self._build_train_step()
+        for _ in range(epochs):
+            for ds in _as_iterator(data, labels):
+                self._score = step(
+                    self._tensor(ds.features), self._tensor(ds.labels),
+                    None if ds.features_mask is None
+                    else self._tensor(ds.features_mask),
+                    None if ds.labels_mask is None
+                    else self._tensor(ds.labels_mask))
+                self.iteration += 1
+            self.epoch += 1
+        return self
+
+    def fit_on_device(self, *args, **kwargs):
+        raise NotImplementedError(f"fit_on_device comes with {_BREADTH}")
+
+    def score(self, ds: Optional[DataSet] = None) -> float:
+        """The loss of the last ``fit`` batch, or of ``ds`` (the training
+        forward with batch statistics and no dropout, as DL4J scores);
+        both include the l1/l2 term."""
+        if ds is None:
+            if torch.is_tensor(self._score):
+                self._score = float(self._score)  # the only sync, on demand
+            return self._score
+        self._ensure_init()
+        loss_fn = self._build_loss_fn()
+        with torch.no_grad(), _env.precision(self.device):
+            loss, _ = loss_fn(
+                self.params, self.state, self._tensor(ds.features),
+                self._tensor(ds.labels),
+                None if ds.features_mask is None
+                else self._tensor(ds.features_mask),
+                None if ds.labels_mask is None
+                else self._tensor(ds.labels_mask), None)
+        return float(loss)
+
+    def evaluate(self, data, labels=None):
+        """Classification evaluation over an iterator (DL4J
+        ``evaluate()``), through :meth:`output`."""
+        from ..eval.evaluation import Evaluation
+        ev = Evaluation()
+        for ds in _as_iterator(data, labels):
+            ev.eval(ds.labels, self.output(ds.features),
+                    mask=ds.labels_mask)
+        return ev
+
+    def resilience_counters(self) -> dict:
+        """The divergence sentinel's counters (skipped steps in total and
+        in a row, clip events)."""
+        return self._sentinel.to_host()
+
+    def set_listeners(self, *listeners):
+        raise NotImplementedError(f"training listeners come with {_RUNTIME}")
+
+    def add_listener(self, listener):
+        raise NotImplementedError(f"training listeners come with {_RUNTIME}")
+
     # ------------------------------------------------ not in this slice
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"MultiLayerNetwork.fit comes with {_TRAINING}")
-
-    def score(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"MultiLayerNetwork.score comes with {_TRAINING}")
-
-    def evaluate(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"MultiLayerNetwork.evaluate comes with {_TRAINING}")
-
     def quantize_params(self, mode: str = "int8"):
         raise NotImplementedError(f"quantize_params comes with {_INT8}")
 
@@ -477,3 +664,25 @@ class MultiLayerNetwork:
             raise TypeError(f"{path} holds a {type(model).__name__}, "
                             "not a MultiLayerNetwork")
         return model
+
+
+def _as_iterator(data, labels=None) -> DataSetIterator:
+    if isinstance(data, DataSetIterator):
+        return data
+    if isinstance(data, DataSet):
+        return _SingleIterator(data)
+    if labels is not None:
+        return NumpyDataSetIterator(data, labels,
+                                    batch_size=len(np.asarray(data)))
+    raise TypeError(f"cannot make a DataSetIterator from {type(data)}")
+
+
+class _SingleIterator(DataSetIterator):
+    def __init__(self, ds: DataSet):
+        self._ds = ds
+
+    def batch_size(self):
+        return self._ds.num_examples()
+
+    def __iter__(self):
+        yield self._ds

@@ -1,5 +1,5 @@
-"""Neural-network ops: convolution, pooling, batch and layer norm, the LSTM
-cell.
+"""Neural-network ops: convolution, pooling, batch and layer norm, dropout,
+the LSTM cell.
 
 Port of the ``deeplearning4j_tpu/ops/nnops.py`` ops that ResNet serving
 and the recurrent layers use; ``layer_norm`` and ``lstm_cell`` are
@@ -206,6 +206,20 @@ def layer_norm(x, gamma, beta, eps=1e-5, axis=-1):
 
 
 # -- recurrence ---------------------------------------------------------------
+
+def dropout(x, rate, generator=None, deterministic=False):
+    """Inverted dropout with the DROP rate ``rate`` (the JAX package's
+    ``dropout``, :277): each element is kept with probability ``1 - rate``
+    and scaled by ``1 / (1 - rate)``. The mask comes from
+    ``torch.rand(..., generator=generator)`` on ``x``'s device, so a seeded
+    generator repeats it; its bits are not the JAX package's threefry
+    bits. Not a catalog op here: the JAX catalog's takes a JAX key."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
 
 @register("lstm_cell", category="rnn")
 def lstm_cell(x, h, c, w_ih, w_hh, b, forget_bias=0.0):

@@ -1,17 +1,23 @@
-"""K3, K8, K9 and K10 of this checkout against those of another checkout,
-timed in turns on one card.
+"""K3, K7, K8, K9 and K10 of this checkout against those of another
+checkout, timed in turns on one card.
 
     python3 -m deeplearning4j_tpu_torch.tools.compare_kernels --other DIR
 
 DIR is another checkout of the repository (for instance the parent commit
 unpacked with ``git archive``). Its ``csrc/flash_attn_fwd.cu``,
-``csrc/lstm_cell.cu``, ``csrc/decode_attn.cu`` and
-``csrc/mq_decode_attn.cu`` are compiled with this checkout's ``nvcc`` flags
-into ``build/other/`` and loaded beside this checkout's kernels. Then, on
-the same inputs (seed 0; TF32 off):
+``csrc/layer_norm_act_bwd.cu``, ``csrc/lstm_cell.cu``,
+``csrc/decode_attn.cu`` and ``csrc/mq_decode_attn.cu`` are compiled with
+this checkout's ``nvcc`` flags into ``build/other/`` and loaded beside this
+checkout's kernels. Then, on the same inputs (seed 0; TF32 off):
 
 - K3 at BERT-base batch 32, (B, H, Tq, Tk, d) = (32, 12, 128, 128, 64),
   head-split operands and a ragged key bias, in float32 and bfloat16;
+- K7 at ``chip_smoke.py``'s LayerNorm shapes [rows, C], identity (the
+  fused BERT path's activation), fed K6's mu and rstd: the path's (4096,
+  768) in float32 and bfloat16, the other six in float32, each line with
+  an empty kernel launched as this checkout's K7 is (``floor_ms``) and, at
+  the path's shape, ``native_layer_norm_backward`` on the same inputs
+  (``library_ms``);
 - K8 at TextGenerationLSTM's two layers at batch 32, (B, F, U) = (32, 77,
   256) and (32, 256, 256), float32, x read through a row stride, and the
   empty kernel launched as K8 (``lstm_cell.launch_floor``);
@@ -35,7 +41,10 @@ A checkout from before K8's cluster design (no
 ``dl4j_lstm_cell_geometry``) takes a row tile where this one takes its copy
 widths; one from before the one-launch K9 and K10 (no
 ``dl4j_decode_attn_floor``) takes f32 scratch for its split states and
-its own split rule (at most 64 splits). Needs one CUDA card.
+its own split rule (at most 64 splits); one from before the one-launch K7
+(no ``dl4j_layer_norm_act_bwd_floor``) takes its two-kernel grid
+(``OLD_BWD_BLOCKS_PER_SM`` blocks an SM) and f32 partials. Needs one CUDA
+card.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ import torch
 
 from ..kernels import _build
 from ..kernels import decode_attention as k9
+from ..kernels import layer_norm_act as k6
 from ..kernels import lstm_cell as k8
 from ..kernels import multiquery_decode as k10
 from . import profile_generate as pg
@@ -72,10 +82,17 @@ MQ_SHAPES = ((8, 4, 4, 128, 64), (32, 4, 4, 1024, 64), (32, 12, 4, 4096, 64),
 MQ_PATH_SHAPE, MQ_GROW_SHAPE, MQ_LONG_SHAPE = MQ_SHAPES[:3]
 #: a checkout from before the one-launch K9 and K10: its split cap
 OLD_MAX_SPLITS = 64
+#: chip_smoke.py's K6/K7 shapes [rows, C]; the first is the path's
+LN_SHAPES = ((4096, 768), (256, 768), (128, 768), (77, 768), (4096, 1024),
+             (33, 4096), (5, 37))
+LN_EPS = 1e-12
+#: a checkout from before the one-launch K7: its first stage's blocks an SM
+OLD_BWD_BLOCKS_PER_SM = 4
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-KERNEL_LIBS = ("flash_attn_fwd", "lstm_cell", "decode_attn", "mq_decode_attn")
+KERNEL_LIBS = ("flash_attn_fwd", "layer_norm_act_bwd", "lstm_cell",
+               "decode_attn", "mq_decode_attn")
 
 
 def card() -> str:
@@ -103,13 +120,18 @@ def time_ms(fn, reps: int, warm: int = 3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in ev)
 
 
-def build_other(root: Path) -> dict:
-    """The other checkout's K3, K8, K9 and K10 libraries, built into
-    build/other/."""
+#: the library each kernel's comparison needs
+LIB_OF = {"K3": "flash_attn_fwd", "K7": "layer_norm_act_bwd",
+          "K8": "lstm_cell", "K9": "decode_attn", "K10": "mq_decode_attn"}
+
+
+def build_other(root: Path, names=KERNEL_LIBS) -> dict:
+    """The other checkout's libraries ``names`` (default: K3's, K7's,
+    K8's, K9's and K10's), built into build/other/."""
     out = _build.BUILD_DIR / "other"
     out.mkdir(parents=True, exist_ok=True)
     libs, procs = {}, []
-    for name in KERNEL_LIBS:
+    for name in names:
         src = root / "deeplearning4j_tpu_torch" / "csrc" / f"{name}.cu"
         lib = out / f"lib{name}-{time.time_ns()}.so"
         procs.append((name, lib, subprocess.Popen(
@@ -147,6 +169,56 @@ def attn_fn(lib, q, k, v, kb, scale):
         if rc != 0:
             raise RuntimeError(f"K3 launch failed: CUDA error {rc}")
         return o, m, l
+    return call
+
+
+def ln_bwd_fn(lib, x, g, b, mu, rstd, dy):
+    """A call of ``lib``'s K7 entry (identity) returning ``(dx, dgamma,
+    dbeta)``: this checkout's one-launch layout and a workspace of its own
+    where the library has a launch floor, else the two-kernel grid of a
+    checkout from before the one-launch design (``blocks`` partial rows of
+    f32)."""
+    fn = lib.dl4j_layer_norm_act_bwd
+    rows, cols = x.shape
+    dev = x.device
+    dx = torch.empty_like(x)
+    dg, db = (torch.empty(cols, dtype=torch.float32, device=dev)
+              for _ in range(2))
+    ptrs = [x.data_ptr(), g.data_ptr(), b.data_ptr(), mu.data_ptr(),
+            rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(), dg.data_ptr(),
+            db.data_ptr()]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if hasattr(lib, "dl4j_layer_norm_act_bwd_floor"):
+        lay = k6.bwd_layout(rows, cols, sms)
+        bar = torch.zeros(2, dtype=torch.int32, device=dev)
+        part = torch.empty(2 * lay["ctas"] * cols, dtype=torch.float32,
+                           device=dev)
+        ptrs += [part.data_ptr(), bar.data_ptr()]
+        ints = list(k6._layout_args(rows, cols, "identity", x.dtype, lay,
+                                    k6.bwd_staged(x, dy, dx)))
+        fn.argtypes = [ctypes.c_void_p] * len(ptrs) \
+            + k6._LAYOUT_ARGTYPES + [ctypes.c_void_p]
+        keep = (bar, part)
+    else:
+        nv, wpr = k6.row_config(cols)
+        blocks = max(1, min(-(-rows // max(4 // wpr, 1)),
+                            OLD_BWD_BLOCKS_PER_SM * sms, 65535))
+        part = torch.empty((2, blocks, cols), dtype=torch.float32,
+                           device=dev)
+        ptrs += [part.data_ptr()]
+        ints = [rows, cols, 0, _CODES[x.dtype], nv, wpr, blocks]
+        fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [
+            ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        keep = (part,)
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rc = fn(*ptrs, *ints, stream)
+        if rc != 0:
+            raise RuntimeError(f"K7 launch failed: CUDA error {rc}")
+        return dx, dg, db
+    call.workspace = keep  # alive as long as the call
     return call
 
 
@@ -300,16 +372,35 @@ def main(argv=None) -> int:
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--kernels", default=",".join(LIB_OF),
+                    help="the kernels to compare, comma-separated "
+                    "(default: all of K3, K7, K8, K9, K10)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("compare_kernels needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     name = card()
-    other = build_other(a.other.resolve())
-    this = {n: _build.load(n) for n in KERNEL_LIBS}
+    wanted = [k.strip() for k in a.kernels.split(",") if k.strip()]
+    bad = sorted(set(wanted) - set(LIB_OF))
+    if bad:
+        raise SystemExit(f"unknown kernels {bad}: choose from {list(LIB_OF)}")
+    libs = [LIB_OF[k] for k in LIB_OF if k in wanted]
+    other = build_other(a.other.resolve(), libs)
+    this = {n: _build.load(n) for n in libs}
     gen = torch.Generator(device=dev).manual_seed(0)
+    if "K3" in wanted:
+        compare_k3(other, this, gen, dev, name, a)
+    if "K7" in wanted:
+        compare_k7(other, this, gen, dev, name, a)
+    if "K8" in wanted:
+        compare_k8(other, this, gen, dev, name, a)
+    if "K9" in wanted or "K10" in wanted:
+        compare_decode(other, this, gen, dev, name, a, wanted)
+    return 0
 
+
+def compare_k3(other, this, gen, dev, name, a) -> None:
     B, H, Tq, Tk, d = ATTN_SHAPE
     lengths = torch.randint(1, Tk + 1, (B,), generator=gen, device=dev)
     kb = torch.where(torch.arange(Tk, device=dev)[None, :] < lengths[:, None],
@@ -325,6 +416,40 @@ def main(argv=None) -> int:
                           "dtype": str(dtype)[6:], "layout": "heads",
                           "card": name, **row}), flush=True)
 
+
+
+def compare_k7(other, this, gen, dev, name, a) -> None:
+    for rows, cols in LN_SHAPES:
+        g = torch.randn(cols, generator=gen, device=dev) * 0.5 + 1.0
+        b = torch.randn(cols, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype != torch.float32 and (rows, cols) != LN_SHAPES[0]:
+                continue
+            x = torch.randn(rows, cols, generator=gen, device=dev).to(dtype)
+            dy = torch.randn(rows, cols, generator=gen, device=dev).to(dtype)
+            _, mu, rstd = k6.layer_norm_act(x, g, b, LN_EPS)
+            row = in_turns(ln_bwd_fn(other["layer_norm_act_bwd"], x, g, b,
+                                     mu, rstd, dy),
+                           ln_bwd_fn(this["layer_norm_act_bwd"], x, g, b,
+                                     mu, rstd, dy), a.rounds, a.reps)
+            floor = time_ms(lambda: k6.bwd_launch_floor(rows, cols, dtype),
+                            a.reps)
+            extra = {}
+            if (rows, cols) == LN_SHAPES[0]:
+                gt, bt = g.to(dtype), b.to(dtype)
+                extra["library_ms"] = time_ms(
+                    lambda: torch.ops.aten.native_layer_norm_backward(
+                        dy, x, [cols], mu[:, None], rstd[:, None], gt, bt,
+                        [True, True, True]), a.reps)
+            print(json.dumps({"kernel": "K7", "shape": (rows, cols),
+                              "dtype": str(dtype)[6:], "act": "identity",
+                              "bound_ms": k6.bound_ms_bwd(
+                                  rows, cols, x.element_size(), "identity"),
+                              "card": name, "floor_ms": floor, **extra,
+                              **row}), flush=True)
+
+
+def compare_k8(other, this, gen, dev, name, a) -> None:
     for B, F, U in LSTM_SHAPES:
         seq = torch.rand(B, 3, F, generator=gen, device=dev) * 2 - 1
         x = seq[:, 1]
@@ -344,7 +469,11 @@ def main(argv=None) -> int:
                           "card": name, "floor_ms": floor, **row}),
               flush=True)
 
+
+def compare_decode(other, this, gen, dev, name, a, wanted) -> None:
     for kernel, shape, dtype, ln in decode_cases(gen, dev):
+        if kernel not in wanted:
+            continue
         multi = kernel == "K10"
         B, H = shape[:2]
         C, d = shape[-2:]
@@ -373,7 +502,6 @@ def main(argv=None) -> int:
                           "lengths": [int(ln.min()), int(ln.max())],
                           "card": name, "floor_ms": floor, **extra, **row}),
               flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -72,7 +72,9 @@ def test_scan_covers_the_package():
             "zoo.py", "config.py", "serializer.py", "decode_attention.py",
             "attention.py", "sampling.py", "profile_generate.py",
             "kv_pool.py", "multiquery_decode.py", "layer_norm_act.py",
-            "nnops.py"} <= names
+            "nnops.py", "lenet.py", "training.py", "mnist.py",
+            "normalizers.py", "evaluation.py", "compare_kernels.py",
+            "count_kernels.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -170,6 +172,28 @@ def test_multilayer_entry_points_without_device_raise(no_cuda, tmp_path):
     assert back.device.type == "cpu"
     assert back.rnn_time_step(x[:, 0]).shape == (1, 5)
     assert InferenceEngine(back, device="cpu").output(x).shape == (1, 3, 5)
+
+
+def test_lenet_entry_points_without_device_raise(no_cuda):
+    """The zoo's lenet() and fit/score/evaluate of an uninitialized
+    MultiLayerNetwork run on cuda unless asked for cpu, and raise without
+    a card (fit initializes the net on cuda first)."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import lenet, lenet_config
+    x = np.zeros((2, 1, 28, 28), np.float32)
+    y = np.eye(10, dtype=np.float32)[[1, 2]]
+    for make in (lenet, lambda: lenet(device="cuda"),
+                 lambda: MultiLayerNetwork(lenet_config()).fit(
+                     DataSet(x, y)),
+                 lambda: MultiLayerNetwork(lenet_config()).score(
+                     DataSet(x, y)),
+                 lambda: MultiLayerNetwork(lenet_config()).evaluate(x, y)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    net = lenet(device="cpu")
+    assert net.device.type == "cpu"
+    net.fit(DataSet(x, y))
+    assert np.isfinite(net.score())
 
 
 def test_generative_fronts_without_device_raise(no_cuda):

@@ -253,10 +253,73 @@ def test_row_config_and_the_width_limit():
     assert k6.row_config(k6.MAX_COLS) == (32, 8)
     with pytest.raises(ValueError, match=f"limit of {k6.MAX_COLS}"):
         k6.row_config(k6.MAX_COLS + 1)
-    # K7's grid: a function of the shape and the SM count only
-    assert k6.bwd_grid(4096, 768, 132) == (24, 1, 528)
-    assert k6.bwd_grid(5, 37, 132) == (8, 1, 2)
-    assert k6.bwd_grid(33, 4096, 132) == (32, 4, 33)
+    # K7's layout: a function of the shape and the SM count only
+    lay = k6.bwd_layout(4096, 768, 132)
+    assert (lay["nv"], lay["wpr"], lay["groups"], lay["stages"], lay["ctas"],
+            lay["rows_per_cta"]) == (24, 1, 8, 3, 132, 32)
+    lay = k6.bwd_layout(5, 37, 132)
+    assert (lay["nv"], lay["wpr"], lay["ctas"]) == (8, 1, 1)
+    lay = k6.bwd_layout(33, 4096, 132)
+    assert (lay["nv"], lay["wpr"], lay["groups"], lay["ctas"]) == (
+        32, 4, 2, 17)
+
+
+#: chip_smoke.py's K6/K7 shapes, and the widest rows K7 takes
+LN_SHAPES = ((4096, 768), (256, 768), (128, 768), (77, 768), (4096, 1024),
+             (33, 4096), (5, 37))
+LAYOUT_SHAPES = LN_SHAPES + ((1, k6.MAX_COLS), (4096, k6.MAX_COLS),
+                             (100003, 64), (1, 1), (3000, 1025))
+SM_COUNTS = (132, 114, 7, 1, 528)
+
+
+def _rows_of(lay, rows):
+    """The rows each (CTA, group) of K7's layout walks, in the kernel's
+    order (``layer_norm_act_bwd_kernel``: CTA b owns rows [b * rpc, ...),
+    its groups take them in turn)."""
+    rpc, groups = lay["rows_per_cta"], lay["groups"]
+    for b in range(lay["ctas"]):
+        end = min(rows, (b + 1) * rpc)
+        for grp in range(groups):
+            yield list(range(b * rpc + grp, end, groups))
+
+
+@pytest.mark.parametrize("rows,cols", LAYOUT_SHAPES)
+@pytest.mark.parametrize("sms", SM_COUNTS)
+def test_bwd_layout_covers_every_row_once(rows, cols, sms):
+    lay = k6.bwd_layout(rows, cols, sms)
+    seen = [r for walk in _rows_of(lay, rows) for r in walk]
+    assert sorted(seen) == list(range(rows))
+
+
+def test_bwd_layout_is_a_function_of_the_shape_and_sm_count():
+    import inspect
+    assert list(inspect.signature(k6.bwd_layout).parameters) == [
+        "rows", "cols", "sms"]
+    for rows, cols in LAYOUT_SHAPES:
+        for sms in SM_COUNTS:
+            assert k6.bwd_layout(rows, cols, sms) == k6.bwd_layout(
+                rows, cols, sms)
+
+
+@pytest.mark.parametrize("rows,cols", LAYOUT_SHAPES)
+@pytest.mark.parametrize("sms", SM_COUNTS)
+def test_bwd_layout_within_grid_and_smem_limits(rows, cols, sms):
+    """The grid fits the card at once (the launch is cooperative), and
+    each CTA's shared memory fits its share of an SM in every dtype."""
+    lay = k6.bwd_layout(rows, cols, sms)
+    ctas = lay["ctas"]
+    assert 1 <= ctas <= sms and ctas <= 65535
+    assert 2 <= lay["stages"] <= k6.BWD_MAX_STAGES
+    assert lay["threads"] == lay["groups"] * 32 * lay["wpr"] == 256
+    assert cols <= 32 * lay["wpr"] * lay["nv"]
+    budget = k6.SMEM_PER_SM - k6.BWD_SMEM_SLACK
+    for itemsize in (4, 2):
+        for staged in (True, False):
+            assert k6.bwd_smem_bytes(cols, itemsize, lay["threads"],
+                                     lay["groups"], lay["stages"],
+                                     staged) <= budget
+    # each thread's row slots hold whole 16-byte vectors
+    assert lay["nv"] % 8 == 0
 
 
 def test_bounds_from_the_issue_arithmetic():
@@ -436,6 +499,81 @@ def test_kernels_match_plain_on_card(cuda_device, rows, cols, dtype):
         sg, sb = k6.sum_bound(x, g, b, mu, rstd, dy, act)
         assert _within((got[1] - want[1]).abs(), sg)
         assert _within((got[2] - want[2]).abs(), sb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", LN_SHAPES)
+def test_k7_matches_plain_and_reruns_bit_equal(cuda_device, rows, cols):
+    """K7 at every chip_smoke.py shape, 7 activations, 3 dtypes: within
+    its tolerance of the plain version, a rerun bit-equal, the grid
+    barrier's arrival count back to zero after every call."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x, g, b, dy = _card_inputs(cuda_device, rows, cols, dtype,
+                                   rows * 7 + cols)
+        _, mu, rstd = k6.layer_norm_act_reference(x, g, b, 1e-12)
+        for act in ACTS:
+            got = k6.layer_norm_act_bwd(x, g, b, mu, rstd, dy, act)
+            got2 = k6.layer_norm_act_bwd(x, g, b, mu, rstd, dy, act)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, c) for a, c in zip(got, got2)), act
+            want = k6.layer_norm_act_bwd_reference(x, g, b, mu, rstd, dy,
+                                                   act)
+            assert _within((got[0].float() - want[0].float()).abs(),
+                           k6.dx_bound(x, g, b, mu, rstd, dy, want[0],
+                                       act)), (dtype, act)
+            sg, sb = k6.sum_bound(x, g, b, mu, rstd, dy, act)
+            assert _within((got[1] - want[1]).abs(), sg), (dtype, act)
+            assert _within((got[2] - want[2]).abs(), sb), (dtype, act)
+    for bar, _ in k6._workspaces.values():
+        assert int(bar[0]) == 0  # the grid barrier's arrivals
+
+
+@pytest.mark.cuda
+def test_k7_misaligned_rows_take_the_direct_layout(cuda_device):
+    """A view one element into its storage is not 16-byte aligned: K7
+    reads it without the ring and still matches the plain version."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g, b, dy = _card_inputs(cuda_device, 65, 768, dtype, 5)
+        xs = x.flatten()[1:].view(-1)[:64 * 768].view(64, 768)
+        dys = dy.flatten()[1:][:64 * 768].view(64, 768)
+        assert xs.is_contiguous() and xs.data_ptr() % 16 != 0
+        assert not k6.bwd_staged(xs, dys, torch.empty_like(xs))
+        _, mu, rstd = k6.layer_norm_act_reference(xs, g, b, 1e-12)
+        got = k6.layer_norm_act_bwd(xs, g, b, mu, rstd, dys, "gelu")
+        want = k6.layer_norm_act_bwd_reference(xs, g, b, mu, rstd, dys,
+                                               "gelu")
+        torch.cuda.synchronize()
+        assert _within((got[0].float() - want[0].float()).abs(),
+                       k6.dx_bound(xs, g, b, mu, rstd, dys, want[0], "gelu"))
+        sg, sb = k6.sum_bound(xs, g, b, mu, rstd, dys, "gelu")
+        assert _within((got[1] - want[1]).abs(), sg)
+        assert _within((got[2] - want[2]).abs(), sb)
+
+
+@pytest.mark.cuda
+def test_k7_is_one_kernel_a_call(cuda_device):
+    """One device kernel a call at every chip_smoke.py shape and dtype,
+    as torch.profiler records it in a fresh process."""
+    from deeplearning4j_tpu_torch.tools import count_kernels
+    cases = [["K7", list(s), dt] for s in LN_SHAPES
+             for dt in ("float32", "bfloat16", "float16")]
+    for _, shape, dtype, _, names in count_kernels.count_in_subprocess(
+            cases):
+        assert len(names) == 1 and "layer_norm_act_bwd" in names[0], (
+            shape, dtype, names)
+
+
+@pytest.mark.cuda
+def test_k7_occupancy_and_floor(cuda_device):
+    """The resources the card gives K7's layout: the CTA an SM the
+    cooperative grid needs and no spills; and the empty kernel launched the
+    same way runs."""
+    for rows, cols in ((4096, 768), (4096, k6.MAX_COLS)):
+        occ = k6.bwd_occupancy(rows, cols)
+        assert occ["ctas_per_sm"] >= 1, occ
+        assert occ["local_bytes"] == 0, occ
+        k6.bwd_launch_floor(rows, cols)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -105,11 +105,20 @@ def test_builder_matches_jax_with_tbptt_stamping():
 
 
 def test_build_refuses_a_conv_input_into_dense_layers():
+    """Since the LeNet slice, ``build()`` no longer refuses a convolutional
+    input into dense layers: it puts a FlattenLayer at the seam, as the
+    JAX package's builder does."""
+    from deeplearning4j_tpu.nn import config as jcfg
+    from deeplearning4j_tpu.nn.layers.core import DenseLayer as JDense
     b = (config.NeuralNetConfiguration.builder()
          .input_type(config.InputType.convolutional(1, 28, 28))
          .list(DenseLayer(n_out=10)))
-    with pytest.raises(NotImplementedError, match="FlattenLayer"):
-        b.build()
+    kinds = [l.kind for l in b.build().layers]
+    assert kinds == ["flatten", "dense"]
+    assert kinds == [l.kind for l in (
+        jcfg.NeuralNetConfiguration.builder()
+        .input_type(jcfg.InputType.convolutional(1, 28, 28))
+        .list(JDense(n_out=10)).build().layers)]
 
 
 def test_output_with_ragged_lengths_matches_jax(nets):
@@ -205,11 +214,15 @@ def test_port_zip_loads_in_jax(tmp_path, nets):
 
 
 def test_what_the_slice_leaves_out_raises(nets):
+    """What later slices bring raises, naming the slice (``fit``,
+    ``score``, ``evaluate`` and training-mode ``output`` came with the
+    LeNet slice, ``tests/test_torch_lenet.py``)."""
     _, pn = nets
     x = _seqs(7)
-    for call in (lambda: pn.fit(x, x), lambda: pn.score(),
-                 lambda: pn.evaluate(x, x),
-                 lambda: pn.output(x, train=True),
+    for call in (lambda: pn.fit(x, x, resilience=object()),
+                 lambda: pn.set_listeners(object()),
+                 lambda: pn.fit_on_device(x, x),
+                 lambda: pn._build_train_step(accum_steps=4),
                  lambda: pn.quantize_params()):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             call()
