@@ -116,7 +116,32 @@ Phases, in order; any failure exits non-zero:
     card's batch-2 output against the port's plain path on the CPU; and a
     whole-sequence ``torch.nn.LSTM`` on the batch-32 request as a
     yardstick;
-14. kernel-decode against plain: K9 (single-query decode attention over
+14. lstm-fit: TextGenerationLSTM as in phase 13 built with
+    ``tbptt_length(50)`` (DL4J's zoo ``TextGenerationLSTM.java``) and
+    trained through ``MultiLayerNetwork.fit`` on 30 batches of 32 x 200
+    one-hot characters of an order-2 Markov text (seed 0): the first
+    batch's gradients against CPU float32 and float64 copies (phase 7's
+    rule) and at least 100 times that allowance away from the CPU's
+    full-BPTT gradient on every recurrent leaf (the truncation happened
+    on the card); the first 3 losses within 1e-3 of the CPU plain path
+    from the same weights; the last loss at most 0.9 of the first; 0 K8
+    launches in ``fit`` (the gradient path runs the plain cell, as in the
+    JAX package) and no other kernel; step time, characters per second
+    and a ``torch.profiler`` split (device time, busy share, top
+    kernels of one profiled step); then one batch-32 ``output`` of the
+    trained net with exactly 2 x 256 K8 launches, ``fused`` only, within
+    1e-4 of the CPU plain path;
+15. rnn-breadth: ``GravesLSTM``, ``GRU`` (both forms), ``SimpleRnn``,
+    ``Bidirectional`` (4 modes x both ``return_sequences``),
+    ``ConvLSTM2D`` (two configurations), ``RecurrentAttentionLayer``,
+    ``TimeDistributed``, ``RepeatVector``, ``MaskLayer``,
+    ``MaskingLayer``, ``EmbeddingLayer`` and ``EmbeddingSequenceLayer``
+    at a small size: one forward (ragged mask with a fully masked row)
+    and one backward on the card, the output and every gradient within
+    1e-5 of max |ref| of the CPU plain run on the same weights; and a
+    ``Bidirectional(LSTM(use_pallas_cell=True))`` net's ``output`` with
+    0 K8 launches;
+16. kernel-decode against plain: K9 (single-query decode attention over
     a length-masked KV cache) against its plain PyTorch version at (B, H,
     C, d) = (8, 4, 128, 64) (the generative path's), (32, 4, 1024, 64),
     BERT-base heads (32, 12, 512, 64) and (32, 12, 4096, 64), (4, 8, 2048,
@@ -130,7 +155,7 @@ Phases, in order; any failure exits non-zero:
     64) beside the bound, the plain version,
     ``scaled_dot_product_attention`` with the float ``[B, 1, 1, C]``
     length mask and an empty kernel launched as K9 is (``floor_ms``);
-15. kernel-mq-decode against plain: K10 (the speculative verify window,
+17. kernel-mq-decode against plain: K10 (the speculative verify window,
     multi-query decode attention) against its plain PyTorch version at
     (B, H, k, C, d) = (8, 4, 4, 128, 64) (the speculative mix's), (32, 4,
     4, 1024, 64) (the speculative growth mix's largest cache), (32, 12,
@@ -146,7 +171,7 @@ Phases, in order; any failure exits non-zero:
     beside the bound, the plain version, ``scaled_dot_product_attention``
     with the float ``[B, 1, k, C]`` window mask and an empty kernel
     launched as K10 is (``floor_ms``);
-16. generate: the JAX package's generative-serving model
+18. generate: the JAX package's generative-serving model
     (``tools/profile_generate.py``: V = 256, three ``SelfAttentionLayer(
     256, 4 heads)`` blocks, float32, seed 0, random weights, TF32 off):
     ``net.output`` on a batch-2 ragged request (3 K3 launches, ``fused``
@@ -160,17 +185,17 @@ Phases, in order; any failure exits non-zero:
     TTFT, TPOT and a ``torch.profiler`` split; then a growth mix (32
     slots, cache buckets 256 to 1024, prompts of 200-480 tokens, 256 new
     tokens) under the same gates, 4 streams teacher-forced;
-17. generate-server: ``JsonModelServer(generate=...)`` on localhost, POST
+19. generate-server: ``JsonModelServer(generate=...)`` on localhost, POST
     /generate for 3 prompts, each NDJSON stream equal to
     ``batcher.generate`` on the same prompt;
-18. generate-paged: the bench's paged prefix mix (``ContinuousBatcher(
+20. generate-paged: the bench's paged prefix mix (``ContinuousBatcher(
     paged=True, page_size=16)``, 65 pages, 8 streams of one 90-token system
     prompt, 16 new tokens each), 3 runs: one prefill (3 K3 launches) for
     the first admission, every other one a prefix hit, one copy-on-write
     fork per stream, 3 K9 launches per decode step, only ``fused`` and
     ``decode_fused`` decisions; the streams equal the contiguous batcher's
     on the card and each token the CPU plain path's teacher-forced argmax;
-19. generate-spec: the speculative mix (the paged mix with
+21. generate-spec: the speculative mix (the paged mix with
     ``draft_model=net, speculate_k=4``, 3 runs), the speculative growth mix
     (the growth mix made paged and speculative, 2 runs) and the speculative
     mix with a draft from another seed (1 run): 3 K10 launches per verify
@@ -184,7 +209,7 @@ Phases, in order; any failure exits non-zero:
     share, K9, K10 and K3 time); then one POST /generate through a paged,
     speculative ``JsonModelServer``, its NDJSON stream equal to
     ``batcher.generate``;
-20. kernel-ln and kernel-ln-bwd against plain: K6 (the LayerNorm +
+22. kernel-ln and kernel-ln-bwd against plain: K6 (the LayerNorm +
     activation epilogue) and K7 (its backward) against their plain PyTorch
     versions at [rows, C] = (4096, 768) (BERT-base at batch 32), (256,
     768), (128, 768), ragged (77, 768), (4096, 1024), (33, 4096) and (5,
@@ -201,7 +226,7 @@ Phases, in order; any failure exits non-zero:
     process); and K1
     and K2 with the exact GELU at (4096, 3072), the fused graph's 12
     ``bias_act`` sites, beside their bounds and ``F.gelu(x + b)``;
-21. bert-ln: BERT-base as in phase 9, recorded with
+23. bert-ln: BERT-base as in phase 9, recorded with
     ``spelling="fusable"``: ``fuse_attention`` 12 matched, 0 unmatched,
     ``fuse_epilogues`` 37 matched (25 ``layer_norm``, 12 ``gelu``), 0
     unmatched; ``sd.output`` for requests of 1, 8 and 32 sequences of 128
@@ -212,24 +237,26 @@ Phases, in order; any failure exits non-zero:
     second and a ``torch.profiler`` split (device time, busy share, K6, K1
     and K3 time); and the TF-spelled graph against the fused one at batch
     32, in turns;
-22. bert-ln-fit: the fused graph of phase 21 with the fine-tune head of
+24. bert-ln-fit: the fused graph of phase 23 with the fine-tune head of
     phase 11: one batch-2 step's loss and every VARIABLE's gradient on the
     card against the CPU (float32 and float64 copies, phase 11's rule);
     then ``sd.fit`` on one fixed batch of 32 x 128 for 12 steps, each with
     exactly 25 K6, 25 K7, 12 K1, 12 K2, 12 K3 and 12 fused K4+K5 launches
     and only ``fused`` decisions, a finite and falling loss, the step time
     and a ``torch.profiler`` split of 3 more steps;
-23. summary: a ``{"kernels": [...]}`` line (K1-K10), the ``nvidia-smi``
+25. summary: a ``{"kernels": [...]}`` line (K1-K10), the ``nvidia-smi``
     name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 The serving path (phases 4-5), the training path, the NCHW block and
 LeNet's fit and evaluation (phase 7), the BERT
 serving path (phase 9), the BERT fine-tune path (phase 11), the LSTM
-serving path and the LSTM streaming path (phase 13), the two generative
-mixes (phase 16), the generative server (phase 17), the paged mix (phase
-18), the three speculative runs and the speculative server (phase 19),
-the fused BERT serving path (phase 21) and the fused BERT fine-tune path
-(phase 22) are each driven with the launch counts set to 0 just before
+serving path and the LSTM streaming path (phase 13), the LSTM training
+path and the trained net's request (phase 14), the recurrent family
+(phase 15), the two generative
+mixes (phase 18), the generative server (phase 19), the paged mix (phase
+20), the three speculative runs and the speculative server (phase 21),
+the fused BERT serving path (phase 23) and the fused BERT fine-tune path
+(phase 24) are each driven with the launch counts set to 0 just before
 and read just after.
 
 The script imports nothing of JAX or of the JAX package.
@@ -422,6 +449,34 @@ LN_EPS = 1e-12
 LN_SITES = 2 * BERT_LAYERS + 1
 #: the 12 exact-GELU bias_act sites of a fused forward: [B*T, intermediate]
 LN_GELU_SHAPE = (4096, 3072)
+#: TextGenerationLSTM through MultiLayerNetwork.fit: the serving phase's
+#: net with DL4J's zoo truncated-BPTT window (tools/profile_lstm.py build
+#: with tbptt=TBPTT, 50), fit steps of batch 32 x 200 characters of an
+#: order-2 Markov text (profile_lstm.markov_text) from this seed
+LSTM_FIT_SEED = 0
+#: the first batch's gradients, card against the CPU float64 gradient:
+#: within max(TRAIN_GRAD_TOL, GRAD_NOISE_FACTOR x the CPU float32
+#: gradient's own error) leaf by leaf (phase 7's rule); and against the
+#: CPU's full-BPTT gradient at least LSTM_FIT_TRUNC_FACTOR times that
+#: allowance away on every recurrent leaf (the truncation happened on the
+#: card; on this net the truncated and the full gradients differ by 0.3 or
+#: more of a recurrent leaf's norm)
+LSTM_FIT_TRUNC_FACTOR = 100.0
+#: the first LSTM_FIT_PARITY_STEPS losses, card against the CPU plain path
+#: from the same weights, relative; the last loss at most this share of
+#: the first (a CPU run of the 30 steps: 4.384 down to 3.526)
+LSTM_FIT_PARITY_STEPS = 3
+LSTM_FIT_LOSS_TOL = 1e-3
+LSTM_FIT_FALL = 0.9
+#: the trained net's batch-32 output() on the card against the CPU plain
+#: path on the same weights, max |diff| / max |ref|
+LSTM_FIT_OUT_TOL = 1e-4
+#: [rnn-breadth]: every new recurrent-family layer at a small size, one
+#: forward and one backward on the card against the CPU plain run on the
+#: same weights: the output and every gradient within BREADTH_TOL of max
+#: |ref| (float32, TF32 off, sums in other orders over a few steps)
+BREADTH_TOL = 1e-5
+BREADTH_B, BREADTH_T, BREADTH_F, BREADTH_U = 4, 12, 16, 32
 
 
 def log(msg: str) -> None:
@@ -1882,6 +1937,313 @@ def phase_lstm_serve(k1, k3, k8, pk, env) -> dict:
             "requests": requests}
 
 
+def kernel_launches(kmods) -> dict:
+    """Every kernel's launch count (K1, K2, K3, fused K4+K5, K6, K7, K8,
+    K9, K10)."""
+    k1, k3, k6 = kmods["k1"], kmods["k3"], kmods["k6"]
+    return {"k1": k1.launches, "k2": k1.bwd_launches, "k3": k3.launches,
+            "k4k5": k3.launches_bwd, "k6": k6.launches,
+            "k7": k6.bwd_launches, "k8": kmods["k8"].launches,
+            "k9": kmods["k9"].launches, "k10": kmods["k10"].launches}
+
+
+def zero_launches(kmods) -> None:
+    for m in kmods.values():
+        for attr in ("launches", "bwd_launches", "launches_bwd",
+                     "launches_dq", "launches_dkv"):
+            if hasattr(m, attr):
+                setattr(m, attr, 0)
+
+
+def phase_lstm_fit(kmods, pk, env) -> dict:
+    """TextGenerationLSTM (the serving phase's width, tbptt_length 50)
+    trained through ``MultiLayerNetwork.fit``: the first batch's
+    gradients against CPU float32/float64 copies and against the CPU's
+    full-BPTT gradient; then the main path, with every count set to 0
+    just before and read just after: the first steps against the CPU
+    plain path, the rest timed, a ``torch.profiler`` split; 0 K8 launches
+    in ``fit`` (the gradient path keeps the plain cell); then one batch-32
+    ``output`` on the trained weights: 2 x the time bucket K8 launches,
+    ``fused`` only, against the CPU plain path."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.nn.model import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.tools import profile_lstm as pl
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t_phase = t0 = time.perf_counter()
+    batches = pl.markov_text(LSTM_FIT_SEED, pl.FIT_STEPS)
+    data_s = time.perf_counter() - t0
+    net = pl.build(seed=LSTM_FIT_SEED, device="cuda", tbptt=pl.TBPTT)
+    if [getattr(l, "tbptt_length", None) for l in net.layers] != \
+            [pl.TBPTT, pl.TBPTT, None]:
+        raise AssertionError("the builder did not stamp tbptt_length")
+
+    def cpu_copy(dtype, cast, tbptt=True):
+        d = {**json.loads(net.conf.to_json()), "dtype": dtype}
+        if not tbptt:
+            d["tbptt_length"] = None
+            d["layers"] = [{**l, "tbptt_length": None}
+                           if "tbptt_length" in l else l
+                           for l in d["layers"]]
+        m = MultiLayerNetwork(MultiLayerConfiguration.from_json(
+            json.dumps(d))).init(device="cpu")
+        m.params = {v: {k: cast(t.detach().cpu().clone())
+                        for k, t in p.items()}
+                    for v, p in net.params.items()}
+        return m
+
+    # ---- the first batch's gradients: card, CPU float32/float64/full ----
+    x0, y0 = batches[0]
+    t0 = time.perf_counter()
+    g_card = net._value_and_grad(net._tensor(x0), net._tensor(y0))[1]
+    torch.cuda.synchronize()
+    cpu = cpu_copy("FLOAT", lambda t: t)
+    g32 = cpu._value_and_grad(cpu._tensor(x0), cpu._tensor(y0))[1]
+    c64 = cpu_copy("DOUBLE", lambda t: t.double())
+    g64 = c64._value_and_grad(c64._tensor(x0), c64._tensor(y0))[1]
+    full = cpu_copy("FLOAT", lambda t: t, tbptt=False)
+    g_full = full._value_and_grad(full._tensor(x0), full._tensor(y0))[1]
+    del c64, full
+    worst, bad, trunc = (0.0, "", 0.0, 0.0), [], []
+    min_full = math.inf
+    for v, leaves in g64.items():
+        for k, w64 in leaves.items():
+            want = w64.numpy()
+            card = g_card[v][k].cpu().numpy()
+            e_card = rel_err(card, want)
+            e_cpu = rel_err(g32[v][k].numpy(), want)
+            allowed = max(TRAIN_GRAD_TOL, GRAD_NOISE_FACTOR * e_cpu)
+            if e_card / allowed >= worst[0]:
+                worst = (e_card / allowed, f"{v}/{k}", e_card, e_cpu)
+            if e_card > allowed:
+                bad.append(f"{v}/{k}")
+            if "RW" in leaves:  # a recurrent layer: truncation shows
+                e_full = rel_err(card, g_full[v][k].numpy())
+                min_full = min(min_full, e_full)
+                if e_full < LSTM_FIT_TRUNC_FACTOR * allowed:
+                    trunc.append(f"{v}/{k}")
+    log(f"[lstm-fit] TextGenerationLSTM fit on cuda: {net.num_params()} "
+        f"params, tbptt_length {pl.TBPTT}, {pl.FIT_STEPS} batches of "
+        f"{pl.FIT_BATCH} x {pl.SEQ_LEN} characters (Markov text made in "
+        f"{data_s:.1f} s); first batch's gradients "
+        f"({time.perf_counter() - t0:.1f} s): against the CPU float64 gradient the worst card/allowed "
+        f"ratio is {worst[0]:.3g} at {worst[1]} (card {worst[2]:.3g}, CPU "
+        f"float32 {worst[3]:.3g}; allowed max({TRAIN_GRAD_TOL}, "
+        f"{GRAD_NOISE_FACTOR} x CPU float32)); against the CPU's full-BPTT "
+        f"gradient the recurrent leaves are at least {min_full:.3g} away "
+        f"(at least {LSTM_FIT_TRUNC_FACTOR:g} x allowed)")
+    if bad or trunc:
+        raise AssertionError(f"LSTM fit gradients on the card: out of bounds "
+                             f"{bad}; not the truncated ones {trunc}")
+    del g_card, g32, g64, g_full
+
+    # ---- the main path: counts from 0, read after the last fit ----
+    zero_launches(kmods)
+    pk.reset_counters()
+    losses = []
+    for x, y in batches[:LSTM_FIT_PARITY_STEPS]:
+        ds = DataSet(x, y)
+        net.fit(ds)
+        cpu.fit(ds)
+        losses.append((net.score(), cpu.score()))
+    loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+    log(f"[lstm-fit] card vs CPU plain path, the first "
+        f"{LSTM_FIT_PARITY_STEPS} steps from the same weights: losses "
+        + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in losses)
+        + f" (worst rel err {loss_err:.3g}, tolerance {LSTM_FIT_LOSS_TOL})")
+    if loss_err > LSTM_FIT_LOSS_TOL:
+        raise AssertionError("LSTM training on the card disagrees with the "
+                             "CPU plain path")
+    del cpu
+    # one profiled step (after one that starts the tracer): a step runs
+    # some 16,000 device kernels, and the profiler is slow to sum them
+    row = pl.profile_fit(net, batches[LSTM_FIT_PARITY_STEPS:], reps=1)
+    fit_launches = kernel_launches(kmods)
+    fit_decisions = pk.counters()
+    steps = net.iteration
+    all_losses = [a for a, _ in losses] + row["losses"]
+    sentinel = net.resilience_counters()
+    if any(fit_launches.values()) or any(fit_decisions.values()) or \
+            sentinel["bad_total"] or not all(np.isfinite(all_losses)) or \
+            not all_losses[-1] <= LSTM_FIT_FALL * all_losses[0]:
+        raise AssertionError(f"LSTM fit: launches {fit_launches}, decisions "
+                             f"{fit_decisions}, sentinel {sentinel}, losses "
+                             f"{all_losses}")
+    log(f"[lstm-fit] fit: {steps} steps (the last "
+        f"{row['steps']} timed), losses " + " ".join(
+            f"{v:.4f}" for v in all_losses)
+        + f"; {row['step_wall_ms_median']:.3f} ms a step (median), "
+        f"{row['characters_per_s']:.0f} characters/s; device "
+        f"{row['device_ms']:.3f} ms a step (busy share "
+        f"{row['device_busy_share']:.3f}) in "
+        f"{row['device_kernels_per_step']:.0f} device kernels; K8 launches "
+        f"in fit "
+        f"{fit_launches['k8']} (the gradient path runs the plain cell), "
+        f"every other kernel 0; sentinel {sentinel}")
+    log("[lstm-fit] top kernels (ms a step): " + "; ".join(
+        f"{k[:50]} {t:.3f} x{c}" for k, t, c in row["top_kernels_ms"][:6]))
+
+    # ---- after fit: one batch-32 request on the trained weights ----
+    zero_launches(kmods)
+    pk.reset_counters()
+    x32 = batches[0][0]
+    got = net.output(x32)
+    out_launches = kernel_launches(kmods)
+    out_decisions = pk.counters()
+    bucket = 1 << (pl.SEQ_LEN - 1).bit_length()
+    if out_launches != {**{k: 0 for k in out_launches}, "k8": 2 * bucket} \
+            or out_decisions != {"fused": 2 * bucket,
+                                 "fallback_platform": 0}:
+        raise AssertionError(f"output() after fit: launches {out_launches}, "
+                             f"decisions {out_decisions}")
+    ref_net = MultiLayerNetwork(net.conf).init(device="cpu")
+    ref_net.params = {v: {k: t.detach().cpu() for k, t in p.items()}
+                      for v, p in net.params.items()}
+    ref = ref_net.output(x32)
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    log(f"[lstm-fit] output() of the trained net on a batch-32 request: "
+        f"{out_launches['k8']} K8 launches (2 x time bucket {bucket}), "
+        f"decisions {out_decisions}; card vs CPU plain path max|diff|/"
+        f"max|ref| {rel:.3g} (tolerance {LSTM_FIT_OUT_TOL})")
+    log(f"[lstm-fit] {smi_line()}; phase {time.perf_counter() - t_phase:.1f}"
+        " s")
+    if not rel <= LSTM_FIT_OUT_TOL:
+        raise AssertionError("the trained TextGenerationLSTM on the card "
+                             "disagrees with the CPU plain path")
+    return {"fit_launches": fit_launches,
+            "output_launches": out_launches, "row": row,
+            "steps": steps, "losses": all_losses, "loss_rel_err": loss_err,
+            "grad_worst_ratio": worst[0], "full_bptt_min_rel": min_full,
+            "output_rel_err": rel}
+
+
+def breadth_cases():
+    """``(name, layer, x maker, masked)`` for [rnn-breadth]: every layer
+    kind of the recurrent-family slice at a small size."""
+    from deeplearning4j_tpu_torch.nn.layers import (
+        GRU, LSTM, Bidirectional, ConvLSTM2D, DenseLayer, EmbeddingLayer,
+        EmbeddingSequenceLayer, GravesLSTM, MaskingLayer, MaskLayer,
+        RecurrentAttentionLayer, RepeatVector, SimpleRnn, TimeDistributed)
+    B, T, F, U = BREADTH_B, BREADTH_T, BREADTH_F, BREADTH_U
+
+    def seq(g):
+        return torch.randn((B, T, F), generator=g)
+
+    def ids(shape):
+        return lambda g: torch.randint(0, F, shape, generator=g).float()
+
+    def zero_steps(g):
+        x = seq(g)
+        x[0, 5] = 0.0
+        x[2] = 0.0
+        return x
+
+    cases = [("GravesLSTM", GravesLSTM(n_out=U), seq, True),
+             ("GRU reset_after", GRU(n_out=U), seq, True),
+             ("GRU classic", GRU(n_out=U, reset_after=False), seq, True),
+             ("SimpleRnn", SimpleRnn(n_out=U), seq, True)]
+    for mode in ("concat", "add", "mul", "average"):
+        for rs in (True, False):
+            cases.append((f"Bidirectional {mode} return_sequences={rs}",
+                          Bidirectional(layer=LSTM(n_out=U), mode=mode,
+                                        return_sequences=rs), seq, True))
+    cases += [
+        ("ConvLSTM2D", ConvLSTM2D(n_out=8),
+         lambda g: torch.randn((B, 6, 8, 8, 3), generator=g), True),
+        ("ConvLSTM2D return_sequences=False",
+         ConvLSTM2D(n_out=8, stride=(2, 2), return_sequences=False),
+         lambda g: torch.randn((B, 6, 8, 8, 3), generator=g), True),
+        ("RecurrentAttentionLayer", RecurrentAttentionLayer(n_out=U), seq,
+         True),
+        ("TimeDistributed", TimeDistributed(layer=DenseLayer(
+            n_out=U, activation="tanh")), seq, True),
+        ("RepeatVector", RepeatVector(n=T),
+         lambda g: torch.randn((B, F), generator=g), False),
+        ("MaskLayer", MaskLayer(), seq, True),
+        ("MaskingLayer", MaskingLayer(), zero_steps, True),
+        ("EmbeddingLayer", EmbeddingLayer(n_in=F, n_out=U), ids((B, 1)),
+         False),
+        ("EmbeddingSequenceLayer", EmbeddingSequenceLayer(n_in=F, n_out=U),
+         ids((B, T, 1)), True)]
+    return cases
+
+
+def phase_rnn_breadth(kmods, pk, env) -> dict:
+    """Each new recurrent-family layer at a small size: one forward (with
+    a ragged mask and a fully masked row where the layer takes a mask) and
+    one backward of ``sum(y * cot)`` on the card against the CPU plain run
+    on the same weights; then ``output`` of a MultiLayerNetwork with a
+    ``Bidirectional(LSTM(use_pallas_cell=True))``: 0 K8 launches (the
+    JAX package's Bidirectional never asks for the forward-only cell)."""
+    from deeplearning4j_tpu_torch.nn.config import (InputType,
+                                                    NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import (LSTM, Bidirectional,
+                                                    RnnOutputLayer)
+    from deeplearning4j_tpu_torch.nn.model import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils import tree
+    env.Environment.instance().f32_matmul_precision = "highest"
+    zero_launches(kmods)
+    pk.reset_counters()
+    t0 = time.perf_counter()
+    worst = {}
+    for name, layer, make_x, masked in breadth_cases():
+        g = torch.Generator().manual_seed(len(worst))
+        x = make_x(g)
+        mask = None
+        if masked:
+            lengths = torch.tensor([x.shape[1], x.shape[1] // 2, 0, 1])
+            mask = (torch.arange(x.shape[1])[None, :]
+                    < lengths[:, None]).float()
+        p, _, _ = layer.initialize(g, tuple(x.shape[1:]), torch.float32,
+                                   "cpu")
+        out = {}
+        for dev in ("cpu", "cuda"):
+            pd = tree.tmap(
+                lambda t: t.detach().to(dev).requires_grad_(True), p)
+            xd = x.to(dev).requires_grad_(not name.startswith("Embed"))
+            with env.precision(dev):
+                y, _, _ = layer.apply(pd, xd, {}, train=True,
+                                      mask=None if mask is None
+                                      else mask.to(dev))
+                cot = torch.randn(y.shape, generator=torch.Generator()
+                                  .manual_seed(7)).to(dev)
+                leaves = list(tree.leaves(pd)) + (
+                    [xd] if xd.requires_grad else [])
+                grads = torch.autograd.grad((y * cot).sum(), leaves)
+            out[dev] = [y.detach().cpu()] + [gr.cpu() for gr in grads]
+        worst[name] = max(float((a - b).abs().max() / b.abs().max().clamp(
+            min=1e-30)) for a, b in zip(out["cuda"], out["cpu"]))
+    # a Bidirectional LSTM net's output(): the plain cell on the card
+    conf = (NeuralNetConfiguration.builder().seed(1)
+            .input_type(InputType.recurrent(BREADTH_F))
+            .list(Bidirectional(layer=LSTM(n_out=BREADTH_U,
+                                           use_pallas_cell=True)),
+                  RnnOutputLayer(n_out=BREADTH_F)).build())
+    net = MultiLayerNetwork(conf).init(device="cuda")
+    cpu = MultiLayerNetwork(conf).init(device="cpu")
+    cpu.params = tree.tmap(lambda t: t.cpu(), net.params)
+    xb = np.random.default_rng(3).standard_normal(
+        (BREADTH_B, BREADTH_T, BREADTH_F)).astype(np.float32)
+    got = net.output(xb)
+    ref = cpu.output(xb)
+    worst["Bidirectional(LSTM(use_pallas_cell=True)) output()"] = float(
+        np.abs(got - ref).max() / np.abs(ref).max())
+    launches = kernel_launches(kmods)
+    decisions = pk.counters()
+    log(f"[rnn-breadth] {len(worst)} cases in "
+        f"{time.perf_counter() - t0:.1f} s, card vs CPU plain run, worst "
+        f"max|diff|/max|ref| over the output and every gradient "
+        f"(tolerance {BREADTH_TOL}): " + "; ".join(
+            f"{k} {v:.3g}" for k, v in worst.items()))
+    log(f"[rnn-breadth] launches {launches}, K8 decisions {decisions} (a "
+        f"Bidirectional never asks for the fused cell)")
+    bad = [k for k, v in worst.items() if not v <= BREADTH_TOL]
+    if bad or any(launches.values()) or decisions["fused"]:
+        raise AssertionError(f"[rnn-breadth] out of bounds: {bad}; "
+                             f"launches {launches}, decisions {decisions}")
+    return {"worst": worst, "launches": launches}
+
+
 def one_kernel_a_call(kernel: str, shapes, name: str) -> dict:
     """Hold one call of ``kernel``'s wrapper at each of ``shapes`` in each
     dtype to one device kernel, ``name``, as ``torch.profiler`` records it
@@ -3097,6 +3459,9 @@ def main() -> int:
     fitted = phase_bert_fit(k1, k3, fa, fe, env)
     klstm = phase_kernel_lstm(k8)
     served_lstm = phase_lstm_serve(k1, k3, k8, pk, env)
+    kmods = {"k1": k1, "k3": k3, "k6": k6, "k8": k8, "k9": k9, "k10": k10}
+    fit_lstm = phase_lstm_fit(kmods, pk, env)
+    breadth = phase_rnn_breadth(kmods, pk, env)
     from deeplearning4j_tpu_torch.tools import profile_generate as pg
     # a decode step halfway through the bench's mix: each prompt's length
     # plus half the new tokens, the step's own token included
@@ -3287,9 +3652,16 @@ def main() -> int:
                 "plain_ms": BERT_LAYERS * t[1],
                 "library_ms": BERT_LAYERS * t[2] if lib else None,
                 "bound_ms": BERT_LAYERS * t[4], "max_abs_err": t[5]}
-    lstm_paths = {"lstm_serve": 0, "lstm_stream": 0, **no_gen, **no_ln}
+    def rnn_paths(k):
+        return {"lstm_fit": fit_lstm["fit_launches"][k],
+                "lstm_fit_output": fit_lstm["output_launches"][k],
+                "rnn_breadth": breadth["launches"][k]}
+
+    def lstm_paths(k):
+        return {"lstm_serve": 0, "lstm_stream": 0, **rnn_paths(k),
+                **no_gen, **no_ln}
     kernel_paths = ["serve", "train", "bert_serve", "bert_fit",
-                    *lstm_paths]
+                    *lstm_paths("k1")]
     bwd_timed_as = (
         "K4 and K5 are one fused kernel, and the main path's time is in the "
         "K4 row only: ms is the device time of one float32 fused call (dq, "
@@ -3323,8 +3695,8 @@ def main() -> int:
                              "nchw_block": nchw["launches"][0],
                              "lenet_fit": lenet_row["launches"][0],
                              "lenet_eval": lenet_row["eval_launches"][0],
-                             "bert_serve": 0, "bert_fit": 0, **lstm_paths,
-                             **ln_paths("k1")},
+                             "bert_serve": 0, "bert_fit": 0,
+                             **lstm_paths("k1"), **ln_paths("k1")},
         "max_abs_err": max(kern["max_err"].values()),
         "max_abs_err_float32": kern["max_err"][torch.float32],
         "max_abs_err_bfloat16": kern["max_err"][torch.bfloat16],
@@ -3349,8 +3721,8 @@ def main() -> int:
                              "nchw_block": nchw["launches"][1],
                              "lenet_fit": lenet_row["launches"][1],
                              "lenet_eval": 0,
-                             "bert_serve": 0, "bert_fit": 0, **lstm_paths,
-                             **ln_paths("k2")},
+                             "bert_serve": 0, "bert_fit": 0,
+                             **lstm_paths("k2"), **ln_paths("k2")},
         "max_abs_err": max(kbwd["max_err"]["dx_float32"],
                            kbwd["max_err"]["dx_bfloat16"],
                            kbwd["max_err"]["dscale_dshift"]),
@@ -3381,7 +3753,8 @@ def main() -> int:
         "launches_by_path": {"serve": 0, "train": 0,
                              "bert_serve": served_bert["launches"],
                              "bert_fit": fit_l[0], "lstm_serve": 0,
-                             "lstm_stream": 0, **k3_gen, **ln_paths("k3")},
+                             "lstm_stream": 0, **rnn_paths("k3"), **k3_gen,
+                             **ln_paths("k3")},
         "max_abs_err": katt["max_err"]["float32"],
         "max_abs_err_float32": katt["max_err"]["float32"],
         "max_ulp_bfloat16": katt["max_err"]["ulp_bfloat16"],
@@ -3404,7 +3777,7 @@ def main() -> int:
         "replaces": f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
         "launches": fit_l[i] + fit_ln[f"k{i + 2}"],
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
-                             "bert_fit": fit_l[i], **lstm_paths,
+                             "bert_fit": fit_l[i], **lstm_paths("k4k5"),
                              "bert_ln_fit": fit_ln[f"k{i + 2}"]},
         "fused_launches": fit_l[1] + fit_ln["bwd"],
         "max_abs_err": kbwd_attn["max_err"]["abs_float32"],
@@ -3441,12 +3814,12 @@ def main() -> int:
         "source": "deeplearning4j_tpu_torch/csrc/lstm_cell.cu",
         "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:55",
         "launches": served_lstm["serve_launches"]
-        + served_lstm["stream_launches"],
+        + served_lstm["stream_launches"] + sum(rnn_paths("k8").values()),
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
                              "bert_fit": 0,
                              "lstm_serve": served_lstm["serve_launches"],
                              "lstm_stream": served_lstm["stream_launches"],
-                             **no_gen, **no_ln},
+                             **rnn_paths("k8"), **no_gen, **no_ln},
         "max_abs_err": klstm["max_err"]["float32"],
         "max_abs_err_float32": klstm["max_err"]["float32"],
         "max_tolerance_share_bfloat16": klstm["max_err"]["ulp_bfloat16"],
@@ -3462,6 +3835,13 @@ def main() -> int:
         "lstm_rel_err_vs_cpu": served_lstm["rel_err"],
         "lstm_streams_rel_err_vs_cpu": served_lstm["rel_err_streams"],
         "lstm_stream_err": served_lstm["stream_err"],
+        "lstm_fit": {k: fit_lstm["row"][k] for k in (
+            "batch", "seq_len", "tbptt_length", "step_wall_ms_median",
+            "characters_per_s", "device_ms", "device_busy_share",
+            "device_kernels_per_step")},
+        "lstm_fit_parity": {k: fit_lstm[k] for k in (
+            "loss_rel_err", "grad_worst_ratio", "full_bptt_min_rel",
+            "output_rel_err")},
         "timed_as": "device time of one float32 call at each of "
                     "TextGenerationLSTM's two layers at batch 32 ((32, 77, "
                     "256) and (32, 256, 256), row-strided x) times the 256 "
@@ -3478,7 +3858,8 @@ def main() -> int:
         "launches": sum(k9_gen.values()),
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
                              "bert_fit": 0, "lstm_serve": 0,
-                             "lstm_stream": 0, **k9_gen, **no_ln},
+                             "lstm_stream": 0, **rnn_paths("k9"), **k9_gen,
+                             **no_ln},
         "launches_per_decode_step": GEN_LAYERS,
         "decode_steps_by_path": {
             "generate": rows["bench"]["decode_steps"],
@@ -3520,7 +3901,8 @@ def main() -> int:
         "launches": sum(k10_gen.values()),
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
                              "bert_fit": 0, "lstm_serve": 0,
-                             "lstm_stream": 0, **k10_gen, **no_ln},
+                             "lstm_stream": 0, **rnn_paths("k10"), **k10_gen,
+                             **no_ln},
         "launches_per_verify_step": GEN_LAYERS,
         "verify_steps_by_path": {
             "generate_spec": srows["spec"]["verify_steps"]
@@ -3568,7 +3950,7 @@ def main() -> int:
         "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:215",
         "launches": ln_l["k6"] + fit_ln["k6"],
         "launches_by_path": {**{k: 0 for k in kernel_paths},
-                             **ln_paths("k6")},
+                             **rnn_paths("k6"), **ln_paths("k6")},
         "launches_per_forward": LN_SITES,
         "max_abs_err": kln["max_err"]["y_abs_float32"],
         "max_abs_err_float32": kln["max_err"]["y_abs_float32"],
@@ -3601,7 +3983,7 @@ def main() -> int:
         "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:231",
         "launches": fit_ln["k7"],
         "launches_by_path": {**{k: 0 for k in kernel_paths},
-                             **ln_paths("k7")},
+                             **rnn_paths("k7"), **ln_paths("k7")},
         "launches_per_step": LN_SITES,
         "max_abs_err": kln["max_err"]["dx_abs_float32"],
         "max_abs_err_dx_float32": kln["max_err"]["dx_abs_float32"],

@@ -20,11 +20,18 @@ sentinel (one host sync for its verdict), the updater and the
 constraints. A bad step leaves params, updater state and BN state as
 they were.
 
+A net-level ``tbptt_length`` is stamped by ``GraphBuilder.build`` onto
+the recurrent layers of the layer vertices (wrapped ones included), as
+the JAX builder does: ``fit`` makes one update a batch, and the layers'
+scans detach the carry every ``tbptt_length`` steps (truncated BPTT, the
+JAX package's rule rather than DL4J's chunked fitting).
+
 Not in this slice (each raises ``NotImplementedError`` when asked for):
 ``workspace_mode`` rematerialization, 16-bit (mixed-precision) training
-and the fused master-cast updater, ``tbptt_length``, the resilience
-policy of ``fit`` and listeners; ``fit_on_device`` and micro-batch
-accumulation are not ported (``ROADMAP.md`` Queue 1).
+and the fused master-cast updater, the resilience policy of ``fit`` and
+listeners; ``fit_on_device`` and micro-batch accumulation are not ported.
+All come with the training-breadth and runtime slices (``ROADMAP.md``
+Queue 1 items 3 and 9).
 """
 
 from __future__ import annotations
@@ -49,7 +56,8 @@ from .layers.core import _BaseOutput
 from .vertices import GraphVertex, LayerVertex
 
 #: slices of the port that bring what this one leaves out
-_LATER = "a later slice of the port (ROADMAP.md Queue 1)"
+_BREADTH = "the training-breadth slice of the port (ROADMAP.md Queue 1 item 3)"
+_RUNTIME = "the runtime slice of the port (ROADMAP.md Queue 1 item 9)"
 
 
 class ComputationGraphConfiguration:
@@ -218,10 +226,20 @@ class GraphBuilder:
         return self
 
     def build(self) -> ComputationGraphConfiguration:
+        """The configuration, with the net-level truncated-BPTT window
+        stamped (copy-on-write) onto every layer vertex's layer and the
+        layers they wrap, as ``NeuralNetConfiguration.build`` does."""
         b = self._base
+        vertices = self._vertices
+        if b and b._tbptt:
+            from .config import stamp_tbptt
+            vertices = [
+                (n, LayerVertex(layer=stamp_tbptt(v.layer, b._tbptt))
+                 if isinstance(v, LayerVertex) else v, ins)
+                for n, v, ins in vertices]
         return ComputationGraphConfiguration(
             inputs=self._inputs, outputs=self._outputs,
-            vertices=self._vertices, input_shapes=self._input_shapes,
+            vertices=vertices, input_shapes=self._input_shapes,
             seed=b._seed if b else 1234,
             dtype=b._dtype if b else "FLOAT",
             updater=b._updater if b else None,
@@ -255,6 +273,7 @@ class ComputationGraph:
         self._epilogue_fold = None
         self._score = float("nan")
         self._sentinel = _sent.Sentinel()
+        self._rng = None
         # the loss heads of the network outputs
         self._out_layers = {
             o: self._vertex_map[o][0].layer for o in conf.outputs
@@ -296,6 +315,7 @@ class ComputationGraph:
         self._shapes = shapes
         self.device = device
         self._inference_engine = None
+        self._rng = None
         return self
 
     def num_params(self) -> int:
@@ -305,12 +325,14 @@ class ComputationGraph:
     # --------------------------------------------------------------- forward
     def _forward(self, params, inputs: Dict[str, torch.Tensor], state, *,
                  train=False, masks: Optional[Dict[str, Any]] = None,
-                 fold_epilogues=True):
+                 fold_epilogues=True, rng=None):
         """Eager topological walk. Returns ({vertex: activation},
         new_state, {vertex: mask}); the network inputs are in the
         activations too. In training, BN vertices normalize with batch
         statistics and ``new_state`` holds their new running statistics
-        (``state`` itself is not modified)."""
+        (``state`` itself is not modified), and ``rng`` (a
+        ``torch.Generator`` on the device) feeds the stochastic layers
+        (dropout)."""
         dt = _dt.resolve(self.conf.dtype)
         if dt.is_floating_point:
             inputs = {k: (v.to(dt) if v.is_floating_point() and v.dtype != dt
@@ -329,6 +351,8 @@ class ComputationGraph:
                 mks[name] = mks.get(ins[0])
                 continue
             kw = {"fold_act": fold[name]} if name in fold else {}
+            if rng is not None and getattr(v, "needs_rng", False):
+                kw["rng"] = rng
             y, s_new, m = v.apply(params.get(name, {}),
                                   [acts[i] for i in ins],
                                   state.get(name, {}), train=train,
@@ -416,23 +440,22 @@ class ComputationGraph:
         if self.conf.workspace_mode not in ("none", ""):
             raise NotImplementedError(
                 f"workspace_mode={self.conf.workspace_mode!r} "
-                f"(rematerialization) comes with {_LATER}")
+                f"(rematerialization) comes with {_BREADTH}")
         if _dt.is_mixed(self.conf.dtype):
             raise NotImplementedError(
                 f"training a {self.conf.dtype} network (mixed precision, "
-                f"the fused master-cast updater) comes with {_LATER}")
-        if self.conf.tbptt_length:
-            raise NotImplementedError(
-                f"tbptt_length (recurrent training) comes with {_LATER}")
+                f"the fused master-cast updater) comes with {_BREADTH}")
 
-    def _loss(self, params, state, xs, ys, fms, lms):
-        """``(loss, new BN state)`` of one batch: the training forward, the
-        loss heads' losses summed over the outputs, plus l1/l2."""
+    def _loss(self, params, state, xs, ys, fms, lms, rng=None):
+        """``(loss, new BN state)`` of one batch: the training forward
+        (dropout from ``rng``; None: the identity), the loss heads' losses
+        summed over the outputs, plus l1/l2."""
         inputs = dict(zip(self.conf.inputs, xs))
         masks = {n: m for n, m in zip(self.conf.inputs, fms)
                  if m is not None}
         acts, new_state, mks = self._forward(params, inputs, state,
-                                             train=True, masks=masks)
+                                             train=True, masks=masks,
+                                             rng=rng)
         total = 0.0
         for o, y, lm in zip(self.conf.outputs, ys, lms):
             layer = self._out_layers[o]
@@ -452,8 +475,9 @@ class ComputationGraph:
     def _train_step(self, xs, ys, fms, lms):
         """One step, inside one precision context (``nn/training.py``).
         Returns the loss (a device tensor)."""
+        rng = _training.generator(self)
         return _training.train_step(
-            self, lambda p: self._loss(p, self.state, xs, ys, fms, lms))
+            self, lambda p: self._loss(p, self.state, xs, ys, fms, lms, rng))
 
     def fit(self, data, labels=None, epochs: int = 1,
             resilience=None) -> "ComputationGraph":
@@ -462,7 +486,7 @@ class ComputationGraph:
         uninitialized net is initialized on ``cuda`` first."""
         if resilience is not None:
             raise NotImplementedError(
-                f"fit(resilience=...) comes with {_LATER}")
+                f"fit(resilience=...) comes with {_BREADTH}")
         self._check_trainable()
         if not self.params and not self.state:
             self.init()
@@ -509,10 +533,10 @@ class ComputationGraph:
         return self._sentinel.to_host()
 
     def set_listeners(self, *listeners):
-        raise NotImplementedError(f"training listeners come with {_LATER}")
+        raise NotImplementedError(f"training listeners come with {_RUNTIME}")
 
     def add_listener(self, listener):
-        raise NotImplementedError(f"training listeners come with {_LATER}")
+        raise NotImplementedError(f"training listeners come with {_RUNTIME}")
 
     # ------------------------------------------------------------- inference
     def feed_forward(self, *inputs, train: bool = False):
@@ -547,7 +571,7 @@ class ComputationGraph:
         Ragged batch sizes pad to the engine's power-of-two buckets."""
         if train:
             raise NotImplementedError(
-                f"training-mode output comes with {_LATER}")
+                f"training-mode output comes with {_BREADTH}")
         return self.inference_engine().output(*inputs)
 
     def predict(self, *inputs):

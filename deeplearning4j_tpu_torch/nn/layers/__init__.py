@@ -2,12 +2,16 @@
 for ``Layer.from_dict``."""
 
 from .attention import (LearnedSelfAttentionLayer,  # noqa: F401
-                        SelfAttentionLayer)
+                        RecurrentAttentionLayer, SelfAttentionLayer)
 from .base import LAYERS, CacheSpec, Layer, layer  # noqa: F401
 from .conv import (BatchNormalization, ConvolutionLayer,  # noqa: F401
                    GlobalPoolingLayer, SubsamplingLayer)
 from .conv_extra import SpaceToDepthStemConv  # noqa: F401
 from .core import (ActivationLayer, DenseLayer, DropoutLayer,  # noqa: F401
-                   FlattenLayer, LossLayer, OutputLayer)
-from .recurrent import (LSTM, LastTimeStep, RnnLossLayer,  # noqa: F401
-                        RnnOutputLayer)
+                   EmbeddingLayer, FlattenLayer, LossLayer, MaskingLayer,
+                   OutputLayer)
+from .recurrent import (GRU, LSTM, Bidirectional, ConvLSTM2D,  # noqa: F401
+                        GravesLSTM, LastTimeStep, RnnLossLayer,
+                        RnnOutputLayer, SimpleRnn)
+from .special import EmbeddingSequenceLayer  # noqa: F401
+from .wrappers import MaskLayer, RepeatVector, TimeDistributed  # noqa: F401

@@ -1,11 +1,13 @@
-"""Attention layers: SelfAttentionLayer and LearnedSelfAttentionLayer.
+"""Attention layers: SelfAttentionLayer, LearnedSelfAttentionLayer and
+RecurrentAttentionLayer.
 
 Port of ``deeplearning4j_tpu/nn/layers/attention.py`` (the helpers
 :37-138, ``SelfAttentionLayer`` :179, ``LearnedSelfAttentionLayer``
-:283), with the same JSON kinds (``self_attention``,
-``learned_self_attention``), fields and parameter names (``Wq``, ``Wk``,
-``Wv``, ``Wo``, the optional biases, the learned query bank ``Q``), so a
-ZIP the JAX package saved loads unchanged. Layout ``[B, T, F]``; the
+:283, ``RecurrentAttentionLayer`` :381), with the same JSON kinds
+(``self_attention``, ``learned_self_attention``, ``recurrent_attention``),
+fields and parameter names (``Wq``, ``Wk``, ``Wv``, ``Wo``, the optional
+biases, the learned query bank ``Q``; ``Wx``, ``Wr``, ``Wc``, ``Wa``,
+``b``), so a ZIP the JAX package saved loads unchanged. Layout ``[B, T, F]``; the
 heads are the view ``[B, H, T, hs]`` of a ``[B, T, H*hs]`` projection.
 
 ``apply`` and ``prefill`` go through ``ops.flash_attention.attention``
@@ -30,8 +32,7 @@ caches the attention kernels read with ``paged_gather``.
 Divergences: the caches and pools are updated in place (the JAX engines
 donate theirs); the int8 KV cache (``kv_quant``, int8 pools included)
 raises ``NotImplementedError`` naming the int8-serving slice
-(``ROADMAP.md`` Queue 1); ``RecurrentAttentionLayer`` (:382) comes with
-recurrent breadth.
+(``ROADMAP.md`` Queue 1).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from ...ops import activations as _act
 from ...ops import flash_attention as _fa
 from .. import weights as _winit
 from .base import CacheSpec, Layer, layer
@@ -289,3 +291,59 @@ class LearnedSelfAttentionLayer(Layer):
         v = _heads_split(_proj(x, params["Wv"]), self.n_heads)
         y = _fa.attention(q, k, v, bias=key_bias)
         return _proj(_heads_join(y), params["Wo"])
+
+
+@layer("recurrent_attention")
+class RecurrentAttentionLayer(Layer):
+    """DL4J RecurrentAttentionLayer: an RNN whose step attends over the
+    whole input sequence with the previous hidden state as the query,
+    ``h_t = act(x_t Wx + h_{t-1} Wr + attention(h_{t-1}, X) Wc + b)``.
+    Scores and softmax are float32, masked keys score
+    ``finfo(float32).min``, and a masked step keeps ``h``. The scan is a
+    Python loop over T; no truncated BPTT (the JAX layer has none)."""
+    n_out: int = 0
+    activation: str = "tanh"
+    weight_init: str = "xavier"
+    l1: float = 0.0
+    l2: float = 0.0
+    name: Optional[str] = None
+
+    def initialize(self, gen, input_shape, dtype, device):
+        t, f = int(input_shape[0]), int(input_shape[-1])
+        u = self.n_out
+
+        def w(shape, fi, fo):
+            return _winit.init(self.weight_init, gen, shape, fi, fo, dtype,
+                               device)
+
+        params = {"Wx": w((f, u), f, u), "Wr": w((u, u), u, u),
+                  "Wc": w((f, u), f, u), "Wa": w((u, f), u, f),
+                  "b": torch.zeros((u,), dtype=dtype, device=device)}
+        return params, {}, (t, u)
+
+    def apply(self, params, x, state, *, train=False, mask=None):
+        act = _act.get(self.activation)
+        B, T, F = x.shape
+        wx, wr, wc, wa, b = (params[k] for k in ("Wx", "Wr", "Wc", "Wa",
+                                                 "b"))
+        xf = x.float()
+        scale = float(F) ** 0.5
+        h = x.new_zeros((B, self.n_out))
+        ys = []
+        for t in range(T):
+            q = torch.matmul(h, wa)                               # [B, F]
+            scores = torch.einsum("bf,btf->bt", q.float(), xf) / scale
+            if mask is not None:
+                scores = torch.where(mask > 0, scores,
+                                     torch.full_like(scores, _NEG))
+            w = torch.softmax(scores, dim=-1).to(x.dtype)
+            ctx = torch.einsum("bt,btf->bf", w, x)
+            h_new = act(torch.matmul(x[:, t], wx) + torch.matmul(h, wr)
+                        + torch.matmul(ctx, wc) + b)
+            if mask is not None:
+                h_new = torch.where(mask[:, t, None] > 0, h_new, h)
+            h = h_new
+            ys.append(h)
+        if not ys:
+            return x.new_empty((B, 0, self.n_out)), state, mask
+        return torch.stack(ys, dim=1), state, mask

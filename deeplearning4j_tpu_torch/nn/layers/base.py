@@ -111,6 +111,8 @@ class Layer:
             raise ValueError(f"Unknown layer kind {kind!r}; known: "
                              f"{sorted(LAYERS)}")
         cls = LAYERS[kind]
+        if hasattr(cls, "_from_dict_fields"):  # wrappers of a nested layer
+            return cls(**cls._from_dict_fields(d))
         field_names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: _decode(v) for k, v in d.items()
                       if k in field_names})

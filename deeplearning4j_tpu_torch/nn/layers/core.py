@@ -1,8 +1,9 @@
-"""Core feed-forward layers: Dense, Activation, Dropout, Flatten, Output,
-Loss.
+"""Core feed-forward layers: Dense, Activation, Dropout, Flatten, Masking,
+Embedding, Output, Loss.
 
 Port of ``DenseLayer``, ``ActivationLayer``, ``DropoutLayer``,
-``FlattenLayer``, ``OutputLayer`` and ``LossLayer`` from
+``FlattenLayer``, ``MaskingLayer`` (:183), ``EmbeddingLayer`` (:209),
+``OutputLayer`` and ``LossLayer`` from
 ``deeplearning4j_tpu/nn/layers/core.py``, the pointwise ones marked
 ``decode_pointwise`` as there (:35, :65, :83, :276, :309; the port has no
 ``ElementWiseMultiplicationLayer`` yet). Parameter names and layouts
@@ -116,6 +117,51 @@ class FlattenLayer(Layer):
 
     def apply(self, params, x, state, *, train=False, mask=None):
         return x.reshape(x.shape[0], -1), state, mask
+
+
+@layer("masking")
+class MaskingLayer(Layer):
+    """Keras ``Masking``: a step whose features all equal ``mask_value`` is
+    masked out. Emits the step mask (times the incoming one) and zeroes the
+    masked steps."""
+    mask_value: float = 0.0
+    name: Optional[str] = None
+
+    def has_params(self):
+        return False
+
+    def initialize(self, gen, input_shape, dtype, device):
+        if len(input_shape) != 2:
+            raise ValueError(f"Masking expects [T,F], got {input_shape}")
+        return {}, {}, tuple(input_shape)
+
+    def apply(self, params, x, state, *, train=False, mask=None):
+        new_mask = torch.any(x != self.mask_value, dim=-1).to(x.dtype)
+        if mask is not None:
+            new_mask = new_mask * mask.to(x.dtype)
+        return x * new_mask[..., None], state, new_mask
+
+
+@layer("embedding")
+class EmbeddingLayer(Layer):
+    """DL4J EmbeddingLayer: integer ids to rows of ``W`` ``[nIn, nOut]``
+    (``nnops.embedding_lookup``); a ``[B, 1]`` column of ids gives ``[B,
+    D]`` (the ``[B, 1, D]`` lookup squeezed)."""
+    n_in: int = 0        # vocab size
+    n_out: int = 0       # embedding dim
+    weight_init: str = "xavier"
+    name: Optional[str] = None
+
+    def initialize(self, gen, input_shape, dtype, device):
+        w = _winit.init(self.weight_init, gen, (self.n_in, self.n_out),
+                        self.n_in, self.n_out, dtype, device)
+        return {"W": w}, {}, tuple(input_shape) + (self.n_out,)
+
+    def apply(self, params, x, state, *, train=False, mask=None):
+        y = nnops.embedding_lookup(params["W"], x)
+        if y.dim() >= 3 and y.shape[-2] == 1:
+            y = y.squeeze(-2)
+        return y, state, mask
 
 
 class _BaseOutput:

@@ -31,13 +31,23 @@ The dropout generator is a ``torch.Generator`` on the model's device
 seeded from ``conf.seed``: its masks are not the JAX package's threefry
 bits (the tests compare dropout by distribution).
 
+Recurrent training is the JAX package's, not DL4J's: a net-level
+``tbptt_length`` is stamped onto the recurrent layers by the builder, and
+``fit`` makes one update a batch while the layers' scans detach the carry
+every ``tbptt_length`` steps (the JAX ``nn/layers/recurrent.py:45-69``);
+``RnnOutputLayer``'s per-step label mask meets the propagated feature
+mask in ``losses.combine_masks``. ``_regularization`` reads each layer's
+top-level ``W`` only, so a ``Bidirectional`` (its trees under ``fw`` and
+``bw``) adds no l1/l2, as in the JAX package.
+
 Not in this slice (each raises ``NotImplementedError`` naming the
 ``ROADMAP.md`` Queue 1 slice that ports it): ``fit(resilience=...)``, the
-training listeners, the solver path (an ``optimization_algo`` other than
-SGD), ``fit_on_device``, micro-batch accumulation (``accum_steps``),
-``workspace_mode`` rematerialization, 16-bit (mixed-precision) training,
-``tbptt_length`` (recurrent training), and ``quantize_params`` and the
-int8 KV cache (int8 serving).
+solver path (an ``optimization_algo`` other than SGD), ``fit_on_device``,
+micro-batch accumulation (``accum_steps``), ``workspace_mode``
+rematerialization and 16-bit (mixed-precision) training (the
+training-breadth slice, item 3); the training listeners (the runtime
+slice, item 9); ``quantize_params`` and the int8 KV cache (int8 serving,
+item 7).
 """
 
 from __future__ import annotations
@@ -55,12 +65,9 @@ from ..runtime import sentinel as _sent
 from . import training as _training
 from .config import MultiLayerConfiguration
 
-_LATER = "a later slice of the port (ROADMAP.md Queue 1)"
-_RECURRENT = ("the recurrent-training slice of the port (ROADMAP.md Queue 1 "
-              "item 2)")
 _BREADTH = "the training-breadth slice of the port (ROADMAP.md Queue 1 item 3)"
 _RUNTIME = "the runtime slice of the port (ROADMAP.md Queue 1 item 9)"
-_INT8 = "the int8-serving slice of the port (ROADMAP.md Queue 1)"
+_INT8 = "the int8-serving slice of the port (ROADMAP.md Queue 1 item 7)"
 
 
 class MultiLayerNetwork:
@@ -231,7 +238,7 @@ class MultiLayerNetwork:
         with torch.inference_mode(), _env.precision(self.device):
             out, _, _ = self._forward(self.params, self._tensor(x),
                                       self.state, train=True,
-                                      rng=self._generator())
+                                      rng=_training.generator(self))
             if out.dtype in (torch.bfloat16, torch.float16):
                 out = out.float()
             return out.cpu().numpy()
@@ -314,14 +321,6 @@ class MultiLayerNetwork:
         last = self.layers[-1] if self.layers else None
         return last if hasattr(last, "loss_value") else None
 
-    def _generator(self) -> torch.Generator:
-        """The model's dropout generator on its device, seeded from
-        ``conf.seed`` at first use after ``init``."""
-        if self._rng is None:
-            self._rng = torch.Generator(device=self.device).manual_seed(
-                int(self.conf.seed))
-        return self._rng
-
     def _regularization(self, params):
         """Per-layer l1/l2 on ``W`` (DL4J regularizes W, not b)."""
         return _training.regularization(
@@ -369,9 +368,6 @@ class MultiLayerNetwork:
             raise NotImplementedError(
                 f"training a {self.conf.dtype} network (mixed precision, "
                 f"the fused master-cast updater) comes with {_BREADTH}")
-        if self.conf.tbptt_length:
-            raise NotImplementedError(
-                f"tbptt_length (recurrent training) comes with {_RECURRENT}")
 
     def _build_train_step(self, accum_steps: int = 1):
         """The eager step ``(x, y, fmask, lmask) -> loss`` (a device
@@ -384,7 +380,7 @@ class MultiLayerNetwork:
         loss_fn = self._build_loss_fn()
 
         def step(x, y, fmask, lmask):
-            rng = self._generator()
+            rng = _training.generator(self)
             return _training.train_step(
                 self, lambda p: loss_fn(p, self.state, x, y, fmask, lmask,
                                         rng))
@@ -407,7 +403,7 @@ class MultiLayerNetwork:
         initialized on ``cuda`` first."""
         if resilience is not None:
             raise NotImplementedError(
-                f"fit(resilience=...) comes with {_LATER}")
+                f"fit(resilience=...) comes with {_BREADTH}")
         if not self.params and not self.state:
             self.init()
         self._check_trainable()

@@ -7,7 +7,8 @@ over each layer's ``W``, gradient normalization and clipping, the
 divergence sentinel's verdict (one host sync), then the updater and the
 constraints. A step the sentinel rejects leaves parameters, updater state
 and layer state as they were. The engines differ only in their loss and in
-how they pair layers with parameters, which they hand in.
+how they pair layers with parameters, which they hand in; both draw
+dropout from ``generator``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,16 @@ from ..utils import tree as _tree
 from . import constraints as _constraints
 from . import gradnorm as _gn
 from . import updaters as _upd
+
+
+def generator(net) -> torch.Generator:
+    """``net``'s dropout generator on its device, seeded from
+    ``conf.seed`` at first use after ``init`` (``net._rng``; ``init``
+    resets it)."""
+    if net._rng is None:
+        net._rng = torch.Generator(device=net.device).manual_seed(
+            int(net.conf.seed))
+    return net._rng
 
 
 def regularization(conf, pairs):

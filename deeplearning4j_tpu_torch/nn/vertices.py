@@ -92,6 +92,11 @@ class LayerVertex(GraphVertex):
     def has_params(self) -> bool:
         return self.layer.has_params()
 
+    @property
+    def needs_rng(self) -> bool:
+        """The wrapped layer takes the model's generator (dropout)."""
+        return getattr(self.layer, "needs_rng", False)
+
     def initialize(self, gen, input_shapes, dtype, device):
         if len(input_shapes) != 1:
             raise ValueError(f"LayerVertex({self.layer.kind}) takes one "
@@ -107,7 +112,7 @@ class LayerVertex(GraphVertex):
         return self.layer.initialize(gen, shape, dtype, device)
 
     def apply(self, params, xs, state, *, train=False, masks=None,
-              fold_act=None):
+              fold_act=None, rng=None):
         x = xs[0]
         if self._flatten:
             x = x.reshape(x.shape[0], -1)
@@ -115,7 +120,9 @@ class LayerVertex(GraphVertex):
         if fold_act is not None:  # BN + activation epilogue fold
             return self.layer.apply(params, x, state, train=train,
                                     mask=mask, fold_act=fold_act)
-        return self.layer.apply(params, x, state, train=train, mask=mask)
+        kw = {"rng": rng} if rng is not None else {}
+        return self.layer.apply(params, x, state, train=train, mask=mask,
+                                **kw)
 
     def to_dict(self):
         return {"kind": "layer", "layer": self.layer.to_dict()}

@@ -156,7 +156,8 @@ def get(name_or_fn):
     if key in _LATER:
         raise NotImplementedError(
             f"loss {key!r} is not ported yet; it comes with a later slice "
-            "of the port (ROADMAP.md Queue 1)")
+            "of the port, the training-breadth slice (ROADMAP.md Queue 1 "
+            "item 3)")
     if key not in LOSSES:
         raise ValueError(f"Unknown loss {name_or_fn!r}; known: "
                          f"{sorted(LOSSES)}")

@@ -486,7 +486,9 @@ def pad(array, pad_width, mode="constant", constant_values=0):
     one pair per axis."""
     if mode != "constant":
         raise NotImplementedError(f"shape.pad mode {mode!r}: the port has "
-                                  "the constant mode only")
+                                  "the constant mode only; the others come "
+                                  "with the SameDiff-import slice of the "
+                                  "port (ROADMAP.md Queue 1 item 4)")
     nd = array.dim()
     pw = pad_width
     if isinstance(pw, int):

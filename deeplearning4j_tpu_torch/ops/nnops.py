@@ -1,9 +1,11 @@
 """Neural-network ops: convolution, pooling, batch and layer norm, dropout,
-the LSTM cell.
+the embedding lookup and the recurrent cells.
 
 Port of the ``deeplearning4j_tpu/ops/nnops.py`` ops that ResNet serving
-and the recurrent layers use; ``layer_norm`` and ``lstm_cell`` are
-catalog ops, registered under the JAX package's names. The convolution
+and the recurrent layers use; ``layer_norm``, ``embedding_lookup`` and
+the four cells (``lstm_cell``, ``graves_lstm_cell``, ``gru_cell``,
+``simple_rnn_cell``) are catalog ops, registered under the JAX package's
+names. The convolution
 stays ``F.conv2d`` (cuDNN on the card), as the JAX package leaves it to
 XLA.
 
@@ -205,8 +207,6 @@ def layer_norm(x, gamma, beta, eps=1e-5, axis=-1):
     return d * torch.rsqrt(var + eps) * gamma + beta
 
 
-# -- recurrence ---------------------------------------------------------------
-
 def dropout(x, rate, generator=None, deterministic=False):
     """Inverted dropout with the DROP rate ``rate`` (the JAX package's
     ``dropout``, :277): each element is kept with probability ``1 - rate``
@@ -220,6 +220,26 @@ def dropout(x, rate, generator=None, deterministic=False):
     u = torch.rand(x.shape, generator=generator, device=x.device)
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
+
+@register("embedding_lookup", category="embedding")
+def embedding_lookup(table, ids):
+    """Rows of ``table`` ``[V, D]`` at the integer ``ids`` (any shape; float
+    ids truncate to int, as ``jnp.asarray(ids, int32)`` does):
+    EmbeddingLayer's and EmbeddingSequenceLayer's lookup (the JAX module's
+    :287). ``jnp.take``'s rules: a negative id counts from the end, and an
+    id outside ``[-V, V)`` gives a row of NaN (the type's minimum for a
+    signed integer table)."""
+    ids = torch.as_tensor(ids, device=table.device).to(torch.int64)
+    v = table.shape[0]
+    ids = torch.where(ids < 0, ids + v, ids)
+    ok = (ids >= 0) & (ids < v)
+    rows = table[torch.where(ok, ids, torch.zeros_like(ids))]
+    fill = (float("nan") if table.is_floating_point()
+            else torch.iinfo(table.dtype).min)
+    return torch.where(ok[..., None], rows, torch.full_like(rows, fill))
+
+
+# -- recurrence ---------------------------------------------------------------
 
 @register("lstm_cell", category="rnn")
 def lstm_cell(x, h, c, w_ih, w_hh, b, forget_bias=0.0):
@@ -235,3 +255,45 @@ def lstm_cell(x, h, c, w_ih, w_hh, b, forget_bias=0.0):
     c_new = f * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
     return h_new, c_new
+
+
+@register("graves_lstm_cell", category="rnn")
+def graves_lstm_cell(x, h, c, w_ih, w_hh, b, w_peep):
+    """Graves (peephole) LSTM cell (DL4J GravesLSTM; the JAX module's
+    :315): gate order [i, f, o, g], peepholes ``w_peep`` ``[3, u]`` on i
+    and f from ``c_{t-1}`` and on o from ``c_t``."""
+    z = torch.matmul(x, w_ih) + torch.matmul(h, w_hh) + b
+    i, f, o, g = torch.chunk(z, 4, dim=-1)
+    i = torch.sigmoid(i + w_peep[0] * c)
+    f = torch.sigmoid(f + w_peep[1] * c)
+    c_new = f * c + i * torch.tanh(g)
+    o = torch.sigmoid(o + w_peep[2] * c_new)
+    return o * torch.tanh(c_new), c_new
+
+
+@register("gru_cell", category="rnn")
+def gru_cell(x, h, w_ih, w_hh, b, rb=None):
+    """GRU cell, gate order [z, r, h~] (the JAX module's :331). With the
+    recurrent bias ``rb`` ``[3u]``: the reset-after form (Keras
+    ``reset_after=True``, CuDNN), candidate ``tanh(xh + r * (h @ RWh +
+    rb_h))``; without: the classic form, candidate ``tanh(xh + (r * h) @
+    RWh)``."""
+    xz, xr, xh = torch.chunk(torch.matmul(x, w_ih) + b, 3, dim=-1)
+    if rb is not None:
+        hz, hr, hh = torch.chunk(torch.matmul(h, w_hh) + rb, 3, dim=-1)
+        z = torch.sigmoid(xz + hz)
+        r = torch.sigmoid(xr + hr)
+        n = torch.tanh(xh + r * hh)
+    else:
+        u = w_hh.shape[0]
+        z = torch.sigmoid(xz + torch.matmul(h, w_hh[:, :u]))
+        r = torch.sigmoid(xr + torch.matmul(h, w_hh[:, u:2 * u]))
+        n = torch.tanh(xh + torch.matmul(r * h, w_hh[:, 2 * u:]))
+    return z * h + (1.0 - z) * n
+
+
+@register("simple_rnn_cell", category="rnn")
+def simple_rnn_cell(x, h, w_ih, w_hh, b, activation=torch.tanh):
+    """Elman step ``activation(x @ W + h @ RW + b)`` (the JAX module's
+    :360)."""
+    return activation(torch.matmul(x, w_ih) + torch.matmul(h, w_hh) + b)

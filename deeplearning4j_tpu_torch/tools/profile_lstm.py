@@ -1,5 +1,5 @@
-"""Where a TextGenerationLSTM serving request and a generated character
-spend their time on the card.
+"""Where a TextGenerationLSTM serving request, a generated character and
+a training step spend their time on the card.
 
     python3 -m deeplearning4j_tpu_torch.tools.profile_lstm
 
@@ -17,8 +17,15 @@ unprofiled wall time), K8's device time and launches, and the kernels
 that took the most device time. Then one more line for greedy generation
 through ``rnn_time_step``: 8 streams after a 50-character prompt, the wall
 time of one generated character (median over 300), characters per second
-and the same device split over 20 characters. Precision ``highest``
-(TF32 off). Needs one CUDA card.
+and the same device split over 20 characters. Then one line for
+training: the same net built with the truncated-BPTT window of DL4J's
+zoo ``TextGenerationLSTM.java`` (``tbptt_length(50)``) and trained through
+``MultiLayerNetwork.fit`` on batches of 32 x 200 one-hot characters of an
+order-2 Markov text drawn from the seed (``markov_text``): the wall time
+of one step (median, host clock, ``score()``'s sync included), characters
+per second, the device time of a step and its busy share, and the kernels
+that took the most device time. Precision ``highest`` (TF32 off). Needs
+one CUDA card.
 """
 
 from __future__ import annotations
@@ -48,20 +55,55 @@ PROMPT = 50
 GEN_STEPS = 300
 #: K8's CUDA function
 K8_KERNEL = "lstm_cell_kernel"
+#: training: DL4J's zoo TextGenerationLSTM.java truncated-BPTT window, the
+#: batch of fit steps, and the Markov text's successors per context
+TBPTT = 50
+FIT_BATCH = 32
+FIT_STEPS = 30
+SUCCESSORS = 4
 
 
-def build(seed: int = 0, device=None) -> MultiLayerNetwork:
+def build(seed: int = 0, device=None, tbptt=None) -> MultiLayerNetwork:
     """TextGenerationLSTM's layer list (``models.zoo.text_generation_lstm``)
     with the fused cell switched on, as a user of the JAX package writes
-    it, initialized on ``device`` (``cuda`` unless asked for ``cpu``)."""
+    it, initialized on ``device`` (``cuda`` unless asked for ``cpu``).
+    ``tbptt`` is the truncated-BPTT window: None to serve, ``TBPTT`` (DL4J
+    zoo ``TextGenerationLSTM.java``: tBPTTForwardLength 50) to train."""
     conf = (NeuralNetConfiguration.builder().seed(seed)
             .updater(Adam(learning_rate=1e-3))
             .input_type(InputType.recurrent(VOCAB))
+            .tbptt_length(tbptt)
             .list(LSTM(n_out=UNITS, use_pallas_cell=True),
                   LSTM(n_out=UNITS, use_pallas_cell=True),
                   RnnOutputLayer(n_out=VOCAB))
             .build())
     return MultiLayerNetwork(conf).init(device=device)
+
+
+def markov_text(seed: int, batches: int):
+    """``batches`` training batches ``(x, y)`` of ``FIT_BATCH`` one-hot
+    sequences of ``SEQ_LEN`` characters and their next characters: each
+    row is a stream of an order-2 Markov chain over the ``VOCAB`` symbols
+    (every pair of symbols has ``SUCCESSORS`` successors, drawn with Zipf
+    weights over the symbols, taken with probabilities 0.7, 0.15, 0.1 and
+    0.05), so the loss has to fall from ln(77)."""
+    rng = np.random.default_rng(seed)
+    zipf = 1.0 / np.arange(1, VOCAB + 1)
+    succ = np.stack([rng.choice(VOCAB, SUCCESSORS, replace=False,
+                                p=zipf / zipf.sum())
+                     for _ in range(VOCAB * VOCAB)])
+    cum = np.cumsum([0.7, 0.15, 0.1, 0.05])
+    n = batches * SEQ_LEN + 1
+    ids = np.empty((FIT_BATCH, n), np.int64)
+    ids[:, :2] = rng.integers(0, VOCAB, (FIT_BATCH, 2))
+    draws = np.searchsorted(cum, rng.random((FIT_BATCH, n)) * cum[-1])
+    for t in range(2, n):
+        ids[:, t] = succ[ids[:, t - 2] * VOCAB + ids[:, t - 1],
+                         draws[:, t]]
+    eye = np.eye(VOCAB, dtype=np.float32)
+    return [(eye[ids[:, i * SEQ_LEN:(i + 1) * SEQ_LEN]],
+             eye[ids[:, i * SEQ_LEN + 1:(i + 1) * SEQ_LEN + 1]])
+            for i in range(batches)]
 
 
 def one_hot(ids) -> np.ndarray:
@@ -100,11 +142,15 @@ def generate(net, prompt: np.ndarray, steps: int):
     return np.concatenate(outs, axis=1), np.concatenate(ins, axis=1)
 
 
+def _device_kernels(prof):
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and device_us(e) > 0]
+
+
 def _kernel_split(prof, reps):
     """Device ms per repetition: all kernels, K8, the top 8."""
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and device_us(e) > 0]
+    kernels = _device_kernels(prof)
     dev = sum(device_us(e) for e in kernels) / 1e3 / reps
     lstm = sum(device_us(e) for e in kernels if K8_KERNEL in e.key) \
         / 1e3 / reps
@@ -194,6 +240,41 @@ def profile_generation(net, prompt: np.ndarray, steps: int = GEN_STEPS,
     }
 
 
+def profile_fit(net, batches, reps: int = 3) -> dict:
+    """The time split of one ``fit`` step on ``(x, y)`` batches (see the
+    module docstring): the wall time and loss of a step on each of
+    ``batches`` (the first step left out of the median), then the device
+    split of ``reps`` more steps under the profiler."""
+    from ..data.dataset import DataSet
+    sets = [DataSet(x, y) for x, y in batches]
+    ts, losses = [], []
+    for ds in sets:
+        t0 = time.perf_counter()
+        net.fit(ds)
+        losses.append(net.score())  # the host sync of a step
+        ts.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(ts[1:] if len(ts) > 1 else ts)
+    prof, launches, _ = _profiled(lambda: (net.fit(sets[0]), net.score()),
+                                  reps)
+    dev, lstm, top = _kernel_split(prof, reps)
+    chars = sets[0].features.shape[0] * sets[0].features.shape[1]
+    return {
+        "batch": int(sets[0].features.shape[0]),
+        "seq_len": int(sets[0].features.shape[1]),
+        "tbptt_length": net.conf.tbptt_length,
+        "steps": len(ts),
+        "losses": losses,
+        "step_wall_ms_median": wall,
+        "characters_per_s": chars * 1e3 / wall,
+        "device_ms": dev if top else None,
+        "device_busy_share": dev / wall if top else None,
+        "device_kernels_per_step": sum(
+            e.count for e in _device_kernels(prof)) / reps,
+        "k8_launches_per_step": launches,
+        "top_kernels_ms": top,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_lstm needs a CUDA card", file=sys.stderr)
@@ -207,6 +288,8 @@ def main() -> int:
         print(json.dumps(profile(net, x, lengths)), flush=True)
     prompt = one_hot(rng.integers(0, VOCAB, (STREAMS, PROMPT)))
     print(json.dumps(profile_generation(net, prompt)), flush=True)
+    fit_net = build(seed=0, device="cuda", tbptt=TBPTT)
+    print(json.dumps(profile_fit(fit_net, markov_text(0, 8))), flush=True)
     return 0
 
 

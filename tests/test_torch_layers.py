@@ -245,8 +245,16 @@ def test_weight_init_distribution_matches_jax(init):
 @pytest.mark.parametrize("kind", sorted(LAYERS))
 def test_layer_serde_matches_jax(kind):
     """Every port layer kind writes the JAX package's JSON dict and reads
-    it back."""
+    it back; a wrapper (``bidirectional``, ``time_distributed``) with a
+    nested layer of its own."""
+    from deeplearning4j_tpu.nn.layers.base import LAYERS as JLAYERS
     from deeplearning4j_tpu.nn.layers.base import Layer as JLayer
-    jd = JLayer.from_dict({"kind": kind}).to_dict()
-    assert LAYERS[kind]().to_dict() == jd
+    d = {"kind": kind}
+    if hasattr(JLAYERS[kind], "_from_dict_fields"):
+        d["layer"] = JLayer.from_dict({"kind": "simple_rnn"}).to_dict()
+    jd = JLayer.from_dict(d).to_dict()
+    port = Layer.from_dict(d)
+    assert port.to_dict() == jd
     assert Layer.from_dict(jd).to_dict() == jd
+    if "layer" not in d:
+        assert LAYERS[kind]().to_dict() == jd

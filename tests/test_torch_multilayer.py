@@ -81,8 +81,9 @@ def test_zoo_config_matches_jax():
     assert text_generation_lstm().conf.to_json() == jtgl().conf.to_json()
     net = text_generation_lstm().init(device="cpu")
     assert net.num_params() == 887_117  # vocab 77, 2 x LSTM(256), RNN out
-    with pytest.raises(NotImplementedError, match="EmbeddingSequence"):
-        text_generation_lstm(embedding=8)
+    # the EmbeddingSequenceLayer front is ported too
+    assert text_generation_lstm(embedding=8).conf.to_json() == \
+        jtgl(embedding=8).conf.to_json()
 
 
 def test_builder_matches_jax_with_tbptt_stamping():

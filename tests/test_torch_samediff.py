@@ -59,6 +59,14 @@ KB = np.where(np.arange(5) < np.array([[3], [5]]), 0.0, -1e9).astype(
 # one LSTM step: x [3, 5], h and c [3, 4], W [5, 16], RW [4, 16], b [16]
 LSTM_ARGS = tuple(_R.standard_normal(s).astype(np.float32) for s in (
     (3, 5), (3, 4), (3, 4), (5, 16), (4, 16), (16,)))
+# a Graves step (peepholes [3, 4]), a GRU step ([5, 12], [4, 12], b and the
+# recurrent bias [12]) and an Elman step
+GRAVES_ARGS = LSTM_ARGS + (_R.standard_normal((3, 4)).astype(np.float32),)
+GRU_ARGS = tuple(_R.standard_normal(s).astype(np.float32) for s in (
+    (3, 5), (3, 4), (5, 12), (4, 12), (12,), (12,)))
+RNN_ARGS = tuple(_R.standard_normal(s).astype(np.float32) for s in (
+    (3, 5), (3, 4), (5, 4), (4, 4), (4,)))
+EMB_IDS = np.array([[0, 3, 2], [2, 2, 1]], np.int32)
 
 CASES = [
     # pairwise
@@ -209,6 +217,11 @@ CASES = [
     # recurrence
     ("lstm_cell", LSTM_ARGS, {}), ("lstm_cell", LSTM_ARGS,
                                    {"forget_bias": 1.0}),
+    ("graves_lstm_cell", GRAVES_ARGS, {}),
+    ("gru_cell", GRU_ARGS, {}), ("gru_cell", GRU_ARGS[:5], {}),
+    ("simple_rnn_cell", RNN_ARGS, {}),
+    ("embedding_lookup", (C, EMB_IDS), {}),
+    ("embedding_lookup", (C, EMB_IDS.astype(np.float32) + 0.5), {}),
     # normalization and the epilogues fuse_epilogues records
     ("layer_norm", (X3, VEC, B[0]), {}),
     ("layer_norm", (X3 * 3.0 + 2.0, VEC, B[0]), {"eps": 1e-3, "axis": -1}),

@@ -380,7 +380,7 @@ def test_from_numpy_carries_the_updater_state():
 @pytest.mark.parametrize("change,match", [
     (lambda c: setattr(c, "workspace_mode", "full"), "workspace_mode"),
     (lambda c: setattr(c, "dtype", "BFLOAT16"), "mixed precision"),
-    (lambda c: setattr(c, "tbptt_length", 5), "tbptt_length"),
+    (lambda c: setattr(c, "dtype", "FLOAT16"), "mixed precision"),
 ])
 def test_out_of_slice_options_raise(change, match):
     net = _port_net()
@@ -419,3 +419,62 @@ def test_builder_takes_an_updater_object_name_or_dict():
                 .add_layer("out", core.OutputLayer(n_out=2), "in")
                 .set_outputs("out").build())
         assert isinstance(conf.updater, upd.Nadam)
+
+
+# ------------------------------------------------- dropout in a graph's fit
+
+def _dropout_graph(conf, input_type, layers_mod, updaters_mod):
+    return (conf.builder().seed(4)
+            .updater(updaters_mod.Adam(learning_rate=1e-2))
+            .graph_builder().add_inputs("in")
+            .set_input_types(input_type.feed_forward(12))
+            .add_layer("dense", layers_mod.DenseLayer(n_out=256,
+                                                      activation="relu"),
+                       "in")
+            .add_layer("drop", layers_mod.DropoutLayer(rate=0.5), "dense")
+            .add_layer("out", layers_mod.OutputLayer(n_out=CLASSES), "drop")
+            .set_outputs("out").build())
+
+
+def test_graph_fit_drops_like_jax():
+    """A DropoutLayer vertex drops in the graph's training forward, as the
+    JAX package's does (its training loss takes a key for the stochastic
+    vertices): half the live units zeroed and the rest doubled; ``score``
+    keeps it the identity and equals the JAX package's; a seeded graph
+    repeats its step."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((64, 12)).astype(np.float32)
+    y = np.eye(CLASSES, dtype=np.float32)[rng.integers(0, CLASSES, 64)]
+    jnet = JGraph(_dropout_graph(JConf, JInputType, jcore, jupd)).init()
+    jkeyed, _ = jnet._build_loss_fn()(
+        jnet.params, jnet.state, jax.random.PRNGKey(0), [jnp.asarray(x)],
+        [jnp.asarray(y)], [None], [None])
+    jplain = jnet.score(jds.DataSet(x, y))
+    assert float(jkeyed) != pytest.approx(jplain, rel=1e-4)
+
+    def port():
+        net = ComputationGraph(_dropout_graph(
+            NeuralNetConfiguration, InputType, core, upd)).init(device="cpu")
+        net.params, net.state = from_numpy(_np(jnet.params),
+                                           _np(jnet.state), "cpu")
+        return net
+
+    net = port()
+    xs, ys = (torch.from_numpy(x),), (torch.from_numpy(y),)
+    acts, _, _ = net._forward(net.params, {"in": xs[0]}, net.state,
+                              train=True, rng=torch.Generator().manual_seed(1))
+    dense, drop = acts["dense"], acts["drop"]
+    live = dense != 0
+    kept = drop[live] != 0
+    assert abs(float(kept.float().mean()) - 0.5) < 0.03
+    assert torch.allclose(drop[live][kept], 2 * dense[live][kept])
+    plain, _ = net._loss(net.params, net.state, xs, ys, (None,), (None,))
+    dropped, _ = net._loss(net.params, net.state, xs, ys, (None,), (None,),
+                           torch.Generator().manual_seed(1))
+    assert float(dropped) != pytest.approx(float(plain), rel=1e-4)
+    assert net.score(ds.DataSet(x, y)) == pytest.approx(jplain, rel=1e-5)
+    twin = port()
+    net.fit(x, y)
+    twin.fit(x, y)
+    assert net.score() == twin.score()
+    assert net.score() != pytest.approx(float(plain), rel=1e-4)
