@@ -35,7 +35,18 @@ Phases, in order; any failure exits non-zero:
    against the port's plain path on the CPU; then ``fit`` on one fixed
    batch of 32 for 12 steps with exactly 53 K1 and 53 K2 launches each, a
    finite and falling loss, the step time, and a ``torch.profiler`` split
-   of three steps (device time, K1 and K2 time); then nchw: LeNet's first
+   of three steps (device time, K1 and K2 time); ``evaluate`` of the
+   trained net on 3 batches of 32 (53 K1 a forward), its Evaluation the
+   CPU plain path's up to near-ties; then transfer: the trained net through
+   ``TransferLearning.GraphBuilder`` (frozen through ``s2_b5_out``, the
+   end of its third stage; ``fc`` removed; a 10-class OutputLayer on
+   ``avgpool``), 10 batch-32 ``fit`` steps with the K1 and K2 launches
+   the fold plan implies (53 a forward: a frozen BN still runs K1; 10 a
+   step: only stage 4's BNs run K2), every frozen parameter and running
+   statistic bit-identical after ``fit``, the first 3 batches' gradients
+   together by the float64 rule and the first 3 losses against the CPU,
+   and
+   ``evaluate``; then nchw: LeNet's first
    convolution in DL4J's channels-first layout (``ConvolutionLayer`` 20 x
    5x5, ReLU) and a ``BatchNormalization`` with a ReLU folded in, batch 64
    of 1 x 28 x 28, forward and backward, with exactly 2 K1 and 2 K2
@@ -52,7 +63,12 @@ Phases, in order; any failure exits non-zero:
    only ``fused`` decisions, ``evaluate`` on 2000 test digits (2 K1 a forward)
    reaching at least 0.95, the step time, images/s and a
    ``torch.profiler`` split (device time, busy share of the unprofiled
-   step, K1 and K2);
+   step, K1 and K2); then lenet-center: LeNet re-headed with
+   ``CenterLossOutputLayer(n_out=10)``, 3 epochs through
+   ``AsyncDataSetIterator(device_prefetch=True)`` (its first batches
+   plain iteration's bit for bit), the first 3 losses and the centers
+   after step 1 against the CPU, 2 K1 + 2 K2 a step, accuracy at least
+   0.95;
 8. kernel-attn against plain: K3 (the flash-attention forward) against its
    plain PyTorch version at (B, H, Tq, Tk, d) = (32, 12, 128, 128, 64),
    (1, 12, 128, 128, 64), ragged (2, 12, 77, 77, 64), (2, 4, 200, 200,
@@ -372,6 +388,38 @@ LENET_GRAD_TOL = 5e-6
 LENET_SEED = 123
 #: K1 and K2 launches per LeNet step: its two convolutions' bias_act
 LENET_CONVS = 2
+#: [train]'s evaluate: the batch [train] fitted and EVAL_BATCHES - 1 fresh
+#: batches of TRAIN_BATCH random images through the trained net; each card
+#: prediction must be the CPU plain path's (same weights) unless the CPU's
+#: top-2 gap is below EVAL_TIE_GAP (float32 sums in other orders can swap
+#: a near tie)
+EVAL_BATCHES = 3
+EVAL_TIE_GAP = 1e-5
+#: [transfer]: the trained ResNet-50 frozen through the end of its third
+#: stage and re-headed with a 10-class OutputLayer on avgpool, fine-tuned
+#: with DL4J's transfer-learning examples' updater, Nesterovs(5e-5,
+#: momentum 0.9), for TRANSFER_STEPS batch-32 fit steps; the first
+#: TRANSFER_PARITY_STEPS losses within TRANSFER_LOSS_TOL relative of the
+#: CPU plain path's (the LeNet gate: float32, TF32 off, the convolutions
+#: summed in other orders)
+TRANSFER_FROZEN_TO = "s2_b5_out"
+TRANSFER_CLASSES = 10
+TRANSFER_STEPS = 10
+TRANSFER_PARITY_STEPS = 3
+TRANSFER_LOSS_TOL = 1e-3
+#: [transfer]'s gradient gate reads the float64 rule over the first
+#: TRANSFER_GRAD_BATCHES batches' gradients together (at the built net's
+#: weights): the stage-4 BN leaves' float32 errors are ill-conditioned,
+#: and one batch's worst card/allowed ratio moved with [train]'s weights,
+#: which its fit does not repeat bit for bit (PERF.md, PR 16)
+TRANSFER_GRAD_BATCHES = 3
+#: [lenet-center]: LeNet re-headed with CenterLossOutputLayer(n_out=10) at
+#: its defaults, fed by AsyncDataSetIterator(device_prefetch=True); the
+#: first CENTER_PREFETCH_CHECK batches it yields must be plain iteration's
+#: bit for bit, the centers after step 1 within CENTER_TOL (max |diff| /
+#: max |ref|) of the CPU's
+CENTER_PREFETCH_CHECK = 3
+CENTER_TOL = 1e-5
 BERT_REQUESTS = (1, 8, 32)
 BERT_SEQ = 128
 BERT_LAYERS = 12
@@ -1027,7 +1075,8 @@ def phase_train(k1, fe, env, models, graph) -> dict:
     log("[train] top kernels (ms per step): " + "; ".join(
         f"{e.key[:60]} {device_us(e) / 1e3 / reps:.3f} x{e.count // reps}"
         for e in top))
-    return {"net": net, "steps": steps, "launches": launches,
+    return {"net": net, "batch": (x, y), "steps": steps,
+            "launches": launches,
             "losses": losses, "step_ms": median, "device_ms": dev_ms,
             "k1_ms": k1_ms, "k2_ms": k2_ms, "dy_copies": copies / steps,
             "parity": (e_loss, e_grad, e_bn)}
@@ -1243,7 +1292,439 @@ def phase_lenet(k1, fe, env, models) -> dict:
             "device_ms": dev_ms, "busy_share": dev_ms / step_ms,
             "profiled_step_ms": prof_ms, "grad_rel_err": grad_err[0],
             "k1_ms": k1_ms, "k2_ms": k2_ms, "loss_rel_err": loss_err,
-            "source": train.source}
+            "source": train.source, "train": train, "test": test}
+
+
+def cpu_twin(graph, net, dtype="FLOAT", cast=lambda t: t):
+    """A ComputationGraph on the CPU with ``net``'s configuration (its
+    ``dtype`` replaced), parameters and state (through ``cast``), and a
+    fresh updater state: the plain path the card is held against."""
+    conf = graph.ComputationGraphConfiguration.from_json(json.dumps(
+        {**json.loads(net.conf.to_json()), "dtype": dtype}))
+    m = graph.ComputationGraph(conf).init(device="cpu")
+    m.params = {v: {k: cast(t.detach().cpu()) for k, t in p.items()}
+                for v, p in net.params.items()}
+    m.state = {v: {k: cast(t.detach().cpu()) for k, t in p.items()}
+               for v, p in net.state.items()}
+    m.updater_state = conf.updater.init_state(m.params)
+    return m
+
+
+def check_predictions(card_out, cpu_out, where) -> int:
+    """The card's class predictions against the CPU's: every disagreement
+    must sit where the CPU's top-2 gap is below EVAL_TIE_GAP. Returns the
+    number of excused ties."""
+    top2 = np.sort(cpu_out, axis=1)[:, -2:]
+    differ = card_out.argmax(1) != cpu_out.argmax(1)
+    near = (top2[:, 1] - top2[:, 0]) < EVAL_TIE_GAP
+    if (differ & ~near).any():
+        raise AssertionError(f"{where}: {int((differ & ~near).sum())} card "
+                             "predictions differ from the CPU plain path's")
+    return int((differ & near).sum())
+
+
+def check_confusion(card, cpu, labels, cpu_out, where) -> int:
+    """The card's confusion matrix against the CPU plain path's (rows the
+    true class, columns the predicted; ``labels`` and ``cpu_out`` the
+    evaluated rows in order): they may differ only where a CPU near-tie
+    (top-2 gap below EVAL_TIE_GAP) moves its count from the CPU's top-1
+    column to its top-2 column in its true class's row, at most one count
+    a near-tie. Returns the number of counts moved."""
+    n = max(card.shape[0], cpu.shape[0], cpu_out.shape[1])
+    diff = np.zeros((n, n), np.int64)
+    diff[:card.shape[0], :card.shape[1]] += card
+    diff[:cpu.shape[0], :cpu.shape[1]] -= cpu
+    order = np.argsort(cpu_out, axis=1)
+    top = np.take_along_axis(cpu_out, order[:, -2:], axis=1)
+    near = (top[:, 1] - top[:, 0]) < EVAL_TIE_GAP
+    rows = labels.argmax(1)[near]
+    may = np.zeros((n, n), bool)
+    may[rows, order[near, -1]] = True
+    may[rows, order[near, -2]] = True
+    moved = int(diff[diff > 0].sum())
+    if diff[~may].any() or diff.sum(1).any() or moved > int(near.sum()):
+        raise AssertionError(f"{where}: the card's confusion matrix is not "
+                             "the CPU plain path's up to its near-ties")
+    return moved
+
+
+def phase_train_eval(k1, fe, graph, net, fitted) -> dict:
+    """[train]'s ``evaluate``: the trained ResNet-50 through
+    ``ComputationGraph.evaluate`` over EVAL_BATCHES batch-32 batches (the
+    one it was fitted on first; 53 K1 launches a forward, no K2), its
+    Evaluation against the CPU plain path's on the same weights and
+    batches."""
+    from deeplearning4j_tpu_torch.data.dataset import (DataSet,
+                                                       ListDataSetIterator)
+    from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+    rng = np.random.default_rng(4)
+    batches = [DataSet(*fitted)] + [DataSet(*_batch(rng, TRAIN_BATCH))
+                                    for _ in range(EVAL_BATCHES - 1)]
+    k1.launches = 0
+    k1.bwd_launches = 0
+    fe.reset_counters()
+    t0 = time.perf_counter()
+    ev = net.evaluate(ListDataSetIterator(batches))
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    launches = (k1.launches, k1.bwd_launches)
+    decisions = dict(fe.counters())
+    if launches != (EVAL_BATCHES * LAUNCHES_PER_FORWARD, 0) or \
+            decisions["fused"] != launches[0] or \
+            any(v for k, v in decisions.items() if k != "fused"):
+        raise AssertionError(f"[train] evaluate: K1/K2 {launches} for "
+                             f"{EVAL_BATCHES} forwards, decisions "
+                             f"{decisions}")
+    cpu = cpu_twin(graph, net)
+    ev_cpu, cpu_outs, ties = Evaluation(), [], 0
+    for b in batches:  # cpu.evaluate's loop, keeping the CPU outputs
+        out = cpu.output(b.features)
+        ev_cpu.eval(b.labels, out)
+        cpu_outs.append(out)
+        ties += check_predictions(net.output(b.features), out,
+                                  "[train] evaluate")
+    moved = check_confusion(ev.confusion, ev_cpu.confusion,
+                            np.concatenate([b.labels for b in batches]),
+                            np.concatenate(cpu_outs), "[train] evaluate")
+    n = EVAL_BATCHES * TRAIN_BATCH
+    log(f"[train] evaluate on {EVAL_BATCHES} batches of {TRAIN_BATCH}: "
+        f"accuracy {ev.accuracy():.4f} (CPU plain path {ev_cpu.accuracy():.4f}"
+        f"; confusion matrices differ by {moved} of {n} counts, each a CPU "
+        f"near-tie's; {ties} excused near-ties in a second output), "
+        f"{launches[0]} K1 launches ({LAUNCHES_PER_FORWARD} a forward), "
+        f"{eval_ms:.1f} ms")
+    return {"launches": launches, "accuracy": ev.accuracy(),
+            "accuracy_cpu": ev_cpu.accuracy(), "ties": ties, "moved": moved}
+
+
+def transfer_graph(net):
+    """[transfer]'s net: the trained ResNet-50 ``net`` through
+    ``TransferLearning.GraphBuilder``, frozen through TRANSFER_FROZEN_TO
+    (the end of its third stage), ``fc`` removed, a new
+    TRANSFER_CLASSES-way OutputLayer on ``avgpool``, fine-tuned with
+    Nesterovs(5e-5, momentum 0.9)."""
+    from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
+    from deeplearning4j_tpu_torch.nn.transfer import (FineTuneConfiguration,
+                                                      TransferLearning)
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+    return (TransferLearning.GraphBuilder(net)
+            .fine_tune_configuration(FineTuneConfiguration(
+                updater=Nesterovs(learning_rate=5e-5, momentum=0.9)))
+            .set_feature_extractor(TRANSFER_FROZEN_TO)
+            .remove_vertex("fc")
+            .add_layer("out", OutputLayer(n_out=TRANSFER_CLASSES),
+                       "avgpool")
+            .set_outputs("out").build())
+
+
+def transfer_batches(n: int = 4) -> list:
+    """[transfer]'s ``n`` batch-32 DataSets (random images, 10 classes)."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    rng = np.random.default_rng(5)
+    y_of = np.eye(TRANSFER_CLASSES, dtype=np.float32)
+    return [DataSet(rng.standard_normal((TRAIN_BATCH, 224, 224, 3),
+                                        dtype=np.float32),
+                    y_of[rng.integers(0, TRANSFER_CLASSES, TRAIN_BATCH)])
+            for _ in range(n)]
+
+
+def graph_loss_grads(env, m, x, y):
+    """``(loss, grads)`` of one training forward and backward of the
+    one-input graph ``m`` on ``(x, y)``, nothing updated."""
+    with env.precision(m.device):
+        loss, grads, _ = m._value_and_grad((m._tensor(x),), (m._tensor(y),),
+                                           (None,), (None,))
+    return loss, grads
+
+
+def grad_ratios(g_card, g_cpu, g_64, frozen) -> list:
+    """The float64 rule leaf by leaf over the vertices outside ``frozen``,
+    ``g_card``, ``g_cpu`` and ``g_64`` each a list of gradient trees, one
+    per batch: ``(card error / allowed, leaf, card error, CPU float32
+    error)``, worst first, each error the relative norm of the leaf's
+    gradients over all the batches together against the CPU float64 ones,
+    allowed max(TRAIN_GRAD_TOL, GRAD_NOISE_FACTOR x the CPU float32
+    error). Raises if a frozen vertex has a gradient."""
+    def cat(trees, v, k):
+        return np.concatenate([t[v][k].detach().cpu().numpy().ravel()
+                               for t in trees])
+
+    rows = []
+    for v, leaves in g_64[0].items():
+        if v in frozen:
+            if any(t.any() for g in g_card for t in g[v].values()):
+                raise AssertionError(f"frozen vertex {v} has a gradient")
+            continue
+        for k in leaves:
+            want = cat(g_64, v, k)
+            e_card = rel_err(cat(g_card, v, k), want)
+            e_cpu = rel_err(cat(g_cpu, v, k), want)
+            allowed = max(TRAIN_GRAD_TOL, GRAD_NOISE_FACTOR * e_cpu)
+            rows.append((e_card / allowed, f"{v}/{k}", e_card, e_cpu))
+    return sorted(rows, reverse=True)
+
+
+def phase_transfer(k1, fe, env, graph, net) -> dict:
+    """[transfer]: the trained ResNet-50 (full width) through
+    ``TransferLearning.GraphBuilder``: frozen through ``s2_b5_out`` (the
+    end of its third stage), ``fc`` removed, a new 10-class OutputLayer on
+    ``avgpool``; then TRANSFER_STEPS batch-32 ``fit`` steps and
+    ``evaluate``. Gates: every frozen parameter and frozen BN running
+    statistic bit-identical after ``fit``; the gradients of the trainable
+    leaves on the first TRANSFER_GRAD_BATCHES batches together within the
+    float64 rule of [train]; the first losses within TRANSFER_LOSS_TOL of
+    the CPU;
+    only ``fused`` decisions; the K1 and K2 launches the fold plan
+    implies (every BN vertex runs K1 in a forward, a frozen one with the
+    identity act and its ReLU apart; only the trainable BNs run K2)."""
+    from deeplearning4j_tpu_torch.data.dataset import ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.layers.conv import BatchNormalization
+    from deeplearning4j_tpu_torch.tools.profile_serving import device_us
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t0 = time.perf_counter()
+    new = transfer_graph(net)
+    build_s = time.perf_counter() - t0
+
+    # ---- the launches the fold plan implies ----
+    fold, skip = new._epilogue_fold_plan()
+    bns = [n for n, v, _ in new.conf.vertices
+           if isinstance(getattr(v, "layer", None), BatchNormalization)
+           or isinstance(getattr(getattr(v, "layer", None), "layer", None),
+                         BatchNormalization)]
+    k1_fwd = len(bns)
+    k2_step = sum(n not in new._frozen for n in bns)
+    frozen_bn = [n for n in bns if n in new._frozen]
+    if any(n in fold for n in frozen_bn):
+        raise AssertionError("a frozen BN was folded")
+    log(f"[transfer] built in {build_s:.1f} s: {len(new._frozen)} frozen "
+        f"vertices ({len(frozen_bn)} of {len(bns)} BNs), fold plan folds "
+        f"{len(fold)} ({sorted(fold)}); so {k1_fwd} K1 a forward and "
+        f"{k2_step} K2 a step")
+    if (k1_fwd, k2_step) != (LAUNCHES_PER_FORWARD, 10):
+        raise AssertionError(f"fold plan implies {k1_fwd} K1 / {k2_step} K2,"
+                             " predicted 53 / 10")
+
+    batches = transfer_batches()
+    frozen_p = {v: {k: t.clone() for k, t in new.params[v].items()}
+                for v in new._frozen if v in new.params}
+    frozen_s = {v: {k: t.clone() for k, t in new.state[v].items()}
+                for v in new._frozen if v in new.state}
+
+    # ---- the first batches' gradients: card vs the CPU float64 rule ----
+    cpu = cpu_twin(graph, new)
+    twins = (new, cpu, cpu_twin(graph, new, "DOUBLE", lambda t: t.double()))
+    first, grads = [], ([], [], [])
+    for b in batches[:TRANSFER_GRAD_BATCHES]:
+        for m, into in zip(twins, grads):
+            loss, g = graph_loss_grads(env, m, b.features, b.labels)
+            first.append(float(loss))
+            into.append(g)
+    log(f"[transfer] the first batch's loss: card {first[0]:.8f}, CPU "
+        f"float32 {first[1]:.8f}, float64 {first[2]:.8f}")
+    errs = grad_ratios(*grads, new._frozen)
+    worst = errs[0]
+    trainable = sum(v not in new._frozen for v in grads[2][0])
+    log(f"[transfer] card vs CPU float64, the first "
+        f"{TRANSFER_GRAD_BATCHES} batch-{TRAIN_BATCH} steps' gradients "
+        f"together, of the {trainable} trainable vertices: worst "
+        f"card/allowed {worst[0]:.3g} at {worst[1]} (allowed "
+        f"max({TRAIN_GRAD_TOL}, {GRAD_NOISE_FACTOR} x CPU float32)); frozen "
+        f"vertices' gradients zero; the worst five (card, CPU float32): "
+        + ", ".join(f"{n} {a:.3g} {b:.3g}" for _, n, a, b in errs[:5]))
+    bad = [n for r, n, _, _ in errs if r > 1]
+    if bad:
+        raise AssertionError(f"transfer gradients out of bounds: {bad}")
+    del twins, grads
+
+    # ---- the main path: counts from 0, read after the last step ----
+    k1.launches = 0
+    k1.bwd_launches = 0
+    fe.reset_counters()
+    losses, cpu_losses, step_ms, per_step = [], [], [], []
+    for i in range(TRANSFER_STEPS):
+        ds = batches[i % len(batches)]
+        before = (k1.launches, k1.bwd_launches)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new.fit(ds)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        per_step.append((k1.launches - before[0],
+                         k1.bwd_launches - before[1]))
+        losses.append(new.score())
+    launches = (k1.launches, k1.bwd_launches)
+    decisions = dict(fe.counters())
+    t1 = time.perf_counter()
+    for ds in batches[:TRANSFER_PARITY_STEPS]:
+        cpu.fit(ds)
+        cpu_losses.append(cpu.score())
+    cpu_s = time.perf_counter() - t1
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    changed = [f"{v}/{k}" for v, p in frozen_p.items() for k, t in p.items()
+               if not torch.equal(new.params[v][k], t)] + \
+        [f"{v}/{k}" for v, p in frozen_s.items() for k, t in p.items()
+         if not torch.equal(new.state[v][k], t)]
+    moved = [v for v in new.state if v not in new._frozen
+             and not torch.equal(new.state[v]["mean"],
+                                 net.state[v]["mean"])]
+    log(f"[transfer] fit {TRANSFER_STEPS} steps of batch {TRAIN_BATCH}: "
+        f"losses " + " ".join(f"{v:.4f}" for v in losses)
+        + f"; the first {TRANSFER_PARITY_STEPS} vs the CPU plain path "
+        + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in zip(losses, cpu_losses))
+        + f" (worst rel err {loss_err:.3g}, tolerance {TRANSFER_LOSS_TOL};"
+        f" the CPU's steps {cpu_s:.1f} s); K1/K2 a step "
+        f"{sorted(set(per_step))}; decisions {decisions}; "
+        f"{sum(len(p) for p in frozen_p.values())} frozen parameters and "
+        f"{sum(len(p) for p in frozen_s.values())} frozen running "
+        f"statistics bit-identical: {not changed}; {len(moved)} trainable "
+        f"BNs' statistics moved")
+    if changed:
+        raise AssertionError(f"frozen tensors moved in fit: {changed[:5]}")
+    if loss_err > TRANSFER_LOSS_TOL or not all(np.isfinite(losses)):
+        raise AssertionError("transfer training on the card disagrees with "
+                             "the CPU plain path")
+    if set(per_step) != {(k1_fwd, k2_step)} or \
+            launches != (TRANSFER_STEPS * k1_fwd, TRANSFER_STEPS * k2_step) \
+            or decisions["fused"] != launches[0] or any(
+                v for k, v in decisions.items() if k != "fused"):
+        raise AssertionError(f"transfer fit: K1/K2 {per_step}, decisions "
+                             f"{decisions}")
+    median = statistics.median(step_ms[1:])
+
+    # ---- device split of 3 steps (after one that starts the tracer) ----
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        new.fit(batches[0])
+    reps = 3
+    with torch.profiler.profile(activities=acts) as prof:
+        for ds in batches[1:1 + reps]:
+            new.fit(ds)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and device_us(e) > 0]
+    dev_ms = sum(device_us(e) for e in kernels) / 1e3 / reps
+
+    # ---- evaluate: one forward (53 K1) a batch ----
+    k1.launches = 0
+    k1.bwd_launches = 0
+    ev = new.evaluate(ListDataSetIterator(batches))
+    eval_launches = (k1.launches, k1.bwd_launches)
+    if eval_launches != (len(batches) * k1_fwd, 0):
+        raise AssertionError(f"transfer evaluate: K1/K2 {eval_launches}")
+    log(f"[transfer] step {median:.3f} ms median of {TRANSFER_STEPS - 1} "
+        f"({TRAIN_BATCH * 1e3 / median:.1f} images/s); device {dev_ms:.3f} "
+        f"ms a step (busy share {dev_ms / median:.3f}); evaluate on "
+        f"{len(batches)} batches: accuracy {ev.accuracy():.4f}, "
+        f"{eval_launches[0]} K1 launches")
+    return {"launches": launches, "eval_launches": eval_launches,
+            "k1_per_forward": k1_fwd, "k2_per_step": k2_step,
+            "step_ms": median, "device_ms": dev_ms,
+            "busy_share": dev_ms / median, "loss_rel_err": loss_err,
+            "grad_worst_ratio": worst[0], "accuracy": ev.accuracy()}
+
+
+def phase_lenet_center(k1, fe, env, models, train, test) -> dict:
+    """[lenet-center]: zoo LeNet with its output layer swapped for
+    ``CenterLossOutputLayer(n_out=10)`` at the layer's defaults (DL4J's
+    CenterLoss LeNet example), 3 epochs of the synthetic MNIST through
+    ``AsyncDataSetIterator(device_prefetch=True)``. Gates: the first
+    batches the iterator yields are plain iteration's bit for bit; the
+    first 3 losses within LENET_LOSS_TOL of the CPU plain path and the
+    centers after step 1 within CENTER_TOL; 2 K1 + 2 K2 a step and only
+    ``fused`` decisions; test accuracy at least LENET_MIN_ACCURACY."""
+    import dataclasses
+    from deeplearning4j_tpu_torch.data.dataset import (AsyncDataSetIterator,
+                                                       DataSet)
+    from deeplearning4j_tpu_torch.models.lenet import lenet_config
+    from deeplearning4j_tpu_torch.nn.layers.special import \
+        CenterLossOutputLayer
+    from deeplearning4j_tpu_torch.nn.model import MultiLayerNetwork
+    env.Environment.instance().f32_matmul_precision = "highest"
+    conf = lenet_config(seed=LENET_SEED)
+    conf = dataclasses.replace(conf, layers=list(conf.layers[:-1]) + [
+        CenterLossOutputLayer(n_out=10)])
+    key = str(len(conf.layers) - 1)
+
+    # ---- the prefetching iterator against plain iteration ----
+    train.reset()
+    plain = [DataSet(d.features, d.labels)
+             for _, d in zip(range(CENTER_PREFETCH_CHECK), train)]
+    train.reset()
+    it = AsyncDataSetIterator(train, device_prefetch=True)
+    got = [d for _, d in zip(range(CENTER_PREFETCH_CHECK), it)]
+    same = all(g.features.is_cuda and torch.equal(
+        g.features.cpu(), torch.from_numpy(p.features)) and torch.equal(
+        g.labels.cpu(), torch.from_numpy(p.labels))
+        for g, p in zip(got, plain))
+    it.reset()
+    if not same or len(got) != CENTER_PREFETCH_CHECK:
+        raise AssertionError("AsyncDataSetIterator(device_prefetch=True) "
+                             "does not yield plain iteration's batches")
+
+    # ---- parity: the first steps on the card vs the CPU plain path ----
+    card = MultiLayerNetwork(conf).init(device="cuda")
+    cpu = MultiLayerNetwork(conf).init(device="cpu")
+    cpu.params = {k: {n: t.detach().cpu().clone() for n, t in p.items()}
+                  for k, p in card.params.items()}
+    losses, center_err = [], None
+    for i, (g, p) in enumerate(zip(got, plain)):
+        card.fit(g)
+        cpu.fit(p)
+        losses.append((card.score(), cpu.score()))
+        if i == 0:
+            ref = cpu.state[key]["centers"]
+            center_err = float((card.state[key]["centers"].cpu() - ref)
+                               .abs().max() / ref.abs().max())
+    loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+    log(f"[lenet-center] card vs CPU plain path, the first "
+        f"{CENTER_PREFETCH_CHECK} batch-{LENET_BATCH} steps (prefetched on "
+        f"the card, bit-identical to plain iteration): losses "
+        + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in losses)
+        + f" (worst rel err {loss_err:.3g}, tolerance {LENET_LOSS_TOL}); "
+        f"centers after step 1 {center_err:.3g} of max |ref| (tolerance "
+        f"{CENTER_TOL})")
+    if loss_err > LENET_LOSS_TOL or center_err > CENTER_TOL:
+        raise AssertionError("center-loss LeNet on the card disagrees with "
+                             "the CPU plain path")
+    del card, cpu
+
+    # ---- the main path: counts from 0, read after the last epoch ----
+    net = MultiLayerNetwork(conf).init(device="cuda")
+    k1.launches = 0
+    k1.bwd_launches = 0
+    fe.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(it, epochs=LENET_EPOCHS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = (k1.launches, k1.bwd_launches)
+    decisions = dict(fe.counters())
+    steps = net.iteration
+    if steps != LENET_EPOCHS * -(-LENET_TRAIN // LENET_BATCH) or \
+            launches != (LENET_CONVS * steps,) * 2 or \
+            decisions["fused"] != LENET_CONVS * steps or any(
+                v for k, v in decisions.items() if k != "fused") or \
+            it.stats()["bad_records"]:
+        raise AssertionError(f"center-loss LeNet fit: {steps} steps, K1/K2 "
+                             f"{launches}, decisions {decisions}")
+    acc = net.evaluate(test).accuracy()
+    centers = net.state[key]["centers"]
+    log(f"[lenet-center] fit: {LENET_EPOCHS} epochs x {steps // LENET_EPOCHS}"
+        f" steps through AsyncDataSetIterator(device_prefetch=True) in "
+        f"{fit_s:.2f} s ({fit_s * 1e3 / steps:.4f} ms a step), last loss "
+        f"{net.score():.4f}; K1/K2 launches {launches} ({LENET_CONVS} + "
+        f"{LENET_CONVS} a step), decisions {decisions}; centers' norms "
+        f"{centers.norm(dim=1).min():.3f}..{centers.norm(dim=1).max():.3f}; "
+        f"test accuracy {acc:.4f} (at least {LENET_MIN_ACCURACY})")
+    if acc < LENET_MIN_ACCURACY:
+        raise AssertionError(f"center-loss LeNet accuracy {acc:.4f} < "
+                             f"{LENET_MIN_ACCURACY}")
+    return {"launches": launches, "steps": steps, "accuracy": acc,
+            "step_ms": fit_s * 1e3 / steps, "loss_rel_err": loss_err,
+            "center_rel_err": center_err}
 
 
 def attn_operand(B, H, T, d, dtype, layout, gen):
@@ -3449,8 +3930,13 @@ def main() -> int:
                              f"{k1.bwd_launches} K2 launches")
     del served
     trained = phase_train(k1, fe, env, models, graph)
+    train_eval = phase_train_eval(k1, fe, graph, trained["net"],
+                                  trained.pop("batch"))
+    transfer = phase_transfer(k1, fe, env, graph, trained["net"])
     nchw = phase_nchw(k1, fe, env)
     lenet_row = phase_lenet(k1, fe, env, models)
+    center = phase_lenet_center(k1, fe, env, models, lenet_row.pop("train"),
+                                lenet_row.pop("test"))
     if k3.launches:
         raise AssertionError(f"{k3.launches} K3 launches on the ResNet paths")
     katt = phase_kernel_attn(k3)
@@ -3688,10 +4174,16 @@ def main() -> int:
         "source": "deeplearning4j_tpu_torch/csrc/affine_act.cu",
         "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:167",
         "launches": serve_launches + trained["launches"][0]
-        + nchw["launches"][0] + lenet_row["launches"][0]
-        + lenet_row["eval_launches"][0] + ln_l["k1"] + fit_ln["k1"],
+        + train_eval["launches"][0] + transfer["launches"][0]
+        + transfer["eval_launches"][0] + nchw["launches"][0]
+        + lenet_row["launches"][0] + lenet_row["eval_launches"][0]
+        + center["launches"][0] + ln_l["k1"] + fit_ln["k1"],
         "launches_by_path": {"serve": serve_launches,
                              "train": trained["launches"][0],
+                             "train_eval": train_eval["launches"][0],
+                             "transfer_fit": transfer["launches"][0],
+                             "transfer_eval": transfer["eval_launches"][0],
+                             "lenet_center_fit": center["launches"][0],
                              "nchw_block": nchw["launches"][0],
                              "lenet_fit": lenet_row["launches"][0],
                              "lenet_eval": lenet_row["eval_launches"][0],
@@ -3715,9 +4207,14 @@ def main() -> int:
         "name": "K2 affine_act_bwd", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/affine_act_bwd.cu",
         "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:179",
-        "launches": trained["launches"][1] + nchw["launches"][1]
-        + lenet_row["launches"][1] + fit_ln["k2"],
+        "launches": trained["launches"][1] + transfer["launches"][1]
+        + nchw["launches"][1] + lenet_row["launches"][1]
+        + center["launches"][1] + fit_ln["k2"],
         "launches_by_path": {"serve": 0, "train": trained["launches"][1],
+                             "train_eval": 0,
+                             "transfer_fit": transfer["launches"][1],
+                             "transfer_eval": 0,
+                             "lenet_center_fit": center["launches"][1],
                              "nchw_block": nchw["launches"][1],
                              "lenet_fit": lenet_row["launches"][1],
                              "lenet_eval": 0,
@@ -3739,6 +4236,14 @@ def main() -> int:
             "busy_share", "profiled_step_ms", "k1_ms", "k2_ms",
             "loss_rel_err", "grad_rel_err", "source")},
         "lenet_step_calls": lenet_step_calls(kbwd),
+        "transfer": {k: transfer[k] for k in (
+            "k1_per_forward", "k2_per_step", "step_ms", "device_ms",
+            "busy_share", "loss_rel_err", "grad_worst_ratio", "accuracy")},
+        "lenet_center": {k: center[k] for k in (
+            "steps", "accuracy", "step_ms", "loss_rel_err",
+            "center_rel_err")},
+        "train_eval": {k: train_eval[k] for k in (
+            "accuracy", "accuracy_cpu", "ties")},
         "bert_gelu": gelu_row(g2, lib=False),
         "timed_as": "device time summed over the 53 calls of one batch-32 "
                     "float32 ResNet-50 training step; no single PyTorch "

@@ -5,7 +5,9 @@ keeps its own copy): nd4j's ``Evaluation`` (a confusion matrix accumulated
 on the host over evaluation batches; accuracy, and precision, recall and
 F1 macro-averaged over the classes with at least one true or predicted
 example; ``stats()`` a DL4J-style report) and ``RegressionEvaluation``
-(per-column MSE, MAE, RMSE, R^2 and Pearson correlation).
+(per-column MSE, MAE, RMSE, R^2 and Pearson correlation). Labels and
+masks may come as tensors (a batch an ``AsyncDataSetIterator`` already
+put on the card); they are read back to the host.
 """
 
 from __future__ import annotations
@@ -13,6 +15,12 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+
+
+def _host(a):
+    """numpy for an array or a tensor on any device."""
+    return a.detach().cpu().numpy() if hasattr(a, "detach") else \
+        np.asarray(a)
 
 
 class Evaluation:
@@ -33,8 +41,8 @@ class Evaluation:
 
     def eval(self, labels, predictions, mask=None):
         """labels: one-hot or int; predictions: prob/logit rows or int."""
-        labels = np.asarray(labels)
-        predictions = np.asarray(predictions)
+        labels = _host(labels)
+        predictions = _host(predictions)
         if labels.ndim > 1 and labels.shape[-1] > 1:
             true = labels.argmax(-1)
         else:
@@ -45,7 +53,7 @@ class Evaluation:
         true = true.ravel()
         pred = pred.ravel()
         if mask is not None:
-            m = np.asarray(mask).ravel().astype(bool)
+            m = _host(mask).ravel().astype(bool)
             true, pred = true[m], pred[m]
         k = int(max(true.max(initial=0), pred.max(initial=0))) + 1
         self._ensure(k)

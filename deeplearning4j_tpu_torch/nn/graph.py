@@ -1,10 +1,13 @@
 """ComputationGraph: the DAG network engine.
 
 Port of ``deeplearning4j_tpu/nn/graph.py``: the configuration with its JSON
-round-trip, the builder, and the engine's ``init``, eager topological
-forward walk with the BN + activation fold plan (the same plan in
-training and inference), ``feed_forward``, ``output`` (through the
-bucketed :class:`InferenceEngine`), ``predict``, ``fit``, ``score`` and
+round-trip, the builder (``layer`` is DL4J's spelling of ``add_layer``),
+and the engine's ``init``, ``summary``, eager topological forward walk
+with the BN + activation fold plan (the same plan in training and
+inference; a ``FrozenLayer`` BN is not folded, as there), ``feed_forward``,
+``output`` (through the bucketed :class:`InferenceEngine`; ``train=True``
+runs the training forward), ``predict``, ``evaluate``, ``fit``, ``score``,
+the flat parameter view ``params_flat``/``set_params_flat`` and
 ``save``/``load`` with the updater state.
 
 Parameters and state are dicts of tensors keyed by vertex name and then by
@@ -14,11 +17,13 @@ state is keyed by slot, then the same way (``updaterState.npz``).
 
 A training step (``fit``) runs eagerly inside one
 ``environment.precision(device)`` context: the forward with batch
-statistics, the loss, ``torch.autograd.grad`` (K2 is the backward of every
-BN epilogue), l1/l2, gradient normalization and clipping, the divergence
-sentinel (one host sync for its verdict), the updater and the
-constraints. A bad step leaves params, updater state and BN state as
-they were.
+statistics, the loss (a center-loss head's with its centers moved),
+``torch.autograd.grad`` (K2 is the backward of every BN epilogue autograd
+records: a frozen stack that only frozen layers feed records none), l1/l2,
+gradient normalization and clipping, the divergence sentinel (one host
+sync for its verdict), the updater and the constraints, which skip the
+FrozenLayer vertices. A bad step leaves params, updater state and BN
+state as they were.
 
 A net-level ``tbptt_length`` is stamped by ``GraphBuilder.build`` onto
 the recurrent layers of the layer vertices (wrapped ones included), as
@@ -48,11 +53,12 @@ from ..data.dataset import (DataSet, DataSetIterator, MultiDataSet,
                             MultiDataSetIterator, NumpyMultiDataSetIterator)
 from ..ops import losses as _loss
 from ..runtime import sentinel as _sent
+from ..utils import tree as _tree
 from . import constraints as _constraints
 from . import gradnorm as _gn
 from . import training as _training
 from . import updaters as _upd
-from .layers.core import _BaseOutput
+from .layers.wrappers import is_loss_head
 from .vertices import GraphVertex, LayerVertex
 
 #: slices of the port that bring what this one leaves out
@@ -216,6 +222,10 @@ class GraphBuilder:
         self._vertices.append((name, LayerVertex(layer=layer), list(inputs)))
         return self
 
+    # DL4J spelling
+    def layer(self, name: str, layer, *inputs: str) -> "GraphBuilder":
+        return self.add_layer(name, layer, *inputs)
+
     def add_vertex(self, name: str, vertex: GraphVertex,
                    *inputs: str) -> "GraphBuilder":
         self._vertices.append((name, vertex, list(inputs)))
@@ -274,11 +284,16 @@ class ComputationGraph:
         self._score = float("nan")
         self._sentinel = _sent.Sentinel()
         self._rng = None
-        # the loss heads of the network outputs
+        # the loss heads of the network outputs (duck-typed, a FrozenLayer
+        # unwrapped to probe it, as the sequential engine does)
         self._out_layers = {
             o: self._vertex_map[o][0].layer for o in conf.outputs
             if isinstance(self._vertex_map[o][0], LayerVertex)
-            and isinstance(self._vertex_map[o][0].layer, _BaseOutput)}
+            and is_loss_head(self._vertex_map[o][0].layer)}
+        self._frozen = frozenset(
+            n for n, v, _ in conf.vertices
+            if isinstance(v, LayerVertex) and getattr(v.layer, "frozen",
+                                                      False))
 
     # ------------------------------------------------------------------ init
     def init(self, device=None) -> "ComputationGraph":
@@ -319,8 +334,38 @@ class ComputationGraph:
         return self
 
     def num_params(self) -> int:
-        return sum(int(t.numel()) for p in self.params.values()
-                   for t in p.values())
+        return sum(int(t.numel()) for t in _tree.leaves(self.params))
+
+    def summary(self) -> str:
+        """One row a vertex in topological order (name, kind, inputs, output
+        shape, parameter count) and the total: the JAX package's text."""
+        lines = [f"{'vertex':<24}{'type':<22}{'inputs':<30}"
+                 f"{'out shape':<18}params"]
+        for name in self._topo:
+            v, ins = self._vertex_map[name]
+            kind = (f"layer[{v.layer.kind}]" if isinstance(v, LayerVertex)
+                    else v.kind)
+            n = sum(int(t.numel())
+                    for t in _tree.leaves(self.params.get(name, {})))
+            shape = self._shapes.get(name, "?")
+            lines.append(f"{name:<24}{kind:<22}{','.join(ins):<30}"
+                         f"{str(shape):<18}{n}")
+        lines.append(f"total params: {self.num_params()}")
+        return "\n".join(lines)
+
+    # ------------------------------------------------- flat parameter view
+    def params_flat(self) -> np.ndarray:
+        """Every parameter as one numpy vector: vertices in topological
+        order, each vertex's tensors in DL4J's name order. The port keeps
+        the JAX package's layouts (OIHW convolution kernels, ``[nIn,
+        nOut]`` dense weights), so the vector is the JAX package's and
+        loads there unchanged, and the other way round."""
+        return _tree.flatten_params(self.params, self._topo)
+
+    def set_params_flat(self, vec) -> "ComputationGraph":
+        """Load a :meth:`params_flat` vector (from either package)."""
+        self.params = _tree.unflatten_params(self.params, self._topo, vec)
+        return self
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, inputs: Dict[str, torch.Tensor], state, *,
@@ -449,7 +494,8 @@ class ComputationGraph:
     def _loss(self, params, state, xs, ys, fms, lms, rng=None):
         """``(loss, new BN state)`` of one batch: the training forward
         (dropout from ``rng``; None: the identity), the loss heads' losses
-        summed over the outputs, plus l1/l2."""
+        summed over the outputs (a center-loss head's with its center term,
+        its centers moved in the new state), plus l1/l2."""
         inputs = dict(zip(self.conf.inputs, xs))
         masks = {n: m for n, m in zip(self.conf.inputs, fms)
                  if m is not None}
@@ -458,10 +504,10 @@ class ComputationGraph:
                                              rng=rng)
         total = 0.0
         for o, y, lm in zip(self.conf.outputs, ys, lms):
-            layer = self._out_layers[o]
             m = _loss.combine_masks(lm, mks.get(o))
-            total = total + layer.loss_value(acts[o], y, mask=m,
-                                             weights=layer.loss_weights)
+            loss, new_state = _training.head_loss(
+                self._out_layers[o], acts[o], y, m, state, new_state, o)
+            total = total + loss
         return total + self._regularization(params), new_state
 
     def _value_and_grad(self, xs, ys, fms, lms):
@@ -568,11 +614,34 @@ class ComputationGraph:
     def output(self, *inputs, train: bool = False):
         """Output activations (numpy) for the network outputs: one array
         when the graph has one output, else a list (DL4J ``output()``).
-        Ragged batch sizes pad to the engine's power-of-two buckets."""
-        if train:
-            raise NotImplementedError(
-                f"training-mode output comes with {_BREADTH}")
-        return self.inference_engine().output(*inputs)
+        Ragged batch sizes pad to the engine's power-of-two buckets.
+        ``train=True`` runs the training forward (batch statistics, the
+        stochastic layers drawing from the model's generator; the loss
+        heads give their pre-activation, as in the JAX package) and leaves
+        the layer state as it was."""
+        if not train:
+            return self.inference_engine().output(*inputs)
+        self._require_init()
+        with torch.inference_mode(), _env.precision(self.device):
+            acts, _, _ = self._forward(self.params, self._as_inputs(inputs),
+                                       self.state, train=True,
+                                       rng=_training.generator(self))
+            outs = [acts[o].float().cpu().numpy()
+                    if acts[o].dtype in (torch.bfloat16, torch.float16)
+                    else acts[o].cpu().numpy() for o in self.conf.outputs]
+        return outs[0] if len(outs) == 1 else outs
+
+    def evaluate(self, data, labels=None, output: int = 0):
+        """Classification evaluation of one network output over an
+        iterator (DL4J ``evaluate()``), through :meth:`output`."""
+        from ..eval.evaluation import Evaluation
+        ev = Evaluation()
+        for mds in _as_multi_iterator(data, labels):
+            out = self.output(*mds.features)
+            if isinstance(out, list):
+                out = out[output]
+            ev.eval(mds.labels[output], out, mask=mds.labels_masks[output])
+        return ev
 
     def predict(self, *inputs):
         out = self.output(*inputs)

@@ -13,5 +13,7 @@ from .core import (ActivationLayer, DenseLayer, DropoutLayer,  # noqa: F401
 from .recurrent import (GRU, LSTM, Bidirectional, ConvLSTM2D,  # noqa: F401
                         GravesLSTM, LastTimeStep, RnnLossLayer,
                         RnnOutputLayer, SimpleRnn)
-from .special import EmbeddingSequenceLayer  # noqa: F401
-from .wrappers import MaskLayer, RepeatVector, TimeDistributed  # noqa: F401
+from .special import (CenterLossOutputLayer,  # noqa: F401
+                      EmbeddingSequenceLayer)
+from .wrappers import (FrozenLayer, MaskLayer, RepeatVector,  # noqa: F401
+                       TimeDistributed)

@@ -10,7 +10,9 @@ masks; ``train=True`` runs the training forward, dropout included),
 loss of ``_build_loss_fn`` with the l1/l2 term, the step of
 ``_build_train_step`` with clipping, the divergence sentinel, the updater
 and the constraints, shared with ``ComputationGraph`` through
-``nn/training.py``), the streaming ``rnn_time_step``
+``nn/training.py``; a center-loss head's centers move in the step, and a
+FrozenLayer's parameters are skipped), the flat parameter view
+``params_flat``/``set_params_flat``, the streaming ``rnn_time_step``
 / ``rnn_clear_previous_state``, ``save``/``load``, and the
 autoregressive decode walk of the generative-serving slice (the JAX
 module's :880-1053): ``decode_cache_spec``, ``init_decode_cache``,
@@ -62,6 +64,7 @@ from .. import environment as _env
 from ..data.dataset import DataSet, DataSetIterator, NumpyDataSetIterator
 from ..ops import losses as _loss
 from ..runtime import sentinel as _sent
+from ..utils import tree as _tree
 from . import training as _training
 from .config import MultiLayerConfiguration
 
@@ -90,6 +93,9 @@ class MultiLayerNetwork:
         self._score = None
         self._sentinel = _sent.Sentinel()
         self._rng = None
+        # the parameter keys of the FrozenLayers
+        self._frozen = frozenset(str(i) for i, l in enumerate(self.layers)
+                                 if getattr(l, "frozen", False))
 
     # ------------------------------------------------------------------ init
     def init(self, device=None) -> "MultiLayerNetwork":
@@ -124,8 +130,23 @@ class MultiLayerNetwork:
         return self
 
     def num_params(self) -> int:
-        return sum(int(t.numel()) for p in self.params.values()
-                   for t in p.values())
+        return sum(int(t.numel()) for t in _tree.leaves(self.params))
+
+    # ------------------------------------------------- flat parameter view
+    def _flat_keys(self):
+        return [str(i) for i in range(len(self.layers))]
+
+    def params_flat(self) -> np.ndarray:
+        """Every parameter as one numpy vector in DL4J's layer and name
+        order: the JAX package's vector (the port keeps its layouts), so
+        it loads there unchanged, and the other way round."""
+        return _tree.flatten_params(self.params, self._flat_keys())
+
+    def set_params_flat(self, vec) -> "MultiLayerNetwork":
+        """Load a :meth:`params_flat` vector (from either package)."""
+        self.params = _tree.unflatten_params(self.params, self._flat_keys(),
+                                             vec)
+        return self
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, x, state, *, train=False, mask=None,
@@ -317,9 +338,11 @@ class MultiLayerNetwork:
     # --------------------------------------------------------------- training
     @property
     def _out_layer(self):
-        """The loss head (the last layer), or None."""
+        """The loss head (the last layer, a FrozenLayer unwrapped to probe
+        it), or None."""
+        from .layers.wrappers import is_loss_head
         last = self.layers[-1] if self.layers else None
-        return last if hasattr(last, "loss_value") else None
+        return last if last is not None and is_loss_head(last) else None
 
     def _regularization(self, params):
         """Per-layer l1/l2 on ``W`` (DL4J regularizes W, not b)."""
@@ -334,16 +357,18 @@ class MultiLayerNetwork:
     def _build_loss_fn(self):
         """The training loss ``(params, state, x, y, fmask, lmask, rng) ->
         (loss, new_state)``: the training forward, the output layer's loss
-        on the combined label and propagated masks, plus l1/l2."""
+        on the combined label and propagated masks (a center-loss head's
+        with its center term, its centers moved in ``new_state``), plus
+        l1/l2."""
         out_layer = self._out_layer
+        key = str(len(self.layers) - 1)
 
         def loss_fn(params, state, x, y, fmask, lmask, rng):
             out, new_state, out_mask = self._forward(
                 params, x, state, train=True, mask=fmask, rng=rng)
             lm = _loss.combine_masks(lmask, out_mask)
-            data_loss = out_layer.loss_value(
-                out, y, mask=lm,
-                weights=getattr(out_layer, "loss_weights", None))
+            data_loss, new_state = _training.head_loss(
+                out_layer, out, y, lm, state, new_state, key)
             return data_loss + self._regularization(params), new_state
 
         return loss_fn

@@ -6,9 +6,11 @@ training forward and loss at the current parameters, ``torch.autograd.grad``
 over each layer's ``W``, gradient normalization and clipping, the
 divergence sentinel's verdict (one host sync), then the updater and the
 constraints. A step the sentinel rejects leaves parameters, updater state
-and layer state as they were. The engines differ only in their loss and in
-how they pair layers with parameters, which they hand in; both draw
-dropout from ``generator``.
+and layer state as they were. A FrozenLayer's parameters get zero
+gradients (its ``apply`` detaches them) and are skipped by the l1/l2
+penalty, the updater and the constraints. The engines differ only in
+their loss and in how they pair layers with parameters, which they hand
+in; both draw dropout from ``generator``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,27 @@ def generator(net) -> torch.Generator:
         net._rng = torch.Generator(device=net.device).manual_seed(
             int(net.conf.seed))
     return net._rng
+
+
+def head_loss(layer, out, y, mask, state, new_state, key):
+    """``(loss, new_state)`` of the loss head ``layer`` (the vertex or layer
+    index ``key``) on its output ``out``. A center-loss head
+    (``update_centers``) stashed its input features in ``new_state[key]``:
+    they are popped there (they must not persist), its loss takes them and
+    the current centers, and its centers move by the EMA rule outside the
+    gradient, as in the JAX engines."""
+    weights = getattr(layer, "loss_weights", None)
+    if not hasattr(layer, "update_centers"):
+        return layer.loss_value(out, y, mask=mask, weights=weights), \
+            new_state
+    st = dict(new_state[key])
+    feats = st.pop("__features__")
+    centers = state[key]["centers"]
+    with torch.no_grad():
+        st["centers"] = layer.update_centers(centers, feats.detach(), y)
+    loss = layer.loss_value(out, y, mask=mask, weights=weights,
+                            features=feats, centers=centers.detach())
+    return loss, {**new_state, key: st}
 
 
 def regularization(conf, pairs):
@@ -86,20 +109,41 @@ def value_and_grad(params, loss_fn):
     return loss.detach(), _tree.tmap(grad_of, tracked), aux
 
 
+def _without(tree, keys):
+    return {k: v for k, v in tree.items() if k not in keys}
+
+
+def apply_updater(updater, grads, updater_state, params, step, frozen=()):
+    """The updater over every parameter outside the top-level keys
+    ``frozen``: ``(new_params, new_updater_state)``. A frozen key's
+    parameters and its updater slots are left as they are, bit for bit
+    (no momentum, no weight decay: the JAX package's zero gradient moves
+    neither on a fresh updater state)."""
+    live, live_state = _upd.apply_leafwise(
+        updater, _without(grads, frozen),
+        {slot: _without(t, frozen) for slot, t in updater_state.items()},
+        _without(params, frozen), step)
+    return ({k: live.get(k, v) for k, v in params.items()},
+            {slot: {**updater_state.get(slot, {}), **t}
+             for slot, t in live_state.items()})
+
+
 def train_step(net, loss_fn):
     """One step of ``net`` (its ``params``, ``state``, ``updater_state``,
-    ``conf``, ``iteration``, ``_sentinel`` and ``device``) on
+    ``conf``, ``iteration``, ``_sentinel``, ``_frozen`` and ``device``) on
     ``loss_fn(params) -> (loss, new_state)``, inside one precision
-    context. Returns the loss (a device tensor)."""
+    context; the top-level parameter keys ``net._frozen`` (FrozenLayers)
+    are skipped by the updater and the constraints. Returns the loss (a
+    device tensor)."""
     with _env.precision(net.device):
         loss, grads, new_state = value_and_grad(net.params, loss_fn)
         with torch.no_grad():
             grads, clip_events = clip(net.conf, grads)
             if net._sentinel.verdict(loss, grads, clip_events):
-                params, net.updater_state = _upd.apply_leafwise(
+                params, net.updater_state = apply_updater(
                     net.conf.updater, grads, net.updater_state, net.params,
-                    net.iteration)
+                    net.iteration, net._frozen)
                 net.params = _constraints.apply_constraints(
-                    net.conf.constraints, params)
+                    net.conf.constraints, params, skip=net._frozen)
                 net.state = new_state
     return loss

@@ -69,8 +69,11 @@ def selu(x):
 
 @_act("gelu")
 def gelu(x, approximate=True):
-    # DL4J GELU is the tanh approximation; ONNX Gelu is the erf form
-    return F.gelu(_float(x), approximate="tanh" if approximate else "none")
+    # DL4J GELU is the tanh approximation; ONNX Gelu is the erf form.
+    # +inf passes through, as in jax.nn.gelu (torch's erf form gives NaN)
+    x = _float(x)
+    y = F.gelu(x, approximate="tanh" if approximate else "none")
+    return torch.where(x == float("inf"), x, y)
 
 
 @_act("swish")

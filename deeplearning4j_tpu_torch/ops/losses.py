@@ -1,4 +1,4 @@
-"""Loss functions (the part of the catalog the training slice uses).
+"""Loss functions and the ``loss.*`` catalog ops.
 
 Port of ``deeplearning4j_tpu/ops/losses.py``. Contract (DL4J's
 ``ILossFunction.computeScore``): ``fn(labels, predictions, mask=None,
@@ -6,36 +6,38 @@ weights=None)`` -> a scalar, the mean over unmasked examples (or
 timesteps) of the per-example loss summed over the output axis.
 ``predictions`` are post-activation outputs; the output layers call
 :func:`softmax_cross_entropy_with_logits` and
-:func:`sigmoid_binary_xent_with_logits` on logits instead. Those two are
-also SameDiff graph ops, ``loss.softmax_ce_logits`` and
-``loss.sigmoid_bce_logits`` (the JAX package's catalog names). Gradients
+:func:`sigmoid_binary_xent_with_logits` on logits instead. Gradients
 come from autograd.
 
-Ported so far: ``mcxent``, ``sparse_mcxent``, ``binary_xent``, ``mse``
-and the two logits forms. The rest of the JAX catalog (l1, l2, mae,
-hinge, squared_hinge, kld, poisson, cosine_proximity, multi_label,
-wasserstein, fmeasure, mixture_density, ctc) comes with a later slice
-(``ROADMAP.md``); :func:`get` names it when asked.
+Every loss is also a catalog op, ``loss.<name>``, as the JAX package's
+``_loss`` decorator registers it; so are the two logits forms
+(``loss.softmax_ce_logits``, ``loss.sigmoid_bce_logits``). One name has
+two functions there: ``LOSSES["ctc"]`` is :func:`ctc` (labels padded
+with negative ids, an input mask; what the loss layers call), while the
+catalog's ``loss.ctc`` is :func:`ctc_loss`, the JAX package's
+``ops/random.py`` op in optax's convention (logits, labels and 1.0-where-
+padded paddings), which replaces the first in its registry once every
+ops module is imported. Both run ``F.ctc_loss``.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from . import register
 
 LOSSES = {}
 EPS = 1e-7
 
-#: losses of the JAX catalog not ported yet
-_LATER = ("l1", "l2", "mae", "hinge", "squared_hinge", "kld", "poisson",
-          "cosine_proximity", "multi_label", "wasserstein", "fmeasure",
-          "mixture_density", "ctc")
 
 
 def _loss(name):
     def deco(fn):
         LOSSES[name] = fn
+        register(f"loss.{name}", category="loss")(fn)
         return fn
     return deco
 
@@ -148,16 +150,210 @@ def mse(labels, predictions, mask=None, weights=None):
     return _per_example(_sum_outputs(elem, weights) / elem.shape[-1], mask)
 
 
+@_loss("l2")
+def l2(labels, predictions, mask=None, weights=None):
+    """DL4J LossL2: the SUM of squared errors over the output axis."""
+    elem = torch.square(predictions - labels)
+    return _per_example(_sum_outputs(elem, weights), mask)
+
+
+@_loss("mae")
+def mae(labels, predictions, mask=None, weights=None):
+    """DL4J LossMAE = LossL1 / nOut (mean, not sum, over the output
+    axis)."""
+    elem = torch.abs(predictions - labels)
+    return _per_example(_sum_outputs(elem, weights) / elem.shape[-1], mask)
+
+
+@_loss("l1")
+def l1(labels, predictions, mask=None, weights=None):
+    """DL4J LossL1: the SUM of absolute errors over the output axis."""
+    elem = torch.abs(predictions - labels)
+    return _per_example(_sum_outputs(elem, weights), mask)
+
+
+@_loss("hinge")
+def hinge(labels, predictions, mask=None, weights=None):
+    """Hinge loss; labels in {-1, +1}."""
+    elem = torch.clamp(1.0 - labels * predictions, min=0.0)
+    return _per_example(_sum_outputs(elem, weights), mask)
+
+
+@_loss("squared_hinge")
+def squared_hinge(labels, predictions, mask=None, weights=None):
+    elem = torch.square(torch.clamp(1.0 - labels * predictions, min=0.0))
+    return _per_example(_sum_outputs(elem, weights), mask)
+
+
+@_loss("kld")
+def kld(labels, predictions, mask=None, weights=None):
+    """Kullback-Leibler divergence of the predictions from the labels."""
+    p = torch.clamp(predictions, EPS, 1.0)
+    q = torch.clamp(labels, EPS, 1.0)
+    elem = labels * (torch.log(q) - torch.log(p))
+    return _per_example(_sum_outputs(elem, weights), mask)
+
+
+@_loss("poisson")
+def poisson(labels, predictions, mask=None, weights=None):
+    p = torch.clamp(predictions, min=EPS)
+    elem = p - labels * torch.log(p)
+    return _per_example(_sum_outputs(elem, weights), mask)
+
+
+def _unit(v):
+    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
+                           min=EPS)
+
+
+@_loss("cosine_proximity")
+def cosine_proximity(labels, predictions, mask=None, weights=None):
+    """Minus the cosine similarity of each example's label and prediction
+    vectors."""
+    if weights is not None:
+        raise ValueError("cosine_proximity has no per-output weights "
+                         "(loss is a whole-vector similarity)")
+    elem = -torch.sum(_unit(labels) * _unit(predictions), dim=-1)
+    return _per_example(elem, mask)
+
+
+@_loss("multi_label")
+def multi_label(labels, predictions, mask=None, weights=None):
+    """LossMultiLabel: the pairwise ranking loss, ``exp(p_neg - p_pos)``
+    summed over every (positive, negative) pair of an example and divided
+    by the pair count."""
+    if weights is not None:
+        raise ValueError("multi_label is a pairwise ranking loss; per-output "
+                         "weights are not supported")
+    pos = labels > 0.5
+    diffs = torch.exp(predictions[..., None, :] - predictions[..., :, None])
+    pairs = pos[..., :, None] & ~pos[..., None, :]      # positive i, negative j
+    zero = torch.zeros((), dtype=diffs.dtype, device=diffs.device)
+    npos = torch.clamp(pos.sum(-1), min=1)
+    nneg = torch.clamp((~pos).sum(-1), min=1)
+    elem = torch.where(pairs, diffs, zero).sum((-2, -1)) / (npos * nneg)
+    return _per_example(elem, mask)
+
+
+@_loss("wasserstein")
+def wasserstein(labels, predictions, mask=None, weights=None):
+    """LossWasserstein, the critic form: labels times predictions."""
+    return _per_example(_sum_outputs(labels * predictions, weights), mask)
+
+
+@_loss("fmeasure")
+def fmeasure(labels, predictions, mask=None, weights=None, beta=1.0):
+    """LossFMeasure: 1 - the soft F_beta of binary predictions, over the
+    whole (unmasked) batch at once; a mask weights the counts."""
+    if weights is not None:
+        raise ValueError("fmeasure is a single-column batch-level loss; "
+                         "per-output weights do not apply")
+    y = labels[..., -1] if labels.shape[-1] > 1 else labels[..., 0]
+    p = predictions[..., -1] if predictions.shape[-1] > 1 \
+        else predictions[..., 0]
+    if mask is not None:
+        m = torch.as_tensor(mask, dtype=y.dtype,
+                            device=y.device).expand(y.shape)
+        y, p = y * m, p * m
+    tp = torch.sum(y * p)
+    fp = torch.sum((1.0 - y) * p)
+    fn = torch.sum(y * (1.0 - p))
+    b2 = beta * beta
+    f = (1.0 + b2) * tp / torch.clamp((1.0 + b2) * tp + b2 * fn + fp,
+                                      min=EPS)
+    return 1.0 - f
+
+
+@_loss("mixture_density")
+def mixture_density(labels, predictions, mask=None, weights=None,
+                    num_mixtures=None):
+    """LossMixtureDensity: the negative log-likelihood of an isotropic
+    Gaussian mixture. The output is ``[alpha (K) | log sigma (K) | mu
+    (K*L)]`` for labels ``[.., L]`` (K from the widths when not given);
+    sigma is ``exp`` of its block plus EPS."""
+    L = labels.shape[-1]
+    width = predictions.shape[-1]
+    K = num_mixtures or width // (2 + L)
+    if K * (2 + L) != width:
+        raise ValueError(f"output width {width} != K*(2+L) for labels "
+                         f"width {L}")
+    alpha = predictions[..., :K]
+    sigma = torch.exp(predictions[..., K:2 * K]) + EPS
+    mu = predictions[..., 2 * K:].reshape(tuple(predictions.shape[:-1])
+                                          + (K, L))
+    log_pi = torch.log_softmax(alpha, dim=-1)
+    d2 = torch.sum((labels[..., None, :] - mu) ** 2, dim=-1)    # [.., K]
+    log_n = (-0.5 * d2 / (sigma ** 2) - L * torch.log(sigma)
+             - 0.5 * L * math.log(2.0 * math.pi))
+    nll = -torch.logsumexp(log_pi + log_n, dim=-1)
+    return _per_example(nll, mask)
+
+
+def _ctc_nll(logits, labels, input_len, label_len, blank):
+    """Per-sequence CTC negative log-likelihood of ``logits`` ``[B, T,
+    C]`` (log_softmax applied here) against the first ``label_len`` ids
+    of each row of ``labels``, over the first ``input_len`` steps."""
+    lp = torch.log_softmax(logits, dim=-1)
+    return F.ctc_loss(lp.transpose(0, 1), labels.long().clamp(min=0),
+                      input_len.long(), label_len.long(), blank=blank,
+                      reduction="none")
+
+
+@_loss("ctc")
+def ctc(labels, predictions, mask=None, weights=None, blank=0):
+    """Connectionist Temporal Classification negative log-likelihood.
+
+    ``predictions``: ``[B, T, C]`` LOGITS; ``labels``: ``[B, S]`` class
+    ids padded with negative values (a row's length is its count of
+    non-negative ids); ``mask``: an optional ``[B, T]`` input mask (input
+    lengths are its row sums). The batch MEAN of the per-sequence NLL,
+    over the rows with at least one unmasked step when a mask is given:
+    a fully masked (pad) row contributes nothing."""
+    B, T = predictions.shape[0], predictions.shape[1]
+    label_len = (labels >= 0).sum(1)
+    if mask is None:
+        input_len = torch.full((B,), T, dtype=torch.long,
+                               device=predictions.device)
+    else:
+        input_len = (torch.as_tensor(mask, device=predictions.device)
+                     > 0).sum(1)
+    # a pad row runs as one step and no labels (a finite NLL), then is
+    # masked out of the mean
+    pad = input_len == 0
+    nll = _ctc_nll(predictions, labels, input_len.masked_fill(pad, 1),
+                   label_len.masked_fill(pad, 0), blank)
+    if weights is not None:
+        nll = nll * torch.as_tensor(weights, dtype=nll.dtype,
+                                    device=nll.device)
+    return _per_example(nll, (input_len > 0).to(nll.dtype)
+                        if mask is not None else None)
+
+
+@register("loss.ctc", category="loss")
+def ctc_loss(log_probs, labels, logit_paddings=None, label_paddings=None,
+             blank_id=0):
+    """The catalog's ``loss.ctc`` (the JAX package's ``ops/random.py``
+    op, optax's convention): ``log_probs`` ``[B, T, C]`` logits, ``labels``
+    ``[B, S]`` ids, paddings 1.0 where padded (trailing); the batch mean of
+    the per-sequence NLL."""
+    B, T = log_probs.shape[0], log_probs.shape[1]
+    dev = log_probs.device
+    input_len = torch.full((B,), T, dtype=torch.long, device=dev) \
+        if logit_paddings is None else \
+        T - torch.as_tensor(logit_paddings, device=dev).sum(1).long()
+    label_len = torch.full((B,), labels.shape[1], dtype=torch.long,
+                           device=dev) if label_paddings is None else \
+        labels.shape[1] - torch.as_tensor(label_paddings,
+                                          device=dev).sum(1).long()
+    return torch.mean(_ctc_nll(log_probs, labels, input_len, label_len,
+                               blank_id))
+
+
 def get(name_or_fn):
     """A loss by name (or a callable, returned as it is)."""
     if callable(name_or_fn):
         return name_or_fn
     key = str(name_or_fn).lower()
-    if key in _LATER:
-        raise NotImplementedError(
-            f"loss {key!r} is not ported yet; it comes with a later slice "
-            "of the port, the training-breadth slice (ROADMAP.md Queue 1 "
-            "item 3)")
     if key not in LOSSES:
         raise ValueError(f"Unknown loss {name_or_fn!r}; known: "
                          f"{sorted(LOSSES)}")

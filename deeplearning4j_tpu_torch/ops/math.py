@@ -337,20 +337,29 @@ def trace(a, offset=0, axis1=0, axis2=1):
 
 @register("linalg.inverse", category="linalg")
 def inverse(a):
-    return torch.linalg.inv(_float(a))
+    """``jnp.linalg.inv``: a singular matrix gives the infinities and NaNs
+    of its LU solve, where ``torch.linalg.inv`` raises."""
+    return torch.linalg.inv_ex(_float(a)).inverse
 
 
 @register("linalg.cholesky", category="linalg")
 def cholesky(a):
     """``jnp.linalg.cholesky``, which factors the symmetric part ``(a +
-    a^T) / 2`` (torch reads the lower triangle alone)."""
+    a^T) / 2`` (torch reads the lower triangle alone). A matrix that is
+    not positive definite gives NaN in its lower triangle and zeros above
+    it, as there, where ``torch.linalg.cholesky`` raises."""
     a = _float(a)
-    return torch.linalg.cholesky((a + a.mT) / 2)
+    low, info = torch.linalg.cholesky_ex((a + a.mT) / 2)
+    bad = (info != 0)[..., None, None]
+    nan_low = torch.full_like(low, float("nan")).tril()
+    return torch.where(bad, nan_low, low)
 
 
 @register("linalg.solve", category="linalg")
 def solve(a, b):
-    return torch.linalg.solve(_float(a), _float(b))
+    """``jnp.linalg.solve``: a singular system gives NaN, where
+    ``torch.linalg.solve`` raises."""
+    return torch.linalg.solve_ex(_float(a), _float(b)).result
 
 
 @register("linalg.det", category="linalg")
@@ -639,8 +648,19 @@ def strided_slice_v2(a, spec):
 @register("math.cast", category="math")
 def cast(a, dtype="float32"):
     """Explicit dtype conversion; ``dtype`` is the string the graph
-    records (``"float32"``, ``"int32"``, ``"bfloat16"``, ...)."""
-    return _t(a).to(_dt.resolve(dtype))
+    records (``"float32"``, ``"int32"``, ``"bfloat16"``, ...). A float
+    cast to an integer type saturates as XLA's convert does: NaN to 0,
+    values beyond the type's range (infinities included) to its ends;
+    torch's ``.to`` leaves those undefined."""
+    a, dt = _t(a), _dt.resolve(dtype)
+    if not a.is_floating_point() or dt.is_floating_point \
+            or dt.is_complex or dt == torch.bool:
+        return a.to(dt)
+    info = torch.iinfo(dt)
+    x = torch.nan_to_num(a.double(), nan=0.0)
+    lo, hi = float(info.min), float(info.max)
+    return torch.where(x >= hi, info.max, torch.where(
+        x <= lo, info.min, x.clamp(lo, hi).to(dt))).to(dt)
 
 
 @register("shape.shape_of", category="shape", differentiable=False)

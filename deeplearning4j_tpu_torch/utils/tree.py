@@ -20,3 +20,70 @@ def leaves(tree):
             yield from leaves(v)
     else:
         yield tree
+
+
+# DL4J's parameter-name order inside a layer, for the flat view (the JAX
+# ``nn/model.py`` ``_PARAM_ORDER``: LSTMParamInitializer's W, RW, b; PW the
+# peephole tensor; fw/bw a Bidirectional's sub-trees)
+_PARAM_ORDER = {"W": 0, "RW": 1, "PW": 2, "b": 3, "gamma": 4, "beta": 5,
+                "fw": 6, "bw": 7}
+
+
+def param_paths(node, prefix=()):
+    """Depth-first paths to the leaves of one layer's or vertex's
+    parameter dict, in DL4J's name order at each level."""
+    if not isinstance(node, dict):
+        return [prefix]
+    out = []
+    for k in sorted(node, key=lambda n: (_PARAM_ORDER.get(n, 99), n)):
+        out.extend(param_paths(node[k], prefix + (k,)))
+    return out
+
+
+def get_path(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def set_path(tree, path, value):
+    """``tree`` with the leaf at ``path`` replaced, the dicts along the
+    path copied."""
+    new = dict(tree)
+    new[path[0]] = value if len(path) == 1 else \
+        set_path(tree[path[0]], path[1:], value)
+    return new
+
+
+def flatten_params(params, keys):
+    """The parameters of ``keys`` (in that order; absent keys skipped) as
+    one numpy vector, each tree in ``param_paths`` order: DL4J's flat
+    parameter view, the JAX package's ``params_flat``."""
+    import numpy as np
+    parts = [get_path(params[k], path).detach().cpu().numpy().ravel()
+             for k in keys if k in params
+             for path in param_paths(params[k])]
+    return np.concatenate(parts) if parts else np.zeros((0,), np.float32)
+
+
+def unflatten_params(params, keys, vec):
+    """``params`` with every leaf taken from ``vec`` in
+    :func:`flatten_params`' order, each in its leaf's dtype and device."""
+    import numpy as np
+    import torch
+    vec = np.asarray(vec.detach().cpu() if torch.is_tensor(vec) else vec)
+    total = sum(int(t.numel()) for t in leaves(params))
+    if vec.size != total:
+        raise ValueError(f"param vector length {vec.size} != model {total}")
+    new, off = dict(params), 0
+    for k in keys:
+        if k not in params:
+            continue
+        for path in param_paths(params[k]):
+            a = get_path(params[k], path)
+            n = int(a.numel())
+            new[k] = set_path(new[k], path, torch.as_tensor(
+                vec[off:off + n].reshape(tuple(a.shape))).to(
+                    device=a.device, dtype=a.dtype))
+            off += n
+    return new

@@ -38,6 +38,12 @@ SQ_I32 = np.array([[2, 1], [1, 3]], np.int32)
 SQ_BOOL = np.array([[True, False], [True, True]])
 # the ROADMAP's integer epilogue input
 EPI_I32 = np.array([[7, -7, 5, 0], [1, 2, -3, 4]], np.int32)
+# float values no integer type holds, and a fraction
+CAST_IN = np.float32([np.nan, np.inf, -np.inf, 300, -300, 3e9, 2.7])
+SINGULAR = np.float32([[1, 2], [2, 4]])
+NOT_PD = np.float32([[1, 2], [2, 1]])
+SPD = np.float32([[4, 2], [2, 3]])
+GELU_IN = np.float32([np.nan, np.inf, -np.inf, -0.0])
 # every (x, y) pair of the edge values: y = 0, -0, inf, NaN included
 FX, FY = (a.ravel() for a in np.meshgrid(EDGE, EDGE))
 
@@ -164,6 +170,21 @@ CASES = [
                                  np.zeros(4, np.float32)), {"act": "gelu"}),
     ("epilogue.layer_norm_act", (EPI_I32 > 0, np.ones(4, np.float32),
                                  np.zeros(4, np.float32)), {}),
+    # float -> integer casts saturate: NaN to 0, out of range to the ends
+    *[("math.cast", (CAST_IN,), {"dtype": d})
+      for d in ("int8", "uint8", "int16", "int32")],
+    # singular and not positive definite matrices, alone and in a batch
+    # beside a good one: infinities and NaNs where torch would raise
+    ("linalg.inverse", (SINGULAR,), {}),
+    ("linalg.inverse", (np.stack([SPD, SINGULAR]),), {}),
+    ("linalg.solve", (SINGULAR, np.float32([1, 2])), {}),
+    ("linalg.solve", (np.stack([SPD, SINGULAR]), np.float32([[1], [2]])),
+     {}),
+    ("linalg.cholesky", (NOT_PD,), {}),
+    ("linalg.cholesky", (np.stack([SPD, NOT_PD]),), {}),
+    # the exact GELU at +inf
+    ("act.gelu", (GELU_IN,), {"approximate": False}),
+    ("act.gelu", (GELU_IN,), {"approximate": True}),
 ]
 
 

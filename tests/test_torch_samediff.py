@@ -67,6 +67,9 @@ GRU_ARGS = tuple(_R.standard_normal(s).astype(np.float32) for s in (
 RNN_ARGS = tuple(_R.standard_normal(s).astype(np.float32) for s in (
     (3, 5), (3, 4), (5, 4), (4, 4), (4,)))
 EMB_IDS = np.array([[0, 3, 2], [2, 2, 1]], np.int32)
+ONEHOT = np.eye(4, dtype=np.float32)[[0, 3, 1]]
+PROBS = (np.exp(A) / np.exp(A).sum(-1, keepdims=True)).astype(np.float32)
+SIGM = (1 / (1 + np.exp(-A))).astype(np.float32)
 
 CASES = [
     # pairwise
@@ -214,6 +217,28 @@ CASES = [
                                 A * 30), {}),
     ("loss.sigmoid_bce_logits", (M2.astype(np.float32), A), {}),
     ("loss.sigmoid_bce_logits", (UNIT, B * 40), {}),
+    # the rest of the loss catalog (labels, predictions)
+    ("loss.mcxent", (ONEHOT, PROBS), {}),
+    ("loss.sparse_mcxent", (np.int32([0, 3, 1]), PROBS), {}),
+    ("loss.binary_xent", (M2.astype(np.float32), SIGM), {}),
+    ("loss.mse", (B, A), {}), ("loss.l2", (B, A), {}),
+    ("loss.mae", (B, A), {}), ("loss.l1", (B, A), {}),
+    ("loss.hinge", (np.where(M2, 1.0, -1.0).astype(np.float32), A), {}),
+    ("loss.squared_hinge", (np.where(M2, 1.0, -1.0).astype(np.float32), A),
+     {}),
+    ("loss.kld", (ONEHOT * 0.9 + 0.025, PROBS), {}),
+    ("loss.poisson", (np.abs(I).astype(np.float32), POS), {}),
+    ("loss.cosine_proximity", (B, A), {}),
+    ("loss.multi_label", (M2.astype(np.float32), A), {}),
+    ("loss.wasserstein", (B, A), {}),
+    ("loss.fmeasure", (M2.astype(np.float32)[:, :2], SIGM[:, :2]), {}),
+    ("loss.mixture_density", (A[:, :2], np.concatenate([A, B], 1)[:, :8]),
+     {}),
+    # the catalog's ctc: optax's convention (logits, labels, paddings)
+    ("loss.ctc", (X3, np.int32([[1, 2], [3, 3]])), {}),
+    ("loss.ctc", (X3, np.int32([[1, 2], [3, 1]]), np.float32([[0, 0, 1],
+                                                              [0, 0, 0]]),
+                  np.float32([[0, 1], [0, 0]])), {"blank_id": 0}),
     # recurrence
     ("lstm_cell", LSTM_ARGS, {}), ("lstm_cell", LSTM_ARGS,
                                    {"forget_bias": 1.0}),
