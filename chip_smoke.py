@@ -68,7 +68,34 @@ Phases, in order; any failure exits non-zero:
    ``AsyncDataSetIterator(device_prefetch=True)`` (its first batches
    plain iteration's bit for bit), the first 3 losses and the centers
    after step 1 against the CPU, 2 K1 + 2 K2 a step, accuracy at least
-   0.95;
+   0.95; then the training modes of ``fit``: train-bf16 (zoo ResNet-50
+   with ``data_type("BFLOAT16")`` from phase 7's initial weights, through
+   the fused master-cast updater: f32 masters, updater state and BN
+   statistics, one ``fused_updater`` decision, 53 bf16 K1 and 53 bf16 K2
+   a step, the fused step against the unfused one over 3 steps by the
+   determinism rule (bit for bit when two unfused runs repeat, else its
+   distance to the nearer run within twice theirs), three runs of each in
+   alternation with their step times, the batch-4 gradients by the
+   float64 rule with the CPU bf16 error as the allowance's, 10 losses
+   each within half the JAX band (rtol 7e-2, atol 5e-2) around the CPU
+   plain path's bf16 losses from the same weights, phase 7's float32
+   losses outside it, the share of the JAX band against those float32
+   losses printed, and bf16 K1/K2 at the path's shapes against their
+   plain versions and timed),
+   train-accum (phase 7's net, ``accum_steps=4`` at batch 128: 4 x 53 K1
+   and K2 a step, the accumulated batch-32 gradient by the float64 rule,
+   peak memory beside a batch-32 step), remat (``workspace_mode`` "full"
+   and "every_4" against "none": loss, gradients and new BN statistics
+   by the determinism rule; one ``fit`` step from 0-set counts: the K1/K2
+   launches the segment plan implies, ``fused`` only, the BN state it
+   commits equal to its loss's within 1e-5 (committed once), its peak
+   memory, and residual bytes),
+   lenet-solver (LeNet with LBFGS(5) on 4 batches: the first batch's
+   per-iteration losses within 1e-3 of the CPU's, every batch's loss
+   falling, 2 K1 + 2 K2 a function evaluation) and lenet-on-device
+   (``fit_on_device`` over the 8000 digits, 3 epochs: accuracy at least
+   0.95, the first 3 losses within 1e-3 of per-batch ``fit``, at most 4
+   synchronizing calls in the whole call);
 8. kernel-attn against plain: K3 (the flash-attention forward) against its
    plain PyTorch version at (B, H, Tq, Tk, d) = (32, 12, 128, 128, 64),
    (1, 12, 128, 128, 64), ragged (2, 12, 77, 77, 64), (2, 4, 200, 200,
@@ -263,8 +290,8 @@ Phases, in order; any failure exits non-zero:
 25. summary: a ``{"kernels": [...]}`` line (K1-K10), the ``nvidia-smi``
     name and power limit, and last ``{"ok": true, "device": {...}}``.
 
-The serving path (phases 4-5), the training path, the NCHW block and
-LeNet's fit and evaluation (phase 7), the BERT
+The serving path (phases 4-5), the training path, the NCHW block,
+LeNet's fit and evaluation and the five training modes (phase 7), the BERT
 serving path (phase 9), the BERT fine-tune path (phase 11), the LSTM
 serving path and the LSTM streaming path (phase 13), the LSTM training
 path and the trained net's request (phase 14), the recurrent family
@@ -1000,7 +1027,7 @@ def phase_train(k1, fe, env, models, graph) -> dict:
     if not (e_loss <= TRAIN_LOSS_TOL and e_bn <= TRAIN_GRAD_TOL) or bad:
         raise AssertionError(f"training on the card disagrees with the CPU "
                              f"plain path (gradients out of bounds: {bad})")
-    del grads_g, grads_c, grads_64, bn_g, bn_c
+    del grads_g, grads_c, bn_g, bn_c
 
     # ---- the main path: counts from 0, read after the last fit ----
     x, y = _batch(rng, TRAIN_BATCH)
@@ -1075,7 +1102,8 @@ def phase_train(k1, fe, env, models, graph) -> dict:
     log("[train] top kernels (ms per step): " + "; ".join(
         f"{e.key[:60]} {device_us(e) / 1e3 / reps:.3f} x{e.count // reps}"
         for e in top))
-    return {"net": net, "batch": (x, y), "steps": steps,
+    return {"net": net, "batch": (x, y), "fit_batch": (x, y),
+            "parity_batch": (x4, y4), "grads_64": grads_64, "steps": steps,
             "launches": launches,
             "losses": losses, "step_ms": median, "device_ms": dev_ms,
             "k1_ms": k1_ms, "k2_ms": k2_ms, "dy_copies": copies / steps,
@@ -1725,6 +1753,715 @@ def phase_lenet_center(k1, fe, env, models, train, test) -> dict:
     return {"launches": launches, "steps": steps, "accuracy": acc,
             "step_ms": fit_s * 1e3 / steps, "loss_rel_err": loss_err,
             "center_rel_err": center_err}
+
+
+# ------------------------------------------------- the training modes
+#: [train-bf16]: fit steps of the bfloat16 ResNet-50, and the bf16 band
+#: of the JAX package against its f32 oracle (tests/test_mixed_precision.py)
+BF16_STEPS = 10
+BF16_RTOL = 7e-2
+BF16_ATOL = 5e-2
+#: The loss gate. The first BF16_REF_STEPS losses, where ResNet-50
+#: memorizing one batch falls 7.66 -> 0.13 and bf16 runs a fraction of a
+#: step behind float32 (past the JAX band of float32's at steps 3 and 4),
+#: each within BF16_REF_SHARE of the band around the CPU plain path's bf16
+#: loss from the same weights and batch (a deterministic reference; the
+#: CPU takes ~12 s a bf16 step, so it runs only these); [train]'s float32
+#: losses, what float32 compute under the bf16 configuration gives, must
+#: leave that limit there. The later losses within the JAX band of
+#: [train]'s float32 losses.
+BF16_REF_STEPS = 4
+BF16_REF_SHARE = 0.5
+#: fused against unfused master-cast steps: steps a run, runs of each
+#: route in alternation (the step times compared), and the factor over
+#: the spread of two unfused runs when those do not repeat bit for bit
+FUSED_STEPS = 3
+FUSED_PAIRS = 3
+SPREAD_FACTOR = 2.0
+#: [train-accum]: microbatches a step, the accumulated step's batch
+ACCUM_STEPS = 4
+ACCUM_BATCH = 128
+ACCUM_STEPS_RUN = 3
+#: [remat]: the workspace modes held against "none"
+REMAT_MODES = ("full", "every_4")
+#: [remat]: the BN running statistics one ``fit`` step commits against
+#: the new statistics of its loss's forward, relative to their largest
+#: magnitude: the same forward gives them again (float32 sums in another
+#: order at most), while a second commit would move them by another
+#: (1 - decay) step, a tenth of the way to the batch moments
+REMAT_BN_TOL = 1e-5
+#: [lenet-on-device]: synchronizing calls allowed in one fit_on_device
+#: call, none of them inside an epoch: the upload of the features and of
+#: the labels, the loss history's one read at the end, and one spare
+ON_DEVICE_MAX_SYNCS = 4
+#: [lenet-solver]: LBFGS iterations a batch, batches, relative tolerance
+#: of the first batch's per-iteration losses against the CPU plain path
+SOLVER_ITERATIONS = 5
+SOLVER_BATCHES = 4
+SOLVER_LOSS_TOL = 1e-3
+
+
+class TimedBatches:
+    """``n`` passes of one batch as a DataSetIterator, the card
+    synchronized and the clock read before each batch and after the last,
+    and the step's loss (a device tensor) kept after each."""
+
+    def __init__(self, net, x, y, n):
+        from deeplearning4j_tpu_torch.data.dataset import DataSet
+        self.net, self.ds, self.n = net, DataSet(x, y), n
+        self.ticks, self.losses = [], []
+
+    def __iter__(self):
+        for i in range(self.n):
+            torch.cuda.synchronize()
+            self.ticks.append(time.perf_counter())
+            yield self.ds
+            self.losses.append(self.net._score)
+        torch.cuda.synchronize()
+        self.ticks.append(time.perf_counter())
+
+    def step_ms(self):
+        return [(b - a) * 1e3 for a, b in zip(self.ticks, self.ticks[1:])]
+
+
+def as_iterator(it):
+    from deeplearning4j_tpu_torch.data.dataset import DataSetIterator
+
+    class _It(DataSetIterator):
+        def __iter__(self):
+            return iter(it)
+
+        def batch_size(self):
+            return it.ds.num_examples()
+    return _It()
+
+
+def flat(*trees) -> torch.Tensor:
+    """Every leaf of the trees (a tensor is its own leaf) as one float64
+    vector on the card."""
+    return torch.cat([t.detach().reshape(-1).double().to("cuda")
+                      for tree in trees for t in flat_leaves(tree)])
+
+
+def spread_check(a, b, c, where) -> dict:
+    """The determinism rule: ``a`` and ``b`` two runs of the reference,
+    ``c`` the candidate (flat vectors). When the reference repeats bit for
+    bit, ``c`` must equal it; else ``c``'s distance to the nearer of the
+    two runs must be within SPREAD_FACTOR times their own distance (a
+    third draw of the same noise lands there; a candidate that computes
+    something else is far from both)."""
+    d_ab = float((a - b).abs().max())
+    d_c = min(float((c - a).abs().max()), float((c - b).abs().max()))
+    if d_ab == 0.0:
+        ok, rule = d_c == 0.0, "bitwise"
+    else:
+        ok, rule = d_c <= SPREAD_FACTOR * d_ab, \
+            f"within {SPREAD_FACTOR} x the spread"
+    if not ok:
+        raise AssertionError(f"{where}: candidate differs from the nearer "
+                             f"reference run by {d_c:.3g}, the runs from "
+                             f"each other by {d_ab:.3g} ({rule})")
+    return {"rule": rule, "reference_spread": d_ab, "candidate_diff": d_c}
+
+
+def clone_tree(tree):
+    from deeplearning4j_tpu_torch.utils.tree import tmap
+    return tmap(lambda t: t.detach().clone(), tree)
+
+
+def flat_leaves(tree):
+    from deeplearning4j_tpu_torch.utils.tree import leaves
+    return list(leaves(tree))
+
+
+def profile_step_split(step, reps: int = 2) -> tuple:
+    """(device ms, K1 ms, K2 ms) per call of ``step`` from
+    ``torch.profiler`` (one call first pays the tracer's start-up)."""
+    from deeplearning4j_tpu_torch.tools.profile_serving import device_us
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        step()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and device_us(e) > 0]
+    dev = sum(device_us(e) for e in kernels) / 1e3 / reps
+    k2 = sum(device_us(e) for e in kernels
+             if "affine_act_bwd" in e.key) / 1e3 / reps
+    k1_ = sum(device_us(e) for e in kernels
+              if "affine_act_kernel" in e.key) / 1e3 / reps
+    return dev, k1_, k2
+
+
+def bf16_path_times(k1, calls) -> dict:
+    """bfloat16 K1 and K2 at the (rows, C, act) of one batch-32 ResNet-50
+    forward and step: each distinct call held against its plain version
+    (K2 element by element, twice for determinism) and timed by CUDA
+    events, summed over the path's calls."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    err = {"dx_float32": 0.0, "dx_bfloat16": 0.0, "dscale_dshift": 0.0,
+           "dscale_dshift_rel": 0.0}
+    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    per = {}
+    for rows, cols, act in sorted(set(calls)):
+        x = torch.randn(rows, cols, generator=gen, device=dev).to(
+            torch.bfloat16)
+        dy = torch.randn(rows, cols, generator=gen, device=dev).to(
+            torch.bfloat16)
+        scale = torch.rand(cols, generator=gen, device=dev) + 0.5
+        shift = torch.randn(cols, generator=gen, device=dev)
+        where = f"bf16 ({rows}, {cols}) {act}"
+        check_k1_case(k1, x, scale, shift, act, "K1 " + where, max_err)
+        check_k2_case(k1, x, scale, shift, dy, act, "K2 " + where, err)
+        ms1 = time_ms(lambda: k1.affine_act(x, scale, shift, act))[0]
+        ms2 = time_ms(lambda: k1.affine_act_bwd(x, scale, shift, dy, act))[0]
+        per[(rows, cols, act)] = (ms1, ms2, k1.bound_ms(rows, cols, 2, act),
+                                  k1.bound_ms_bwd(rows, cols, 2, act))
+        del x, dy
+    sums = [sum(per[c][i] for c in calls) for i in range(4)]
+    return {"k1_ms": sums[0], "k2_ms": sums[1], "k1_bound_ms": sums[2],
+            "k2_bound_ms": sums[3], "cases": len(per),
+            "k1_max_err": max_err[torch.bfloat16],
+            "k2_max_err": err["dx_bfloat16"],
+            "k2_sum_rel": err["dscale_dshift_rel"]}
+
+
+def band_shares(losses, ref) -> list:
+    """Each loss's distance to ``ref``'s as a share of the JAX bf16 band
+    (BF16_ATOL + BF16_RTOL x |ref|)."""
+    return [abs(a - b) / (BF16_ATOL + BF16_RTOL * abs(b))
+            for a, b in zip(losses, ref)]
+
+
+def phase_train_bf16(k1, fe, env, models, graph, trained, f32_times) -> dict:
+    """[train-bf16]: zoo ResNet-50 with ``data_type("BFLOAT16")``, full
+    width, uncut, Adam(1e-3), from [train]'s initial weights (seed 0). No
+    l1/l2 term, so ``fit`` takes the fused master-cast updater. Gates: f32
+    masters, updater state and BN statistics; one ``fused_updater``
+    decision; 53 bf16 K1 a forward and 53 bf16 K2 a step, ``fused`` only;
+    the fused step against the unfused one over FUSED_STEPS steps (params
+    and updater state, by the determinism rule; FUSED_PAIRS runs of each
+    in alternation, their step times printed); the batch-4 gradients by
+    [train]'s float64 rule with the CPU bf16 error in place of the
+    float32 error; of BF16_STEPS losses on [train]'s batch, the first
+    BF16_REF_STEPS each within BF16_REF_SHARE of the JAX band around the
+    CPU plain path's bf16 loss ([train]'s float32 losses outside it), the
+    rest within the JAX band of [train]'s float32 losses, the last below
+    1% of the first."""
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t0 = time.perf_counter()
+    net = models.resnet50(seed=0, dtype="BFLOAT16").init(device="cuda")
+    for name, tree in (("masters", net.params),
+                       ("updater state", net.updater_state),
+                       ("BN statistics", net.state)):
+        bad = [t.dtype for t in flat_leaves(tree) if t.dtype != torch.float32]
+        if bad:
+            raise AssertionError(f"[train-bf16] {name} not float32: {bad[:3]}")
+    init = (clone_tree(net.params), clone_tree(net.state),
+            clone_tree(net.updater_state))
+    twin = cpu_twin(graph, net, "BFLOAT16")
+
+    # ---- the batch-4 gradients by the float64 rule ----
+    x4, y4 = trained["parity_batch"]
+    g_card = graph_loss_grads(env, net, x4, y4)[1]
+    t1 = time.perf_counter()
+    g_cpu = graph_loss_grads(env, twin, x4, y4)[1]
+    cpu_s = time.perf_counter() - t1
+    rows = grad_ratios([g_card], [g_cpu], [trained["grads_64"]], ())
+    worst = rows[0]
+    log(f"[train-bf16] batch-{PARITY_BATCH} gradients (CPU bf16 "
+        f"{cpu_s:.1f} s): against the CPU float64 gradient the worst "
+        f"card/allowed ratio is {worst[0]:.3g} at {worst[1]} (card "
+        f"{worst[2]:.3g}, CPU bfloat16 {worst[3]:.3g}; allowed "
+        f"max({TRAIN_GRAD_TOL}, {GRAD_NOISE_FACTOR} x CPU bfloat16))")
+    if worst[0] > 1.0:
+        raise AssertionError(f"[train-bf16] gradients out of bounds: "
+                             f"{[r[1] for r in rows if r[0] > 1.0]}")
+    del g_card, g_cpu
+
+    # ---- the first losses' reference: the CPU plain path's bf16 fit ----
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    t1 = time.perf_counter()
+    cpu_losses = []
+    for _ in range(BF16_REF_STEPS - 1):
+        twin.fit(*trained["fit_batch"])
+        cpu_losses.append(twin.score())
+    cpu_losses.append(twin.score(DataSet(*trained["fit_batch"])))
+    cpu_fit_s = time.perf_counter() - t1
+    del twin
+
+    # ---- fused against unfused master-cast steps, in alternation ----
+    x, y = (torch.as_tensor(a, device="cuda") for a in trained["fit_batch"])
+    runs, ms = {False: [], True: []}, {False: [], True: []}
+    for fused in (False, True) * FUSED_PAIRS:
+        net.params, net.state, net.updater_state = (clone_tree(t)
+                                                    for t in init)
+        net.iteration = 0
+        step = net._build_train_step(fused_cast=fused)
+        for i in range(FUSED_STEPS):
+            torch.cuda.synchronize()
+            ta = time.perf_counter()
+            step((x,), (y,), (None,), (None,))
+            torch.cuda.synchronize()
+            if i:
+                ms[fused].append((time.perf_counter() - ta) * 1e3)
+            net.iteration += 1
+        runs[fused].append(flat(net.params, net.updater_state))
+    unfused = runs[False]
+    checks = [spread_check(unfused[0], unfused[1], c,
+                           f"[train-bf16] fused run {i + 1} vs unfused")
+              for i, c in enumerate(runs[True])]
+    parity = max(checks, key=lambda c: c["candidate_diff"])
+    fused_ms = {"fused": statistics.median(ms[True]),
+                "unfused": statistics.median(ms[False])}
+    log(f"[train-bf16] fused vs unfused master-cast step, {FUSED_STEPS} "
+        f"steps a run, {FUSED_PAIRS} runs of each in alternation: two "
+        f"unfused runs differ by {parity['reference_spread']:.3g}, the "
+        f"fused runs from the nearer by at most "
+        f"{parity['candidate_diff']:.3g} (params and updater state; "
+        f"{parity['rule']}); step {fused_ms['fused']:.3f} ms fused against "
+        f"{fused_ms['unfused']:.3f} unfused (medians of "
+        f"{len(ms[True])}: steps 2-{FUSED_STEPS} of each run; fused "
+        + " ".join(f"{v:.1f}" for v in ms[True]) + ", unfused "
+        + " ".join(f"{v:.1f}" for v in ms[False]) + ")")
+    del runs, unfused
+
+    # ---- the main path: fit, counts from 0, read after ----
+    net.params, net.state, net.updater_state = init
+    net.iteration = 0
+    net._train_step = None
+    it = TimedBatches(net, x, y, BF16_STEPS)
+    k1.launches = k1.bwd_launches = 0
+    k1.bf16_launches = k1.bf16_bwd_launches = 0
+    fe.reset_counters()
+    net.fit(as_iterator(it))
+    torch.cuda.synchronize()
+    launches = (k1.launches, k1.bwd_launches)
+    bf16 = (k1.bf16_launches, k1.bf16_bwd_launches)
+    decisions, upd = dict(fe.counters()), fe.updater_counters()
+    want = BF16_STEPS * LAUNCHES_PER_FORWARD
+    if launches != (want, want) or bf16 != launches or \
+            decisions["fused"] != want or \
+            any(v for k, v in decisions.items() if k != "fused") or \
+            upd != {"fused_updater": 1, "fallback_updater_dtype": 0,
+                    "fallback_updater_penalty": 0}:
+        raise AssertionError(f"[train-bf16] K1/K2 {launches} (bf16 {bf16}) "
+                             f"for {BF16_STEPS} steps, decisions "
+                             f"{decisions}, updater {upd}")
+    losses = [float(v) for v in it.losses]
+    f32 = trained["losses"][:BF16_STEPS]
+    n = BF16_REF_STEPS
+    share, f32_share = band_shares(losses[:n], cpu_losses), \
+        band_shares(f32[:n], cpu_losses)
+    jax_band = band_shares(losses, f32)
+    log(f"[train-bf16] fit, batch {TRAIN_BATCH}, {BF16_STEPS} steps: losses "
+        + " ".join(f"{v:.4f}" for v in losses) + f"; the CPU plain path's "
+        f"bf16, the first {n} ({cpu_fit_s:.1f} s): "
+        + " ".join(f"{v:.4f}" for v in cpu_losses)
+        + "; [train]'s float32 " + " ".join(f"{v:.4f}" for v in f32)
+        + f"; steps 1-{n}: worst share of the JAX band (rtol {BF16_RTOL}, "
+        f"atol {BF16_ATOL}) around the CPU's bf16 losses {max(share):.3g} "
+        f"at step {share.index(max(share)) + 1} (gate {BF16_REF_SHARE}), "
+        f"float32's {max(f32_share):.3g} at step "
+        f"{f32_share.index(max(f32_share)) + 1} (must exceed the gate); "
+        f"share of the JAX band around float32's by step "
+        + " ".join(f"{v:.3g}" for v in jax_band) + f" (gate 1 from step "
+        f"{n + 1}); {want} bf16 K1 + {want} bf16 K2, decisions {decisions}, "
+        f"updater {upd}")
+    if max(share) > BF16_REF_SHARE or max(jax_band[n:]) > 1.0 or \
+            not all(np.isfinite(losses)) or not losses[-1] < 0.01 * losses[0]:
+        raise AssertionError("[train-bf16] losses leave the CPU plain path's "
+                             "bf16 band or [train]'s float32 band, or do "
+                             "not fall")
+    if not max(f32_share) > BF16_REF_SHARE:
+        raise AssertionError("[train-bf16] the loss gate does not part "
+                             "float32 compute from bf16")
+    for name, tree in (("masters", net.params),
+                       ("updater state", net.updater_state),
+                       ("BN statistics", net.state)):
+        if any(t.dtype != torch.float32 for t in flat_leaves(tree)):
+            raise AssertionError(f"[train-bf16] {name} left float32")
+    median = statistics.median(it.step_ms()[1:])
+
+    def one():
+        net.fit(it.ds)
+    dev_ms, k1_prof, k2_prof = profile_step_split(one)
+    t_bf16 = bf16_path_times(k1, k1_path_calls(net, TRAIN_BATCH))
+    log(f"[train-bf16] step {median:.3f} ms median of {BF16_STEPS - 1} "
+        f"({TRAIN_BATCH * 1e3 / median:.1f} images/s; [train] "
+        f"{trained['step_ms']:.3f} ms); device {dev_ms:.3f} ms a step (busy "
+        f"share {dev_ms / median:.3f}; [train] {trained['device_ms']:.3f}), "
+        f"profiled K1 {k1_prof:.3f} + K2 {k2_prof:.3f} ms; CUDA events over "
+        f"the path's 53 calls: bf16 K1 {t_bf16['k1_ms']:.4f} ms (bound "
+        f"{t_bf16['k1_bound_ms']:.4f}), K2 {t_bf16['k2_ms']:.4f} ms (bound "
+        f"{t_bf16['k2_bound_ms']:.4f}), float32 K1 {f32_times[0]:.4f}, K2 "
+        f"{f32_times[1]:.4f}; {t_bf16['cases']} bf16 path shapes held "
+        f"against the plain versions (K2 dscale/dshift at most "
+        f"{t_bf16['k2_sum_rel']:.3g} of the column's sum of |term|); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "losses": losses,
+            "cpu_losses": cpu_losses, "ref_share": max(share),
+            "f32_ref_share": max(f32_share), "f32_band": max(jax_band),
+            "parity": parity, "fused_ms": fused_ms, "grad_worst": worst[0], "step_ms": median,
+            "images_per_s": TRAIN_BATCH * 1e3 / median, "device_ms": dev_ms,
+            "busy_share": dev_ms / median, "k1_prof_ms": k1_prof,
+            "k2_prof_ms": k2_prof, **{"path_" + k: v
+                                      for k, v in t_bf16.items()}}
+
+
+def peak_bytes(fn) -> int:
+    """The allocator's peak over ``fn()`` above what was in use before."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase_train_accum(k1, fe, env, graph, trained) -> dict:
+    """[train-accum]: [train]'s float32 ResNet-50 (its weights as [train]
+    left them) with ``_build_train_step(accum_steps=4)`` at batch 128,
+    microbatch 32. Gates: 4 x 53 K1 and 4 x 53 K2 a step, ``fused``
+    only; the accumulated gradient at batch 32 with k = 4 by [train]'s
+    float64 rule against the CPU plain path's. Peak memory against one
+    batch-32 step."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn import microbatch
+    from deeplearning4j_tpu_torch.nn import training
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t0 = time.perf_counter()
+    net = trained["net"]
+    saved = (clone_tree(net.params), clone_tree(net.state),
+             clone_tree(net.updater_state), net.iteration)
+    rng = np.random.default_rng(8)
+
+    # ---- the accumulated gradient at batch 32, k = 4 ----
+    xg, yg = _batch(rng, TRAIN_BATCH)
+
+    def acc_grads(m):
+        xs = (m._tensor(xg),)
+        ys = (m._tensor(yg),)
+
+        def vg(p, s, xs_, ys_, fms, lms):
+            return training.value_and_grad(
+                p, lambda q: m._loss(q, s, xs_, ys_, fms, lms))
+        with env.precision(m.device):
+            return microbatch.accumulate_gradients(
+                vg, m.params, m.state, ACCUM_STEPS,
+                (xs, ys, (None,), (None,)),
+                weight_fn=microbatch.multi_output_weight)[1]
+    g_card = acc_grads(net)
+    t1 = time.perf_counter()
+    g_cpu = acc_grads(cpu_twin(graph, net))
+    g_64 = acc_grads(cpu_twin(graph, net, "DOUBLE", lambda t: t.double()))
+    cpu_s = time.perf_counter() - t1
+    worst = grad_ratios([g_card], [g_cpu], [g_64], ())[0]
+    log(f"[train-accum] accumulated gradient, batch {TRAIN_BATCH} in "
+        f"{ACCUM_STEPS} microbatches (CPU float32 and float64 {cpu_s:.1f} "
+        f"s): worst card/allowed ratio against float64 {worst[0]:.3g} at "
+        f"{worst[1]} (card {worst[2]:.3g}, CPU float32 {worst[3]:.3g})")
+    if worst[0] > 1.0:
+        raise AssertionError("[train-accum] accumulated gradient out of "
+                             "bounds")
+    del g_card, g_cpu, g_64
+
+    # ---- the main path: accumulated steps at batch 128 ----
+    x, y = (torch.as_tensor(a, device="cuda")
+            for a in _batch(rng, ACCUM_BATCH))
+    step = net._build_train_step(accum_steps=ACCUM_STEPS)
+    batch = ((x,), (y,), (None,), (None,))
+    k1.launches = k1.bwd_launches = 0
+    fe.reset_counters()
+    ms, losses = [], []
+    peak = 0
+    for i in range(ACCUM_STEPS_RUN):
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        if i == 1:
+            peak = peak_bytes(lambda: losses.append(step(*batch)))
+        else:
+            losses.append(step(*batch))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - ta) * 1e3)
+        net.iteration += 1
+    launches = (k1.launches, k1.bwd_launches)
+    decisions = dict(fe.counters())
+    want = ACCUM_STEPS_RUN * ACCUM_STEPS * LAUNCHES_PER_FORWARD
+    if launches != (want, want) or decisions["fused"] != want or \
+            any(v for k, v in decisions.items() if k != "fused"):
+        raise AssertionError(f"[train-accum] K1/K2 {launches} for "
+                             f"{ACCUM_STEPS_RUN} steps, decisions "
+                             f"{decisions}")
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[train-accum] losses {losses}")
+    b32 = DataSet(x[:TRAIN_BATCH], y[:TRAIN_BATCH])
+    peak32 = peak_bytes(lambda: net.fit(b32))
+    net.params, net.state, net.updater_state, net.iteration = saved
+    net._train_step = None
+    step_ms = statistics.median(ms[1:])
+    log(f"[train-accum] batch {ACCUM_BATCH} = {ACCUM_STEPS} x "
+        f"{ACCUM_BATCH // ACCUM_STEPS}: {ACCUM_STEPS * LAUNCHES_PER_FORWARD} "
+        f"K1 + {ACCUM_STEPS * LAUNCHES_PER_FORWARD} K2 a step, losses "
+        + " ".join(f"{v:.4f}" for v in losses) + f"; step {step_ms:.3f} ms "
+        f"median of {ACCUM_STEPS_RUN - 1} ({ACCUM_BATCH * 1e3 / step_ms:.1f} "
+        f"images/s); peak memory {peak / 2**20:.1f} MiB against "
+        f"{peak32 / 2**20:.1f} MiB for one batch-{TRAIN_BATCH} fit step; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "grad_worst": worst[0],
+            "step_ms": step_ms, "peak_bytes": peak, "peak_bytes_b32": peak32,
+            "losses": losses}
+
+
+def remat_k1_per_step(net, mode) -> int:
+    """K1 launches of one rematerialized step from the segment plan: the
+    forward's 53, and again each BatchNormalization of a segment the
+    backward recomputes (every segment that saves a tensor: here every
+    segment holding a BatchNormalization)."""
+    from deeplearning4j_tpu_torch.nn import memory
+    from deeplearning4j_tpu_torch.nn.layers.conv import BatchNormalization
+    from deeplearning4j_tpu_torch.nn.vertices import LayerVertex
+    policy = memory.resolve_policy(mode)
+    bn = [isinstance(net._vertex_map[n][0], LayerVertex)
+          and isinstance(net._vertex_map[n][0].layer, BatchNormalization)
+          for n in net._topo]
+    if not policy.remat:
+        return sum(bn)
+    recomputed = sum(sum(bn[s:e]) for s, e in
+                     memory.segment_ranges(len(bn), policy.every))
+    return sum(bn) + recomputed
+
+
+def phase_remat(k1, fe, env, trained) -> dict:
+    """[remat]: [train]'s float32 ResNet-50 under ``workspace_mode``
+    "full" and "every_4" against "none", from one set of weights on one
+    batch. Gates: the loss, gradients and new BN statistics of one
+    forward and backward by the determinism rule ("none" run twice); on
+    the main path, one ``fit`` step from 0-set counts: the K1 and K2
+    launches the segment plan implies, ``fused`` decisions only, and the
+    BN state it commits equal to its loss's new statistics within
+    REMAT_BN_TOL (committed once); the fit step's peak memory and each
+    mode's residual bytes printed beside "none"'s."""
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t0 = time.perf_counter()
+    net = trained["net"]
+    saved = (clone_tree(net.params), clone_tree(net.state),
+             clone_tree(net.updater_state), net.iteration)
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    x, y = (torch.as_tensor(a, device="cuda") for a in trained["fit_batch"])
+    batch = DataSet(x, y)
+    rows, vg_runs = {}, []
+    for mode in ("none", "none") + REMAT_MODES:
+        net.params, net.state, net.updater_state = (
+            clone_tree(t) for t in saved[:3])
+        net.iteration = saved[3]
+        net.set_workspace_mode(mode)
+        with env.precision(net.device):
+            loss, grads, new_state = net._value_and_grad(
+                (x,), (y,), (None,), (None,))
+        vg_runs.append(flat(loss, grads, new_state))
+        want_state = flat(new_state)
+        del loss, grads, new_state
+        # ---- the main path: one fit step, counts from 0, read after ----
+        k1.launches = k1.bwd_launches = 0
+        fe.reset_counters()
+        peak = peak_bytes(lambda: net.fit(batch))
+        launches = (k1.launches, k1.bwd_launches)
+        want = (remat_k1_per_step(net, mode), LAUNCHES_PER_FORWARD)
+        decisions = dict(fe.counters())
+        if launches != want or decisions["fused"] != want[0] or \
+                any(v for k, v in decisions.items() if k != "fused"):
+            raise AssertionError(f"[remat] {mode}: K1/K2 {launches} in a fit "
+                                 f"step, the segment plan says {want}; "
+                                 f"{decisions}")
+        bn_err = float((flat(net.state) - want_state).abs().max()
+                       / want_state.abs().max())
+        if bn_err > REMAT_BN_TOL:
+            raise AssertionError(f"[remat] {mode}: the BN state one fit step "
+                                 f"commits is {bn_err:.3g} from its loss's "
+                                 f"new statistics (tolerance {REMAT_BN_TOL})")
+        rep = net.memory_report(TRAIN_BATCH)
+        rows.setdefault(mode, {"k1": launches[0], "k2": launches[1],
+                               "peak_bytes": peak, "bn_commit_err": bn_err,
+                               "residual_bytes": rep["residual_bytes"],
+                               "activation_bytes": rep["activation_bytes"],
+                               "report_peak_bytes": rep["peak_bytes"]})
+    checks = {mode: spread_check(vg_runs[0], vg_runs[1], vg_runs[2 + i],
+                                 f"[remat] {mode} loss and gradients")
+              for i, mode in enumerate(REMAT_MODES)}
+    net.params, net.state, net.updater_state, net.iteration = saved
+    net.set_workspace_mode("none")
+    for mode, r in rows.items():
+        extra = "" if mode == "none" else (
+            f"; loss, gradients and new BN statistics {checks[mode]['rule']} "
+            f"({checks[mode]['candidate_diff']:.3g} against none's "
+            f"{checks[mode]['reference_spread']:.3g})")
+        log(f"[remat] {mode}: {r['k1']} K1 + {r['k2']} K2 in a fit step, "
+            f"its peak {r['peak_bytes'] / 2**20:.1f} MiB (none "
+            f"{rows['none']['peak_bytes'] / 2**20:.1f}), residuals "
+            f"{r['residual_bytes'] / 2**20:.1f} MiB, of them activations "
+            f"{r['activation_bytes'] / 2**20:.1f} (none "
+            f"{rows['none']['activation_bytes'] / 2**20:.1f}); the BN state "
+            f"the step commits {r['bn_commit_err']:.3g} from its loss's "
+            f"(tolerance {REMAT_BN_TOL})" + extra)
+    log(f"[remat] {time.perf_counter() - t0:.1f} s")
+    return {"rows": rows, "checks": checks}
+
+
+def lenet_arrays(it):
+    """The features and labels of every batch of ``it`` as two arrays."""
+    it.reset()
+    xs, ys = zip(*((d.features, d.labels) for d in it))
+    it.reset()
+    return np.concatenate(xs), np.concatenate(ys)
+
+
+def phase_lenet_solver(k1, fe, env, models, train) -> dict:
+    """[lenet-solver]: zoo ``lenet()`` with ``optimization_algo("LBFGS",
+    iterations=5)`` on the synthetic tier, SOLVER_BATCHES batches of 125.
+    Gates: the first batch's per-iteration losses within SOLVER_LOSS_TOL
+    (relative) of the CPU plain path's from the same weights, over the
+    iterations both made (the line search branches on float32 loss
+    comparisons: where the card and the CPU take other branches, the
+    iteration and evaluation counts differ and the log says so); every
+    batch's loss falls; 2 K1 + 2 K2 a function evaluation, ``fused``
+    only."""
+    import dataclasses
+    from deeplearning4j_tpu_torch.data.dataset import ListDataSetIterator
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.model import MultiLayerNetwork
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t0 = time.perf_counter()
+    conf = dataclasses.replace(
+        models.lenet_config(seed=LENET_SEED), optimization_algo="LBFGS",
+        solver_iterations=SOLVER_ITERATIONS)
+    net = MultiLayerNetwork(conf).init(device="cuda")
+    cpu = MultiLayerNetwork(conf).init(device="cpu")
+    cpu.params = {k: {n: t.detach().cpu().clone() for n, t in p.items()}
+                  for k, p in net.params.items()}
+    train.reset()
+    batches = [DataSet(d.features, d.labels)
+               for _, d in zip(range(SOLVER_BATCHES), train)]
+    train.reset()
+    cpu.fit(batches[0])
+    cpu_hist = list(cpu._solver.opt.history)
+    cpu_evals = len(cpu._solver.evaluations)
+    k1.launches = k1.bwd_launches = 0
+    fe.reset_counters()
+    evals, firsts, lasts, hist = 0, [], [], None
+    for i, b in enumerate(batches):
+        net.fit(ListDataSetIterator([b]))
+        s = net._solver
+        evals += len(s.evaluations)
+        firsts.append(s.evaluations[0])
+        lasts.append(net.score())
+        if i == 0:
+            hist = list(s.opt.history)
+            card_evals = len(s.evaluations)
+    torch.cuda.synchronize()
+    launches = (k1.launches, k1.bwd_launches)
+    decisions = dict(fe.counters())
+    per = LENET_CONVS
+    if launches != (per * evals, per * evals) or \
+            decisions["fused"] != per * evals or \
+            any(v for k, v in decisions.items() if k != "fused"):
+        raise AssertionError(f"[lenet-solver] K1/K2 {launches} for {evals} "
+                             f"function evaluations, decisions {decisions}")
+    errs = [abs(a - b) / abs(b) for a, b in zip(hist, cpu_hist)]
+    branch = "the same branches" if (len(hist), card_evals) == \
+        (len(cpu_hist), cpu_evals) else (
+            f"a different branch: {len(hist)} iterations and {card_evals} "
+            f"evaluations against the CPU's {len(cpu_hist)} and {cpu_evals}")
+    log(f"[lenet-solver] LBFGS({SOLVER_ITERATIONS}), {SOLVER_BATCHES} batches "
+        f"of {LENET_BATCH}: first batch per-iteration losses "
+        + " ".join(f"{v:.5f}" for v in hist) + " against the CPU's "
+        + " ".join(f"{v:.5f}" for v in cpu_hist) + f" (worst rel err "
+        f"{max(errs) if errs else float('nan'):.3g}, tolerance "
+        f"{SOLVER_LOSS_TOL}; {branch}); each batch's loss from "
+        + ", ".join(f"{a:.4f} to {b:.4f}" for a, b in zip(firsts, lasts))
+        + f"; {evals} function evaluations, {per} K1 + {per} K2 each; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not errs or max(errs) > SOLVER_LOSS_TOL:
+        raise AssertionError("[lenet-solver] the first batch's iterations "
+                             "disagree with the CPU plain path")
+    if not all(b < a for a, b in zip(firsts, lasts)):
+        raise AssertionError("[lenet-solver] a batch's loss did not fall")
+    return {"launches": launches, "evaluations": evals, "history": hist,
+            "cpu_history": cpu_hist, "worst_rel_err": max(errs),
+            "branch": branch}
+
+
+def phase_lenet_on_device(k1, fe, env, models, train, test,
+                          lenet_step_ms) -> dict:
+    """[lenet-on-device]: zoo ``lenet()`` through ``fit_on_device`` over
+    the 8000 synthetic digits, batch 125, LENET_EPOCHS epochs (uploaded
+    once; no host sync inside an epoch: the CUDA sync-debug mode counts
+    any). Gates: test accuracy at least LENET_MIN_ACCURACY; the first
+    LENET_PARITY_STEPS losses within LENET_LOSS_TOL of the card's own
+    per-batch ``fit`` from the same weights; 2 K1 + 2 K2 a step."""
+    import warnings
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t0 = time.perf_counter()
+    x, y = lenet_arrays(train)
+    net = models.lenet(seed=LENET_SEED)
+    ref = models.lenet(seed=LENET_SEED)
+    ref.params = clone_tree(net.params)
+    ref_losses = []
+    for i in range(LENET_PARITY_STEPS):
+        s = slice(i * LENET_BATCH, (i + 1) * LENET_BATCH)
+        ref.fit(x[s], y[s])
+        ref_losses.append(ref.score())
+    del ref
+    steps = LENET_EPOCHS * (len(x) // LENET_BATCH)
+    k1.launches = k1.bwd_launches = 0
+    fe.reset_counters()
+    torch.cuda.synchronize()
+    ta = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            losses = net.fit_on_device(x, y, epochs=LENET_EPOCHS,
+                                       batch_size=LENET_BATCH)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    wall = time.perf_counter() - ta
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    launches = (k1.launches, k1.bwd_launches)
+    decisions = dict(fe.counters())
+    if launches != (2 * steps, 2 * steps) or \
+            decisions["fused"] != 2 * steps or \
+            any(v for k, v in decisions.items() if k != "fused"):
+        raise AssertionError(f"[lenet-on-device] K1/K2 {launches} for "
+                             f"{steps} steps, decisions {decisions}")
+    acc = net.evaluate(test).accuracy()
+    errs = [abs(float(a) - b) / abs(b)
+            for a, b in zip(losses[:LENET_PARITY_STEPS], ref_losses)]
+    step_ms = wall * 1e3 / steps
+    log(f"[lenet-on-device] fit_on_device, {LENET_EPOCHS} epochs x "
+        f"{steps // LENET_EPOCHS} steps of {LENET_BATCH}: {step_ms:.4f} ms a "
+        f"step over the whole call, the upload and the one read at its end "
+        f"included ({LENET_BATCH * 1e3 / step_ms:.1f} images/s; [lenet]'s "
+        f"fit {lenet_step_ms:.4f} ms); {syncs} synchronizing calls inside "
+        f"(the final loss read included); the first "
+        f"{LENET_PARITY_STEPS} losses "
+        + ", ".join(f"{float(a):.6f}/{b:.6f}" for a, b in
+                    zip(losses, ref_losses))
+        + f" against per-batch fit (worst rel err {max(errs):.3g}, "
+        f"tolerance {LENET_LOSS_TOL}); accuracy {acc:.4f}; 2 K1 + 2 K2 a "
+        f"step; {time.perf_counter() - t0:.1f} s")
+    if max(errs) > LENET_LOSS_TOL or acc < LENET_MIN_ACCURACY or \
+            syncs > ON_DEVICE_MAX_SYNCS:
+        raise AssertionError("[lenet-on-device] losses, accuracy or host "
+                             "syncs out of bounds")
+    return {"launches": launches, "step_ms": step_ms, "accuracy": acc,
+            "loss_rel_err": max(errs), "syncs": syncs}
 
 
 def attn_operand(B, H, T, d, dtype, layout, gen):
@@ -3935,8 +4672,27 @@ def main() -> int:
     transfer = phase_transfer(k1, fe, env, graph, trained["net"])
     nchw = phase_nchw(k1, fe, env)
     lenet_row = phase_lenet(k1, fe, env, models)
-    center = phase_lenet_center(k1, fe, env, models, lenet_row.pop("train"),
-                                lenet_row.pop("test"))
+    lenet_train, lenet_test = lenet_row.pop("train"), lenet_row.pop("test")
+    center = phase_lenet_center(k1, fe, env, models, lenet_train, lenet_test)
+    # one batch-32 forward's (training step's) 53 K1 (K2) calls, timed per
+    # (rows, C, act) in phases 3 and 6
+    calls = k1_path_calls(trained["net"], 32)
+    t, tb = kern["times"], kbwd["times"]
+    ms = sum(t[c][0] for c in calls)
+    ms2 = sum(tb[c][0] for c in calls)
+    bf16 = phase_train_bf16(k1, fe, env, models, graph, trained, (ms, ms2))
+    del trained["grads_64"]
+    accum = phase_train_accum(k1, fe, env, graph, trained)
+    remat = phase_remat(k1, fe, env, trained)
+    solver = phase_lenet_solver(k1, fe, env, models, lenet_train)
+    on_device = phase_lenet_on_device(k1, fe, env, models, lenet_train,
+                                      lenet_test, lenet_row["step_ms"])
+    rr = remat["rows"]
+    modes_k = {"train_bf16": bf16["launches"], "train_accum": accum["launches"],
+               **{f"remat_{m}": (rr[m]["k1"], rr[m]["k2"])
+                  for m in REMAT_MODES},
+               "lenet_solver": solver["launches"],
+               "lenet_on_device": on_device["launches"]}
     if k3.launches:
         raise AssertionError(f"{k3.launches} K3 launches on the ResNet paths")
     katt = phase_kernel_attn(k3)
@@ -3979,11 +4735,6 @@ def main() -> int:
         return {"bert_ln_serve": ln_l[k], "bert_ln_fit": fit_ln[k]}
     no_ln = {"bert_ln_serve": 0, "bert_ln_fit": 0}
 
-    # one batch-32 forward's (training step's) 53 K1 (K2) calls, timed per
-    # (rows, C, act) in phases 3 and 6
-    calls = k1_path_calls(trained["net"], 32)
-    t = kern["times"]
-    ms = sum(t[c][0] for c in calls)
     plain = sum(t[c][1] for c in calls)
     lib = sum(t[(r, c, "identity")][2] for r, c, _ in calls)
     host = sum(t[c][3] for c in calls)
@@ -3991,8 +4742,6 @@ def main() -> int:
     t_bytes = sum(k1.bytes_moved(r, c, 4) for r, c, _ in calls)
     t_ops = sum(k1.flops(r, c, a) for r, c, a in calls) * (
         k1.H100_BYTES_PER_S / k1.H100_F32_FLOPS_PER_S)
-    tb = kbwd["times"]
-    ms2 = sum(tb[c][0] for c in calls)
     plain2 = sum(tb[c][1] for c in calls)
     host2 = sum(tb[c][2] for c in calls)
     bound2 = sum(k1.bound_ms_bwd(r, c, 4, a) for r, c, a in calls)
@@ -4177,7 +4926,8 @@ def main() -> int:
         + train_eval["launches"][0] + transfer["launches"][0]
         + transfer["eval_launches"][0] + nchw["launches"][0]
         + lenet_row["launches"][0] + lenet_row["eval_launches"][0]
-        + center["launches"][0] + ln_l["k1"] + fit_ln["k1"],
+        + center["launches"][0] + ln_l["k1"] + fit_ln["k1"]
+        + sum(v[0] for v in modes_k.values()),
         "launches_by_path": {"serve": serve_launches,
                              "train": trained["launches"][0],
                              "train_eval": train_eval["launches"][0],
@@ -4188,8 +4938,10 @@ def main() -> int:
                              "lenet_fit": lenet_row["launches"][0],
                              "lenet_eval": lenet_row["eval_launches"][0],
                              "bert_serve": 0, "bert_fit": 0,
-                             **lstm_paths("k1"), **ln_paths("k1")},
-        "max_abs_err": max(kern["max_err"].values()),
+                             **lstm_paths("k1"), **ln_paths("k1"),
+                             **{k: v[0] for k, v in modes_k.items()}},
+        "max_abs_err": max(*kern["max_err"].values(),
+                           bf16["path_k1_max_err"]),
         "max_abs_err_float32": kern["max_err"][torch.float32],
         "max_abs_err_bfloat16": kern["max_err"][torch.bfloat16],
         "ms": ms, "plain_ms": plain, "bound_ms": bound,
@@ -4197,6 +4949,18 @@ def main() -> int:
         "library_ms": lib, "host_ms": host,
         "bert_gelu": dict(gelu_row(g1), library="F.gelu(x + b)"),
         "lenet_step_calls": lenet_step_calls(kern),
+        "train_bf16": {k: bf16[k] for k in (
+            "step_ms", "images_per_s", "device_ms", "busy_share",
+            "k1_prof_ms", "path_k1_ms", "path_k1_bound_ms",
+            "path_k1_max_err", "losses", "cpu_losses", "ref_share",
+            "f32_ref_share", "f32_band", "fused_ms")},
+        "remat": {m: {k: r[k] for k in ("k1", "k2", "peak_bytes",
+                                        "residual_bytes",
+                                        "activation_bytes")}
+                  for m, r in rr.items()},
+        "lenet_solver": {k: solver[k] for k in (
+            "evaluations", "history", "cpu_history", "worst_rel_err",
+            "branch")},
         "timed_as": "device time summed over the 53 calls of one batch-32 "
                     "float32 ResNet-50 forward; library_ms is torch.addcmul "
                     "(the affine alone) at the same shapes; host_ms is the "
@@ -4209,7 +4973,8 @@ def main() -> int:
         "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:179",
         "launches": trained["launches"][1] + transfer["launches"][1]
         + nchw["launches"][1] + lenet_row["launches"][1]
-        + center["launches"][1] + fit_ln["k2"],
+        + center["launches"][1] + fit_ln["k2"]
+        + sum(v[1] for v in modes_k.values()),
         "launches_by_path": {"serve": 0, "train": trained["launches"][1],
                              "train_eval": 0,
                              "transfer_fit": transfer["launches"][1],
@@ -4219,10 +4984,12 @@ def main() -> int:
                              "lenet_fit": lenet_row["launches"][1],
                              "lenet_eval": 0,
                              "bert_serve": 0, "bert_fit": 0,
-                             **lstm_paths("k2"), **ln_paths("k2")},
+                             **lstm_paths("k2"), **ln_paths("k2"),
+                             **{k: v[1] for k, v in modes_k.items()}},
         "max_abs_err": max(kbwd["max_err"]["dx_float32"],
                            kbwd["max_err"]["dx_bfloat16"],
-                           kbwd["max_err"]["dscale_dshift"]),
+                           kbwd["max_err"]["dscale_dshift"],
+                           bf16["path_k2_max_err"]),
         "max_abs_err_dx_float32": kbwd["max_err"]["dx_float32"],
         "max_abs_err_dx_bfloat16": kbwd["max_err"]["dx_bfloat16"],
         "max_abs_err_dscale_dshift": kbwd["max_err"]["dscale_dshift"],
@@ -4236,6 +5003,17 @@ def main() -> int:
             "busy_share", "profiled_step_ms", "k1_ms", "k2_ms",
             "loss_rel_err", "grad_rel_err", "source")},
         "lenet_step_calls": lenet_step_calls(kbwd),
+        "train_bf16": {"path_k2_ms": bf16["path_k2_ms"],
+                       "path_k2_bound_ms": bf16["path_k2_bound_ms"],
+                       "path_k2_max_err": bf16["path_k2_max_err"],
+                       "path_k2_sum_rel": bf16["path_k2_sum_rel"],
+                       "k2_prof_ms": bf16["k2_prof_ms"],
+                       "grad_worst_ratio": bf16["grad_worst"],
+                       "fused_vs_unfused": bf16["parity"]},
+        "train_accum": {k: accum[k] for k in (
+            "step_ms", "peak_bytes", "peak_bytes_b32", "grad_worst")},
+        "lenet_on_device": {k: on_device[k] for k in (
+            "step_ms", "accuracy", "loss_rel_err", "syncs")},
         "transfer": {k: transfer[k] for k in (
             "k1_per_forward", "k2_per_step", "step_ms", "device_ms",
             "busy_share", "loss_rel_err", "grad_worst_ratio", "accuracy")},

@@ -25,7 +25,8 @@ kernels do not take; the kernels refuse float64.
 
 ``launches`` and ``bwd_launches`` count wrapper calls that launched K1 and
 K2 (plain-version calls are not counted; one K2 call is two CUDA kernels,
-the partial sums and their fixed-order total).
+the partial sums and their fixed-order total); ``bf16_launches`` and
+``bf16_bwd_launches`` count those of them on a bfloat16 ``x2``.
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ _INV_SQRT_2PI = 0.3989422804014327
 #: reset).
 launches = 0
 bwd_launches = 0
+bf16_launches = 0
+bf16_bwd_launches = 0
 
 
 def act_fwd(act: str, z):
@@ -191,7 +194,7 @@ def affine_act(x2, scale, shift, act="identity"):
     if x2.device.type != "cuda":
         raise ValueError(f"affine_act: tensors on {x2.device} are not "
                          "supported (cuda or cpu)")
-    global launches
+    global launches, bf16_launches
     _check(x2, scale, shift, act)
     y = torch.empty_like(x2)
     rows, cols = x2.shape
@@ -209,6 +212,7 @@ def affine_act(x2, scale, shift, act="identity"):
     if rc != 0:
         raise RuntimeError(f"affine_act kernel launch failed: CUDA error {rc}")
     launches += 1
+    bf16_launches += x2.dtype == torch.bfloat16
     return y
 
 
@@ -252,7 +256,7 @@ def affine_act_bwd(x2, scale, shift, dy, act="identity"):
     if x2.device.type != "cuda":
         raise ValueError(f"affine_act_bwd: tensors on {x2.device} are not "
                          "supported (cuda or cpu)")
-    global bwd_launches
+    global bwd_launches, bf16_bwd_launches
     _check_bwd(x2, scale, shift, dy, act)
     fn = _kernel_bwd()
     rows, cols = x2.shape
@@ -279,6 +283,7 @@ def affine_act_bwd(x2, scale, shift, dy, act="identity"):
         raise RuntimeError(
             f"affine_act_bwd kernel launch failed: CUDA error {rc}")
     bwd_launches += 1
+    bf16_bwd_launches += x2.dtype == torch.bfloat16
     return dx, dscale, dshift
 
 

@@ -14,8 +14,11 @@ of a sequential network (DL4J's CnnToFeedForwardPreProcessor, the JAX
 package's ``_auto_flatten``), propagating the shape through each layer's
 own ``initialize`` on the ``meta`` device.
 
-Not in this slice: the builder's ``optimization_algo`` (the solvers; the
-configuration keeps and serializes the fields).
+The builder's ``optimization_algo(name, iterations=,
+max_line_search_iterations=)`` picks the SGD step or a solver of
+``optimize/solvers.py`` (a sequential network's only: ``graph_builder()``
+refuses a solver, as the JAX builder does), and ``workspace_mode`` a
+rematerialization policy of ``nn/memory.py``, validated as it is set.
 """
 
 from __future__ import annotations
@@ -150,6 +153,9 @@ class NeuralNetConfiguration:
         self._tbptt = None
         self._constraints = []
         self._workspace_mode = "none"
+        self._opt_algo = "SGD"
+        self._solver_iterations = 5
+        self._max_ls_iterations = 5
         self._layers: List[Layer] = []
         self._input_shape = None
 
@@ -201,9 +207,35 @@ class NeuralNetConfiguration:
         self._tbptt = n
         return self
 
+    def optimization_algo(self, name: str, iterations: int = 5,
+                          max_line_search_iterations: int = 5):
+        """DL4J ``optimizationAlgo(OptimizationAlgorithm.X)``: SGD (the
+        default step of ``fit``) or LBFGS / CONJUGATE_GRADIENT /
+        LINE_GRADIENT_DESCENT (``Solver.optimize`` a batch)."""
+        name = str(name).upper()
+        if name not in ("SGD", "STOCHASTIC_GRADIENT_DESCENT"):
+            from ..optimize.solvers import get_solver
+            get_solver(name, iterations, max_line_search_iterations)
+            self._opt_algo = name
+        else:
+            self._opt_algo = "SGD"
+        self._solver_iterations = int(iterations)
+        self._max_ls_iterations = int(max_line_search_iterations)
+        return self
+
     def workspace_mode(self, mode: str):
+        """The rematerialization policy of the train step (DL4J
+        ``trainingWorkspaceMode``/``cacheMode``): ``none``, ``full``,
+        ``dots_saveable``, ``every_<k>`` (``enabled`` is ``full``); see
+        ``nn/memory.py``."""
+        from . import memory as _memory
+        _memory.resolve_policy(mode)  # validate at build time
         self._workspace_mode = str(mode).strip().lower()
         return self
+
+    # DL4J spelling
+    def training_workspace_mode(self, mode: str):
+        return self.workspace_mode(mode)
 
     def constrain_weights(self, *cs):
         """Constraints on the weight params after every update (DL4J
@@ -239,6 +271,12 @@ class NeuralNetConfiguration:
     def graph_builder(self):
         """DAG config builder carrying this builder's seed/updater/etc.
         (DL4J ``.graphBuilder()``)."""
+        if self._opt_algo != "SGD":
+            # a silent SGD fallback would betray the configured solver
+            raise ValueError(
+                f"optimization_algo({self._opt_algo!r}) is not supported on "
+                "the ComputationGraph engine (MultiLayerNetwork only); use "
+                "SGD or the sequential engine")
         from .graph import GraphBuilder
         return GraphBuilder(self)
 
@@ -255,6 +293,9 @@ class NeuralNetConfiguration:
             gradient_normalization=self._grad_norm,
             gradient_normalization_threshold=self._grad_norm_threshold,
             tbptt_length=self._tbptt, constraints=self._constraints or None,
+            optimization_algo=self._opt_algo,
+            solver_iterations=self._solver_iterations,
+            max_line_search_iterations=self._max_ls_iterations,
             workspace_mode=self._workspace_mode)
 
 

@@ -53,8 +53,11 @@ def _tree_l2(tree):
 
 
 def _flag(hit, device):
-    """A 0-dim int32 0/1 tensor from a bool tensor (or python bool)."""
-    return torch.as_tensor(hit, device=device).to(torch.int32)
+    """A 0-dim int32 0/1 tensor from a bool tensor (or python bool, filled
+    on ``device``: a host-to-device copy of it would synchronize)."""
+    if isinstance(hit, bool):
+        return torch.full((), int(hit), dtype=torch.int32, device=device)
+    return hit.to(device=device, dtype=torch.int32)
 
 
 def clip_engaged(mode: Optional[str], threshold: float, grads):

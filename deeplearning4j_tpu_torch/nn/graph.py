@@ -31,12 +31,19 @@ the JAX builder does: ``fit`` makes one update a batch, and the layers'
 scans detach the carry every ``tbptt_length`` steps (truncated BPTT, the
 JAX package's rule rather than DL4J's chunked fitting).
 
+The training modes of ``fit`` (the JAX module's :348-865), as in the
+sequential engine: 16-bit training with f32 masters and the fused
+master-cast updater (``fused_updater_active``), micro-batch accumulation
+(``_build_train_step(accum_steps=k)``, weighted by
+``microbatch.multi_output_weight``), ``workspace_mode`` rematerialization
+over topological segments pruned to their live activations
+(``_forward_remat``, ``set_workspace_mode``, ``memory_report``) and
+``fit_on_device``. The graph engine has no solver path, as in the JAX
+package (its builder refuses one).
+
 Not in this slice (each raises ``NotImplementedError`` when asked for):
-``workspace_mode`` rematerialization, 16-bit (mixed-precision) training
-and the fused master-cast updater, the resilience policy of ``fit`` and
-listeners; ``fit_on_device`` and micro-batch accumulation are not ported.
-All come with the training-breadth and runtime slices (``ROADMAP.md``
-Queue 1 items 3 and 9).
+the resilience policy of ``fit`` and the training listeners, which come
+with the runtime slice (``ROADMAP.md`` Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -61,8 +68,7 @@ from . import updaters as _upd
 from .layers.wrappers import is_loss_head
 from .vertices import GraphVertex, LayerVertex
 
-#: slices of the port that bring what this one leaves out
-_BREADTH = "the training-breadth slice of the port (ROADMAP.md Queue 1 item 3)"
+#: the slice of the port that brings what this one leaves out
 _RUNTIME = "the runtime slice of the port (ROADMAP.md Queue 1 item 9)"
 
 
@@ -102,6 +108,8 @@ class ComputationGraphConfiguration:
             gradient_normalization_threshold
         self.tbptt_length = tbptt_length
         self.constraints = list(constraints or [])
+        from . import memory as _memory
+        _memory.resolve_policy(workspace_mode)  # validate at build time
         self.workspace_mode = str(workspace_mode).strip().lower()
         self._validate()
 
@@ -284,6 +292,7 @@ class ComputationGraph:
         self._score = float("nan")
         self._sentinel = _sent.Sentinel()
         self._rng = None
+        self._train_step = None
         # the loss heads of the network outputs (duck-typed, a FrozenLayer
         # unwrapped to probe it, as the sequential engine does)
         self._out_layers = {
@@ -331,6 +340,7 @@ class ComputationGraph:
         self.device = device
         self._inference_engine = None
         self._rng = None
+        self._train_step = None
         return self
 
     def num_params(self) -> int:
@@ -370,26 +380,41 @@ class ComputationGraph:
     # --------------------------------------------------------------- forward
     def _forward(self, params, inputs: Dict[str, torch.Tensor], state, *,
                  train=False, masks: Optional[Dict[str, Any]] = None,
-                 fold_epilogues=True, rng=None):
+                 fold_epilogues=True, rng=None, remat_policy=None):
         """Eager topological walk. Returns ({vertex: activation},
         new_state, {vertex: mask}); the network inputs are in the
         activations too. In training, BN vertices normalize with batch
         statistics and ``new_state`` holds their new running statistics
         (``state`` itself is not modified), and ``rng`` (a
         ``torch.Generator`` on the device) feeds the stochastic layers
-        (dropout)."""
+        (dropout). Under a 16-bit policy the f32 masters are cast to the
+        compute dtype here (the fused step's copies pass as they are).
+        ``remat_policy`` (``nn/memory.py``; the train step's loss only)
+        runs the walk in checkpointed segments; the dicts it returns then
+        hold the network outputs only."""
         dt = _dt.resolve(self.conf.dtype)
         if dt.is_floating_point:
             inputs = {k: (v.to(dt) if v.is_floating_point() and v.dtype != dt
                           else v) for k, v in inputs.items()}
         if _dt.is_mixed(self.conf.dtype):
             params = _dt.cast_floating(params, dt)
-        acts: Dict[str, torch.Tensor] = dict(inputs)
-        mks: Dict[str, Any] = dict(masks or {})
-        new_state = dict(state)
+        if remat_policy is not None and remat_policy.remat:
+            return self._forward_remat(params, inputs, state, train=train,
+                                       masks=masks, rng=rng,
+                                       policy=remat_policy)
         fold, skip = self._epilogue_fold_plan() if fold_epilogues \
             else ({}, frozenset())
-        for name in self._topo:
+        acts, mks, ns = self._walk(self._topo, params, dict(inputs),
+                                   dict(masks or {}), state, train, rng,
+                                   fold, skip)
+        return acts, {**state, **ns}, mks
+
+    def _walk(self, names, params, acts, mks, state, train, rng, fold,
+              skip):
+        """The vertices ``names`` in turn, reading and extending ``acts``
+        and ``mks`` in place: ``(acts, mks, their new state)``."""
+        ns = {}
+        for name in names:
             v, ins = self._vertex_map[name]
             if name in skip:  # folded act vertex: value passes through
                 acts[name] = acts[ins[0]]
@@ -405,7 +430,48 @@ class ComputationGraph:
             acts[name] = y
             mks[name] = m
             if s_new:
-                new_state[name] = s_new
+                ns[name] = s_new
+        return acts, mks, ns
+
+    def _forward_remat(self, params, inputs, state, *, train, masks, rng,
+                       policy):
+        """The same walk in segments of ``policy.every`` vertices, each
+        under ``memory.checkpoint``. At every boundary the activations are
+        pruned to the live set (names a later vertex reads, and the
+        network outputs): those are what the backward keeps; a skip
+        connection across segments rides through as a segment input. The
+        dropout generator is replayed in the recompute, so the numbers are
+        the plain walk's."""
+        from . import memory as _memory
+        topo = self._topo
+        bounds = _memory.segment_ranges(len(topo), policy.every)
+        # needed_after[j]: names read by any vertex of bounds[j:], plus
+        # the network outputs (one right-to-left pass)
+        needed_after = [set(self.conf.outputs)]
+        for s, e in reversed(bounds):
+            nxt = set(needed_after[-1])
+            for n in topo[s:e]:
+                nxt.update(self._vertex_map[n][1])
+            needed_after.append(nxt)
+        needed_after.reverse()
+        fold, skip = self._epilogue_fold_plan()
+        acts, mks = dict(inputs), dict(masks or {})
+        new_state = dict(state)
+        for j, (s, e) in enumerate(bounds):
+            names = tuple(topo[s:e])
+            live = tuple(sorted((set(acts) | set(names))
+                                & needed_after[j + 1]))
+
+            def seg_fn(seg_params, seg_state, a, m, _names=names,
+                       _live=live):
+                a, m, ns = self._walk(_names, seg_params, dict(a), dict(m),
+                                      seg_state, train, rng, fold, skip)
+                return ({n: a[n] for n in _live},
+                        {n: m.get(n) for n in _live}, ns)
+            acts, mks, ns = _memory.checkpoint(seg_fn, policy, rng)(
+                {n: params[n] for n in names if n in params},
+                {n: state[n] for n in names if n in state}, acts, mks)
+            new_state.update(ns)
         return acts, new_state, mks
 
     def _epilogue_fold_plan(self):
@@ -474,7 +540,7 @@ class ComputationGraph:
             for v in (self._vertex_map[name][0],)))
 
     def _check_trainable(self):
-        """Raise for what ``fit`` cannot do in this slice."""
+        """Raise for what ``fit`` cannot do."""
         if set(self._out_layers) != set(self.conf.outputs):
             bad = sorted(set(self.conf.outputs) - set(self._out_layers))
             raise ValueError(
@@ -482,26 +548,20 @@ class ComputationGraph:
                 "needs a loss head on every network output")
         if self.conf.updater is None:
             raise ValueError("fit() needs an updater in the configuration")
-        if self.conf.workspace_mode not in ("none", ""):
-            raise NotImplementedError(
-                f"workspace_mode={self.conf.workspace_mode!r} "
-                f"(rematerialization) comes with {_BREADTH}")
-        if _dt.is_mixed(self.conf.dtype):
-            raise NotImplementedError(
-                f"training a {self.conf.dtype} network (mixed precision, "
-                f"the fused master-cast updater) comes with {_BREADTH}")
 
     def _loss(self, params, state, xs, ys, fms, lms, rng=None):
         """``(loss, new BN state)`` of one batch: the training forward
-        (dropout from ``rng``; None: the identity), the loss heads' losses
-        summed over the outputs (a center-loss head's with its center term,
-        its centers moved in the new state), plus l1/l2."""
+        (dropout from ``rng``; None: the identity; under the
+        configuration's ``workspace_mode``), the loss heads' losses summed
+        over the outputs (a center-loss head's with its center term, its
+        centers moved in the new state), plus l1/l2."""
+        from . import memory as _memory
         inputs = dict(zip(self.conf.inputs, xs))
         masks = {n: m for n, m in zip(self.conf.inputs, fms)
                  if m is not None}
-        acts, new_state, mks = self._forward(params, inputs, state,
-                                             train=True, masks=masks,
-                                             rng=rng)
+        acts, new_state, mks = self._forward(
+            params, inputs, state, train=True, masks=masks, rng=rng,
+            remat_policy=_memory.resolve_policy(self.conf.workspace_mode))
         total = 0.0
         for o, y, lm in zip(self.conf.outputs, ys, lms):
             m = _loss.combine_masks(lm, mks.get(o))
@@ -509,6 +569,17 @@ class ComputationGraph:
                 self._out_layers[o], acts[o], y, m, state, new_state, o)
             total = total + loss
         return total + self._regularization(params), new_state
+
+    def _uses_regularization(self) -> bool:
+        """Any l1/l2 term configured? (See the sequential engine's.)"""
+        return _training.uses_regularization(
+            self.conf, [v.layer for _, v, _ in self.conf.vertices
+                        if isinstance(v, LayerVertex)])
+
+    def fused_updater_active(self) -> bool:
+        """The fused master-cast updater's gate (see
+        ``MultiLayerNetwork.fused_updater_active``)."""
+        return _training.fused_cast_active(self)
 
     def _value_and_grad(self, xs, ys, fms, lms):
         """``(loss, grads, new BN state)`` at the current params: one
@@ -518,12 +589,33 @@ class ComputationGraph:
             self.params,
             lambda p: self._loss(p, self.state, xs, ys, fms, lms))
 
-    def _train_step(self, xs, ys, fms, lms):
-        """One step, inside one precision context (``nn/training.py``).
-        Returns the loss (a device tensor)."""
-        rng = _training.generator(self)
-        return _training.train_step(
-            self, lambda p: self._loss(p, self.state, xs, ys, fms, lms, rng))
+    def _build_train_step(self, accum_steps: int = 1,
+                          fused_cast: bool = False):
+        """The eager step ``(xs, ys, fms, lms, on_device=False) -> loss``
+        (tuples by network input and output): ``nn/training.py``'s step on
+        :meth:`_loss` with the model's generator. ``accum_steps`` and
+        ``fused_cast`` as in ``MultiLayerNetwork._build_train_step``; the
+        microbatch weight is ``microbatch.multi_output_weight``."""
+        from . import microbatch as _micro
+
+        def vg(p, state, rng, xs, ys, fms, lms):
+            return _training.value_and_grad(
+                p, lambda q: self._loss(q, state, xs, ys, fms, lms, rng))
+        return _training.step_fn(self, vg, accum_steps, fused_cast,
+                                 _micro.multi_output_weight)
+
+    def _fit_step(self):
+        """The step ``fit`` and ``fit_on_device`` run, built once per model
+        (its routing decision counted once), with no compute copy carried
+        into a new call."""
+        if self._train_step is None:
+            from ..ops import fused_epilogues as _fe
+            fused = self.fused_updater_active()
+            _fe.dispatch_updater(self.conf.dtype,
+                                 has_penalty=self._uses_regularization())
+            self._train_step = self._build_train_step(fused_cast=fused)
+        self._train_step.params_c = None
+        return self._train_step
 
     def fit(self, data, labels=None, epochs: int = 1,
             resilience=None) -> "ComputationGraph":
@@ -532,10 +624,11 @@ class ComputationGraph:
         uninitialized net is initialized on ``cuda`` first."""
         if resilience is not None:
             raise NotImplementedError(
-                f"fit(resilience=...) comes with {_BREADTH}")
+                f"fit(resilience=...) comes with {_RUNTIME}")
         self._check_trainable()
         if not self.params and not self.state:
             self.init()
+        step = self._fit_step()
         it = _as_multi_iterator(data, labels)
         for _ in range(epochs):
             for mds in it:
@@ -545,11 +638,34 @@ class ComputationGraph:
                             for m in mds.features_masks)
                 lms = tuple(None if m is None else self._tensor(m)
                             for m in mds.labels_masks)
-                self._score = self._train_step(xs, ys, fms, lms)
+                self._score = step(xs, ys, fms, lms)
                 self.iteration += 1
             self.epoch += 1
             it = _as_multi_iterator(data, labels)
         return self
+
+    def fit_on_device(self, features, labels, epochs: int = 1,
+                      batch_size: Optional[int] = None,
+                      drop_remainder: bool = False) -> np.ndarray:
+        """Training on a dataset uploaded once (the JAX engine's compiled
+        epoch loop): ``features``/``labels`` are arrays, or lists of them
+        for several inputs or outputs, reshaped to ``[n_batches, B, ...]``
+        on the model's device; each epoch is one loop of ``fit``'s step
+        with no host sync inside it. Returns the loss history ``[epochs *
+        n_batches]``, the values per-batch ``fit`` gives. A dataset size
+        not divisible by the batch raises unless ``drop_remainder=True``;
+        masked data must use ``fit()``."""
+        self._check_trainable()
+        if not self.params and not self.state:
+            self.init()
+        xs, ys = _training.stack_dataset(
+            self, *([a] if not isinstance(a, (list, tuple)) else list(a)
+                    for a in (features, labels)), batch_size, drop_remainder)
+        none_x, none_y = (None,) * len(xs), (None,) * len(ys)
+        return _training.device_epochs(
+            self, self._fit_step(), epochs, xs[0].shape[0],
+            lambda i: (tuple(x[i] for x in xs), tuple(y[i] for y in ys),
+                       none_x, none_y))
 
     def score(self, data=None) -> float:
         """The loss of the last ``fit`` batch, or of the given (Multi)
@@ -572,6 +688,51 @@ class ComputationGraph:
                 tuple(None if m is None else self._tensor(m)
                       for m in mds.labels_masks))
         return float(loss)
+
+    # --------------------------------------------- workspace mode, memory
+    def set_workspace_mode(self, mode: str) -> "ComputationGraph":
+        """Switch the rematerialization policy (``nn/memory.py``) in place,
+        copy on write: the next step is built under it."""
+        import copy
+        from . import memory as _memory
+        policy = _memory.resolve_policy(mode)  # validate before mutating
+        self.conf = copy.copy(self.conf)
+        self.conf.workspace_mode = policy.name
+        self._train_step = None
+        return self
+
+    def memory_report(self, batch_size: int, accum_steps: int = 1,
+                      seq_len=None) -> dict:
+        """The train step's memory at ``batch_size``, measured (see
+        ``MultiLayerNetwork.memory_report``)."""
+        from . import memory as _memory
+        return _memory.memory_report(self, batch_size,
+                                     accum_steps=accum_steps,
+                                     seq_len=seq_len)
+
+    def _memory_probe(self, batch: int, seq_len) -> dict:
+        """Residual bytes of one training forward and backward at
+        ``batch`` on zero inputs (labels shaped by an inference forward);
+        nothing is applied."""
+        from . import memory as _memory
+        dt = _dt.resolve(self.conf.dtype)
+        xs = tuple(_memory.probe_batch(self.conf.input_shapes[n], batch,
+                                       seq_len, dt, self.device)
+                   for n in self.conf.inputs)
+        with torch.no_grad(), _env.precision(self.device):
+            acts, _, _ = self._forward(self.params,
+                                       dict(zip(self.conf.inputs, xs)),
+                                       self.state)
+        ys = tuple(torch.zeros(acts[o].shape, dtype=torch.float32,
+                               device=self.device)
+                   for o in self.conf.outputs)
+        none_x, none_y = (None,) * len(xs), (None,) * len(ys)
+        with _memory.count_residuals((self.params, xs, ys)) as res, \
+                _env.precision(self.device):
+            _training.value_and_grad(
+                self.params, lambda p: self._loss(p, self.state, xs, ys,
+                                                  none_x, none_y))
+        return res.report()
 
     def resilience_counters(self) -> dict:
         """The divergence sentinel's counters (skipped steps in total and

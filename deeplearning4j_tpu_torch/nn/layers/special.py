@@ -95,9 +95,12 @@ class CenterLossOutputLayer(Layer, _BaseOutput):
 
     def update_centers(self, centers, features, labels):
         """The EMA center update (DL4J's alpha rule): each class seen in
-        the batch moves ``alpha`` of the way to its features' mean."""
+        the batch moves ``alpha`` of the way to its features' mean. The
+        product promotes as jnp's does (bf16 features with f32 labels, a
+        16-bit network's, sum in f32)."""
         counts = labels.sum(0)[:, None]                         # [C, 1]
-        means = torch.matmul(labels.T, features) / torch.clamp(counts,
-                                                               min=1.0)
+        dt = torch.promote_types(labels.dtype, features.dtype)
+        means = torch.matmul(labels.T.to(dt), features.to(dt)) / \
+            torch.clamp(counts, min=1.0)
         return torch.where(counts > 0, (1 - self.alpha) * centers
                            + self.alpha * means, centers)

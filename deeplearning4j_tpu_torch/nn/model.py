@@ -42,18 +42,28 @@ mask in ``losses.combine_masks``. ``_regularization`` reads each layer's
 top-level ``W`` only, so a ``Bidirectional`` (its trees under ``fw`` and
 ``bw``) adds no l1/l2, as in the JAX package.
 
+The training modes of ``fit`` (the JAX module's :114-158, :220-262,
+:340-759): 16-bit training (a ``BFLOAT16``/``HALF`` network keeps f32
+masters, updater state, BN statistics and center-loss centers, and
+trains through the fused master-cast updater when it has no l1/l2 term,
+``fused_updater_active``), micro-batch accumulation
+(``_build_train_step(accum_steps=k)``, ``nn/microbatch.py``),
+``workspace_mode`` rematerialization (``_forward_remat``,
+``set_workspace_mode``, ``memory_report``; ``nn/memory.py``),
+``fit_on_device`` (the dataset uploaded once, no host sync inside an
+epoch) and the solver path (``optimization_algo("LBFGS" |
+"CONJUGATE_GRADIENT" | "LINE_GRADIENT_DESCENT")``, ``optimize/
+solvers.py``).
+
 Not in this slice (each raises ``NotImplementedError`` naming the
-``ROADMAP.md`` Queue 1 slice that ports it): ``fit(resilience=...)``, the
-solver path (an ``optimization_algo`` other than SGD), ``fit_on_device``,
-micro-batch accumulation (``accum_steps``), ``workspace_mode``
-rematerialization and 16-bit (mixed-precision) training (the
-training-breadth slice, item 3); the training listeners (the runtime
-slice, item 9); ``quantize_params`` and the int8 KV cache (int8 serving,
-item 7).
+``ROADMAP.md`` Queue 1 slice that ports it): ``fit(resilience=...)`` and
+the training listeners (the runtime slice, item 9); ``quantize_params``
+and the int8 KV cache (int8 serving, item 7).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -68,7 +78,6 @@ from ..utils import tree as _tree
 from . import training as _training
 from .config import MultiLayerConfiguration
 
-_BREADTH = "the training-breadth slice of the port (ROADMAP.md Queue 1 item 3)"
 _RUNTIME = "the runtime slice of the port (ROADMAP.md Queue 1 item 9)"
 _INT8 = "the int8-serving slice of the port (ROADMAP.md Queue 1 item 7)"
 
@@ -93,6 +102,8 @@ class MultiLayerNetwork:
         self._score = None
         self._sentinel = _sent.Sentinel()
         self._rng = None
+        self._train_step = None
+        self._solver = None
         # the parameter keys of the FrozenLayers
         self._frozen = frozenset(str(i) for i, l in enumerate(self.layers)
                                  if getattr(l, "frozen", False))
@@ -126,6 +137,8 @@ class MultiLayerNetwork:
         self.device = device
         self._inference_engine = None
         self._rng = None
+        self._train_step = None
+        self._solver = None
         self.rnn_clear_previous_state()
         return self
 
@@ -150,36 +163,72 @@ class MultiLayerNetwork:
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, x, state, *, train=False, mask=None,
-                 collect=False, rng=None):
+                 collect=False, rng=None, remat_policy=None):
         """The eager layer walk. Returns ``(out, new_state, mask)``, or
         ``(acts, new_state, mask)`` with ``collect=True`` (``acts`` is
         ``[input, layer0_out, ...]``, feedForward semantics, with no
         epilogue fold). ``rng``, a ``torch.Generator`` on x's device, feeds
-        the stochastic layers (dropout) in training."""
+        the stochastic layers (dropout) in training. Under a 16-bit policy
+        the f32 masters are cast to the compute dtype here (leaves already
+        in it, the fused step's copies, pass as they are).
+        ``remat_policy`` (``nn/memory.py``, the train step's loss only)
+        runs the walk in checkpointed segments."""
         dt = _dt.resolve(self.conf.dtype)
         if dt.is_floating_point and x.is_floating_point() and x.dtype != dt:
             x = x.to(dt)  # cast inputs to the network dtype (DL4J)
         if _dt.is_mixed(self.conf.dtype):
             params = _dt.cast_floating(params, dt)
-        new_state = dict(state)
-        acts = [x]
+        if remat_policy is not None and remat_policy.remat and not collect:
+            return self._forward_remat(params, x, state, train=train,
+                                       mask=mask, rng=rng,
+                                       policy=remat_policy)
+        acts = [x] if collect else None
         fold, skip = ({}, frozenset()) if collect \
             else self._epilogue_fold_plan()
-        for i, layer in enumerate(self.layers):
-            si = str(i)
+        x, ns, mask = self._walk(range(len(self.layers)), params, x, state,
+                                 train, mask, rng, fold, skip, acts)
+        return (acts if collect else x), {**state, **ns}, mask
+
+    def _walk(self, indices, params, x, state, train, mask, rng, fold, skip,
+              acts=None):
+        """The layers ``indices`` in turn: ``(x, their new state, mask)``;
+        each output is appended to ``acts`` when given."""
+        ns = {}
+        for i in indices:
             if i in skip:
                 continue  # activation folded into the previous BN
+            layer, si = self.layers[i], str(i)
             kw = {"fold_act": fold[i]} if i in fold else {}
             if getattr(layer, "needs_rng", False):
                 kw["rng"] = rng
             x, s_new, mask = layer.apply(params.get(si, {}), x,
                                          state.get(si, {}), train=train,
                                          mask=mask, **kw)
-            if collect:
+            if acts is not None:
                 acts.append(x)
             if s_new:
-                new_state[si] = s_new
-        return (acts if collect else x), new_state, mask
+                ns[si] = s_new
+        return x, ns, mask
+
+    def _forward_remat(self, params, x, state, *, train, mask, rng, policy):
+        """The same walk in segments of ``policy.every`` layers, each under
+        ``memory.checkpoint``: the backward keeps the segment boundaries
+        (and what the policy saves) and recomputes the rest, the dropout
+        generator replayed, so the numbers are the plain walk's."""
+        from . import memory as _memory
+        fold, skip = self._epilogue_fold_plan()
+        new_state = dict(state)
+        for s, e in _memory.segment_ranges(len(self.layers), policy.every):
+            keys = [str(i) for i in range(s, e)]
+
+            def seg_fn(seg_params, seg_state, x, mask, _idx=range(s, e)):
+                return self._walk(_idx, seg_params, x, seg_state, train,
+                                  mask, rng, fold, skip)
+            x, ns, mask = _memory.checkpoint(seg_fn, policy, rng)(
+                {k: params[k] for k in keys if k in params},
+                {k: state[k] for k in keys if k in state}, x, mask)
+            new_state.update(ns)
+        return x, new_state, mask
 
     def _epilogue_fold_plan(self):
         """Static BN + activation fold plan: every BatchNormalization
@@ -356,16 +405,20 @@ class MultiLayerNetwork:
 
     def _build_loss_fn(self):
         """The training loss ``(params, state, x, y, fmask, lmask, rng) ->
-        (loss, new_state)``: the training forward, the output layer's loss
-        on the combined label and propagated masks (a center-loss head's
+        (loss, new_state)``: the training forward (under the
+        configuration's ``workspace_mode``), the output layer's loss on
+        the combined label and propagated masks (a center-loss head's
         with its center term, its centers moved in ``new_state``), plus
         l1/l2."""
+        from . import memory as _memory
         out_layer = self._out_layer
         key = str(len(self.layers) - 1)
+        policy = _memory.resolve_policy(self.conf.workspace_mode)
 
         def loss_fn(params, state, x, y, fmask, lmask, rng):
             out, new_state, out_mask = self._forward(
-                params, x, state, train=True, mask=fmask, rng=rng)
+                params, x, state, train=True, mask=fmask, rng=rng,
+                remat_policy=policy)
             lm = _loss.combine_masks(lmask, out_mask)
             data_loss, new_state = _training.head_loss(
                 out_layer, out, y, lm, state, new_state, key)
@@ -373,43 +426,67 @@ class MultiLayerNetwork:
 
         return loss_fn
 
+    def _uses_regularization(self) -> bool:
+        """Any l1/l2 term configured? Gates the fused master-cast updater
+        and the accumulation's cast hoist: the term reads the params the
+        loss is handed, which must then be the f32 masters."""
+        return _training.uses_regularization(self.conf, self.layers)
+
+    def fused_updater_active(self) -> bool:
+        """Does the train step fold the per-step f32 -> compute master
+        cast into the updater's write? True under a 16-bit policy with no
+        l1/l2 term; the step then carries the compute copy between steps
+        and the cast at the top of the forward is an identity."""
+        return _training.fused_cast_active(self)
+
     def _check_trainable(self):
-        """Raise for what ``fit`` cannot do in this slice."""
+        """Raise for what ``fit`` cannot do."""
         if self._out_layer is None:
             raise ValueError("last layer must be an OutputLayer/LossLayer "
                              "to fit()")
-        if self.conf.updater is None:
+        if self.conf.updater is None and not self._solver_algo():
             raise ValueError("fit() needs an updater in the configuration")
-        algo = (self.conf.optimization_algo or "SGD").upper()
-        if algo not in ("SGD", "STOCHASTIC_GRADIENT_DESCENT"):
-            raise NotImplementedError(
-                f"optimization_algo={self.conf.optimization_algo!r} (the "
-                f"solver path) comes with {_BREADTH}")
-        if self.conf.workspace_mode not in ("none", "", None):
-            raise NotImplementedError(
-                f"workspace_mode={self.conf.workspace_mode!r} "
-                f"(rematerialization) comes with {_BREADTH}")
-        if _dt.is_mixed(self.conf.dtype):
-            raise NotImplementedError(
-                f"training a {self.conf.dtype} network (mixed precision, "
-                f"the fused master-cast updater) comes with {_BREADTH}")
 
-    def _build_train_step(self, accum_steps: int = 1):
-        """The eager step ``(x, y, fmask, lmask) -> loss`` (a device
-        tensor): ``nn/training.py``'s step on :meth:`_build_loss_fn` with
-        the model's generator. Only ``accum_steps=1``."""
-        if accum_steps != 1:
-            raise NotImplementedError(
-                f"accum_steps={accum_steps} (micro-batch accumulation) "
-                f"comes with {_BREADTH}")
+    def _solver_algo(self):
+        """The configured solver's name, or None for the SGD path."""
+        algo = (self.conf.optimization_algo or "SGD").upper()
+        return None if algo in ("SGD", "STOCHASTIC_GRADIENT_DESCENT") \
+            else algo
+
+    def _build_train_step(self, accum_steps: int = 1,
+                          fused_cast: bool = False):
+        """The eager step ``(x, y, fmask, lmask, on_device=False) ->
+        loss`` (a device tensor): ``nn/training.py``'s step on
+        :meth:`_build_loss_fn` with the model's generator.
+        ``accum_steps=k`` accumulates the gradient over k microbatches
+        before the one update (``nn/microbatch.py``; the weight is the
+        label count), the masters cast once a step under a 16-bit policy
+        with no l1/l2 term. ``fused_cast=True`` (the caller gates on
+        :meth:`fused_updater_active`) is the fused master-cast step; its
+        parameters and updater state equal the unfused step's bit for
+        bit."""
+        from . import microbatch as _micro
         loss_fn = self._build_loss_fn()
 
-        def step(x, y, fmask, lmask):
-            rng = _training.generator(self)
-            return _training.train_step(
-                self, lambda p: loss_fn(p, self.state, x, y, fmask, lmask,
-                                        rng))
-        return step
+        def vg(p, state, rng, x, y, fmask, lmask):
+            return _training.value_and_grad(
+                p, lambda q: loss_fn(q, state, x, y, fmask, lmask, rng))
+        return _training.step_fn(
+            self, vg, accum_steps, fused_cast,
+            lambda x, y, fm, lm: _micro.label_count_weight(lm))
+
+    def _fit_step(self):
+        """The step ``fit`` and ``fit_on_device`` run, built once per model
+        (its routing decision counted once) and carrying no compute copy
+        into a new call."""
+        if self._train_step is None:
+            from ..ops import fused_epilogues as _fe
+            fused = self.fused_updater_active()
+            _fe.dispatch_updater(self.conf.dtype,
+                                 has_penalty=self._uses_regularization())
+            self._train_step = self._build_train_step(fused_cast=fused)
+        self._train_step.params_c = None
+        return self._train_step
 
     def _value_and_grad(self, x, y, fmask=None, lmask=None, rng=None):
         """``(loss, grads, new_state)`` at the current params: one training
@@ -425,14 +502,17 @@ class MultiLayerNetwork:
             resilience=None) -> "MultiLayerNetwork":
         """DL4J ``fit()`` on a DataSetIterator, a DataSet, or (features,
         labels) arrays, for ``epochs`` passes. An uninitialized net is
-        initialized on ``cuda`` first."""
+        initialized on ``cuda`` first. A solver ``optimization_algo``
+        runs :class:`~..optimize.solvers.Solver` a batch."""
         if resilience is not None:
             raise NotImplementedError(
-                f"fit(resilience=...) comes with {_BREADTH}")
+                f"fit(resilience=...) comes with {_RUNTIME}")
         if not self.params and not self.state:
             self.init()
         self._check_trainable()
-        step = self._build_train_step()
+        if self._solver_algo():
+            return self._fit_with_solver(data, labels, epochs)
+        step = self._fit_step()
         for _ in range(epochs):
             for ds in _as_iterator(data, labels):
                 self._score = step(
@@ -445,8 +525,88 @@ class MultiLayerNetwork:
             self.epoch += 1
         return self
 
-    def fit_on_device(self, *args, **kwargs):
-        raise NotImplementedError(f"fit_on_device comes with {_BREADTH}")
+    def fit_on_device(self, features, labels, epochs: int = 1,
+                      batch_size: Optional[int] = None,
+                      drop_remainder: bool = False) -> np.ndarray:
+        """Training on a dataset uploaded once (the JAX engine's compiled
+        epoch loop): the arrays are reshaped to ``[n_batches, B, ...]`` on
+        the model's device, and each epoch is one loop of ``fit``'s step
+        with no host sync inside it (the sentinel's verdict stays on the
+        device). Returns the loss history ``[epochs * n_batches]``, the
+        same values per-batch ``fit`` gives. A dataset size not divisible
+        by the batch raises unless ``drop_remainder=True``; masked data
+        must use ``fit()``."""
+        if not self.params and not self.state:
+            self.init()
+        self._check_trainable()
+        (x,), (y,) = _training.stack_dataset(self, [features], [labels],
+                                             batch_size, drop_remainder)
+        return _training.device_epochs(
+            self, self._fit_step(), epochs, x.shape[0],
+            lambda i: (x[i], y[i], None, None))
+
+    def _fit_with_solver(self, data, labels, epochs: int
+                         ) -> "MultiLayerNetwork":
+        """DL4J's ``Solver.optimize`` path: LBFGS, conjugate gradient or
+        line-search gradient descent on each batch instead of the SGD
+        step (``optimize/solvers.py``)."""
+        from ..optimize.solvers import Solver
+        if self._solver is None:
+            self._solver = Solver(
+                self, self.conf.optimization_algo,
+                iterations=self.conf.solver_iterations,
+                max_line_search_iterations=(
+                    self.conf.max_line_search_iterations))
+        for _ in range(epochs):
+            for ds in _as_iterator(data, labels):
+                self._score = self._solver.optimize(
+                    self._tensor(ds.features), self._tensor(ds.labels),
+                    None if ds.features_mask is None
+                    else self._tensor(ds.features_mask),
+                    None if ds.labels_mask is None
+                    else self._tensor(ds.labels_mask))
+                self.iteration += 1
+            self.epoch += 1
+        return self
+
+    # --------------------------------------------- workspace mode, memory
+    def set_workspace_mode(self, mode: str) -> "MultiLayerNetwork":
+        """Switch the rematerialization policy (``nn/memory.py``) in place;
+        the next step is built under it."""
+        from . import memory as _memory
+        policy = _memory.resolve_policy(mode)  # validate before mutating
+        self.conf = dataclasses.replace(self.conf,
+                                        workspace_mode=policy.name)
+        self._train_step = None
+        return self
+
+    def memory_report(self, batch_size: int, accum_steps: int = 1,
+                      seq_len=None) -> dict:
+        """The train step's memory at ``batch_size``, measured
+        (``nn/memory.py``: residual bytes everywhere, the peak on the
+        card; the compiled fields of the JAX report are None)."""
+        from . import memory as _memory
+        return _memory.memory_report(self, batch_size,
+                                     accum_steps=accum_steps,
+                                     seq_len=seq_len)
+
+    def _memory_probe(self, batch: int, seq_len) -> dict:
+        """Residual bytes of one training forward and backward at
+        ``batch`` on zero inputs (labels shaped by an inference forward);
+        nothing is applied."""
+        from . import memory as _memory
+        x = _memory.probe_batch(self.conf.input_shape, batch, seq_len,
+                                _dt.resolve(self.conf.dtype), self.device)
+        with torch.no_grad(), _env.precision(self.device):
+            out, _, _ = self._forward(self.params, x, self.state)
+        y = torch.zeros(out.shape, dtype=torch.float32, device=self.device)
+        loss_fn = self._build_loss_fn()
+        with _memory.count_residuals((self.params, x, y)) as res, \
+                _env.precision(self.device):
+            _training.value_and_grad(
+                self.params,
+                lambda p: loss_fn(p, self.state, x, y, None, None, None))
+        return res.report()
 
     def score(self, ds: Optional[DataSet] = None) -> float:
         """The loss of the last ``fit`` batch, or of ``ds`` (the training

@@ -4,19 +4,37 @@
 training forward and loss at the current parameters, ``torch.autograd.grad``
 (the kernels' backwards where the forward ran them), the l1/l2 penalty
 over each layer's ``W``, gradient normalization and clipping, the
-divergence sentinel's verdict (one host sync), then the updater and the
-constraints. A step the sentinel rejects leaves parameters, updater state
-and layer state as they were. A FrozenLayer's parameters get zero
-gradients (its ``apply`` detaches them) and are skipped by the l1/l2
-penalty, the updater and the constraints. The engines differ only in
-their loss and in how they pair layers with parameters, which they hand
-in; both draw dropout from ``generator``.
+divergence sentinel's verdict, then the updater and the constraints. A
+step the sentinel rejects leaves parameters, updater state and layer
+state as they were. A FrozenLayer's parameters get zero gradients (its
+``apply`` detaches them) and are skipped by the l1/l2 penalty, the
+updater and the constraints. The engines differ only in their loss and
+in how they pair layers with parameters, which they hand in; both draw
+dropout from ``generator``.
+
+The training modes of ``fit`` meet here too:
+
+- **16-bit training** (a ``BFLOAT16``/``HALF`` network): the masters and
+  the updater state are f32; the loss differentiates compute-dtype
+  copies and the gradients come back upcast to f32 (exactly: the
+  transpose of the f32 -> 16-bit cast). Under the fused master-cast
+  updater (:func:`train_step`'s ``params_c``) the step carries the
+  compute copy between steps and the updater writes the next one beside
+  each master (``updaters.apply_leafwise_cast``); the unfused step casts
+  the masters at the top of every forward. Both give the same bits.
+- **micro-batch accumulation**: the engine's value-and-grad is
+  ``nn/microbatch.py``'s loop; this step sees one gradient as before.
+- **no host sync** (``on_device=True``, ``fit_on_device``): the
+  sentinel's verdict stays a device bool and selects between the new and
+  the old trees with ``torch.where``, bit for bit what the host verdict
+  applies.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import dtypes as _dt
 from .. import environment as _env
 from ..utils import tree as _tree
 from . import constraints as _constraints
@@ -113,37 +131,191 @@ def _without(tree, keys):
     return {k: v for k, v in tree.items() if k not in keys}
 
 
-def apply_updater(updater, grads, updater_state, params, step, frozen=()):
+def apply_updater(updater, grads, updater_state, params, step, frozen=(),
+                  compute_dtype=None, params_c=None):
     """The updater over every parameter outside the top-level keys
     ``frozen``: ``(new_params, new_updater_state)``. A frozen key's
     parameters and its updater slots are left as they are, bit for bit
     (no momentum, no weight decay: the JAX package's zero gradient moves
-    neither on a fresh updater state)."""
-    live, live_state = _upd.apply_leafwise(
-        updater, _without(grads, frozen),
-        {slot: _without(t, frozen) for slot, t in updater_state.items()},
-        _without(params, frozen), step)
-    return ({k: live.get(k, v) for k, v in params.items()},
-            {slot: {**updater_state.get(slot, {}), **t}
-             for slot, t in live_state.items()})
+    neither on a fresh updater state). With ``compute_dtype`` (the fused
+    master-cast updater) it returns ``(new_params, new_params_c,
+    new_updater_state)``, the live keys' compute copies written beside
+    their masters, the frozen keys' taken from ``params_c``."""
+    args = (updater, _without(grads, frozen),
+            {slot: _without(t, frozen) for slot, t in updater_state.items()},
+            _without(params, frozen), step)
+    if compute_dtype is None:
+        live, live_state = _upd.apply_leafwise(*args)
+    else:
+        live, live_c, live_state = _upd.apply_leafwise_cast(*args,
+                                                            compute_dtype)
+    new_params = {k: live.get(k, v) for k, v in params.items()}
+    new_state = {slot: {**updater_state.get(slot, {}), **t}
+                 for slot, t in live_state.items()}
+    if compute_dtype is None:
+        return new_params, new_state
+    return (new_params, {k: live_c.get(k, v) for k, v in params_c.items()},
+            new_state)
 
 
-def train_step(net, loss_fn):
+def _select(ok, new, old):
+    return _tree.tmap(lambda a, b: torch.where(ok, a, b), new, old)
+
+
+def train_step(net, vg, params_c=None, on_device=False):
     """One step of ``net`` (its ``params``, ``state``, ``updater_state``,
     ``conf``, ``iteration``, ``_sentinel``, ``_frozen`` and ``device``) on
-    ``loss_fn(params) -> (loss, new_state)``, inside one precision
+    ``vg(params) -> (loss, grads, new_state)``, inside one precision
     context; the top-level parameter keys ``net._frozen`` (FrozenLayers)
-    are skipped by the updater and the constraints. Returns the loss (a
-    device tensor)."""
+    are skipped by the updater and the constraints.
+
+    ``params_c``: the fused master-cast updater's compute copy of the
+    masters, which ``vg`` differentiates in their place; the step returns
+    the next one. ``on_device``: the sentinel's verdict is not read on the
+    host. Returns ``(loss, params_c)`` (the loss a device tensor)."""
+    conf = net.conf
     with _env.precision(net.device):
-        loss, grads, new_state = value_and_grad(net.params, loss_fn)
+        loss, grads, new_state = vg(net.params if params_c is None
+                                    else params_c)
         with torch.no_grad():
-            grads, clip_events = clip(net.conf, grads)
-            if net._sentinel.verdict(loss, grads, clip_events):
-                params, net.updater_state = apply_updater(
-                    net.conf.updater, grads, net.updater_state, net.params,
+            # 16-bit gradients (the fused step's, the hoisted accumulation's)
+            # upcast exactly to the masters' dtype
+            grads = _dt.cast_floating(grads, _dt.param_dtype(conf.dtype))
+            grads, clip_events = clip(conf, grads)
+            ok = net._sentinel.verdict(loss, grads, clip_events,
+                                       on_device=on_device)
+            if ok is False:
+                return loss, params_c
+            if params_c is None:
+                params, upd_state = apply_updater(
+                    conf.updater, grads, net.updater_state, net.params,
                     net.iteration, net._frozen)
-                net.params = _constraints.apply_constraints(
-                    net.conf.constraints, params, skip=net._frozen)
-                net.state = new_state
-    return loss
+                new_c = None
+            else:
+                cdt = _dt.resolve(conf.dtype)
+                params, new_c, upd_state = apply_updater(
+                    conf.updater, grads, net.updater_state, net.params,
+                    net.iteration, net._frozen, cdt, params_c)
+            if conf.constraints:
+                params = _constraints.apply_constraints(
+                    conf.constraints, params, skip=net._frozen)
+                if new_c is not None:
+                    # the constraints rewrite the masters after the update,
+                    # so the compute copy is re-derived from them
+                    new_c = _dt.cast_floating(params, cdt)
+            if ok is not True:  # a device verdict: select, no sync
+                params = _select(ok, params, net.params)
+                upd_state = _select(ok, upd_state, net.updater_state)
+                new_state = _select(ok, new_state, net.state)
+                if new_c is not None:
+                    new_c = _select(ok, new_c, params_c)
+            net.params, net.updater_state, net.state = \
+                params, upd_state, new_state
+    return loss, new_c
+
+
+def fused_cast_active(net) -> bool:
+    """Does ``net``'s step fold the f32 -> compute master cast into the
+    updater's write? A 16-bit policy with no l1/l2 term (the penalty reads
+    the masters the loss is handed)."""
+    from ..ops import fused_epilogues as _fe
+    return _fe.route_updater(
+        net.conf.dtype, has_penalty=net._uses_regularization()) is None
+
+
+def uses_regularization(conf, layers) -> bool:
+    """Any l1/l2 term configured, net-level or on a layer?"""
+    if conf.l1 or conf.l2:
+        return True
+    return any((getattr(l, "l1", 0.0) or getattr(l, "l2", 0.0))
+               for l in layers)
+
+
+def step_fn(net, vg_of_batch, accum_steps: int, fused_cast: bool,
+            weight_fn):
+    """The engines' train step ``(batch, on_device=False) -> loss`` for
+    ``_build_train_step``: ``vg_of_batch(params, state, rng, *batch) ->
+    (loss, grads, new_state)`` is the engine's value-and-grad of one
+    batch. ``accum_steps > 1`` accumulates it over microbatches
+    (``nn/microbatch.py``), the masters cast to the compute dtype once a
+    step under a 16-bit policy with no l1/l2 term (the cast hoist, bit
+    for bit the per-microbatch cast). ``fused_cast`` carries the compute
+    copy in ``step.params_c`` (None: cast the masters at the next call;
+    ``fit`` resets it once a call, as the JAX ``fit`` casts once a
+    call)."""
+    from . import microbatch as _micro
+    if fused_cast and accum_steps != 1:
+        raise ValueError("fused_cast requires accum_steps == 1 "
+                         "(the microbatch loop has its own hoist)")
+    cdt = _dt.resolve(net.conf.dtype)
+    hoist = (accum_steps > 1 and _dt.is_mixed(net.conf.dtype)
+             and not net._uses_regularization())
+
+    def step(*batch, on_device=False):
+        rng = generator(net)
+        if accum_steps == 1:
+            def vg(p):
+                return vg_of_batch(p, net.state, rng, *batch)
+        else:
+            def vg(p):
+                return _micro.accumulate_gradients(
+                    lambda q, s, *mb: vg_of_batch(q, s, rng, *mb),
+                    _dt.cast_floating(p, cdt) if hoist else p, net.state,
+                    accum_steps, batch, weight_fn=weight_fn)
+        if fused_cast and step.params_c is None:
+            step.params_c = _dt.cast_floating(net.params, cdt)
+        loss, params_c = train_step(
+            net, vg, step.params_c if fused_cast else None, on_device)
+        if fused_cast:
+            step.params_c = params_c
+        return loss
+
+    step.params_c = None
+    return step
+
+
+def stack_dataset(net, features, labels, batch_size, drop_remainder):
+    """``fit_on_device``'s upload: each array of ``features`` and
+    ``labels`` (lists, one per network input and output) reshaped to
+    ``[n_batches, B, ...]`` on ``net``'s device in one copy, the features
+    cast to the network dtype (as the forward would cast them), the
+    labels kept (the loss computes in f32 under a 16-bit policy). Raises
+    for a ragged tail unless ``drop_remainder``."""
+    n = len(features[0])
+    b = batch_size or n
+    nb = n // b
+    if nb == 0:
+        raise ValueError(f"batch_size {b} exceeds dataset size {n}")
+    if n % b and not drop_remainder:
+        raise ValueError(
+            f"dataset size {n} is not divisible by batch_size {b}: the "
+            f"on-device loop would drop {n % b} examples. Pass "
+            "drop_remainder=True to accept that, or use fit() which "
+            "pads and masks the tail")
+    dt = _dt.resolve(net.conf.dtype)
+
+    def stack(a, cast):
+        t = net._tensor(a[:nb * b])
+        if cast and t.is_floating_point() and dt.is_floating_point:
+            t = t.to(dt)
+        return t.reshape((nb, b) + tuple(t.shape[1:]))
+    return ([stack(a, True) for a in features],
+            [stack(a, False) for a in labels])
+
+
+def device_epochs(net, step, epochs: int, n_batches: int, batch_at):
+    """``epochs`` passes of ``step(*batch_at(i), on_device=True)`` over
+    the ``n_batches`` stacked batches, with no host sync inside an epoch;
+    the loss history as one numpy vector, read once at the end."""
+    history = []
+    for _ in range(epochs):
+        losses = []
+        for i in range(n_batches):
+            losses.append(step(*batch_at(i), on_device=True))
+            net.iteration += 1
+        net.epoch += 1
+        net._score = losses[-1]
+        history.append(torch.stack(losses))
+    out = torch.cat(history).float().cpu().numpy()
+    net._score = float(out[-1])
+    return out

@@ -288,3 +288,34 @@ def apply_leafwise(updater, grads, state, params, step):
     new_state)``."""
     delta, new_state = updater.apply(grads, state, params, step)
     return _tmap(lambda p, d: p - d, params, delta), new_state
+
+
+def _cast_leaf(p, compute_dtype):
+    """One leaf of ``dtypes.cast_floating``: a floating tensor to the
+    compute dtype, anything else untouched, so the fused outputs are
+    exactly what a ``cast_floating`` sweep over the new params gives."""
+    if isinstance(p, torch.Tensor) and p.is_floating_point():
+        return p.to(compute_dtype)
+    return p
+
+
+def apply_leaf_cast(updater, grad, slots, param, step, compute_dtype):
+    """:func:`apply_leaf` with the mixed-precision master cast folded into
+    the parameter write: ``(new_param, new_param_compute, new_slots)``.
+    The f32 master arithmetic is :func:`apply_leaf`'s, bit for bit, and
+    the compute copy is the f32 -> 16-bit rounding of the new master, so
+    a fused trajectory equals the unfused one bit for bit. Eager torch
+    has no fusion to ride: the cast is one more elementwise kernel a
+    tensor, made where the master is written instead of in a sweep at
+    the top of the next forward."""
+    new_param, new_slots = apply_leaf(updater, grad, slots, param, step)
+    return new_param, _cast_leaf(new_param, compute_dtype), new_slots
+
+
+def apply_leafwise_cast(updater, grads, state, params, step, compute_dtype):
+    """Tree-level :func:`apply_leaf_cast`, the form the fused train step
+    uses: ``(new_params, new_params_compute, new_state)``."""
+    new_params, new_state = apply_leafwise(updater, grads, state, params,
+                                           step)
+    new_params_c = _tmap(lambda p: _cast_leaf(p, compute_dtype), new_params)
+    return new_params, new_params_c, new_state

@@ -67,6 +67,15 @@ there is no shape or VMEM fallback. A CUDA tensor of a dtype, layout or
 width the kernels do not take raises instead of falling back (K6 and K7
 take up to ``kernels.layer_norm_act.MAX_COLS`` channels). There is no
 ``force``/``off`` mode: the tensor's device decides.
+
+The fused master-cast updater's routing (:func:`route_updater`,
+:func:`dispatch_updater`, the JAX module's :640-681) counts one decision
+a train-step build, ``fused_updater``, ``fallback_updater_dtype`` or
+``fallback_updater_penalty``, in :func:`updater_counters`: the JAX
+package keeps them in the same counter as the per-call epilogue
+decisions, the port apart, so :func:`counters` stays one decision a
+call. With no ``off`` mode there is no ``fallback_updater_mode``; a
+caller reaches the unfused step with ``fused_cast=False``.
 """
 
 from __future__ import annotations
@@ -87,6 +96,9 @@ _FOLDABLE = _k1.ACTS
 _COUNTER_KEYS = ("fused", "fallback_platform", "fallback_act",
                  "fallback_dtype")
 _counts = collections.Counter()
+_UPDATER_KEYS = ("fused_updater", "fallback_updater_dtype",
+                 "fallback_updater_penalty")
+_updater_counts = collections.Counter()
 
 #: contiguous copies of a non-contiguous ``dy`` made by the backward since
 #: the last :func:`reset_counters` (a plain integer)
@@ -123,10 +135,18 @@ def counters() -> dict:
     return {k: int(_counts[k]) for k in _COUNTER_KEYS}
 
 
+def updater_counters() -> dict:
+    """Fused master-cast updater decisions since the last reset (one per
+    train-step build)."""
+    return {k: int(_updater_counts[k]) for k in _UPDATER_KEYS}
+
+
 def reset_counters() -> None:
-    """Zero the decision counters, ``dy_copies`` and ``nchw_copies``."""
+    """Zero the decision counters (the updater's too), ``dy_copies`` and
+    ``nchw_copies``."""
     global dy_copies, nchw_copies
     _counts.clear()
+    _updater_counts.clear()
     dy_copies = 0
     nchw_copies = 0
 
@@ -329,3 +349,27 @@ def layer_norm_act_op(x, gamma, beta, eps=1e-5, act="identity"):
 @register("epilogue.bias_act", category="activation")
 def bias_act_op(x, b=None, act="identity"):
     return bias_act(x, b, act=act)
+
+
+# --------------------------------------------------------------------------
+# fused master-cast + updater routing
+# --------------------------------------------------------------------------
+
+def route_updater(policy, *, has_penalty: bool = False):
+    """None: fold the f32 -> 16-bit master cast into the updater's write
+    (``nn/updaters.py`` ``apply_leaf_cast``); otherwise the fallback
+    counter key. ``has_penalty``: a step whose loss reads the f32 masters
+    for l1/l2 keeps the unfused split."""
+    from .. import dtypes as _dt
+    if not _dt.is_mixed(policy):
+        return "fallback_updater_dtype"
+    if has_penalty:
+        return "fallback_updater_penalty"
+    return None
+
+
+def dispatch_updater(policy, *, has_penalty: bool = False):
+    """Counted :func:`route_updater`: call once a train-step build."""
+    reason = route_updater(policy, has_penalty=has_penalty)
+    _updater_counts[reason or "fused_updater"] += 1
+    return reason

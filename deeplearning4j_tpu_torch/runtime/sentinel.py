@@ -11,7 +11,9 @@ inside the compiled step and the counters live on the device. The port
 steps eagerly, so :meth:`Sentinel.verdict` reads the verdict on the host:
 ONE host sync per training step, the only one the step makes on purpose.
 ``clip_events`` stays a device tensor (no further sync) until
-:meth:`Sentinel.to_host`.
+:meth:`Sentinel.to_host`. ``fit_on_device`` asks for the verdict with
+``on_device=True``: it stays a device bool, the counters become device
+tensors, and nothing is read until :meth:`Sentinel.to_host`.
 """
 
 from __future__ import annotations
@@ -42,17 +44,25 @@ class Sentinel:
         self.bad_consec = 0
         self.clip_events = 0  # an int, or a 0-dim device tensor
 
-    def verdict(self, loss, grads, clip_events=None) -> bool:
+    def verdict(self, loss, grads, clip_events=None, on_device=False):
         """Whether this step may be applied (reads one bool from the
-        device); counts the verdict and the clip events."""
-        ok = bool(finite_ok(loss, grads))
-        self.bad_total += 0 if ok else 1
-        self.bad_consec = 0 if ok else self.bad_consec + 1
+        device; with ``on_device`` a 0-dim device bool, read by no one);
+        counts the verdict and the clip events."""
+        ok = finite_ok(loss, grads)
+        if on_device:
+            bad = (~ok).to(torch.int64)
+            self.bad_total = self.bad_total + bad
+            self.bad_consec = (self.bad_consec + bad) * bad
+        else:
+            ok = bool(ok)
+            self.bad_total += 0 if ok else 1
+            self.bad_consec = 0 if ok else self.bad_consec + 1
         if clip_events is not None:
             self.clip_events = self.clip_events + clip_events
         return ok
 
     def to_host(self) -> dict:
-        return {"bad_total": self.bad_total, "bad_consec": self.bad_consec,
+        return {"bad_total": int(self.bad_total),
+                "bad_consec": int(self.bad_consec),
                 "clip_events": int(self.clip_events)}
 

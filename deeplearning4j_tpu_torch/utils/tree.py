@@ -55,6 +55,30 @@ def set_path(tree, path, value):
     return new
 
 
+def ravel(params, keys):
+    """``(vector, unravel)``: the parameters of ``keys`` as one tensor on
+    their device, in :func:`flatten_params`' order (the vector
+    ``params_flat`` gives, without leaving the device), and the function
+    that makes a ``vector`` of that layout back into ``params``' trees
+    (each leaf a copy; keys absent from ``keys`` kept as they are)."""
+    import torch
+    paths = [(k, path) for k in keys if k in params
+             for path in param_paths(params[k])]
+    like = [get_path(params[k], path) for k, path in paths]
+    vec = torch.cat([t.reshape(-1) for t in like]) if like else \
+        torch.zeros(0)
+
+    def unravel(v):
+        new, off = dict(params), 0
+        for (k, path), t in zip(paths, like):
+            n = t.numel()
+            new[k] = set_path(new[k], path,
+                              v[off:off + n].reshape(t.shape).clone())
+            off += n
+        return new
+    return vec, unravel
+
+
 def flatten_params(params, keys):
     """The parameters of ``keys`` (in that order; absent keys skipped) as
     one numpy vector, each tree in ``param_paths`` order: DL4J's flat

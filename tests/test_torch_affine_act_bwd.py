@@ -34,6 +34,19 @@ from deeplearning4j_tpu_torch.kernels import _build
 from deeplearning4j_tpu_torch.kernels import affine_act as k1
 from deeplearning4j_tpu_torch.ops import fused_epilogues as fe
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The suite runs in parallel workers: keep this module's torch CPU
+    work to two threads, and restore the setting after it."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
 ACTS = k1.ACTS
 DTYPES = ("float32", "bfloat16")
 ROWS, COLS = 32, 24  # rows a multiple of 16: the JAX kernel's row tiling

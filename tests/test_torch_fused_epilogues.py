@@ -22,6 +22,19 @@ from deeplearning4j_tpu_torch.ops import fused_epilogues as fe
 from deeplearning4j_tpu_torch.ops import nnops
 from test_torch_flash_attn_kernel import _FakeCuda
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The suite runs in parallel workers: keep this module's torch CPU
+    work to two threads, and restore the setting after it."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
 ACTS = ("identity", "relu", "relu6", "tanh", "sigmoid", "gelu", "geluexact")
 DTYPES = ("float32", "bfloat16")
 

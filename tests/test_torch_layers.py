@@ -26,6 +26,19 @@ from deeplearning4j_tpu_torch.nn.layers import conv, conv_extra, core
 from deeplearning4j_tpu_torch.ops import activations as act
 from deeplearning4j_tpu_torch.ops import nnops
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The suite runs in parallel workers: keep this module's torch CPU
+    work to two threads, and restore the setting after it."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -17,6 +17,19 @@ from deeplearning4j_tpu.ops import losses as jlosses
 from deeplearning4j_tpu_torch.nn.layers import core
 from deeplearning4j_tpu_torch.ops import losses
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The suite runs in parallel workers: keep this module's torch CPU
+    work to two threads, and restore the setting after it."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
 B, N = 6, 5
 
 

@@ -217,16 +217,20 @@ def test_port_zip_loads_in_jax(tmp_path, nets):
 def test_what_the_slice_leaves_out_raises(nets):
     """What later slices bring raises, naming the slice (``fit``,
     ``score``, ``evaluate`` and training-mode ``output`` came with the
-    LeNet slice, ``tests/test_torch_lenet.py``)."""
+    LeNet slice, ``tests/test_torch_lenet.py``; ``fit_on_device`` and
+    accumulation with the training-modes slice)."""
     _, pn = nets
     x = _seqs(7)
     for call in (lambda: pn.fit(x, x, resilience=object()),
                  lambda: pn.set_listeners(object()),
-                 lambda: pn.fit_on_device(x, x),
-                 lambda: pn._build_train_step(accum_steps=4),
                  lambda: pn.quantize_params()):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             call()
+    # on-device epochs and accumulation are ported (the training-modes
+    # slice): a ragged dataset still raises before anything moves
+    assert callable(pn._build_train_step(accum_steps=4))
+    with pytest.raises(ValueError, match="not divisible"):
+        pn.fit_on_device(x, x, batch_size=len(x) - 1)
     # the decode walk and the paged pool are ported; an LSTM stack refuses
     # both, as in the JAX package
     with pytest.raises(ValueError, match="decode"):

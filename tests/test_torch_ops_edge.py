@@ -25,6 +25,19 @@ import jax.numpy as jnp
 from deeplearning4j_tpu import ops as jops
 from deeplearning4j_tpu_torch import ops
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The suite runs in parallel workers: keep this module's torch CPU
+    work to two threads, and restore the setting after it."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
 EDGE = np.array([1.0, -1.0, 0.0, -0.0, np.nan, np.inf, -np.inf, 2.5, -7.5,
                  3.0], np.float32)
 I32 = np.array([[-3, 0, 2], [5, -1, 7]], np.int32)

@@ -9,6 +9,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from deeplearning4j_tpu.serving import engine as jengine
 from deeplearning4j_tpu_torch.models import resnet
@@ -18,6 +19,19 @@ from deeplearning4j_tpu_torch.serving.engine import (InferenceEngine,
                                                      default_buckets,
                                                      next_bucket)
 from deeplearning4j_tpu_torch.serving.server import JsonModelServer
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The suite runs in parallel workers: keep this module's torch CPU
+    work to two threads, and restore the setting after it."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
 
 SHAPE = (16, 16, 3)
 WAIT_S = 60

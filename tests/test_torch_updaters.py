@@ -30,6 +30,18 @@ from deeplearning4j_tpu_torch.nn import schedules as sched
 from deeplearning4j_tpu_torch.nn import updaters as upd
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """The suite runs in parallel workers: keep this module's torch CPU
+    work to two threads, and restore the setting after it."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
 def _tree(seed, scale=1.0):
     rng = np.random.default_rng(seed)
     return {"conv": {"W": (rng.standard_normal((4, 3, 3, 3)) * scale
