@@ -56,7 +56,8 @@ CUDA tensors launch the kernel or raise.
 ``launches`` counts wrapper calls that launched K3 and ``launches_bwd``
 those that launched the fused backward; of the latter, ``launches_dq``
 counts the launches that wrote dq (K4's output) and ``launches_dkv`` those
-that wrote dk and dv (K5's).
+that wrote dk and dv (K5's). ``bf16_launches`` and ``bf16_launches_bwd``
+count the bfloat16 launches of K3 and of the fused backward among them.
 """
 
 from __future__ import annotations
@@ -87,6 +88,8 @@ launches = 0
 launches_bwd = 0
 launches_dq = 0
 launches_dkv = 0
+bf16_launches = 0
+bf16_launches_bwd = 0
 
 
 def key_tile(d: int) -> int:
@@ -337,7 +340,7 @@ def _route_bwd(q, k, v, kb, m, l, di, do):
 def _bwd_launch(q, k, v, kb, m, l, di, do, scale, want_dq, want_dkv):
     """One launch of the fused backward for ``dq`` and/or ``(dk, dv)``
     (None where not asked for); checked CUDA tensors."""
-    global launches_bwd, launches_dq, launches_dkv
+    global launches_bwd, launches_dq, launches_dkv, bf16_launches_bwd
     fn, kblock = _bwd_kernels()
     B, H, Tq, d = q.shape
     Tk = k.shape[2]
@@ -367,6 +370,7 @@ def _bwd_launch(q, k, v, kb, m, l, di, do, scale, want_dq, want_dkv):
         raise RuntimeError(f"flash_attention backward kernel launch failed: "
                            f"CUDA error {rc}")
     launches_bwd += 1
+    bf16_launches_bwd += q.dtype == torch.bfloat16
     launches_dq += int(want_dq)
     launches_dkv += int(want_dkv)
     return dq, dk, dv
@@ -443,7 +447,7 @@ def flash_attention_fwd(q, k, v, kb=None, scale=None):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: tensors on {q.device} are not "
                          "supported (cuda or cpu)")
-    global launches
+    global launches, bf16_launches
     _check(q, k, v, kb)
     fn = _kernel()
     B, H, Tq, d = q.shape
@@ -466,6 +470,7 @@ def flash_attention_fwd(q, k, v, kb=None, scale=None):
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
     launches += 1
+    bf16_launches += q.dtype == torch.bfloat16
     return o, m, l
 
 

@@ -51,9 +51,11 @@ from .affine_act import (_DTYPE_CODES, ACTS, H100_BYTES_PER_S,
 MAX_COLS = 8192
 
 #: Kernel launches since the last reset (plain integers; set them to 0 to
-#: reset).
+#: reset), and the bfloat16 ones among them.
 launches = 0
 bwd_launches = 0
+bf16_launches = 0
+bf16_bwd_launches = 0
 
 
 def row_config(cols: int) -> tuple:
@@ -156,7 +158,7 @@ def layer_norm_act(x2, gamma, beta, eps, act="identity"):
     rstd)``."""
     if not _on_card(x2, "layer_norm_act"):
         return layer_norm_act_reference(x2, gamma, beta, eps, act)
-    global launches
+    global launches, bf16_launches
     _check(x2, gamma, beta, act)
     fn = _kernel()
     rows, cols = x2.shape
@@ -174,6 +176,7 @@ def layer_norm_act(x2, gamma, beta, eps, act="identity"):
         raise RuntimeError(
             f"layer_norm_act kernel launch failed: CUDA error {rc}")
     launches += 1
+    bf16_launches += x2.dtype == torch.bfloat16
     return y, mu, rstd
 
 
@@ -282,7 +285,7 @@ def layer_norm_act_bwd(x2, gamma, beta, mu, rstd, dy, act="identity"):
     if not _on_card(x2, "layer_norm_act_bwd"):
         return layer_norm_act_bwd_reference(x2, gamma, beta, mu, rstd, dy,
                                             act)
-    global bwd_launches
+    global bwd_launches, bf16_bwd_launches
     _check_bwd(x2, gamma, beta, mu, rstd, dy, act)
     fn = _kernel_bwd()
     rows, cols = x2.shape
@@ -304,6 +307,7 @@ def layer_norm_act_bwd(x2, gamma, beta, mu, rstd, dy, act="identity"):
         raise RuntimeError(
             f"layer_norm_act_bwd kernel launch failed: CUDA error {rc}")
     bwd_launches += 1
+    bf16_bwd_launches += x2.dtype == torch.bfloat16
     return dx, dgamma, dbeta
 
 

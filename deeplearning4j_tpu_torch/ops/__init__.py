@@ -78,5 +78,6 @@ from . import math  # noqa: E402,F401
 from . import reduce  # noqa: E402,F401
 from . import flash_attention  # noqa: E402,F401  (attention.fused_sdpa)
 from . import losses  # noqa: E402,F401  (loss.softmax_ce_logits, ...)
-from . import nnops  # noqa: E402,F401  (layer_norm, lstm_cell)
+from . import nnops  # noqa: E402,F401  (conv2d, layer_norm, lstm_cell, ...)
+from . import random  # noqa: E402,F401  (image.resize_*)
 from . import fused_epilogues  # noqa: E402,F401  (epilogue.*)

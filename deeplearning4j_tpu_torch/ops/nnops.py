@@ -78,6 +78,7 @@ def _from_nchw(y, data_format):
     return y if data_format == "NCHW" else y.permute(0, 2, 3, 1)
 
 
+@register("conv2d", category="cnn")
 def conv2d(x, w, b=None, stride=(1, 1), padding=0, dilation=(1, 1),
            mode="truncate", data_format="NCHW", groups=1):
     """2D convolution. x: [N,C,H,W] or [N,H,W,C]; w: [O,I/g,kH,kW] (OIHW)
@@ -98,6 +99,54 @@ def conv2d(x, w, b=None, stride=(1, 1), padding=0, dilation=(1, 1),
         y = y + (b.reshape(1, -1, 1, 1) if data_format == "NCHW"
                  else b.reshape(1, 1, 1, -1))
     return y
+
+
+def _transpose_pads(k_eff: int, stride: int, mode, pad: int):
+    """``lax.conv_transpose``'s (lo, hi) padding of the input-dilated
+    convolution it runs: SAME (output ``in * stride``) or the explicit
+    forward padding ``pad`` (output ``(in-1)*stride + k_eff - 2*pad``)."""
+    if mode == "same":
+        total = k_eff + stride - 2
+        lo = k_eff - 1 if stride > k_eff - 1 else -(-total // 2)
+        return lo, total - lo
+    return k_eff - 1 - pad, k_eff - 1 - pad
+
+
+@register("deconv2d", category="cnn")
+def deconv2d(x, w, b=None, stride=(1, 1), padding=0, dilation=(1, 1),
+             mode="truncate", data_format="NCHW"):
+    """Transposed 2D convolution (the JAX module's :94, DL4J's deconv
+    weight layout ``w`` [O, I, kH, kW], O the output channels). The full
+    ``F.conv_transpose2d`` (no padding) is cropped, or padded with zeros,
+    to ``lax.conv_transpose``'s window: explicit ``padding`` p gives
+    ``(in-1)*s + k_eff - 2p``, ``mode="same"`` gives ``in * s``."""
+    stride, dilation = _pair(stride), _pair(dilation)
+    kh, kw = int(w.shape[2]), int(w.shape[3])
+    k_eff = ((kh - 1) * dilation[0] + 1, (kw - 1) * dilation[1] + 1)
+    p = _pair(padding)
+    xn = _to_nchw(x, data_format)
+    full = F.conv_transpose2d(xn, w.transpose(0, 1), None, stride, 0, 0, 1,
+                              dilation)
+    (ht, hb), (wl, wr) = (_transpose_pads(k_eff[i], stride[i], mode, p[i])
+                          for i in range(2))
+    # the full output is the window of pads (k_eff - 1, k_eff - 1)
+    y = F.pad(full, (wl - (k_eff[1] - 1), wr - (k_eff[1] - 1),
+                     ht - (k_eff[0] - 1), hb - (k_eff[0] - 1)))
+    y = _from_nchw(y, data_format)
+    if b is not None:
+        y = y + (b.reshape(1, -1, 1, 1) if data_format == "NCHW"
+                 else b.reshape(1, 1, 1, -1))
+    return y
+
+
+@register("depthwise_conv2d", category="cnn")
+def depthwise_conv2d(x, w, b=None, stride=(1, 1), padding=0,
+                     dilation=(1, 1), mode="truncate", data_format="NCHW"):
+    """Depthwise convolution, ``w`` [C*mult, 1, kH, kW]: ``conv2d`` with
+    one group a channel (the JAX module's :125)."""
+    c = x.shape[1] if data_format == "NCHW" else x.shape[3]
+    return conv2d(x, w, b, stride, padding, dilation, mode, data_format,
+                  groups=int(c))
 
 
 def _pool(x, kind, kernel, stride, padding, mode, data_format, pnorm_p=2.0,
@@ -135,6 +184,7 @@ def _pool(x, kind, kernel, stride, padding, mode, data_format, pnorm_p=2.0,
     return _from_nchw(y, data_format)
 
 
+@register("maxpool2d", category="cnn")
 def max_pool2d(x, kernel, stride=None, padding=0, mode="truncate",
                data_format="NCHW"):
     """Max pooling (SubsamplingLayer PoolingType.MAX)."""
@@ -142,6 +192,7 @@ def max_pool2d(x, kernel, stride=None, padding=0, mode="truncate",
                  data_format)
 
 
+@register("avgpool2d", category="cnn")
 def avg_pool2d(x, kernel, stride=None, padding=0, mode="truncate",
                data_format="NCHW", count_include_pad=True):
     return _pool(x, "avg", kernel, stride or kernel, padding, mode,
@@ -175,6 +226,7 @@ def global_pool(x, pool_type="max", data_format="NCHW", keepdims=False,
     raise ValueError(pool_type)
 
 
+@register("batch_norm", category="normalization")
 def batch_norm(x, gamma, beta, mean, var, eps=1e-5, axis=1):
     """Batch-norm normalize step with given statistics, in x's dtype.
     ``axis`` is the channel axis (1 for NCHW, -1 for NHWC)."""
@@ -187,6 +239,20 @@ def batch_norm(x, gamma, beta, mean, var, eps=1e-5, axis=1):
     if beta is not None:
         y = y + beta.reshape(shape)
     return y
+
+
+@register("instance_norm", category="normalization")
+def instance_norm(x, gamma, beta, eps=1e-5):
+    """Per-instance, per-channel normalization over the spatial dims of
+    ``[N, C, D1..Dn]`` (ONNX InstanceNormalization; the JAX module's
+    :249): two passes, as ``jnp.var`` takes them."""
+    dims = tuple(range(2, x.ndim))
+    mean = x.mean(dims, keepdim=True)
+    d = x - mean
+    var = (d * d).mean(dims, keepdim=True)
+    cshape = (1, x.shape[1]) + (1,) * len(dims)
+    return d * torch.rsqrt(var + eps) * gamma.reshape(cshape) \
+        + beta.reshape(cshape)
 
 
 @register("layer_norm", category="normalization")
@@ -297,3 +363,88 @@ def simple_rnn_cell(x, h, w_ih, w_hh, b, activation=torch.tanh):
     """Elman step ``activation(x @ W + h @ RW + b)`` (the JAX module's
     :360)."""
     return activation(torch.matmul(x, w_ih) + torch.matmul(h, w_hh) + b)
+
+
+def _onnx_dirs(direction, n_dirs):
+    if direction in ("forward", "reverse"):
+        want = 1
+    elif direction == "bidirectional":
+        want = 2
+    else:
+        raise ValueError(f"ONNX RNN direction {direction!r} not supported")
+    if n_dirs != want:
+        raise ValueError(f"direction={direction!r} expects {want} weight "
+                         f"slice(s), got {n_dirs}")
+
+
+def _onnx_rnn(x, w, direction, run_dir):
+    """Run ``run_dir(d, reverse)`` for each direction of an ONNX RNN node;
+    ``(Y [T, D, B, H], [finals each [D, B, H]])``."""
+    n_dirs = int(w.shape[0])
+    _onnx_dirs(direction, n_dirs)
+    outs = [run_dir(d, direction == "reverse" or d == 1)
+            for d in range(n_dirs)]
+    y = torch.stack([o[0] for o in outs], dim=1)
+    finals = [torch.stack([o[k] for o in outs], dim=0)
+              for k in range(1, len(outs[0]))]
+    return y, finals
+
+
+@register("onnx_lstm", category="rnn")
+def onnx_lstm(x, w, r, b, direction="forward", hidden_size=0):
+    """ONNX ``LSTM`` (default activations, layout 0, zero initial state;
+    the JAX module's :380): x [T, B, I], w [D, 4H, I] and r [D, 4H, H] in
+    ONNX's gate order [i, o, f, c], b [D, 8H] (Wb then Rb). The weights
+    are reordered in the graph to ``lstm_cell``'s [i, f, o, g] (so their
+    gradients reach the ONNX layout), then a time loop of ``lstm_cell``
+    where JAX scans. Returns (Y [T, D, B, H], Y_h [D, B, H], Y_c)."""
+    H = int(hidden_size)
+
+    def reorder(m):  # [4H, K] rows iofc -> [K, 4H] columns ifoc
+        return torch.cat([m[0:H], m[2 * H:3 * H], m[H:2 * H],
+                          m[3 * H:4 * H]], dim=0).t()
+
+    def run_dir(d, rev):
+        w2, r2 = reorder(w[d]), reorder(r[d])
+        bb = b[d][:4 * H] + b[d][4 * H:]
+        b2 = torch.cat([bb[0:H], bb[2 * H:3 * H], bb[H:2 * H],
+                        bb[3 * H:4 * H]])
+        xs = torch.flip(x, (0,)) if rev else x
+        h = torch.zeros((x.shape[1], H), dtype=x.dtype, device=x.device)
+        c = torch.zeros_like(h)
+        ys = []
+        for t in range(xs.shape[0]):
+            h, c = lstm_cell(xs[t], h, c, w2, r2, b2)
+            ys.append(h)
+        ys = torch.stack(ys) if ys else xs.new_zeros((0, x.shape[1], H))
+        return (torch.flip(ys, (0,)) if rev else ys), h, c
+
+    y, (y_h, y_c) = _onnx_rnn(x, w, direction, run_dir)
+    return y, y_h, y_c
+
+
+@register("onnx_gru", category="rnn")
+def onnx_gru(x, w, r, b, direction="forward", hidden_size=0,
+             linear_before_reset=0):
+    """ONNX ``GRU`` (default activations, layout 0; the JAX module's
+    :430): x [T, B, I], w [D, 3H, I] and r [D, 3H, H] in the gate order
+    [z, r, h] (``gru_cell``'s), b [D, 6H] (Wb then Rb);
+    ``linear_before_reset=1`` is ``gru_cell``'s reset-after form with the
+    recurrent bias apart. Returns (Y [T, D, B, H], Y_h [D, B, H])."""
+    H = int(hidden_size)
+
+    def run_dir(d, rev):
+        w2, r2 = w[d].t(), r[d].t()
+        wb, rb = b[d][:3 * H], b[d][3 * H:]
+        xs = torch.flip(x, (0,)) if rev else x
+        h = torch.zeros((x.shape[1], H), dtype=x.dtype, device=x.device)
+        ys = []
+        for t in range(xs.shape[0]):
+            h = (gru_cell(xs[t], h, w2, r2, wb, rb) if linear_before_reset
+                 else gru_cell(xs[t], h, w2, r2, wb + rb, None))
+            ys.append(h)
+        ys = torch.stack(ys) if ys else xs.new_zeros((0, x.shape[1], H))
+        return (torch.flip(ys, (0,)) if rev else ys), h
+
+    y, (y_h,) = _onnx_rnn(x, w, direction, run_dir)
+    return y, y_h

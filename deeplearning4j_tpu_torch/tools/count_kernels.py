@@ -6,13 +6,15 @@ them, in a process of its own.
 
 CASES is a JSON list of ``[kernel, shape, dtype]``: ``"K1"``, ``"K2"`` or
 ``"K7"`` with (rows, C), ``"K9"`` with (B, H, C, d), ``"K10"`` with (B, H,
-k, C, d), or ``"resnet50_fit"`` with (batch,), and ``"float32"``,
-``"bfloat16"`` or ``"float16"``. For each case the process makes random
+k, C, d), ``"resnet50_fit"`` with (batch,), or ``"bert_fit"`` with (batch,
+seq), and ``"float32"``, ``"bfloat16"`` or ``"float16"``. For each case the process makes random
 operands (seed 0; ragged lengths for K9 and K10; K7 fed K6's mu and rstd,
 made before the profiled window; K1 and K2 with scale and relu) and calls
 the wrapper once to load its kernel, or, for ``resnet50_fit``, builds the
 full-width ResNet-50 as ``tools/profile_train.py`` does and takes two
-``fit`` steps on one random batch; then one profiler session (CPU and
+``fit`` steps on one random batch (for ``bert_fit``, the fused BERT-base
+fine-tune of ``tools/profile_bert.py`` with ``set_dtype`` the case's
+dtype); then one profiler session (CPU and
 CUDA activities) records one more call of every case (one more ``fit``
 step), each after a marker kernel (``torch.cuda._sleep``), and the device
 kernels between two markers are that call's. It prints one JSON line: a
@@ -49,6 +51,8 @@ def _call(kernel: str, shape, dtype, gen):
     dev = torch.device("cuda")
     if kernel == "resnet50_fit":
         return _fit_step(shape[0], dtype)
+    if kernel == "bert_fit":
+        return _bert_fit_step(*shape, dtype)
     if kernel in ("K1", "K2"):
         rows, cols = shape
         x, dy = (torch.randn(rows, cols, generator=gen, device=dev).to(dtype)
@@ -97,6 +101,24 @@ def _fit_step(batch: int, dtype):
     return lambda: net.fit(x, y)
 
 
+def _bert_fit_step(batch: int, seq: int, dtype):
+    """One ``SameDiff.fit`` step of the fused BERT-base fine-tune
+    (``profile_bert.build("fusable")`` with the classifier head, seed 0,
+    precision ``highest``) under ``set_dtype`` of ``dtype``, on one
+    seeded batch, after two."""
+    import numpy as np
+    from .. import environment as env
+    from ..models.bert import attach_classifier_head, fine_tune_feeds
+    from . import profile_bert
+    env.Environment.instance().f32_matmul_precision = "highest"
+    sd, _ = profile_bert.build("fusable")
+    attach_classifier_head(sd, seed=0)
+    sd.set_dtype({torch.float32: "FLOAT", torch.bfloat16: "BFLOAT16"}[dtype])
+    feeds = fine_tune_feeds(np.random.default_rng(7), batch, seq)
+    sd.fit(feeds, epochs=2)
+    return lambda: sd.fit(feeds)
+
+
 #: the kernel torch.cuda._sleep launches: the marker between two calls
 MARKER = "spin_kernel"
 
@@ -139,7 +161,7 @@ def count(cases) -> list:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = []
     for (kernel, shape, dtype), names in zip(cases, per_call):
-        if kernel == "resnet50_fit":
+        if kernel in ("resnet50_fit", "bert_fit"):
             splits = shape[0]
             names = dict(sorted(collections.Counter(names).items()))
         elif kernel in ("K1", "K2"):

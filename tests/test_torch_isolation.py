@@ -150,6 +150,27 @@ def test_samediff_entry_points_without_device_raise(no_cuda, tmp_path):
     assert bert(tiny, seq_len=4, device="cpu").device.type == "cpu"
 
 
+def test_importer_entry_points_without_device_raise(no_cuda):
+    """The TF and ONNX importers build their SameDiff on cuda unless asked
+    for cpu, and raise without a card."""
+    from deeplearning4j_tpu_torch.modelimport import (
+        OnnxFrameworkImporter, TensorflowFrameworkImporter)
+    fixtures = ROOT / "tests" / "fixtures"
+    tf_path, onnx_path = fixtures / "tf_smoke.pb", fixtures / "onnx_smoke.onnx"
+    for make in (lambda: TensorflowFrameworkImporter.import_file(tf_path),
+                 lambda: TensorflowFrameworkImporter.import_graph_def(
+                     tf_path.read_bytes(), trainable=True),
+                 lambda: OnnxFrameworkImporter.import_file(onnx_path),
+                 lambda: OnnxFrameworkImporter.import_model_proto(
+                     onnx_path.read_bytes())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert TensorflowFrameworkImporter.import_file(
+        tf_path, device="cpu").device.type == "cpu"
+    assert OnnxFrameworkImporter.import_file(
+        onnx_path, device="cpu").device.type == "cpu"
+
+
 def test_multilayer_entry_points_without_device_raise(no_cuda, tmp_path):
     """MultiLayerNetwork.init, its loaders, the engine over it and
     rnn_time_step run on cuda unless asked for cpu, and raise without a

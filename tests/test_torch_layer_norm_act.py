@@ -35,9 +35,16 @@ TOLS = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 1e-1)}
 @pytest.fixture(scope="module", autouse=True)
 def _few_torch_threads():
     """The suite runs in parallel workers: keep this module's torch CPU
-    work to two threads, and restore the setting after it."""
+    work to one thread, and restore the setting after it. One, not two:
+    the first ``torch.tanh`` a process runs on more than one intra-op
+    thread was seen to return values up to 8.4e-5 off (1 process in 16 to
+    24 on the CPU, later calls exact; none in 48 on one thread), which
+    failed ``test_plain_forward_matches_the_jax_kernel[tanh-float32]``
+    whenever this module was the first of its worker to call it. One
+    thread keeps the test away from that error; its cause is not known
+    (ROADMAP Queue 3, open fault 1)."""
     old = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     try:
         yield
     finally:

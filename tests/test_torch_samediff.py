@@ -13,7 +13,8 @@ JAX package, on the CPU.
 3. ``fuse_attention`` on shared graphs gives the JAX package's
    ``FusionReport`` (matched, unmatched, sites, reasons), the same fused
    op list, and the same outputs, including chains it must refuse.
-4. What the port leaves out raises ``NotImplementedError``."""
+4. What the port leaves out raises ``NotImplementedError``; control flow
+   runs."""
 
 import io
 import zipfile
@@ -70,6 +71,24 @@ EMB_IDS = np.array([[0, 3, 2], [2, 2, 1]], np.int32)
 ONEHOT = np.eye(4, dtype=np.float32)[[0, 3, 1]]
 PROBS = (np.exp(A) / np.exp(A).sum(-1, keepdims=True)).astype(np.float32)
 SIGM = (1 / (1 + np.exp(-A))).astype(np.float32)
+
+# images [N, C, H, W] and channels-last, an OIHW kernel of 4 outputs, a
+# depthwise kernel [C * 2, 1, 3, 3], and ONNX RNN operands (T 5, B 2, I 3,
+# H 4: w [D, gates * H, I], r [D, gates * H, H], b [D, 2 * gates * H])
+IMG = _R.standard_normal((2, 3, 7, 5)).astype(np.float32)
+IMG_NHWC = np.ascontiguousarray(IMG.transpose(0, 2, 3, 1))
+W_CONV = _R.standard_normal((4, 3, 3, 2)).astype(np.float32)
+W_DW = _R.standard_normal((6, 1, 3, 3)).astype(np.float32)
+
+
+def _onnx_rnn_args(d, gates):
+    return tuple(_R.standard_normal(s).astype(np.float32) for s in (
+        (5, 2, 3), (d, gates * 4, 3), (d, gates * 4, 4), (d, 2 * gates * 4)))
+
+
+ONNX_LSTM_ARGS = _onnx_rnn_args(1, 4)
+ONNX_BILSTM_ARGS = _onnx_rnn_args(2, 4)
+ONNX_GRU_ARGS = _onnx_rnn_args(1, 3)
 
 CASES = [
     # pairwise
@@ -255,6 +274,51 @@ CASES = [
     ("epilogue.layer_norm_act", (A, VEC, B[1]), {"act": "identity"}),
     ("epilogue.bias_act", (X3, VEC), {"act": "gelu_exact"}),
     ("epilogue.bias_act", (A, B[2]), {"act": "sigmoid"}),
+    # the nn ops the importers record ([N, C, H, W] images 2 x 3 x 7 x 5)
+    ("conv2d", (IMG, W_CONV, VEC), {"stride": (2, 1), "mode": "same"}),
+    ("conv2d", (IMG_NHWC, W_CONV), {"padding": (1, 0), "dilation": (2, 1),
+                                    "data_format": "NHWC"}),
+    ("conv2d", (IMG, W_DW[:6, :, :2]), {"groups": 3}),
+    ("deconv2d", (IMG, W_CONV, VEC), {"stride": (2, 3), "padding": (1, 0),
+                                       "dilation": (1, 2)}),
+    ("deconv2d", (IMG_NHWC, W_CONV), {"stride": (3, 2), "mode": "same",
+                                      "data_format": "NHWC"}),
+    ("depthwise_conv2d", (IMG, W_DW), {"stride": (2, 1), "mode": "same"}),
+    ("maxpool2d", (IMG,), {"kernel": (2, 2), "stride": (1, 2),
+                           "padding": 1}),
+    ("maxpool2d", (IMG_NHWC,), {"kernel": 3, "mode": "same",
+                                "data_format": "NHWC"}),
+    ("avgpool2d", (IMG,), {"kernel": (3, 2), "stride": (2, 2),
+                           "padding": (1, 1), "count_include_pad": False}),
+    ("avgpool2d", (IMG,), {"kernel": (3, 2), "padding": 1}),
+    ("avgpool2d", (IMG_NHWC,), {"kernel": (3, 2), "stride": (2, 2),
+                                "mode": "same", "data_format": "NHWC"}),
+    ("batch_norm", (IMG, VEC[:3], B[0, :3], A[0, :3], POS[1, :3]),
+     {"eps": 1e-3}),
+    ("batch_norm", (IMG_NHWC, VEC[:3], B[0, :3], A[0, :3], POS[1, :3]),
+     {"axis": -1}),
+    ("instance_norm", (IMG, VEC[:3], B[0, :3]), {}),
+    ("onnx_lstm", ONNX_LSTM_ARGS, {"hidden_size": 4}),
+    ("onnx_lstm", ONNX_BILSTM_ARGS, {"direction": "bidirectional",
+                                     "hidden_size": 4}),
+    ("onnx_gru", ONNX_GRU_ARGS, {"direction": "reverse", "hidden_size": 4}),
+    ("onnx_gru", ONNX_GRU_ARGS, {"hidden_size": 4,
+                                 "linear_before_reset": 1}),
+    # the resize ops: odd sizes up and down, both layouts
+    ("image.resize_bilinear", (IMG_NHWC,), {"size": (11, 3)}),
+    ("image.resize_bilinear", (IMG,), {"size": (3, 9),
+                                       "data_format": "NCHW"}),
+    ("image.resize_nearest", (IMG_NHWC,), {"size": (13, 4)}),
+    ("image.resize_nearest", (IMG,), {"size": (14, 10),
+                                      "data_format": "NCHW",
+                                      "require_integer_upscale": True,
+                                      "expect_leading": (2, 3)}),
+    ("image.resize_scale", (IMG,), {"scale": (2.0, 3.0),
+                                    "method": "bilinear",
+                                    "data_format": "NCHW"}),
+    ("image.resize_scale", (IMG_NHWC,), {"scale": (0.5, 0.7)}),
+    ("image.resize_scale", (IMG_NHWC,), {"scale": (0.6, 1.4),
+                                         "method": "bilinear"}),
 ] + [(f"act.{n}", (A,), {}) for n in (
     "identity", "relu", "relu6", "leakyrelu", "thresholdedrelu", "elu",
     "selu", "gelu", "swish", "mish", "sigmoid", "hardsigmoid", "tanh",
@@ -415,6 +479,10 @@ def test_graph_json_round_trips_both_ways():
 
 
 def test_control_flow_records_load_save_but_do_not_run(tmp_path):
+    """A JAX graph with a ``cond`` loads in the port with the same
+    ``graph.json``, runs there with the JAX outputs, and the port's ZIP
+    loads back in JAX (the records once only loaded here; they run since
+    control flow is ported)."""
     jsd = JSameDiff()
     x = jsd.placeholder("x")
     p = jsd.placeholder("p")
@@ -424,8 +492,10 @@ def test_control_flow_records_load_save_but_do_not_run(tmp_path):
     jsd.save(path)
     sd = SameDiff.load(path, device="cpu")
     assert sd.to_json() == jsd.to_json()
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        sd.output({"x": np.ones(2, np.float32), "p": np.array(True)}, ["y"])
+    for pred, want in ((True, [-1.0, -1.0]), (False, [2.0, 2.0])):
+        got = sd.output({"x": np.ones(2, np.float32), "p": np.array(pred)},
+                        ["y"])["y"]
+        np.testing.assert_array_equal(got, want)
     sd.save(path)
     back = JSameDiff.load(path)
     got = back.output({"x": np.ones(2, np.float32), "p": np.array(True)},
@@ -496,18 +566,25 @@ def test_values_follow_jax_dtype_rules():
 
 
 def test_what_is_not_ported_raises():
-    sd = SameDiff(device="cpu")
-    x = sd.placeholder("x")
-    for call in (lambda: sd.cond(x, None, None, x),
-                 lambda: sd.while_loop(None, None, x),
-                 lambda: sd.scan(None, [x], []),
-                 lambda: sd.evaluate([], "x"),
-                 lambda: sd.memory_report({"x": np.ones(1)}),
-                 lambda: sd.set_dtype("BFLOAT16"),
-                 lambda: sd.set_workspace_mode("full")):
+    """What the port leaves out of SameDiff's neighbourhood raises naming
+    ROADMAP Queue 1 (Keras import); control flow, ``evaluate``,
+    ``memory_report``, the 16-bit policy and remat, which raised here
+    before, now run (``test_torch_samediff_controlflow.py``,
+    ``test_torch_samediff_bf16_remat.py``)."""
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+    for call in (lambda: KerasModelImport.import_keras_model_and_weights(
+                     "model.h5"),
+                 lambda: KerasModelImport()):
         with pytest.raises(NotImplementedError, match="Queue 1"):
             call()
+    sd = SameDiff(device="cpu")
+    x = sd.placeholder("x")
+    (y,) = sd.cond(x, lambda s, a: a, lambda s, a: a, x)
+    assert sd.output({"x": np.array(True)}, [y.name])[y.name]
+    assert sd.evaluate([], "x").confusion is None
+    assert sd.set_dtype("BFLOAT16").dtype == "BFLOAT16"
     assert sd.set_dtype("FLOAT").dtype == "FLOAT"
+    assert sd.set_workspace_mode("full").workspace_mode == "full"
     assert sd.set_workspace_mode("none").workspace_mode == "none"
 
 

@@ -54,3 +54,29 @@ def test_a_failing_run_gives_its_exit_code(tmp_path, monkeypatch):
     assert row["rc"] == 3 and list(row["phases"]) == ["phase_outer",
                                                       "phase_again"]
     assert smoke_phases.main([_checkout(tmp_path)]) == 3
+
+
+def test_chip_smoke_main_calls_every_phase_it_defines():
+    """The repository's ``chip_smoke.py``: every ``phase_*`` it defines is
+    called from ``main`` (so ``smoke_phases`` times it), this slice's
+    import and SameDiff phases among them, in the docstring's order."""
+    import ast
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    tree = ast.parse(open(path).read())
+    defined = {f.name for f in tree.body if isinstance(f, ast.FunctionDef)
+               and f.name.startswith("phase_")}
+    main = next(f for f in tree.body if isinstance(f, ast.FunctionDef)
+                and f.name == "main")
+    called = [n.func.id for n in ast.walk(main) if isinstance(n, ast.Call)
+              and isinstance(n.func, ast.Name)
+              and n.func.id.startswith("phase_")]
+    assert set(called) == defined
+    new = ["phase_import", "phase_sd_control", "phase_bert_bf16_fit",
+           "phase_bert_remat", "phase_bert_eval"]
+    assert [c for c in called if c in new] == new
+    doc = ast.get_docstring(tree)
+    for tag in ("import:", "sd-control:", "bert-bf16-fit:", "bert-remat:",
+                "bert-eval:"):
+        assert tag in doc, tag
