@@ -322,7 +322,34 @@ Phases, in order; any failure exits non-zero:
 29. bert-eval: ``SameDiff.evaluate`` of the BERT-base classifier over 3
     batches of 8 x 128 (12 K1, 12 K3 and 25 K6 a forward), its confusion
     matrix the CPU plain path's up to near-ties;
-30. summary: a ``{"kernels": [...]}`` line (K1-K10), the ``nvidia-smi``
+30. keras-import: every committed Keras fixture (4 ``.h5``, 2
+    ``.keras``) read by the port's own HDF5 reader and imported through
+    ``KerasModelImport`` on the card and on the CPU (the same
+    configuration), the card's output against the CPU plain path and the
+    recorded outputs (``import_smoke_io.npz`` rtol 1e-4 / atol 1e-4,
+    ``import_corpus_io.npz`` rtol 2e-4 / atol 2e-5), 2 K1 a forward of
+    ``keras_smoke.h5`` and 0 of ``keras_sepdw.h5`` (the counts
+    ``tests/test_torch_keras_import.py`` holds against the JAX
+    package's), no K8 in an imported LSTM, then 16 K8 a request of
+    ``keras_lstm.h5`` with ``use_pallas_cell=True`` (2 layers x the
+    engine's time bucket 8), and neither h5py, Keras nor TensorFlow
+    loaded;
+31. keras-golden: ``tests/golden_harness.py::run_keras_imported`` on the
+    card (``keras_smoke.h5``, Sgd(0.05), 8 batch-16 steps), the losses and
+    parameter summaries within ``keras_imported_golden.json``'s bands
+    (rtol 1e-3, atol 1e-5), 2 K1 and 2 K2 a step;
+32. keras-resnet50: the committed Keras ResNet-50 configuration
+    (``tests/fixtures/keras_resnet50_config.json``, 177 layers, 25.6 M
+    parameters) imported config-only with seeded Keras-layout weights
+    through the importer's weight path: served at batch 32 x 224 x 224 x 3
+    (106 K1 a forward: 53 convolution biases and 53 BatchNormalizations,
+    the 33 BN + ReLU pairs folded, the 16 ReLUs after an Add apart), the
+    batch-2 output and ``avg_pool`` against the CPU plain path; then
+    fine-tuned with its ``predictions`` Dense re-headed as an OutputLayer
+    (its weights kept), 3 batch-32 ``fit`` steps with Sgd, 106 K1 and 106
+    K2 a step, the first step's loss against the CPU's float64 loss, the
+    step and device time and the busy share;
+33. summary: a ``{"kernels": [...]}`` line (K1-K10), the ``nvidia-smi``
     name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 The serving path (phases 4-5), the training path, the NCHW block,
@@ -335,9 +362,10 @@ mixes (phase 18), the generative server (phase 19), the paged mix (phase
 20), the three speculative runs and the speculative server (phase 21),
 the fused BERT serving path (phase 23), the fused BERT fine-tune path
 (phase 24), the import path (phase 25), the bf16 fine-tune (phase 27),
-each workspace mode's steps (phase 28) and ``evaluate`` (phase 29) are
-each driven with the launch counts set to 0 just before and read just
-after.
+each workspace mode's steps (phase 28), ``evaluate`` (phase 29), the
+Keras imports (phase 30), the Keras golden replay (phase 31) and the
+Keras ResNet-50's requests and fine-tune steps (phase 32) are each driven
+with the launch counts set to 0 just before and read just after.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -761,8 +789,9 @@ def k12_odd_cases(k1, gen, check) -> int:
 
 def phase_kernel(k1, lenet_calls) -> dict:
     """K1 against its plain version, twice per case for determinism, at
-    ResNet-50's shapes (with scale) and at LeNet's (``lenet_calls``, with
-    and without scale: LeNet's calls have none); returns the
+    ResNet-50's shapes and at LeNet's (``lenet_calls``), with and without
+    scale (a BN passes one; LeNet's and the Keras ResNet-50's conv biases
+    do not); returns the
     per-(rows, C, act) float32 times {(rows, cols, act): (ms, plain_ms,
     library_ms, host_ms)}, LeNet's path calls' {(rows, cols, act): (ms,
     plain_ms, bound_ms)} and errors."""
@@ -778,7 +807,7 @@ def phase_kernel(k1, lenet_calls) -> dict:
             scale = torch.rand(cols, generator=gen, device=dev) + 0.5
             shift = torch.randn(cols, generator=gen, device=dev)
             for act in k1.ACTS:
-                for s in (scale,) if path_act is None else (scale, None):
+                for s in (scale, None):
                     check_k1_case(k1, x, s, shift, act,
                                   f"K1 {act} {dtype} ({rows}, {cols}) "
                                   f"scale={s is not None}", max_err)
@@ -825,9 +854,10 @@ def phase_kernel(k1, lenet_calls) -> dict:
                         check_k1_case(k1, x, s, b, act, "K1 " + where,
                                       max_err))
     log(f"[kernel] K1 matches its plain version and repeats bit for bit: "
-        f"{cases} cases (10 ResNet-50 shapes x 7 activations x (float32, "
-        f"bfloat16) with scale; LeNet's {len(lenet_calls)} x 7 x 2 with and "
-        f"without) and {odd} at odd C and misaligned x; max abs err float32 "
+        f"{cases} cases ((10 ResNet-50 shapes + LeNet's "
+        f"{len(lenet_calls)}) x 7 activations x (float32, bfloat16) x (with, "
+        f"without scale)) and {odd} at odd C and misaligned x; max abs err "
+        f"float32 "
         f"{max_err[torch.float32]:.3g}, bfloat16 "
         f"{max_err[torch.bfloat16]:.3g}, float16 "
         f"{max_err[torch.float16]:.3g}")
@@ -1575,14 +1605,17 @@ def graph_loss_grads(env, m, x, y):
     return loss, grads
 
 
-def grad_ratios(g_card, g_cpu, g_64, frozen) -> list:
+def grad_ratios(g_card, g_cpu, g_64, frozen, zero_factor=None) -> list:
     """The float64 rule leaf by leaf over the vertices outside ``frozen``,
     ``g_card``, ``g_cpu`` and ``g_64`` each a list of gradient trees, one
     per batch: ``(card error / allowed, leaf, card error, CPU float32
     error)``, worst first, each error the relative norm of the leaf's
     gradients over all the batches together against the CPU float64 ones,
     allowed max(TRAIN_GRAD_TOL, GRAD_NOISE_FACTOR x the CPU float32
-    error). Raises if a frozen vertex has a gradient."""
+    error); with ``zero_factor``, a leaf whose CPU float32 error is 1 or
+    more (its float64 gradient is zero up to rounding) is allowed
+    ``zero_factor`` x that error. Raises if a frozen vertex has a
+    gradient."""
     def cat(trees, v, k):
         return np.concatenate([t[v][k].detach().cpu().numpy().ravel()
                                for t in trees])
@@ -1597,7 +1630,9 @@ def grad_ratios(g_card, g_cpu, g_64, frozen) -> list:
             want = cat(g_64, v, k)
             e_card = rel_err(cat(g_card, v, k), want)
             e_cpu = rel_err(cat(g_cpu, v, k), want)
-            allowed = max(TRAIN_GRAD_TOL, GRAD_NOISE_FACTOR * e_cpu)
+            allowed = zero_factor * e_cpu \
+                if zero_factor is not None and e_cpu >= 1.0 else \
+                max(TRAIN_GRAD_TOL, GRAD_NOISE_FACTOR * e_cpu)
             rows.append((e_card / allowed, f"{v}/{k}", e_card, e_cpu))
     return sorted(rows, reverse=True)
 
@@ -5313,6 +5348,360 @@ def phase_bert_eval(kmods, fa, fe, env, sd) -> dict:
             "accuracy_cpu": cpu_ev.accuracy(), "ties": moved}
 
 
+# ---- Keras import (phases 30-32) -------------------------------------------
+
+KERAS_FILES = ("keras_smoke.h5", "keras_lstm.h5", "keras_bigru.h5",
+               "keras_sepdw.h5", "keras_v3_lstm.keras",
+               "keras_v3_lstm_dropout.keras")
+#: K1 launches of one forward (tests/test_torch_keras_import.py holds the
+#: same counts against the JAX package's epilogue dispatches): the Conv2D
+#: bias + ReLU and the BatchNormalization of keras_smoke.h5; none in
+#: keras_sepdw.h5, whose separable and depthwise convolutions apply their
+#: activation outside the epilogue, as in the JAX package
+KERAS_K1_PER_FORWARD = {"keras_smoke.h5": 2, "keras_sepdw.h5": 0}
+#: K8 launches of one keras_lstm.h5 request once its LSTMs opt in with
+#: use_pallas_cell=True: 2 layers x the engine's time bucket (8) for the
+#: recorded input's 6 steps
+KERAS_LSTM_K8 = 16
+#: K1/K2 a step of the golden replay
+KERAS_GOLDEN_K = (2, 2)
+#: the Keras ResNet-50: K1 a forward (53 Conv2D bias epilogues + 53
+#: BatchNormalizations) and K2 a fine-tune step (every one trainable)
+KERAS_RN50_K1 = 106
+KERAS_RN50_K2 = 106
+KERAS_RN50_BATCH = 32
+KERAS_RN50_REQUESTS = 5
+KERAS_RN50_STEPS = 3
+KERAS_RN50_LR = 0.01
+#: the first fine-tune step's loss on the card (float32, TF32 off) against
+#: the CPU plain path's float64 loss on the same weights and batch
+KERAS_RN50_LOSS_TOL = 1e-3
+#: The fine-tune's gradients at batch PARITY_BATCH go by [train]'s float64
+#: rule. Each Conv2D bias feeds a training-mode BatchNormalization, whose
+#: batch mean takes the bias out: its exact gradient is 0, and the CPU's
+#: float64 one is rounding (~1e-13) beside float32's (~1e-4; 32x32 CPU
+#: runs of this net). Such a leaf (CPU float32 error >= 1 against float64)
+#: holds only rounding, and the card's K2 column sum must stay within this
+#: factor of the CPU float32's. A bias gradient summed over wrong rows or
+#: channels is of the weight gradients' scale, far above both.
+KERAS_RN50_ZERO_GRAD_FACTOR = 10.0
+
+
+def keras_io(name):
+    """(input, recorded output, rtol, atol) of a committed Keras fixture."""
+    here = fixture_dir()
+    stem = name.rsplit(".", 1)[0]
+    if stem == "keras_smoke":
+        z = np.load(os.path.join(here, "import_smoke_io.npz"))
+        return (z["keras_x"], z["keras_y"], IMPORT_SMOKE_TOL,
+                IMPORT_SMOKE_TOL)
+    z = np.load(os.path.join(here, "import_corpus_io.npz"))
+    return z[stem + "_x"], z[stem + "_y"], IMPORT_RTOL, IMPORT_ATOL
+
+
+def oracles_loaded() -> list:
+    return [m for m in ("h5py", "keras", "tensorflow") if m in sys.modules]
+
+
+def phase_keras_import(kmods, fe, env) -> dict:
+    """[keras-import]: every committed Keras fixture through the port's
+    HDF5 reader and ``KerasModelImport`` on the card, against the CPU
+    import and the recorded outputs; the K1 and K8 counts of the path."""
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t0 = time.perf_counter()
+    zero_launches(kmods)
+    fe.reset_counters()
+    rows, nets = {}, {}
+    for name in KERAS_FILES:
+        path = os.path.join(fixture_dir(), name)
+        ta = time.perf_counter()
+        card = KerasModelImport.import_keras_model_and_weights(
+            path, device="cuda")
+        import_ms = (time.perf_counter() - ta) * 1e3
+        cpu = KerasModelImport.import_keras_model_and_weights(
+            path, device="cpu")
+        if card.conf.to_json() != cpu.conf.to_json():
+            raise AssertionError(f"[keras-import] {name}: the card's "
+                                 "configuration is not the CPU import's")
+        x, want, rtol, atol = keras_io(name)
+        before = kernel_launches(kmods)
+        ta = time.perf_counter()
+        got = card.output(x)
+        out_ms = (time.perf_counter() - ta) * 1e3
+        after = kernel_launches(kmods)
+        per = {k: after[k] - before[k] for k in after}
+        ref = cpu.output(x)
+        ok = np.allclose(got, ref, rtol=IMPORT_RTOL, atol=IMPORT_ATOL) and \
+            np.allclose(got, want, rtol=rtol, atol=atol)
+        n_params = sum(t.numel() for t in flat_leaves(card.params))
+        rows[name] = {"params": n_params,
+                      "kind": type(card).__name__, "import_ms": import_ms,
+                      "output_ms": out_ms, "k1": per["k1"], "k8": per["k8"],
+                      "rel_err_vs_cpu": rel_err(got, ref),
+                      "rel_err_vs_recorded": rel_err(got, want)}
+        log(f"[keras-import] {name}: {type(card).__name__} of "
+            f"{len(card.conf.to_json())} config bytes and {n_params} "
+            f"parameter values imported on cuda through the port's HDF5 "
+            f"reader in {import_ms:.1f} ms; output "
+            f"{tuple(got.shape)} in {out_ms:.2f} ms, rel err "
+            f"{rows[name]['rel_err_vs_cpu']:.3g} against the CPU plain "
+            f"path, {rows[name]['rel_err_vs_recorded']:.3g} against the "
+            f"recorded output (rtol {rtol}, atol {atol}); K1 {per['k1']}, "
+            f"K8 {per['k8']} launches")
+        if not ok:
+            raise AssertionError(f"[keras-import] {name}: the card's output "
+                                 "is out of tolerance")
+        if per["k8"] or per["k1"] != KERAS_K1_PER_FORWARD.get(name,
+                                                              per["k1"]):
+            raise AssertionError(f"[keras-import] {name}: launches {per}")
+        nets[name] = card
+    # an imported LSTM runs the plain cell; opted in, K8 at every step
+    net = nets["keras_lstm.h5"]
+    lstm = [l for l in net.conf.layers if l.kind == "lstm"]
+    for l in lstm:
+        l.use_pallas_cell = True
+    x, want, rtol, atol = keras_io("keras_lstm.h5")
+    before = kernel_launches(kmods)["k8"]
+    got = net.output(x)
+    k8 = kernel_launches(kmods)["k8"] - before
+    log(f"[keras-import] keras_lstm.h5 with use_pallas_cell=True on its "
+        f"{len(lstm)} LSTMs: {k8} K8 launches a request (expected "
+        f"{KERAS_LSTM_K8}), rel err {rel_err(got, want):.3g} against the "
+        "recorded output")
+    if k8 != KERAS_LSTM_K8 or not np.allclose(got, want, rtol=rtol,
+                                              atol=atol):
+        raise AssertionError(f"[keras-import] pallas LSTM: {k8} K8 launches")
+    launches = kernel_launches(kmods)
+    loaded = oracles_loaded()
+    decisions = fe.counters()
+    log(f"[keras-import] launches in the phase {launches}; epilogue "
+        f"decisions {decisions}; modules loaded of h5py, keras, tensorflow: "
+        f"{loaded}; {time.perf_counter() - t0:.1f} s")
+    others = {k: v for k, v in launches.items() if k not in ("k1", "k8")}
+    if loaded or any(others.values()) or \
+            decisions["fused"] != launches["k1"]:
+        raise AssertionError(f"[keras-import] launches {launches}, "
+                             f"decisions {decisions}, loaded {loaded}")
+    return {"rows": rows, "launches": launches}
+
+
+def phase_keras_golden(kmods, fe, env) -> dict:
+    """[keras-golden]: ``golden_harness.run_keras_imported`` on the card
+    (``tools/keras_golden.py``), held to ``keras_imported_golden.json`` at
+    ``golden_harness.compare``'s bands."""
+    from deeplearning4j_tpu_torch.tools import keras_golden as kg
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t0 = time.perf_counter()
+    net = kg.golden_net(device="cuda")
+    per_step, last = [], {}
+
+    def count():
+        now = kernel_launches(kmods)
+        per_step.append((now["k1"] - last["k1"], now["k2"] - last["k2"]))
+        last.update(now)
+
+    zero_launches(kmods)
+    fe.reset_counters()
+    last.update(kernel_launches(kmods))
+    snap = kg.replay(net, on_step=count)
+    launches = kernel_launches(kmods)
+    with open(kg.GOLDEN) as f:
+        golden = json.load(f)
+    worst = kg.band_share(snap, golden)
+    losses = snap["losses"]
+    log(f"[keras-golden] {kg.STEPS} Sgd({kg.LEARNING_RATE}) steps of batch "
+        f"{kg.BATCH} on the card: losses "
+        + " ".join(f"{v:.6f}" for v in losses) + "; the golden's "
+        + " ".join(f"{v:.6f}" for v in golden["losses"])
+        + f"; worst |diff| / (atol + rtol |golden|) over the losses and "
+        f"{len(golden['params'])} parameter summaries {worst:.3g} (must be "
+        f"<= 1; rtol {kg.RTOL}, atol {kg.ATOL}); K1/K2 a step "
+        f"{sorted(set(per_step))}; {time.perf_counter() - t0:.1f} s")
+    if worst > 1:
+        raise AssertionError("[keras-golden] the card leaves the golden's "
+                             "bands")
+    if set(per_step) != {KERAS_GOLDEN_K} or any(
+            v for k, v in launches.items() if k not in ("k1", "k2")):
+        raise AssertionError(f"[keras-golden] launches {per_step}, "
+                             f"{launches}")
+    return {"launches": launches, "worst_band_share": worst,
+            "losses": losses}
+
+
+def keras_rn50_batch(rng, n):
+    """A batch of ``n`` random 224x224x3 images with one-hot labels."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    x = rng.standard_normal((n, 224, 224, 3), dtype=np.float32)
+    return DataSet(x, np.eye(1000, dtype=np.float32)[rng.integers(0, 1000,
+                                                                  n)])
+
+
+def phase_keras_resnet50(kmods, fe, env, graph) -> dict:
+    """[keras-resnet50]: the Keras ResNet-50 configuration imported with
+    seeded Keras-layout weights, served at batch 32 and fine-tuned."""
+    from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
+    from deeplearning4j_tpu_torch.nn.transfer import (FineTuneConfiguration,
+                                                      TransferLearning)
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+    from deeplearning4j_tpu_torch.tools import make_keras_config as mk
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t0 = time.perf_counter()
+    net = mk.import_resnet50(device="cuda", seed=0)
+    import_s = time.perf_counter() - t0
+    fold, skip = net._epilogue_fold_plan()
+    n_params = sum(t.numel() for p in net.params.values()
+                   for t in p.values())
+    log(f"[keras-resnet50] imported on cuda in {import_s:.1f} s: "
+        f"{len(net.conf.vertices)} vertices, {n_params} parameters, "
+        f"{len(fold)} BN + activation pairs folded ({len(skip)} activation "
+        "vertices pass through)")
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((KERAS_RN50_BATCH, 224, 224, 3),
+                            dtype=np.float32)
+    net.output(x)  # the engine's first call at this bucket
+    torch.cuda.synchronize()
+
+    # ---- serve: counts from 0, read after the requests ----
+    zero_launches(kmods)
+    fe.reset_counters()
+    ts = []
+    for _ in range(KERAS_RN50_REQUESTS):
+        t1 = time.perf_counter()
+        y = net.output(x)
+        ts.append((time.perf_counter() - t1) * 1e3)
+    serve = kernel_launches(kmods)
+    latency = statistics.median(ts)
+    if y.shape != (KERAS_RN50_BATCH, 1000) or not np.isfinite(y).all() or \
+            not np.allclose(y.sum(axis=1), 1.0, atol=1e-4):
+        raise AssertionError(f"[keras-resnet50] bad output {y.shape}")
+    log(f"[keras-resnet50] {KERAS_RN50_REQUESTS} requests of "
+        f"{KERAS_RN50_BATCH} images: median {latency:.3f} ms "
+        f"({KERAS_RN50_BATCH * 1e3 / latency:.1f} images/s); launches "
+        f"{serve}")
+    if serve["k1"] != KERAS_RN50_REQUESTS * KERAS_RN50_K1 or any(
+            v for k, v in serve.items() if k != "k1"):
+        raise AssertionError(f"[keras-resnet50] serving launches {serve}")
+
+    # ---- the card against the CPU plain path, batch 2 ----
+    cpu = cpu_twin(graph, net)
+    x2 = x[:2]
+    e_out = rel_err(net.output(x2), cpu.output(x2))
+    e_pool = rel_err(net.feed_forward(x2)["avg_pool"].cpu().numpy(),
+                     cpu.feed_forward(x2)["avg_pool"].numpy())
+    log(f"[keras-resnet50] card vs CPU plain path, batch 2: output rel err "
+        f"{e_out:.3g}, avg_pool rel err {e_pool:.3g} (tolerance "
+        f"{CPU_REL_TOL})")
+    if not (e_out <= CPU_REL_TOL and e_pool <= CPU_REL_TOL):
+        raise AssertionError("[keras-resnet50] the card disagrees with the "
+                             "CPU plain path")
+    del cpu
+
+    # ---- fine-tune: the Dense head re-headed as an OutputLayer ----
+    new = (TransferLearning.GraphBuilder(net)
+           .fine_tune_configuration(FineTuneConfiguration(
+               updater=Sgd(learning_rate=KERAS_RN50_LR)))
+           .remove_vertex("predictions")
+           .add_layer("predictions", OutputLayer(n_out=1000), "avg_pool")
+           .set_outputs("predictions").build())
+    new.params["predictions"] = {k: t.clone() for k, t in
+                                 net.params["predictions"].items()}
+    new.updater_state = new.conf.updater.init_state(new.params)
+    del net
+    batches = [keras_rn50_batch(rng, KERAS_RN50_BATCH)
+               for _ in range(KERAS_RN50_STEPS)]
+    twin = cpu_twin(graph, new, "DOUBLE", lambda t: t.double())
+
+    # ---- the first batch's gradients by [train]'s float64 rule ----
+    t1 = time.perf_counter()
+    x4 = batches[0].features[:PARITY_BATCH]
+    y4 = batches[0].labels[:PARITY_BATCH]
+    loss_g, g_card = graph_loss_grads(env, new, x4, y4)
+    loss_c, g_cpu = graph_loss_grads(env, cpu_twin(graph, new), x4, y4)
+    _, g_64 = graph_loss_grads(env, twin, x4.astype(np.float64),
+                               y4.astype(np.float64))
+    e_loss4 = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    rows = grad_ratios([g_card], [g_cpu], [g_64], (),
+                       KERAS_RN50_ZERO_GRAD_FACTOR)
+    zero = [r for r in rows if r[3] >= 1.0]
+    plain = [r for r in rows if r[3] < 1.0]
+    log(f"[keras-resnet50] batch-{PARITY_BATCH} gradients of the fine-tune "
+        f"net ({time.perf_counter() - t1:.1f} s): loss {float(loss_g):.6f} "
+        f"vs the CPU float32's {float(loss_c):.6f} (rel err {e_loss4:.3g}, "
+        f"tolerance {TRAIN_LOSS_TOL}); {len(plain)} leaves by the float64 "
+        f"rule, worst card/allowed {plain[0][0]:.3g} at {plain[0][1]} (card "
+        f"{plain[0][2]:.3g}, CPU float32 {plain[0][3]:.3g}; allowed "
+        f"max({TRAIN_GRAD_TOL}, {GRAD_NOISE_FACTOR} x CPU float32)); "
+        f"{len(zero)} leaves zero up to rounding (the Conv2D biases), worst "
+        + (f"card/allowed {zero[0][0]:.3g} at {zero[0][1]} (card "
+           f"{zero[0][2]:.3g}, CPU float32 {zero[0][3]:.3g} of the float64 "
+           f"norm; allowed {KERAS_RN50_ZERO_GRAD_FACTOR} x CPU float32)"
+           if zero else "none"))
+    if e_loss4 > TRAIN_LOSS_TOL or rows[0][0] > 1.0:
+        raise AssertionError(f"[keras-resnet50] gradients out of bounds: "
+                             f"{[r[1] for r in rows if r[0] > 1.0]}, loss "
+                             f"rel err {e_loss4:.3g}")
+    del g_card, g_cpu, g_64
+
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        ds = batches[0]
+        loss64, _ = twin._loss(twin.params, twin.state,
+                               (twin._tensor(ds.features.astype(np.float64)),),
+                               (twin._tensor(ds.labels.astype(np.float64)),),
+                               (None,), (None,))
+    loss64 = float(loss64)
+    cpu_s = time.perf_counter() - t1
+    del twin
+    zero_launches(kmods)
+    fe.reset_counters()
+    losses, step_ms, per_step = [], [], []
+    for ds in batches:
+        before = kernel_launches(kmods)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new.fit(ds)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        after = kernel_launches(kmods)
+        per_step.append((after["k1"] - before["k1"],
+                         after["k2"] - before["k2"]))
+        losses.append(new.score())
+    fit = kernel_launches(kmods)
+    decisions = dict(fe.counters())
+    loss_err = abs(losses[0] - loss64) / abs(loss64)
+    median = statistics.median(step_ms[1:])
+    dev_ms, k1_ms, k2_ms = profile_step_split(lambda: new.fit(batches[0]))
+    log(f"[keras-resnet50] fine-tune {KERAS_RN50_STEPS} Sgd({KERAS_RN50_LR})"
+        f" steps of batch {KERAS_RN50_BATCH}: losses "
+        + " ".join(f"{v:.6f}" for v in losses)
+        + f"; the first against the CPU float64 loss {loss64:.8f}: rel err "
+        f"{loss_err:.3g} (tolerance {KERAS_RN50_LOSS_TOL}; the CPU's "
+        f"forward {cpu_s:.1f} s); K1/K2 a step {sorted(set(per_step))}; "
+        f"decisions {decisions}; step {median:.3f} ms median of steps 2-"
+        f"{KERAS_RN50_STEPS} ({KERAS_RN50_BATCH * 1e3 / median:.1f} "
+        f"images/s); device {dev_ms:.3f} ms a step (K1 {k1_ms:.3f}, K2 "
+        f"{k2_ms:.3f}; busy share {dev_ms / median:.3f}); "
+        f"{time.perf_counter() - t0:.1f} s in the phase")
+    if loss_err > KERAS_RN50_LOSS_TOL or not all(np.isfinite(losses)):
+        raise AssertionError("[keras-resnet50] the card's loss disagrees "
+                             "with the CPU float64 loss")
+    if set(per_step) != {(KERAS_RN50_K1, KERAS_RN50_K2)} or any(
+            v for k, v in fit.items() if k not in ("k1", "k2")) or \
+            decisions["fused"] != fit["k1"] or any(
+                v for k, v in decisions.items() if k != "fused"):
+        raise AssertionError(f"[keras-resnet50] fit launches {per_step}, "
+                             f"{fit}, decisions {decisions}")
+    if oracles_loaded():
+        raise AssertionError(f"[keras-resnet50] loaded {oracles_loaded()}")
+    return {"serve_launches": serve, "fit_launches": fit,
+            "latency_ms": latency, "rel_err": (e_out, e_pool),
+            "step_ms": median, "device_ms": dev_ms, "k1_ms": k1_ms,
+            "k2_ms": k2_ms, "busy_share": dev_ms / median,
+            "loss_rel_err": loss_err, "losses": losses,
+            "grad_worst": rows[0], "import_s": import_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5426,6 +5815,17 @@ def main() -> int:
     remat_bert = phase_bert_remat(kmods, fa, fe, env, bert_sd)
     bert_eval = phase_bert_eval(kmods, fa, fe, env, bert_sd)
     del bert_sd
+    keras_imp = phase_keras_import(kmods, fe, env)
+    keras_gold = phase_keras_golden(kmods, fe, env)
+    keras_rn50 = phase_keras_resnet50(kmods, fe, env, graph)
+    # the launches of the Keras paths, by kernel key of kernel_launches
+    keras_paths = {"keras_import": keras_imp["launches"],
+                   "keras_golden": keras_gold["launches"],
+                   "keras_resnet50_serve": keras_rn50["serve_launches"],
+                   "keras_resnet50_fit": keras_rn50["fit_launches"]}
+
+    def keras_counts(k):
+        return {p: c[k] for p, c in keras_paths.items()}
     # the launches of this slice's paths, by kernel key of
     # profile_bert.launch_counts (k4 and k5: the fused backward's launches
     # that wrote dq, and dk and dv)
@@ -5642,7 +6042,8 @@ def main() -> int:
         + transfer["eval_launches"][0] + nchw["launches"][0]
         + lenet_row["launches"][0] + lenet_row["eval_launches"][0]
         + center["launches"][0] + ln_l["k1"] + fit_ln["k1"]
-        + sum(v[0] for v in modes_k.values()) + sum(sd_counts("k1").values()),
+        + sum(v[0] for v in modes_k.values()) + sum(sd_counts("k1").values())
+        + sum(keras_counts("k1").values()),
         "launches_by_path": {"serve": serve_launches,
                              "train": trained["launches"][0],
                              "train_eval": train_eval["launches"][0],
@@ -5655,7 +6056,7 @@ def main() -> int:
                              "bert_serve": 0, "bert_fit": 0,
                              **lstm_paths("k1"), **ln_paths("k1"),
                              **{k: v[0] for k, v in modes_k.items()},
-                             **sd_counts("k1")},
+                             **sd_counts("k1"), **keras_counts("k1")},
         "max_abs_err": max(*kern["max_err"].values(),
                            bf16["path_k1_max_err"]),
         "max_abs_err_float32": kern["max_err"][torch.float32],
@@ -5666,6 +6067,14 @@ def main() -> int:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": lib, "host_ms": host,
         "bert_gelu": dict(gelu_row(g1), library="F.gelu(x + b)"),
+        "keras_resnet50": {
+            "k1_per_forward": KERAS_RN50_K1,
+            "latency_ms_batch32": keras_rn50["latency_ms"],
+            "rel_err_vs_cpu": keras_rn50["rel_err"],
+            "import_s": keras_rn50["import_s"]},
+        "keras_import": {n: {k: r[k] for k in (
+            "k1", "k8", "rel_err_vs_cpu", "rel_err_vs_recorded")}
+            for n, r in keras_imp["rows"].items()},
         "bert_bf16_fit": bf16_rows["k1"],
         "lenet_step_calls": lenet_step_calls(kern),
         "train_bf16": {k: bf16[k] for k in (
@@ -5693,7 +6102,8 @@ def main() -> int:
         "launches": trained["launches"][1] + transfer["launches"][1]
         + nchw["launches"][1] + lenet_row["launches"][1]
         + center["launches"][1] + fit_ln["k2"]
-        + sum(v[1] for v in modes_k.values()) + sum(sd_counts("k2").values()),
+        + sum(v[1] for v in modes_k.values()) + sum(sd_counts("k2").values())
+        + sum(keras_counts("k2").values()),
         "launches_by_path": {"serve": 0, "train": trained["launches"][1],
                              "train_eval": 0,
                              "transfer_fit": transfer["launches"][1],
@@ -5705,7 +6115,7 @@ def main() -> int:
                              "bert_serve": 0, "bert_fit": 0,
                              **lstm_paths("k2"), **ln_paths("k2"),
                              **{k: v[1] for k, v in modes_k.items()},
-                             **sd_counts("k2")},
+                             **sd_counts("k2"), **keras_counts("k2")},
         "max_abs_err": max(kbwd["max_err"]["dx_float32"],
                            kbwd["max_err"]["dx_bfloat16"],
                            kbwd["max_err"]["dx_float16"],
@@ -5748,6 +6158,12 @@ def main() -> int:
         "train_eval": {k: train_eval[k] for k in (
             "accuracy", "accuracy_cpu", "ties")},
         "bert_gelu": gelu_row(g2, lib=False),
+        "keras_resnet50_fit": {k: keras_rn50[k] for k in (
+            "step_ms", "device_ms", "k1_ms", "k2_ms", "busy_share",
+            "loss_rel_err", "losses", "grad_worst")},
+        "keras_resnet50_k2_per_step": KERAS_RN50_K2,
+        "keras_golden": {k: keras_gold[k] for k in (
+            "worst_band_share", "losses")},
         "bert_bf16_fit": bf16_rows["k2"],
         "timed_as": "device time summed over the 53 calls of one batch-32 "
                     "float32 ResNet-50 training step; no single PyTorch "
@@ -5764,7 +6180,8 @@ def main() -> int:
                              "bert_serve": served_bert["launches"],
                              "bert_fit": fit_l[0], "lstm_serve": 0,
                              "lstm_stream": 0, **rnn_paths("k3"), **k3_gen,
-                             **ln_paths("k3"), **sd_counts("k3")},
+                             **ln_paths("k3"), **sd_counts("k3"),
+                             **keras_counts("k3")},
         "max_abs_err": katt["max_err"]["float32"],
         "max_abs_err_float32": katt["max_err"]["float32"],
         "max_ulp_bfloat16": katt["max_err"]["ulp_bfloat16"],
@@ -5791,7 +6208,8 @@ def main() -> int:
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
                              "bert_fit": fit_l[i], **lstm_paths("k4k5"),
                              "bert_ln_fit": fit_ln[f"k{i + 2}"],
-                             **sd_counts(f"k{i + 2}")},
+                             **sd_counts(f"k{i + 2}"),
+                             **keras_counts("k4k5")},
         "fused_launches": fit_l[1] + fit_ln["bwd"]
         + sum(sd_counts("bwd").values()),
         "bert_bf16_fit": bf16_rows["bwd"],
@@ -5829,13 +6247,14 @@ def main() -> int:
         "source": "deeplearning4j_tpu_torch/csrc/lstm_cell.cu",
         "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:55",
         "launches": served_lstm["serve_launches"]
-        + served_lstm["stream_launches"] + sum(rnn_paths("k8").values()),
+        + served_lstm["stream_launches"] + sum(rnn_paths("k8").values())
+        + sum(keras_counts("k8").values()),
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
                              "bert_fit": 0,
                              "lstm_serve": served_lstm["serve_launches"],
                              "lstm_stream": served_lstm["stream_launches"],
                              **rnn_paths("k8"), **no_gen, **no_ln,
-                             **no_sd},
+                             **no_sd, **keras_counts("k8")},
         "max_abs_err": klstm["max_err"]["float32"],
         "max_abs_err_float32": klstm["max_err"]["float32"],
         "max_tolerance_share_bfloat16": klstm["max_err"]["ulp_bfloat16"],
@@ -5848,6 +6267,7 @@ def main() -> int:
                                **klstm["shapes"][sh]}
                      for sh in LSTM_PATH_SHAPES},
         "cudnn_lstm_sequence_ms": served_lstm["cudnn_ms"],
+        "keras_lstm_k8_per_request": KERAS_LSTM_K8,
         "lstm_rel_err_vs_cpu": served_lstm["rel_err"],
         "lstm_streams_rel_err_vs_cpu": served_lstm["rel_err_streams"],
         "lstm_stream_err": served_lstm["stream_err"],
@@ -5875,7 +6295,7 @@ def main() -> int:
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
                              "bert_fit": 0, "lstm_serve": 0,
                              "lstm_stream": 0, **rnn_paths("k9"), **k9_gen,
-                             **no_ln, **no_sd},
+                             **no_ln, **no_sd, **keras_counts("k9")},
         "launches_per_decode_step": GEN_LAYERS,
         "decode_steps_by_path": {
             "generate": rows["bench"]["decode_steps"],
@@ -5918,7 +6338,7 @@ def main() -> int:
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
                              "bert_fit": 0, "lstm_serve": 0,
                              "lstm_stream": 0, **rnn_paths("k10"), **k10_gen,
-                             **no_ln, **no_sd},
+                             **no_ln, **no_sd, **keras_counts("k10")},
         "launches_per_verify_step": GEN_LAYERS,
         "verify_steps_by_path": {
             "generate_spec": srows["spec"]["verify_steps"]
@@ -5967,7 +6387,7 @@ def main() -> int:
         "launches": ln_l["k6"] + fit_ln["k6"] + sum(sd_counts("k6").values()),
         "launches_by_path": {**{k: 0 for k in kernel_paths},
                              **rnn_paths("k6"), **ln_paths("k6"),
-                             **sd_counts("k6")},
+                             **sd_counts("k6"), **keras_counts("k6")},
         "bert_bf16_fit": bf16_rows["k6"],
         "launches_per_forward": LN_SITES,
         "max_abs_err": kln["max_err"]["y_abs_float32"],
@@ -6002,7 +6422,7 @@ def main() -> int:
         "launches": fit_ln["k7"] + sum(sd_counts("k7").values()),
         "launches_by_path": {**{k: 0 for k in kernel_paths},
                              **rnn_paths("k7"), **ln_paths("k7"),
-                             **sd_counts("k7")},
+                             **sd_counts("k7"), **keras_counts("k7")},
         "bert_bf16_fit": bf16_rows["k7"],
         "launches_per_step": LN_SITES,
         "max_abs_err": kln["max_err"]["dx_abs_float32"],

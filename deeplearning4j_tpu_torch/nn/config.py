@@ -50,6 +50,12 @@ class InputType:
                (height, width, channels)
 
     @staticmethod
+    def convolutional3d(channels: int, depth: int, height: int, width: int,
+                        data_format: str = "NCDHW") -> Tuple[int, ...]:
+        return ((channels, depth, height, width) if data_format == "NCDHW"
+                else (depth, height, width, channels))
+
+    @staticmethod
     def recurrent(n_features: int,
                   timesteps: Optional[int] = None) -> Tuple[int, ...]:
         # timesteps None -> dynamic; shape convention [T, F]

@@ -5,11 +5,20 @@ from .attention import (LearnedSelfAttentionLayer,  # noqa: F401
                         RecurrentAttentionLayer, SelfAttentionLayer)
 from .base import LAYERS, CacheSpec, Layer, layer  # noqa: F401
 from .conv import (BatchNormalization, ConvolutionLayer,  # noqa: F401
-                   GlobalPoolingLayer, SubsamplingLayer)
-from .conv_extra import SpaceToDepthStemConv  # noqa: F401
+                   GlobalPoolingLayer, LocalResponseNormalization,
+                   SubsamplingLayer, Upsampling2D, ZeroPadding2D)
+from .conv_extra import (Convolution1D, Cropping1D,  # noqa: F401
+                         Cropping2D, Deconvolution2D,
+                         DepthToSpaceLayer, DepthwiseConvolution2D,
+                         LocallyConnected1D, LocallyConnected2D,
+                         SeparableConvolution1D, SeparableConvolution2D,
+                         SpaceToDepthLayer, SpaceToDepthStemConv,
+                         Subsampling1DLayer, Upsampling1D,
+                         ZeroPadding1DLayer)
 from .core import (ActivationLayer, DenseLayer, DropoutLayer,  # noqa: F401
-                   EmbeddingLayer, FlattenLayer, LossLayer, MaskingLayer,
-                   OutputLayer)
+                   ElementWiseMultiplicationLayer, EmbeddingLayer,
+                   FlattenLayer, LossLayer, MaskingLayer, OutputLayer,
+                   PermuteLayer, ReshapeLayer)
 from .recurrent import (GRU, LSTM, Bidirectional, ConvLSTM2D,  # noqa: F401
                         GravesLSTM, LastTimeStep, RnnLossLayer,
                         RnnOutputLayer, SimpleRnn)

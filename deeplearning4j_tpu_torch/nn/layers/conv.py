@@ -1,7 +1,9 @@
 """Convolution, pooling and batch-norm layers.
 
-Port of ``ConvolutionLayer``, ``SubsamplingLayer``, ``BatchNormalization``
-and ``GlobalPoolingLayer`` from ``deeplearning4j_tpu/nn/layers/conv.py``.
+Port of ``ConvolutionLayer``, ``SubsamplingLayer``, ``BatchNormalization``,
+``LocalResponseNormalization`` (:249), ``GlobalPoolingLayer``,
+``Upsampling2D`` (:321) and ``ZeroPadding2D`` (:355) from
+``deeplearning4j_tpu/nn/layers/conv.py``.
 Weights are OIHW (``W``) plus ``b`` for every ``data_format``, as in the
 JAX package. The convolution is ``F.conv2d``; its bias + activation tail
 and the batch-norm normalize + activation run through
@@ -214,6 +216,25 @@ class BatchNormalization(Layer):
         return y, new_state, mask
 
 
+@layer("lrn")
+class LocalResponseNormalization(Layer):
+    """DL4J LocalResponseNormalization (AlexNet-era), cross-channel."""
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+    data_format: str = "NCHW"
+    name: Optional[str] = None
+
+    def has_params(self):
+        return False
+
+    def apply(self, params, x, state, *, train=False, mask=None):
+        y = nnops.local_response_normalization(x, self.k, self.n, self.alpha,
+                                               self.beta, self.data_format)
+        return y, state, mask
+
+
 @layer("global_pool")
 class GlobalPoolingLayer(Layer):
     """DL4J GlobalPoolingLayer: collapse spatial/time dims; mask-aware for
@@ -259,3 +280,61 @@ class GlobalPoolingLayer(Layer):
         y = nnops.global_pool(x, self.pool_type, self.data_format,
                               p=self.pnorm)
         return y, state, None
+
+
+@layer("upsampling2d")
+class Upsampling2D(Layer):
+    """``interpolation``: "nearest" (DL4J Upsampling2D, repetition) or
+    "bilinear" (the Keras UpSampling2D option: ``image.resize_scale``'s
+    half-pixel bilinear resize, as ``jax.image.resize`` samples)."""
+    size: Tuple[int, int] = (2, 2)
+    data_format: str = "NCHW"
+    interpolation: str = "nearest"
+    name: Optional[str] = None
+
+    def has_params(self):
+        return False
+
+    def initialize(self, gen, input_shape, dtype, device):
+        sh, sw = _pair(self.size)
+        if self.data_format == "NCHW":
+            c, h, w = (int(s) for s in input_shape)
+            return {}, {}, (c, h * sh, w * sw)
+        h, w, c = (int(s) for s in input_shape)
+        return {}, {}, (h * sh, w * sw, c)
+
+    def apply(self, params, x, state, *, train=False, mask=None):
+        if self.interpolation not in ("nearest", "bilinear"):
+            raise ValueError(
+                f"Upsampling2D interpolation={self.interpolation!r} not "
+                "supported (nearest | bilinear)")
+        if self.interpolation == "bilinear":
+            from ...ops.random import resize_scale
+            y = resize_scale(x, _pair(self.size), method="bilinear",
+                             data_format=self.data_format)
+            return y, state, mask
+        return nnops.upsampling2d(x, self.size, self.data_format), state, mask
+
+
+@layer("zeropad2d")
+class ZeroPadding2D(Layer):
+    """``padding``: (pad_h, pad_w) symmetric, or the Keras asymmetric form
+    ((top, bottom), (left, right))."""
+    padding: Tuple = (1, 1)
+    data_format: str = "NCHW"
+    name: Optional[str] = None
+
+    def has_params(self):
+        return False
+
+    def initialize(self, gen, input_shape, dtype, device):
+        pt, pb, pl, pr = nnops._pads4(self.padding)
+        if self.data_format == "NCHW":
+            c, h, w = (int(s) for s in input_shape)
+            return {}, {}, (c, h + pt + pb, w + pl + pr)
+        h, w, c = (int(s) for s in input_shape)
+        return {}, {}, (h + pt + pb, w + pl + pr, c)
+
+    def apply(self, params, x, state, *, train=False, mask=None):
+        return (nnops.zero_padding2d(x, self.padding, self.data_format),
+                state, mask)

@@ -2,11 +2,12 @@
 Embedding, Output, Loss.
 
 Port of ``DenseLayer``, ``ActivationLayer``, ``DropoutLayer``,
-``FlattenLayer``, ``MaskingLayer`` (:183), ``EmbeddingLayer`` (:209),
-``OutputLayer`` and ``LossLayer`` from
-``deeplearning4j_tpu/nn/layers/core.py``, the pointwise ones marked
-``decode_pointwise`` as there (:35, :65, :83, :276, :309; the port has no
-``ElementWiseMultiplicationLayer`` yet). Parameter names and layouts
+``FlattenLayer``, ``PermuteLayer`` (:121), ``ReshapeLayer`` (:147),
+``MaskingLayer`` (:183), ``EmbeddingLayer`` (:209),
+``ElementWiseMultiplicationLayer`` (:230), ``OutputLayer`` and
+``LossLayer`` from ``deeplearning4j_tpu/nn/layers/core.py``, the pointwise
+ones marked ``decode_pointwise`` as there (:35, :65, :83, :233, :276,
+:309). Parameter names and layouts
 follow DL4J: ``W`` is ``[nIn, nOut]``, ``b`` is ``[nOut]``. In training
 the loss heads return their pre-activation and
 :meth:`_BaseOutput.loss_value` computes the loss from it.
@@ -119,6 +120,63 @@ class FlattenLayer(Layer):
         return x.reshape(x.shape[0], -1), state, mask
 
 
+@layer("permute")
+class PermuteLayer(Layer):
+    """Permute the non-batch axes (Keras ``Permute``). ``dims`` are the
+    1-indexed input axes in output order, the batch excluded: (2, 1) swaps
+    the two non-batch axes. The mask is dropped."""
+    dims: Tuple[int, ...] = ()
+    name: Optional[str] = None
+
+    def has_params(self):
+        return False
+
+    def initialize(self, gen, input_shape, dtype, device):
+        if sorted(self.dims) != list(range(1, len(input_shape) + 1)):
+            raise ValueError(
+                f"Permute dims {self.dims} must be a permutation of "
+                f"1..{len(input_shape)} for input {input_shape}")
+        return {}, {}, tuple(input_shape[d - 1] for d in self.dims)
+
+    def apply(self, params, x, state, *, train=False, mask=None):
+        return x.permute((0,) + tuple(self.dims)), state, None
+
+
+@layer("reshape")
+class ReshapeLayer(Layer):
+    """Reshape the non-batch axes (Keras ``Reshape``). ``target_shape``
+    excludes the batch dim; one entry may be -1. The mask is dropped."""
+    target_shape: Tuple[int, ...] = ()
+    name: Optional[str] = None
+
+    def has_params(self):
+        return False
+
+    def initialize(self, gen, input_shape, dtype, device):
+        tgt = [int(t) for t in self.target_shape]
+        total = 1
+        for s in input_shape:
+            total *= int(s)
+        if -1 in tgt:
+            known = 1
+            for t in tgt:
+                if t != -1:
+                    known *= t
+            tgt[tgt.index(-1)] = total // known
+        prod = 1
+        for t in tgt:
+            prod *= t
+        if prod != total:
+            raise ValueError(
+                f"Reshape target {self.target_shape} incompatible with "
+                f"input {input_shape}")
+        return {}, {}, tuple(tgt)
+
+    def apply(self, params, x, state, *, train=False, mask=None):
+        tgt = tuple(int(t) for t in self.target_shape)
+        return x.reshape((x.shape[0],) + tgt), state, None
+
+
 @layer("masking")
 class MaskingLayer(Layer):
     """Keras ``Masking``: a step whose features all equal ``mask_value`` is
@@ -162,6 +220,25 @@ class EmbeddingLayer(Layer):
         if y.dim() >= 3 and y.shape[-2] == 1:
             y = y.squeeze(-2)
         return y, state, mask
+
+
+@layer("elementwise_mult")
+class ElementWiseMultiplicationLayer(Layer):
+    """DL4J ElementWiseMultiplicationLayer: y = act(x * W + b), W, b: [nIn]."""
+    decode_pointwise = True
+    activation: str = "identity"
+    weight_init: str = "ones"
+    name: Optional[str] = None
+
+    def initialize(self, gen, input_shape, dtype, device):
+        n = int(input_shape[-1])
+        w = _winit.init(self.weight_init, gen, (n,), n, n, dtype, device)
+        return ({"W": w, "b": torch.zeros(n, dtype=dtype, device=device)},
+                {}, tuple(input_shape))
+
+    def apply(self, params, x, state, *, train=False, mask=None):
+        return (_act.get(self.activation)(x * params["W"] + params["b"]),
+                state, mask)
 
 
 class _BaseOutput:

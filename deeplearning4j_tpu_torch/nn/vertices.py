@@ -1,7 +1,9 @@
 """Graph vertices for the ComputationGraph engine.
 
-Port of ``GraphVertex``, ``LayerVertex`` and ``ElementWiseVertex`` from
-``deeplearning4j_tpu/nn/vertices.py``. A vertex is a config dataclass;
+Port of ``GraphVertex``, ``LayerVertex``, ``MergeVertex`` (:154),
+``ElementWiseVertex`` and ``DotProductVertex`` (:228) from
+``deeplearning4j_tpu/nn/vertices.py``; the JAX package's other vertex
+kinds are not ported yet (ROADMAP Queue 1 item 10). A vertex is a config dataclass;
 its ``apply`` runs eagerly on tensors.
 
 Protocol (the multi-input form of the Layer protocol):
@@ -128,6 +130,38 @@ class LayerVertex(GraphVertex):
         return {"kind": "layer", "layer": self.layer.to_dict()}
 
 
+@vertex("merge")
+class MergeVertex(GraphVertex):
+    """Concatenate along the feature/channel axis (DL4J ``MergeVertex``):
+    [B,F] -> 1; recurrent [B,T,F] -> 2; CNN -> 1 for NCHW, the last for
+    NHWC."""
+    data_format: str = "NCHW"
+
+    def _axis(self, ndim):
+        if ndim <= 3:
+            return ndim - 1
+        return 1 if self.data_format == "NCHW" else ndim - 1
+
+    def initialize(self, gen, input_shapes, dtype, device):
+        shapes = [tuple(s) for s in input_shapes]
+        for s in shapes[1:]:
+            if len(s) != len(shapes[0]):
+                raise ValueError(f"merge rank mismatch: {shapes}")
+        ax = self._axis(len(shapes[0]) + 1) - 1  # shapes exclude the batch
+        for s in shapes[1:]:
+            for d in range(len(s)):
+                if d != ax and int(s[d]) != int(shapes[0][d]):
+                    raise ValueError(
+                        f"merge non-concat dim {d} mismatch: {shapes}")
+        merged = list(shapes[0])
+        merged[ax] = sum(int(s[ax]) for s in shapes)
+        return {}, {}, tuple(merged)
+
+    def apply(self, params, xs, state, *, train=False, masks=None):
+        return (torch.cat(list(xs), dim=self._axis(xs[0].ndim)), state,
+                _first_mask(masks))
+
+
 @vertex("elementwise")
 class ElementWiseVertex(GraphVertex):
     """Pointwise combine: Add/Subtract/Product/Average/Max/Min
@@ -164,3 +198,33 @@ class ElementWiseVertex(GraphVertex):
         else:
             raise ValueError(f"unknown elementwise op {self.op!r}")
         return y, state, _first_mask(masks)
+
+
+@vertex("dot_product")
+class DotProductVertex(GraphVertex):
+    """Batch dot product of two equal-shape ``[B, n]`` inputs along
+    ``axis`` (Keras ``Dot(axes=k)``), the axis kept as length 1."""
+    axis: int = -1
+
+    def initialize(self, gen, input_shapes, dtype, device):
+        a = list(input_shapes[0])
+        ax = self.axis
+        # shapes exclude the batch; axis counts it as 0, as Keras does
+        a[(ax - 1) if ax > 0 else (len(a) + ax)] = 1
+        return {}, {}, tuple(a)
+
+    def apply(self, params, xs, state, *, train=False, masks=None):
+        if len(xs) != 2:
+            raise ValueError("Dot takes exactly 2 inputs")
+        a, b = xs
+        if a.shape != b.shape:
+            raise ValueError(
+                f"Dot supports equal-shape inputs, got {tuple(a.shape)} vs "
+                f"{tuple(b.shape)} (matmul-style axes pairs not supported)")
+        if a.ndim > 2:
+            # Keras batch_dot on rank >= 3 is a matmul-style contraction
+            raise ValueError(
+                f"Dot supports one non-batch dim, got rank {a.ndim} "
+                "(batch_dot matmul semantics not implemented)")
+        return (torch.sum(a * b, dim=self.axis, keepdim=True), state,
+                _first_mask(masks))

@@ -5,7 +5,10 @@ Port of the ``deeplearning4j_tpu/ops/nnops.py`` ops that ResNet serving
 and the recurrent layers use; ``layer_norm``, ``embedding_lookup`` and
 the four cells (``lstm_cell``, ``graves_lstm_cell``, ``gru_cell``,
 ``simple_rnn_cell``) are catalog ops, registered under the JAX package's
-names. The convolution
+names. The ops the imported layer kinds need (``separable_conv2d``,
+``local_response_normalization``, ``upsampling2d``, ``zero_padding2d``,
+``space_to_depth``, ``depth_to_space``) are plain functions here, not
+catalog ops (ROADMAP Queue 1 item 4 keeps them). The convolution
 stays ``F.conv2d`` (cuDNN on the card), as the JAX package leaves it to
 XLA.
 
@@ -448,3 +451,85 @@ def onnx_gru(x, w, r, b, direction="forward", hidden_size=0,
 
     y, (y_h,) = _onnx_rnn(x, w, direction, run_dir)
     return y, y_h
+
+
+# -- the plain ops of the imported layers (not catalog ops) ------------------
+
+def separable_conv2d(x, w_depth, w_point, b=None, stride=(1, 1), padding=0,
+                     dilation=(1, 1), mode="truncate", data_format="NCHW"):
+    """Depthwise then 1x1 pointwise convolution (the JAX module's :134)."""
+    y = depthwise_conv2d(x, w_depth, None, stride, padding, dilation, mode,
+                         data_format)
+    return conv2d(y, w_point, b, (1, 1), 0, (1, 1), "truncate", data_format)
+
+
+def local_response_normalization(x, k=2.0, n=5, alpha=1e-4, beta=0.75,
+                                 data_format="NCHW"):
+    """Cross-channel LRN (the JAX module's :262): ``x / (k + alpha *
+    s)**beta``, ``s`` the sum of squares over a window of ``n`` channels
+    padded ``n // 2`` each side (the JAX ``reduce_window``)."""
+    caxis = 1 if data_format == "NCHW" else 3
+    sq = torch.movedim(torch.square(x), caxis, -1)
+    half = n // 2
+    padded = F.pad(sq, (half, half))
+    width = padded.shape[-1] - n + 1
+    s = padded[..., 0:width]
+    for j in range(1, n):
+        s = s + padded[..., j:j + width]
+    return x / torch.pow(k + alpha * torch.movedim(s, -1, caxis), beta)
+
+
+def upsampling2d(x, size, data_format="NCHW"):
+    """Nearest upsampling by repetition (the JAX module's :492)."""
+    sh, sw = _pair(size)
+    hax = 2 if data_format == "NCHW" else 1
+    return torch.repeat_interleave(torch.repeat_interleave(x, sh, dim=hax),
+                                   sw, dim=hax + 1)
+
+
+def _pads4(padding):
+    """``(top, bottom, left, right)`` of ``(h, w)`` or ``((t, b), (l,
+    r))``."""
+    if isinstance(padding, int):
+        return (padding,) * 4
+    if isinstance(padding[0], (tuple, list)):
+        (pt, pb), (pl, pr) = padding
+    else:
+        pt = pb = int(padding[0])
+        pl = pr = int(padding[1])
+    return int(pt), int(pb), int(pl), int(pr)
+
+
+def zero_padding2d(x, padding, data_format="NCHW"):
+    """Zero padding of the spatial dims (the JAX module's :500):
+    ``padding`` (pad_h, pad_w) symmetric, or ((top, bottom), (left,
+    right))."""
+    pt, pb, pl, pr = _pads4(padding)
+    if data_format == "NCHW":
+        return F.pad(x, (pl, pr, pt, pb))
+    return F.pad(x, (0, 0, pl, pr, pt, pb))
+
+
+def space_to_depth(x, block_size, data_format="NCHW"):
+    """Blocks of ``block_size`` x ``block_size`` pixels into channels (the
+    JAX module's :526)."""
+    b = block_size
+    if data_format == "NCHW":
+        n, c, h, w = x.shape
+        x = x.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+        return x.reshape(n, c * b * b, h // b, w // b)
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // b, b, w // b, b, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h // b, w // b, c * b * b)
+
+
+def depth_to_space(x, block_size, data_format="NCHW"):
+    """The inverse of :func:`space_to_depth` (the JAX module's :540)."""
+    b = block_size
+    if data_format == "NCHW":
+        n, c, h, w = x.shape
+        x = x.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+        return x.reshape(n, c // (b * b), h * b, w * b)
+    n, h, w, c = x.shape
+    x = x.reshape(n, h, w, b, b, c // (b * b)).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h * b, w * b, c // (b * b))

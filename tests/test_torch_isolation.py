@@ -3,7 +3,10 @@
 1. An AST scan: no module of ``deeplearning4j_tpu_torch`` and not
    ``chip_smoke.py`` imports ``jax``, ``jaxlib`` or ``deeplearning4j_tpu``
    (a scan and not ``sys.modules``: a process may have JAX loaded for
-   other reasons, as the tests that compare the two packages do).
+   other reasons, as the tests that compare the two packages do), and
+   none imports ``h5py``, ``keras`` or ``tensorflow`` at module level (a
+   test oracle may import one inside the call that uses it, as
+   ``modelimport/validation.py`` does TensorFlow).
 2. The device rule: with CUDA absent, every entry point raises unless the
    caller asks for ``cpu`` (the ComputationGraph, MultiLayerNetwork and
    serving fronts, SameDiff and its loaders, the BERT builders), and a
@@ -74,7 +77,8 @@ def test_scan_covers_the_package():
             "kv_pool.py", "multiquery_decode.py", "layer_norm_act.py",
             "nnops.py", "lenet.py", "training.py", "mnist.py",
             "normalizers.py", "evaluation.py", "compare_kernels.py",
-            "count_kernels.py"} <= names
+            "count_kernels.py", "hdf5.py", "keras.py", "conv_extra.py",
+            "vertices.py", "make_keras_config.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -83,6 +87,34 @@ def test_port_imports_nothing_of_jax(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = sorted(n for n in _imports(tree) if _forbidden(n))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+ORACLES = ("h5py", "keras", "tensorflow")
+
+
+def _module_level_imports(tree):
+    """The imports a module runs when it is imported: its top level and
+    class bodies, not the bodies of its functions."""
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        yield from _imports(ast.Module(body=[node], type_ignores=[])) \
+            if isinstance(node, (ast.Import, ast.ImportFrom)) else ()
+        if isinstance(node, ast.Call):
+            yield from _imports(node)
+        stack.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_oracle_at_module_level(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = sorted(n for n in _module_level_imports(tree)
+                 if any(n == f or n.startswith(f + ".") for f in ORACLES))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad} when imported"
 
 
 # ---------------------------------------------------------------- devices
@@ -169,6 +201,29 @@ def test_importer_entry_points_without_device_raise(no_cuda):
         tf_path, device="cpu").device.type == "cpu"
     assert OnnxFrameworkImporter.import_file(
         onnx_path, device="cpu").device.type == "cpu"
+
+
+def test_keras_entry_points_without_device_raise(no_cuda):
+    """KerasModelImport's four entry points build their network on cuda
+    unless asked for cpu, and raise without a card."""
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport as K
+    fixtures = ROOT / "tests" / "fixtures"
+    h5, v3 = str(fixtures / "keras_smoke.h5"), \
+        str(fixtures / "keras_v3_lstm.keras")
+    for make in (lambda: K.import_keras_model_and_weights(h5),
+                 lambda: K.import_keras_model_and_weights(v3),
+                 lambda: K.import_keras_sequential_model_and_weights(h5),
+                 lambda: K.import_keras_model_configuration(h5),
+                 lambda: K.import_keras_sequential_configuration(h5),
+                 lambda: K.import_keras_model_and_weights(h5,
+                                                          device="cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    for make in (K.import_keras_model_and_weights,
+                 K.import_keras_sequential_model_and_weights,
+                 K.import_keras_model_configuration,
+                 K.import_keras_sequential_configuration):
+        assert make(h5, device="cpu").device.type == "cpu"
 
 
 def test_multilayer_entry_points_without_device_raise(no_cuda, tmp_path):

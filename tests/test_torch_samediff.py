@@ -567,16 +567,20 @@ def test_values_follow_jax_dtype_rules():
 
 def test_what_is_not_ported_raises():
     """What the port leaves out of SameDiff's neighbourhood raises naming
-    ROADMAP Queue 1 (Keras import); control flow, ``evaluate``,
-    ``memory_report``, the 16-bit policy and remat, which raised here
-    before, now run (``test_torch_samediff_controlflow.py``,
+    ROADMAP Queue 1: a Keras layer whose target kind is not ported yet
+    (item 10; Keras import itself runs, ``test_torch_keras_import.py``);
+    control flow, ``evaluate``, ``memory_report``, the 16-bit policy and
+    remat, which raised here before, now run
+    (``test_torch_samediff_controlflow.py``,
     ``test_torch_samediff_bf16_remat.py``)."""
+    import json
     from deeplearning4j_tpu_torch.modelimport import KerasModelImport
-    for call in (lambda: KerasModelImport.import_keras_model_and_weights(
-                     "model.h5"),
-                 lambda: KerasModelImport()):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            call()
+    cfg = json.dumps({"class_name": "Sequential", "config": {"layers": [
+        {"class_name": "InputLayer",
+         "config": {"name": "in", "batch_shape": [None, 4]}},
+        {"class_name": "LayerNormalization", "config": {"name": "ln"}}]}})
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        KerasModelImport.import_keras_model_configuration(cfg, device="cpu")
     sd = SameDiff(device="cpu")
     x = sd.placeholder("x")
     (y,) = sd.cond(x, lambda s, a: a, lambda s, a: a, x)
