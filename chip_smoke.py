@@ -1,5 +1,6 @@
-"""Drive the PyTorch/H100 port's serving, training, recurrent, generative,
-fused-epilogue, import and SameDiff paths on one NVIDIA card.
+"""Drive the PyTorch/H100 port's serving, training, recurrent, generative
+(disaggregated too), fused-epilogue, import and SameDiff paths on one
+NVIDIA card.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -349,7 +350,38 @@ Phases, in order; any failure exits non-zero:
     (its weights kept), 3 batch-32 ``fit`` steps with Sgd, 106 K1 and 106
     K2 a step, the first step's loss against the CPU's float64 loss, the
     step and device time and the busy share;
-33. summary: a ``{"kernels": [...]}`` line (K1-K10), the ``nvidia-smi``
+33. disagg: disaggregated serving on phase 18's generative model (full
+    width, float32): the bench's mixed load (6 interactive streams of
+    8-token prompts x 16 new tokens beside 6 prompts of 112 tokens x 2
+    new tokens, cache 128, pages of 16 rows) through one colocated paged
+    ``ContinuousBatcher`` and through a ``PrefillReplica`` feeding a decode
+    ``ContinuousBatcher(migrate_buckets=[7])``, in 3 interleaved rounds
+    of fresh prompts: every long prompt's ``KVShipment`` through a
+    ``socket.socketpair()`` (``to_bytes``, ``write_msg``, ``read_msg``,
+    ``from_bytes``) bit for bit, every split stream equal to the
+    colocated one (under the tie rule) and teacher-forced through the CPU
+    plain path, 3 K3 a prefill and 3 K9 a decode step on each side, no
+    decode-side prefill for a migrated request and the adopted pages the
+    shipped ones; the interactive TTFT p50/p99 of each side and their p99
+    ratio, TPOT p50, the export and import ms, bytes and wire MB/s of the
+    shipments, and one profiled window a side (device ms, busy share);
+    then ``DisaggRouter`` over the replica and two decode replicas on the
+    growth mix's 32 prompts x 64 new tokens, twice: 32 prefills and 32
+    migrations (the pages adopted the pages shipped, no decode-side
+    prefill), then 32 resident-prefix hits with no prefill or migration,
+    every stream equal to the first pass's and to a colocated paged
+    ``ContinuousBatcher``'s on the same mix, and teacher-forced through
+    the CPU plain path;
+34. sd-decode: ``tests/test_generative_decode.py``'s mini transformer
+    stacked 12 times at BERT-base's attention shape (H 12, d 64):
+    ``fuse_attention`` 12 matched, ``rewrite_for_decode`` contiguous and
+    paged (pages of 16 rows); a prefill of 8 ragged prompts of 100-128
+    tokens (12 K3), 32 decode steps (12 K9 each) into a cache of 256, and
+    on the paged replay a window of 4 rows through ``attention.
+    paged_sdpa`` (12 K10); every output within 1e-4 of the base graph
+    recomputed over the full prefix on the card, and of the CPU plain
+    path's decode graphs;
+35. summary: a ``{"kernels": [...]}`` line (K1-K10), the ``nvidia-smi``
     name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 The serving path (phases 4-5), the training path, the NCHW block,
@@ -363,8 +395,10 @@ mixes (phase 18), the generative server (phase 19), the paged mix (phase
 the fused BERT serving path (phase 23), the fused BERT fine-tune path
 (phase 24), the import path (phase 25), the bf16 fine-tune (phase 27),
 each workspace mode's steps (phase 28), ``evaluate`` (phase 29), the
-Keras imports (phase 30), the Keras golden replay (phase 31) and the
-Keras ResNet-50's requests and fine-tune steps (phase 32) are each driven
+Keras imports (phase 30), the Keras golden replay (phase 31), the
+Keras ResNet-50's requests and fine-tune steps (phase 32), each window
+of the mixed load and each router pass (phase 33) and each prefill,
+decode step and window of the decode graphs (phase 34) are each driven
 with the launch counts set to 0 just before and read just after.
 
 The script imports nothing of JAX or of the JAX package.
@@ -375,9 +409,11 @@ from __future__ import annotations
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
 
@@ -584,6 +620,32 @@ GEN_REL_TOL = 1e-4
 #: request of the server phase
 GROW_CHECKED = 4
 SERVER_NEW = 16
+#: [disagg]'s mixed load (bench.py:2396-2399): interactive streams of
+#: 8-token prompts x 16 new tokens beside long prompts of 112 tokens x 2
+#: new tokens, cache 128 and pages of 16 rows (the port's paged mixes), in
+#: interleaved rounds; fresh prompts from this seed
+DISAGG_SHORT, DISAGG_LONG = 6, 6
+DISAGG_PLEN_SHORT, DISAGG_PLEN_LONG = 8, 112
+DISAGG_NEW_SHORT, DISAGG_NEW_LONG = 16, 2
+DISAGG_CACHE, DISAGG_PAGE = 128, 16
+DISAGG_ROUNDS = 3
+DISAGG_SEED = 7
+#: [disagg]'s router round: the growth mix's prompts x 64 new tokens over
+#: two decode replicas of 16 slots and 640 pages (+ the zero page) each
+ROUTER_NEW = 64
+ROUTER_SLOTS = 16
+ROUTER_PAGES = 641
+#: [sd-decode]: tests/test_generative_decode.py's mini transformer stacked
+#: 12 times at BERT-base's attention shape (H 12, d 64); B ragged prompts
+#: of [low, high) tokens, cache 256, 32 decode steps, pages of 16 rows and
+#: a verify window of 4 rows; each output within 1e-4 (max |diff| / max
+#: |ref|) of the base graph over the full prefix, as the JAX test holds
+#: its steps (float32, TF32 off)
+SDD_BLOCKS, SDD_H, SDD_D = 12, 12, 64
+SDD_B, SDD_PLEN, SDD_CACHE = 8, (100, 129), 256
+SDD_STEPS, SDD_PAGE, SDD_WINDOW = 32, 16, 4
+SDD_REL_TOL = 1e-4
+SDD_SEED = 21
 #: K6/K7's shapes [rows, C]: BERT-base's LayerNorm at batch 32, 2 and 1
 #: (x 128 tokens), a ragged row count, a wider row, the widest the row
 #: layout takes in 4 warps, and a tiny ragged one; the first is the path's
@@ -3786,7 +3848,7 @@ def generate_path(cb, mix, runs, counters) -> dict:
     return row
 
 
-def check_streams(cpu, mix, row, n, tag) -> dict:
+def check_streams(cpu, mix, row, n, tag, phase="generate") -> dict:
     """The first ``n`` streams teacher-forced through the CPU plain path
     (``profile_generate.teacher_forced``); raises on a violation."""
     from deeplearning4j_tpu_torch.tools import profile_generate as pg
@@ -3800,7 +3862,7 @@ def check_streams(cpu, mix, row, n, tag) -> dict:
         worst["min_gap"] = min(worst["min_gap"], tf["min_gap"])
         worst["last_rel_err"] = max(worst["last_rel_err"],
                                     tf["last_rel_err"])
-    log(f"[generate] {tag}: {n} streams teacher-forced through the CPU plain "
+    log(f"[{phase}] {tag}: {n} streams teacher-forced through the CPU plain "
         f"path: {worst['violations']} tokens off the CPU's argmax, "
         f"{worst['near_ties']} steps with a top-2 gap below "
         f"{pg.TIE_TOL} of the top (smallest gap {worst['min_gap']:.3g}); "
@@ -4152,7 +4214,8 @@ def split_gap(cpu, prompt, ours, theirs):
     return float((top[1] - top[0]) / abs(top[1]))
 
 
-def check_equal_streams(cpu, mix, ours, theirs, tag, what) -> int:
+def check_equal_streams(cpu, mix, ours, theirs, tag, what,
+                        phase="generate-spec") -> int:
     """Each stream of ``ours`` equals ``theirs`` or parts from it only at
     a near-tie of the CPU plain path (top-2 gap below
     ``profile_generate.TIE_TOL``); returns the number of near-tie
@@ -4169,7 +4232,7 @@ def check_equal_streams(cpu, mix, ours, theirs, tag, what) -> int:
         ties += 1
     if len(ours) != len(theirs):
         raise AssertionError(f"{tag}: {len(ours)} streams vs {len(theirs)}")
-    log(f"[generate-spec] {tag}: {len(ours)} streams equal {what}"
+    log(f"[{phase}] {tag}: {len(ours)} streams equal {what}"
         + (f" but for {ties} parting at a near-tie" if ties else ""))
     return ties
 
@@ -4339,6 +4402,616 @@ def phase_generate_spec_server(counters, server_mod, net) -> dict:
     return {"launches": {"k3": k3.launches, "k9": k9.launches,
                          "k10": k10.launches}}
 
+
+def settle(cb, timeout: float = 10.0) -> None:
+    """Wait until ``cb``'s worker holds no slot and no horizon, so that
+    counts zeroed next see only the next window's launches."""
+    t_end = time.perf_counter() + timeout
+    while (cb.active_slots() or cb._inflight is not None
+           or cb._q.qsize()) and time.perf_counter() < t_end:
+        time.sleep(0.002)
+    torch.cuda.synchronize()
+
+
+def ship_over_socket(ship):
+    """``ship`` through a ``socket.socketpair()``: ``to_bytes`` ->
+    ``write_msg`` -> ``read_msg`` -> ``from_bytes``. Raises unless the
+    bytes, the payload, the logits and the handoff come back bit for bit.
+    Returns ``(shipment, bytes, wire seconds)``."""
+    from deeplearning4j_tpu_torch.serving import disagg
+    blob = ship.to_bytes()
+    a, b = socket.socketpair()
+    try:
+        t0 = time.perf_counter()
+        writer = threading.Thread(target=disagg.write_msg, args=(a, blob))
+        writer.start()
+        got = disagg.read_msg(b)
+        wire = time.perf_counter() - t0
+        writer.join()
+    finally:
+        a.close()
+        b.close()
+    back = disagg.KVShipment.from_bytes(got)
+    same = got == blob and back.pages == ship.pages \
+        and back.plen == ship.plen and back.prefix_key == ship.prefix_key \
+        and np.array_equal(back.logits, ship.logits) \
+        and set(back.payload) == set(ship.payload) and all(
+            set(back.payload[l]) == set(lv) and all(
+                torch.equal(back.payload[l][n], t) for n, t in lv.items())
+            for l, lv in ship.payload.items())
+    if not same:
+        raise AssertionError("a shipment did not come back bit for bit "
+                             "through the socket")
+    return back, len(blob), wire
+
+
+def drive_window(submit_short, submit_long, shorts, longs) -> dict:
+    """One window of the mixed load: the interactive and the long
+    requests submitted from threads, arrivals interleaved as the bench
+    interleaves them; the TTFT of each taken by its submitting thread
+    (submit -> first streamed token). Returns ``{"short"/"long": [(ttft
+    s, tokens, last logits)]}`` in prompt order and the window's wall
+    seconds."""
+    out = {"short": [None] * len(shorts), "long": [None] * len(longs)}
+    errors = []
+
+    def one(submit, kind, i, prompt):
+        try:
+            t0 = time.perf_counter()
+            h = submit(prompt)
+            next(h.tokens(timeout=300))
+            ttft = time.perf_counter() - t0
+            r = h.result(timeout=300)
+            out[kind][i] = (ttft, r["tokens"], r["logits"])
+        except BaseException as e:  # raised in the driving thread below
+            errors.append(e)
+
+    threads = []
+    for i in range(max(len(shorts), len(longs))):
+        if i < len(longs):
+            threads.append(threading.Thread(
+                target=one, args=(submit_long, "long", i, longs[i])))
+        if i < len(shorts):
+            threads.append(threading.Thread(
+                target=one, args=(submit_short, "short", i, shorts[i])))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    out["wall_s"] = wall
+    return out
+
+
+def window_launches(counters, want_k3, want_k9, tag) -> dict:
+    """Raise unless the window launched ``want_k3`` K3 and ``want_k9`` K9
+    and nothing else, with only ``fused`` and ``decode_fused``
+    decisions."""
+    k1, k3, k8, k9, k10, fa, pk = counters
+    want_dec = {k: 0 for k in fa.decode_counters()}
+    want_dec["decode_fused"] = k9.launches
+    want_att = {k: 0 for k in fa.counters()}
+    want_att["fused"] = k3.launches
+    if k3.launches != want_k3 or k9.launches != want_k9 or want_k9 == 0 \
+            or k10.launches or k1.launches or k1.bwd_launches \
+            or k8.launches or fa.decode_counters() != want_dec \
+            or fa.counters() != want_att:
+        raise AssertionError(
+            f"{tag}: {k3.launches} K3 (want {want_k3}), {k9.launches} K9 "
+            f"(want {want_k9}), {k10.launches} K10, K1/K2/K8 {k1.launches}/"
+            f"{k1.bwd_launches}/{k8.launches}, decisions {fa.counters()} "
+            f"{fa.decode_counters()}")
+    return {"k3": k3.launches, "k9": k9.launches, "k10": 0}
+
+
+def zero_counts(counters) -> None:
+    k1, k3, k8, k9, k10, fa, pk = counters
+    k1.launches = k1.bwd_launches = k3.launches = k8.launches = 0
+    k9.launches = k10.launches = 0
+    fa.reset_counters()
+    pk.reset_counters()
+
+
+def ms_pct(values, q):
+    return float(np.percentile(np.asarray(values), q) * 1e3)
+
+
+def phase_disagg(counters, gen) -> dict:
+    """Disaggregated serving on the bench's generative model: the mixed
+    load colocated and split in interleaved rounds, every long prompt's
+    shipment through a socketpair; then the router over two decode
+    replicas on the growth mix, twice."""
+    from deeplearning4j_tpu_torch.serving import PrefillReplica
+    from deeplearning4j_tpu_torch.serving.batcher import ContinuousBatcher
+    net = gen["net"]
+    P = DISAGG_PAGE
+    n_slots = DISAGG_SHORT + DISAGG_LONG
+    t0 = time.perf_counter()
+    colo = ContinuousBatcher(net, slots=n_slots, max_cache_len=DISAGG_CACHE,
+                             paged=True, page_size=P,
+                             max_new_tokens=DISAGG_NEW_SHORT,
+                             pool_label="colocated")
+    pre = PrefillReplica(net, pages=257, page_size=P,
+                         max_cache_len=DISAGG_CACHE,
+                         prompt_buckets=[16, DISAGG_CACHE])
+    dec = ContinuousBatcher(net, slots=n_slots, max_cache_len=DISAGG_CACHE,
+                            paged=True, page_size=P,
+                            max_new_tokens=DISAGG_NEW_SHORT,
+                            pool_label="decode",
+                            migrate_buckets=[-(-DISAGG_PLEN_LONG // P)])
+    log(f"[disagg] colocated ContinuousBatcher, PrefillReplica and decode "
+        f"ContinuousBatcher (slots {n_slots}, cache {DISAGG_CACHE}, pages of "
+        f"{P} rows, migrate_buckets [{-(-DISAGG_PLEN_LONG // P)}]) built and "
+        f"warmed in {time.perf_counter() - t0:.1f} s")
+    try:
+        row = mixed_load(counters, gen, colo, pre, dec)
+    finally:
+        colo.shutdown()
+        dec.shutdown()
+    row["router"] = router_round(counters, gen)
+    return row
+
+
+def mixed_load(counters, gen, colo, pre, dec) -> dict:
+    """[disagg]'s mixed load over the colocated front ``colo`` and the
+    split pair ``pre`` + ``dec`` (see ``phase_disagg``)."""
+    from deeplearning4j_tpu_torch.tools import profile_generate as pg
+    cpu = gen["cpu"]
+    eye = np.eye(pg.VOCAB, dtype=np.float32)
+    P = DISAGG_PAGE
+    ships = []   # (bytes, wire s, pages)
+
+    def split_long(prompt):
+        ship = pre.prefill(prompt)
+        back, nbytes, wire = ship_over_socket(ship)
+        ships.append((nbytes, wire, len(ship.pages)))
+        return dec.submit_prefilled(back, max_new_tokens=DISAGG_NEW_LONG)
+
+    def colo_long(prompt):
+        return colo.submit(prompt=prompt, max_new_tokens=DISAGG_NEW_LONG)
+
+    sides = {"colocated": (colo, lambda p: colo.submit(prompt=p), colo_long),
+             "split": (dec, lambda p: dec.submit(prompt=p), split_long)}
+    ttft = {s: [] for s in sides}
+    tpot = {s: [] for s in sides}
+    ratios, launches = [], {s: {"k3": 0, "k9": 0, "k10": 0} for s in sides}
+    ties, checked = 0, 0
+    worst = {"violations": 0, "near_ties": 0, "last_rel_err": 0.0}
+
+    def window(side, shorts, longs):
+        cb, sub_short, sub_long = sides[side]
+        settle(colo)
+        settle(dec)
+        zero_counts(counters)
+        eng = cb.engine
+        before = (eng.prefill_runs, eng.decode_steps,
+                  pre.engine.prefill_runs, eng.pool.stats()["adoptions"],
+                  len(cb._tpot))
+        res = drive_window(sub_short, sub_long, shorts, longs)
+        settle(cb)
+        prefills = eng.prefill_runs - before[0]
+        steps = eng.decode_steps - before[1]
+        pre_prefills = pre.engine.prefill_runs - before[2]
+        adopt = eng.pool.stats()["adoptions"] - before[3]
+        n_pages = sum(-(-len(p) // P) for p in longs)
+        if side == "colocated":
+            want = len(shorts) + len(longs)
+            if prefills != want or pre_prefills:
+                raise AssertionError(f"[disagg] colocated: {prefills} "
+                                     f"prefills for {want} fresh prompts")
+        elif prefills != len(shorts) or pre_prefills != len(longs) \
+                or adopt != n_pages:
+            raise AssertionError(
+                f"[disagg] split: {prefills} decode-side prefills (want "
+                f"{len(shorts)}: none for a migrated request), "
+                f"{pre_prefills} replica prefills (want {len(longs)}), "
+                f"{adopt} pages adopted (want {n_pages})")
+        got = window_launches(counters, GEN_LAYERS * (prefills + pre_prefills),
+                              GEN_LAYERS * steps, f"[disagg] {side}")
+        for k in got:
+            launches[side][k] += got[k]
+        return res, steps, list(cb._tpot)[before[4]:]
+
+    rng = np.random.default_rng(DISAGG_SEED)
+    for r in range(DISAGG_ROUNDS):
+        shorts = [eye[rng.integers(0, pg.VOCAB, DISAGG_PLEN_SHORT)]
+                  for _ in range(DISAGG_SHORT)]
+        longs = [eye[rng.integers(0, pg.VOCAB, DISAGG_PLEN_LONG)]
+                 for _ in range(DISAGG_LONG)]
+        out = {}
+        for side in sides:
+            out[side], _, tp = window(side, shorts, longs)
+            ttft[side] += [t for t, _, _ in out[side]["short"]]
+            tpot[side] += tp
+        ratios.append(np.percentile([t for t, _, _ in out["colocated"][
+            "short"]], 99) / np.percentile([t for t, _, _ in out["split"][
+                "short"]], 99))
+        prompts = shorts + longs
+        ours = [x[1] for x in out["split"]["short"] + out["split"]["long"]]
+        theirs = [x[1] for x in out["colocated"]["short"]
+                  + out["colocated"]["long"]]
+        ties += check_equal_streams(cpu, prompts, ours, theirs,
+                                    f"round {r}",
+                                    "the colocated paged batcher's",
+                                    phase="disagg")
+        for p, x in zip(prompts, out["split"]["short"]
+                        + out["split"]["long"]):
+            tf = pg.teacher_forced(cpu, p, x[1], x[2])
+            worst["violations"] += tf["violations"]
+            worst["near_ties"] += tf["near_ties"]
+            worst["last_rel_err"] = max(worst["last_rel_err"],
+                                        tf["last_rel_err"])
+            checked += 1
+    if worst["violations"] or not worst["last_rel_err"] <= GEN_REL_TOL:
+        raise AssertionError(f"[disagg] the split streams disagree with the "
+                             f"CPU plain path: {worst}")
+    # one profiled window a side (fresh prompts, outside the TTFT rows)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    shorts = [eye[rng.integers(0, pg.VOCAB, DISAGG_PLEN_SHORT)]
+              for _ in range(DISAGG_SHORT)]
+    longs = [eye[rng.integers(0, pg.VOCAB, DISAGG_PLEN_LONG)]
+             for _ in range(DISAGG_LONG)]
+    prof_rows = {}
+    for side in sides:
+        with torch.profiler.profile(activities=acts) as prof:
+            res, steps, _ = window(side, shorts, longs)
+        dev, k9ms, _, k3ms, _ = pg._kernel_split(prof)
+        prof_rows[side] = {"wall_ms": res["wall_s"] * 1e3, "device_ms": dev,
+                           "busy_share": dev / (res["wall_s"] * 1e3),
+                           "k9_ms": k9ms, "k3_ms": k3ms,
+                           "decode_steps": steps}
+    # the host seconds of each shipment's export (replica) and import
+    # (decode pool), as the engines time them
+    exports = list(pre.engine.migrate_s["export"])[-len(ships):]
+    imports = list(dec.engine.migrate_s["import"])[-len(ships):]
+    row = {
+        "ttft_ms_p50": {s: ms_pct(v, 50) for s, v in ttft.items()},
+        "ttft_ms_p99": {s: ms_pct(v, 99) for s, v in ttft.items()},
+        "ttft_p99_ratio_colocated_over_split": float(np.median(ratios)),
+        "ttft_p99_ratios": [float(x) for x in ratios],
+        "tpot_ms_p50": {s: ms_pct(v, 50) if v else None
+                        for s, v in tpot.items()},
+        "shipments": len(ships),
+        "bytes_per_shipment": float(np.mean([s[0] for s in ships])),
+        "pages_per_shipment": float(np.mean([s[2] for s in ships])),
+        "wire_mb_per_s": sum(s[0] for s in ships) / sum(s[1] for s in ships)
+        / 1e6,
+        "export_ms_p50": ms_pct(exports, 50),
+        "import_ms_p50": ms_pct(imports, 50),
+        "profiled": prof_rows, "launches": launches,
+        "streams_checked": checked, "near_tie_partings": ties,
+        "cpu_check": worst,
+    }
+    log(f"[disagg] mixed load, {DISAGG_ROUNDS} interleaved rounds of "
+        f"{DISAGG_SHORT} interactive ({DISAGG_PLEN_SHORT} tokens x "
+        f"{DISAGG_NEW_SHORT} new) and {DISAGG_LONG} long ({DISAGG_PLEN_LONG} "
+        f"x {DISAGG_NEW_LONG}) requests: interactive TTFT p50/p99 colocated "
+        f"{row['ttft_ms_p50']['colocated']:.3f}/"
+        f"{row['ttft_ms_p99']['colocated']:.3f} ms, split "
+        f"{row['ttft_ms_p50']['split']:.3f}/{row['ttft_ms_p99']['split']:.3f}"
+        f" ms, p99 ratio colocated/split "
+        f"{row['ttft_p99_ratio_colocated_over_split']:.3f} (rounds "
+        f"{', '.join(f'{x:.3f}' for x in ratios)}); TPOT p50 colocated "
+        f"{row['tpot_ms_p50']['colocated']} ms, split "
+        f"{row['tpot_ms_p50']['split']} ms")
+    log(f"[disagg] {len(ships)} shipments through a socketpair, bit for bit: "
+        f"{row['bytes_per_shipment']:.0f} bytes "
+        f"({row['pages_per_shipment']:.0f} pages) each, wire "
+        f"{row['wire_mb_per_s']:.1f} MB/s, export p50 "
+        f"{row['export_ms_p50']:.3f} ms, import p50 "
+        f"{row['import_ms_p50']:.3f} ms (host); {checked} split streams "
+        f"equal the colocated paged batcher's"
+        + (f" but for {ties} parting at a near-tie" if ties else "")
+        + f" and pass the CPU teacher-forced check (last-step "
+        f"{worst['last_rel_err']:.3g}); K3 3 a prefill, K9 3 a decode step, "
+        f"0 decode-side prefills for migrated requests")
+    for side, pr in prof_rows.items():
+        log(f"[disagg] profiled {side} window: wall {pr['wall_ms']:.3f} ms, "
+            f"device {pr['device_ms']:.3f} ms (busy share "
+            f"{pr['busy_share']:.3f}), K9 {pr['k9_ms']:.3f} ms, K3 "
+            f"{pr['k3_ms']:.3f} ms, {pr['decode_steps']} decode steps")
+    return row
+
+
+def router_round(counters, gen) -> dict:
+    """``DisaggRouter([pre], [d0, d1])`` on the growth mix's 32 prompts x
+    ``ROUTER_NEW`` new tokens, twice: the first pass prefills each prompt
+    once and migrates it, the second routes each to its resident decode
+    replica."""
+    from deeplearning4j_tpu_torch.serving import DisaggRouter, PrefillReplica
+    from deeplearning4j_tpu_torch.serving.batcher import ContinuousBatcher
+    from deeplearning4j_tpu_torch.tools import profile_generate as pg
+    net, cpu = gen["net"], gen["cpu"]
+    P = DISAGG_PAGE
+    cache = pg.GROW["max_cache_len"]
+    mix = pg.prompts(*pg.GROW_PROMPTS)
+    t0 = time.perf_counter()
+    pre = PrefillReplica(net, pages=1 + len(mix) * (cache // P),
+                         page_size=P, max_cache_len=cache,
+                         prompt_buckets=[256, 512])
+    decs = [ContinuousBatcher(net, slots=ROUTER_SLOTS, max_cache_len=cache,
+                              min_cache_len=pg.GROW["min_cache_len"],
+                              paged=True, page_size=P, pages=ROUTER_PAGES,
+                              max_new_tokens=ROUTER_NEW,
+                              migrate_buckets=[256 // P, 512 // P],
+                              pool_label="decode") for _ in range(2)]
+    log(f"[disagg] router: PrefillReplica ({pre.engine.pages} pages) and 2 "
+        f"decode ContinuousBatchers ({ROUTER_SLOTS} slots, {ROUTER_PAGES} "
+        f"pages, cache {cache}) built and warmed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    shipped = sum(-(-len(p) // P) for p in mix)
+    colo = ContinuousBatcher(net, **dict(pg.GROW_PAGED,
+                                         max_new_tokens=ROUTER_NEW))
+    try:
+        colo_streams = pg.serve(colo, mix)[0]
+    finally:
+        colo.shutdown()
+    passes, launches = [], {"k3": 0, "k9": 0, "k10": 0}
+    try:
+        with DisaggRouter([pre], decs, max_new_tokens=ROUTER_NEW) as router:
+            for n in range(2):
+                for cb in decs:
+                    settle(cb)
+                zero_counts(counters)
+                before = [(cb.engine.prefill_runs, cb.engine.decode_steps,
+                           cb.engine.pool.stats()["adoptions"],
+                           cb.stats()["requests"]) for cb in decs]
+                p0 = pre.engine.prefill_runs
+                t1 = time.perf_counter()
+                res = [h.result(timeout=600) for h in
+                       [router.submit(prompt=p) for p in mix]]
+                wall = time.perf_counter() - t1
+                for cb in decs:
+                    settle(cb)
+                st = router.stats()
+                dec_prefills = sum(cb.engine.prefill_runs - b[0]
+                                   for cb, b in zip(decs, before))
+                steps = sum(cb.engine.decode_steps - b[1]
+                            for cb, b in zip(decs, before))
+                adopt = sum(cb.engine.pool.stats()["adoptions"] - b[2]
+                            for cb, b in zip(decs, before))
+                pre_prefills = pre.engine.prefill_runs - p0
+                want = (len(mix), len(mix), 0) if n == 0 else \
+                    (len(mix), len(mix), len(mix))
+                if (st["migrations"], st["routed_prefill"],
+                        st["routed_prefix_hit"]) != want or dec_prefills \
+                        or adopt != (shipped if n == 0 else 0) \
+                        or pre_prefills != (len(mix) if n == 0 else 0):
+                    raise AssertionError(
+                        f"[disagg] router pass {n}: migrations/prefill/hits "
+                        f"{st['migrations']}/{st['routed_prefill']}/"
+                        f"{st['routed_prefix_hit']} (want {want}), "
+                        f"{dec_prefills} decode-side prefills, {adopt} pages "
+                        f"adopted (want {shipped if n == 0 else 0}), "
+                        f"{pre_prefills} replica prefills")
+                got = window_launches(counters, GEN_LAYERS * pre_prefills,
+                                      GEN_LAYERS * steps,
+                                      f"[disagg] router pass {n}")
+                for k in got:
+                    launches[k] += got[k]
+                stats = [cb.stats() for cb in decs]
+                passes.append({
+                    "wall_ms": wall * 1e3, "decode_steps": steps,
+                    "tokens_per_s": sum(len(r["tokens"]) for r in res)
+                    / wall,
+                    "requests_by_replica": [s["requests"] - b[3] for s, b
+                                            in zip(stats, before)],
+                    "streams": [r["tokens"] for r in res],
+                    "logits": [r["logits"] for r in res]})
+            health = router.health()
+    finally:
+        for cb in decs:
+            cb.shutdown()
+    if any(v != "HEALTHY" for v in health.values()):
+        raise AssertionError(f"[disagg] router health {health}")
+    first, second = passes
+    ties = check_equal_streams(cpu, mix, second["streams"], first["streams"],
+                               "router pass 2", "the first pass's",
+                               phase="disagg")
+    ties += check_equal_streams(cpu, mix, first["streams"], colo_streams,
+                                "router pass 1",
+                                "a colocated paged batcher's",
+                                phase="disagg")
+    worst = check_streams(cpu, mix, {"streams": first["streams"],
+                                     "last_logits": first["logits"]},
+                          len(mix), "router pass 1", phase="disagg")
+    for p in passes:
+        del p["streams"], p["logits"]
+    log(f"[disagg] router over 2 decode replicas, the growth mix's "
+        f"{len(mix)} prompts x {ROUTER_NEW} new tokens: pass 1 "
+        f"{first['wall_ms']:.1f} ms ({first['tokens_per_s']:.1f} tokens/s; "
+        f"32 prefills, 32 migrations of {shipped} pages in all, requests by "
+        f"replica {first['requests_by_replica']}), pass 2 "
+        f"{second['wall_ms']:.1f} ms ({second['tokens_per_s']:.1f} tokens/s;"
+        f" 32 resident-prefix hits, no prefill, no migration); health "
+        f"{health}")
+    return {"passes": passes, "pages_shipped": shipped,
+            "launches": launches, "near_tie_partings": ties,
+            "cpu_check": worst}
+
+
+def expect_launches(counters, want, total, tag) -> None:
+    """Raise unless the launches since the last ``zero_counts`` are
+    ``want`` (K3, K9, K10) with matching ``fused``, ``decode_fused`` and
+    ``decode_multiquery`` decisions and nothing else; add them to
+    ``total``."""
+    k1, k3, k8, k9, k10, fa, pk = counters
+    torch.cuda.synchronize()
+    got = (k3.launches, k9.launches, k10.launches)
+    dec = fa.decode_counters()
+    if got != tuple(want) or fa.counters()["fused"] != k3.launches \
+            or sum(fa.counters().values()) != k3.launches \
+            or dec["decode_fused"] != k9.launches \
+            or dec["decode_multiquery"] != k10.launches \
+            or sum(dec.values()) != k9.launches + k10.launches \
+            or k1.launches or k8.launches:
+        raise AssertionError(f"{tag}: {got} K3, K9, K10 launches (want "
+                             f"{tuple(want)}), decisions {fa.counters()} "
+                             f"{dec}")
+    for k, n in zip(("k3", "k9", "k10"), got):
+        total[k] += n
+
+
+def sd_decode_graph(sd_cls, rng_weights, device):
+    """``tests/test_generative_decode.py::_mini_sd_transformer`` stacked
+    ``SDD_BLOCKS`` times on ``[B, H, T, d]`` hidden states, its weights
+    the given ``[d, d]`` arrays."""
+    sd = sd_cls(device=device)
+    x = sd.placeholder("x")
+    mask = sd.placeholder("mask")
+    dk = sd.constant("dk", np.float32(np.sqrt(SDD_D)))
+    for i in range(SDD_BLOCKS):
+        wq, wk, wv, wo = (sd.var(f"{n}{i}", rng_weights[f"{n}{i}"])
+                          for n in ("Wq", "Wk", "Wv", "Wo"))
+        q = sd.call("linalg.mmul", x, wq, name=f"q{i}")
+        k = sd.call("linalg.mmul", x, wk, name=f"k{i}")
+        v = sd.call("linalg.mmul", x, wv, name=f"v{i}")
+        scores = sd.call("linalg.mmul", q, k, name=f"scores{i}",
+                         attrs={"transpose_b": True})
+        scaled = sd.call("math.div", scores, dk, name=f"scaled{i}")
+        masked = sd.call("math.add", scaled, mask, name=f"masked{i}")
+        probs = sd.call("act.softmax", masked, name=f"probs{i}")
+        ctx = sd.call("linalg.mmul", probs, v, name=f"ctx{i}")
+        x = sd.call("linalg.mmul", ctx, wo,
+                    name="out" if i == SDD_BLOCKS - 1 else f"h{i}")
+    return sd
+
+
+def prefix_lm_bias(plens, lengths, t):
+    """The full-prefix recompute's mask: each prompt bidirectional over
+    itself, generated rows causal, rows past a stream's length masked."""
+    ii, jj = np.arange(t)[:, None], np.arange(t)[None, :]
+    allowed = ((jj < plens[:, None, None]) | (jj <= ii)) \
+        & (jj < lengths[:, None, None])
+    return np.where(allowed[:, None], 0.0, np.finfo(np.float32).min).astype(
+        np.float32)
+
+
+def phase_sd_decode(counters, env) -> dict:
+    """SameDiff decode graphs at BERT-base's attention shape: 12 fused
+    sites rewritten contiguous and paged; a ragged prefill, 32 decode
+    steps and (paged) a window of 4 rows, each against the base graph
+    recomputed over the full prefix on the card and the CPU plain path;
+    12 K3 a prefill, 12 K9 a step, 12 K10 a window."""
+    from deeplearning4j_tpu_torch.autodiff.decode import rewrite_for_decode
+    from deeplearning4j_tpu_torch.autodiff.fusion import fuse_attention
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+    env.Environment.instance().f32_matmul_precision = "highest"
+    rng = np.random.default_rng(SDD_SEED)
+    w = {f"{n}{i}": (rng.standard_normal((SDD_D, SDD_D))
+                     / np.sqrt(SDD_D)).astype(np.float32)
+         for i in range(SDD_BLOCKS) for n in ("Wq", "Wk", "Wv", "Wo")}
+    B, H, d, C = SDD_B, SDD_H, SDD_D, SDD_CACHE
+    t0 = time.perf_counter()
+    graphs = {}
+    for where in ("cuda", "cpu"):
+        for paged in (False, True):
+            sd = sd_decode_graph(SameDiff, w, where)
+            rep = fuse_attention(sd)
+            if rep.matched != SDD_BLOCKS or rep.unmatched:
+                raise AssertionError(f"[sd-decode] fuse_attention matched "
+                                     f"{rep.matched}, {rep.unmatched} "
+                                     f"unmatched")
+            graphs[where, paged] = rewrite_for_decode(
+                sd, output="out", paged=paged, page_size=SDD_PAGE)
+    plens = rng.integers(SDD_PLEN[0], SDD_PLEN[1], B)
+    tp = int(plens.max())
+    xp = (rng.standard_normal((B, H, tp, d)) * 0.5).astype(np.float32)
+    kb = np.where(np.arange(tp)[None, None, None, :]
+                  < plens[:, None, None, None], 0.0,
+                  np.finfo(np.float32).min).astype(np.float32)
+    steps = [(rng.standard_normal((B, H, 1, d)) * 0.5).astype(np.float32)
+             for _ in range(SDD_STEPS)]
+    window = (rng.standard_normal((B, H, SDD_WINDOW, d)) * 0.5).astype(
+        np.float32)
+    m1 = np.zeros((B, 1, 1, 1), np.float32)
+    seq = np.zeros((B, H, C, d), np.float32)
+    seq[:, :, :tp] = xp
+    outs = {}
+    worst = {"full_prefix": 0.0, "cpu": 0.0, "paged_vs_cached": 0.0,
+             "window": 0.0}
+    launches = {"k3": 0, "k9": 0, "k10": 0}
+    for key, dg in graphs.items():
+        card = key[0] == "cuda"
+        if card:
+            zero_counts(counters)
+        y, caches = dg.prefill({"x": xp, "mask": kb}, plens, C)
+        if card:
+            expect_launches(counters, (SDD_BLOCKS, 0, 0), launches,
+                            "[sd-decode] prefill")
+        lengths = plens.copy()
+        ys = []
+        for x_t in steps:
+            if card:
+                zero_counts(counters)
+            y, caches = dg.decode_step({"x": x_t, "mask": m1}, caches,
+                                       lengths)
+            if card:
+                expect_launches(counters, (0, SDD_BLOCKS, 0), launches,
+                                "[sd-decode] decode step")
+            ys.append(y[:, :, 0])
+            lengths = lengths + 1
+        outs[key] = ys
+        if key[1]:   # the paged replay: then a window of 4 rows
+            if card:
+                zero_counts(counters)
+            yw, _ = dg.decode_step({"x": window, "mask": m1}, caches,
+                                   lengths)
+            if card:
+                expect_launches(counters, (0, 0, SDD_BLOCKS), launches,
+                                "[sd-decode] window")
+            outs[key + ("window",)] = yw
+    # the base graph over the full prefix, on the card
+    base = graphs["cuda", False].base
+    lengths = plens.copy()
+    for i, x_t in enumerate(steps):
+        for b in range(B):
+            seq[b, :, lengths[b]] = x_t[b, :, 0]
+        lengths = lengths + 1
+        t = int(lengths.max())
+        ref = base.output({"x": seq[:, :, :t],
+                           "mask": prefix_lm_bias(plens, lengths, t)},
+                          ["out"])["out"][np.arange(B), :, lengths - 1]
+        scale = np.abs(ref).max()
+        worst["full_prefix"] = max(worst["full_prefix"], float(
+            np.abs(outs["cuda", False][i] - ref).max() / scale))
+        worst["cpu"] = max(worst["cpu"], float(
+            np.abs(outs["cuda", False][i] - outs["cpu", False][i]).max()
+            / scale), float(np.abs(outs["cuda", True][i]
+                                   - outs["cpu", True][i]).max() / scale))
+        worst["paged_vs_cached"] = max(worst["paged_vs_cached"], float(
+            np.abs(outs["cuda", True][i] - outs["cuda", False][i]).max()
+            / scale))
+    for j in range(SDD_WINDOW):
+        for b in range(B):
+            seq[b, :, lengths[b] + j] = window[b, :, j]
+    t = int(lengths.max()) + SDD_WINDOW
+    full = lengths + SDD_WINDOW
+    ref = base.output({"x": seq[:, :, :t],
+                       "mask": prefix_lm_bias(plens, full, t)}, ["out"])["out"]
+    refw = np.stack([ref[b, :, lengths[b]:lengths[b] + SDD_WINDOW]
+                     for b in range(B)])
+    for key in (("cuda", True, "window"), ("cpu", True, "window")):
+        worst["window"] = max(worst["window"], float(
+            np.abs(outs[key] - refw).max() / np.abs(refw).max()))
+    if not max(worst.values()) <= SDD_REL_TOL:
+        raise AssertionError(f"[sd-decode] outside {SDD_REL_TOL}: {worst}")
+    log(f"[sd-decode] {SDD_BLOCKS} stacked attention blocks (H {H}, d {d}), "
+        f"fuse_attention {SDD_BLOCKS} matched, rewritten contiguous and "
+        f"paged (page {SDD_PAGE}); B {B} prompts of {plens.min()}-"
+        f"{plens.max()} tokens, cache {C}, {SDD_STEPS} decode steps, a "
+        f"window of {SDD_WINDOW} rows: max|diff|/max|ref| against the full-"
+        f"prefix recompute {worst['full_prefix']:.3g}, against the CPU plain "
+        f"path {worst['cpu']:.3g}, paged against cached "
+        f"{worst['paged_vs_cached']:.3g}, the window {worst['window']:.3g} "
+        f"(tolerance {SDD_REL_TOL}); {SDD_BLOCKS} K3 a prefill, "
+        f"{SDD_BLOCKS} K9 a step, {SDD_BLOCKS} K10 a window; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"rel_err": worst, "launches": launches}
 
 def ln_violation(err, bound) -> float:
     """The largest share of its bound an error takes (NaN counts as
@@ -5818,6 +6491,8 @@ def main() -> int:
     keras_imp = phase_keras_import(kmods, fe, env)
     keras_gold = phase_keras_golden(kmods, fe, env)
     keras_rn50 = phase_keras_resnet50(kmods, fe, env, graph)
+    disagg = phase_disagg(counters, gen)
+    sd_dec = phase_sd_decode(counters, env)
     # the launches of the Keras paths, by kernel key of kernel_launches
     keras_paths = {"keras_import": keras_imp["launches"],
                    "keras_golden": keras_gold["launches"],
@@ -5922,7 +6597,11 @@ def main() -> int:
                                + srows["spec_other_draft"]["launches"][k]
                                for k in ("k3", "k9", "k10")},
              "generate_spec_grow": srows["spec_grow"]["launches"],
-             "generate_spec_server": spec_server["launches"]}
+             "generate_spec_server": spec_server["launches"],
+             "disagg_colocated": disagg["launches"]["colocated"],
+             "disagg_split": disagg["launches"]["split"],
+             "disagg_router": disagg["router"]["launches"],
+             "sd_decode": sd_dec["launches"]}
     # the output() request of [generate] goes through InferenceEngine, not
     # the batcher: a path of its own
     k3_gen = {k: v["k3"] for k, v in gen_l.items()}
@@ -6318,6 +6997,14 @@ def main() -> int:
             "k9_device_ms", "k3_device_ms", "decode_steps_per_run")}
             for tag, r in rows.items()},
         "output_rel_err_vs_cpu": gen["output_rel_err"],
+        "disagg": {k: disagg[k] for k in (
+            "ttft_ms_p50", "ttft_ms_p99",
+            "ttft_p99_ratio_colocated_over_split", "ttft_p99_ratios",
+            "tpot_ms_p50", "shipments", "bytes_per_shipment",
+            "wire_mb_per_s", "export_ms_p50", "import_ms_p50", "profiled")},
+        "disagg_router": {k: disagg["router"][k] for k in (
+            "passes", "pages_shipped")},
+        "sd_decode_rel_err": sd_dec["rel_err"],
         "bfloat16_drop_split_check": dict(shape=list(DECODE_LONG_SHAPE),
                                           **kdec["power"]),
         "timed_as": "device time of one float32 call at the generative "
@@ -6368,6 +7055,7 @@ def main() -> int:
             "verify_steps_per_run", "draft_steps_per_run",
             "decode_steps_per_run", "speculative", "page_pool")}
             for tag, r in [("paged", paged["row"])] + list(srows.items())},
+        "sd_decode_window_rel_err": sd_dec["rel_err"]["window"],
         "bfloat16_drop_split_check": dict(shape=list(MQ_LONG_SHAPE),
                                           **kmq["power"]),
         "timed_as": "device time of one float32 call at the speculative "

@@ -608,6 +608,13 @@ class SameDiff:
                targets: Sequence[str]) -> Dict[str, np.ndarray]:
         """Evaluate target variables under the given placeholder feeds;
         returns numpy arrays."""
+        return {t: _to_numpy(v) for t, v in self._run(feeds, targets).items()}
+
+    def _run(self, feeds: Dict[str, Any],
+             targets: Sequence[str]) -> Dict[str, torch.Tensor]:
+        """:meth:`output` without the host copy: the targets as tensors on
+        the SameDiff's device (the decode graphs thread their caches
+        through it, ``autodiff/decode.py``)."""
         unknown = [t for t in targets if t not in self._vars]
         if unknown:
             raise ValueError(f"unknown targets: {unknown}")
@@ -615,7 +622,7 @@ class SameDiff:
         env = self._feed_env(feeds, needed)
         with torch.no_grad(), _env.precision(self.device):
             self._exec_ops(ops, env)
-        return {t: _to_numpy(env[t]) for t in targets}
+        return {t: env[t] for t in targets}
 
     # ------------------------------------------------------------- training
     def set_loss(self, loss: SDVariable) -> "SameDiff":

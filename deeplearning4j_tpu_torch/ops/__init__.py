@@ -81,3 +81,4 @@ from . import losses  # noqa: E402,F401  (loss.softmax_ce_logits, ...)
 from . import nnops  # noqa: E402,F401  (conv2d, layer_norm, lstm_cell, ...)
 from . import random  # noqa: E402,F401  (image.resize_*)
 from . import fused_epilogues  # noqa: E402,F401  (epilogue.*)
+from . import sampling  # noqa: E402,F401  (sampling.*)

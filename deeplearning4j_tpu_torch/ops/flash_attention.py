@@ -94,10 +94,25 @@ reserved zero page):
 - :func:`paged_insert` (:691): a window's rows scattered through the
   table IN PLACE, with the write gate (gated rows write back what they
   gathered, a no-op even on the zero page);
-- :func:`page_rows` (:711): the rows of whole pages.
+- :func:`page_rows` (:711): the rows of whole pages;
+- :func:`page_export` / :func:`page_import` (:721-737): the KV-page
+  migration of disaggregated serving, one gather or one gated scatter a
+  call. The JAX package leaves both to XLA outside any Pallas kernel, so
+  they are torch indexing here, as :func:`paged_insert` is.
 
-``page_export`` / ``page_import`` (:721-740, the KV-page migration of
-disaggregated serving) raise ``NotImplementedError`` naming their slice.
+The SameDiff decode graphs' catalog ops (the JAX module's :1126-1182,
+the rewrite targets of ``autodiff/decode.py``), inference-only:
+
+- ``attention.cached_sdpa``: one decode step over a contiguous cache;
+  :func:`cache_insert`, then :func:`decode_dispatch` (K9 on the card);
+- ``attention.paged_sdpa``: one window over a paged pool;
+  :func:`paged_insert` and :func:`paged_gather`, then
+  :func:`decode_dispatch` for ``Tq = 1`` (K9) or
+  :func:`decode_multiquery_dispatch` for ``Tq > 1`` (K10).
+
+Both return ``(y, cache_k', cache_v')`` as new tensors, as the JAX ops do:
+the graph threads the caches through its replay, and the caller's feeds
+stay untouched (the engines' in-place updates are theirs alone).
 
 ``cache_insert`` keeps ``dynamic_update_slice``'s semantics: a start index
 past ``C - k`` clamps to ``C - k`` (a negative one counts from the end
@@ -444,15 +459,72 @@ def page_rows(pages, page_size: int):
             + torch.arange(P, device=pages.device)[None, :]).reshape(-1)
 
 
-_DISAGG = ("KV-page migration comes with the disaggregated-serving slice of "
-           "the port (ROADMAP.md Queue 1)")
-
-
 def page_export(pool, rows):
-    """Whole pages out of a pool (the JAX module's :721): not ported."""
-    raise NotImplementedError(f"page_export: {_DISAGG}")
+    """Whole pages out of one layer's pool in ONE gather: ``pool`` ``[NP*P,
+    H, d]``, ``rows`` ``[n*P]`` (:func:`page_rows`) -> the ``[n*P, H, d]``
+    payload block (a new tensor; never a copy page by page)."""
+    return pool[torch.as_tensor(rows).to(pool.device).to(torch.int64)]
 
 
 def page_import(pool, rows, payload, gate):
-    """Whole pages into a pool (the JAX module's :729): not ported."""
-    raise NotImplementedError(f"page_import: {_DISAGG}")
+    """Whole pages into one layer's pool in ONE scatter, IN PLACE; returns
+    ``pool``. ``gate`` ``[n*P]`` (bool or 0/1) follows
+    :func:`paged_insert`'s write gate: a gated-off row (bucket padding that
+    points at the zero page) writes back the value it gathered, so an
+    import never corrupts the zero page or a page another stream holds.
+    Padding repeats page 0's rows within one index; the scatter is sound
+    only because every such duplicate writes the same gathered value."""
+    rows = torch.as_tensor(rows).to(pool.device).to(torch.int64)
+    keep = torch.as_tensor(gate).to(pool.device).to(torch.bool)
+    upd = torch.where(keep[:, None, None], payload.to(pool.dtype),
+                      pool[rows])
+    pool[rows] = upd
+    return pool
+
+
+# --------------------------------------------------------------------------
+# the SameDiff decode graphs' attention ops
+# --------------------------------------------------------------------------
+
+@register("attention.cached_sdpa", category="attention",
+          differentiable=False)
+def cached_sdpa(q, k_new, v_new, k_cache, v_cache, lengths,
+                scale: float = 1.0):
+    """KV-cached decode-step attention graph op, the rewrite target of
+    ``autodiff.decode.rewrite_for_decode``: appends ``k_new``/``v_new``
+    (``[B, H, 1, d]``) at position ``lengths`` (``[B]``, the valid entries
+    BEFORE this token) of copies of ``k_cache``/``v_cache`` (``[B, H, C,
+    d]``), attends ``q`` over the ``lengths + 1`` valid entries (K9 on the
+    card) and returns ``(y, k_cache', v_cache')``. The caller keeps
+    ``lengths < C``: an insert past the end clamps onto the last row
+    (``DecodeGraph.decode_step`` refuses a full cache on the host)."""
+    lengths = torch.as_tensor(lengths).to(q.device)
+    kc = cache_insert(k_cache.clone(), k_new, lengths)
+    vc = cache_insert(v_cache.clone(), v_new, lengths)
+    y = decode_dispatch(q, kc, vc, lengths + 1, scale=float(scale))
+    return y, kc, vc
+
+
+@register("attention.paged_sdpa", category="attention",
+          differentiable=False)
+def paged_sdpa(q, k_new, v_new, k_pool, v_pool, page_table, lengths,
+               scale: float = 1.0, page_size: int = 16):
+    """The paged twin of ``attention.cached_sdpa``: ``q``/``k_new``/
+    ``v_new`` ``[B, H, Tq, d]``, token-row pools ``[NP * P, H, d]``, the
+    page table ``[B, MP]`` and ``lengths`` ``[B]`` (the valid entries
+    BEFORE this window). The window's rows are scattered through the table
+    into copies of the pools, the per-slot caches gathered, and ``q``
+    attends single-query (K9) for ``Tq = 1`` or window-causal (K10) for
+    ``Tq > 1``. Returns ``(y, k_pool', v_pool')``; the caller keeps
+    ``lengths + Tq <= MP * P`` and forks shared pages first."""
+    lengths = torch.as_tensor(lengths).to(q.device)
+    kp = paged_insert(k_pool.clone(), k_new, lengths, page_table, page_size)
+    vp = paged_insert(v_pool.clone(), v_new, lengths, page_table, page_size)
+    kf = paged_gather(kp, page_table, page_size)
+    vf = paged_gather(vp, page_table, page_size)
+    if q.shape[2] == 1:
+        y = decode_dispatch(q, kf, vf, lengths + 1, scale=float(scale))
+    else:
+        y = decode_multiquery_dispatch(q, kf, vf, lengths,
+                                       scale=float(scale))
+    return y, kp, vp

@@ -14,17 +14,25 @@ device, so a multi-token decode horizon samples without a host readback:
 :class:`SamplingSpec` holds the method and k; temperature stays a runtime
 scalar.
 
-Divergences: a ``torch.Generator`` on the logits' device takes the place
+:func:`greedy`, :func:`categorical` and :func:`top_k` are the catalog ops
+``sampling.greedy``, ``sampling.categorical`` and ``sampling.top_k``
+(non-differentiable), as in the JAX package.
+
+Divergence: a ``torch.Generator`` on the logits' device takes the place
 of the JAX package's threaded PRNG key (the two streams differ, so the
-draws agree only in distribution), and the primitives are not catalog
-ops (the port's SameDiff records no decode graph yet).
+draws agree only in distribution). Where a key arrives instead (a graph
+recorded by the JAX package feeds one as an array), a fresh generator is
+seeded from its words, so one key gives one draw, as in JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+from . import register
 
 __all__ = ["greedy", "categorical", "top_k", "eos_hit", "SamplingSpec",
            "GREEDY"]
@@ -32,15 +40,32 @@ __all__ = ["greedy", "categorical", "top_k", "eos_hit", "SamplingSpec",
 _TEMP_FLOOR = 1e-6
 
 
+def _generator(key, device):
+    """``key`` as a ``torch.Generator``: a generator (or None, the global
+    stream) as it is; a key array or integer seeds a fresh generator on
+    ``device`` from its words."""
+    if key is None or isinstance(key, torch.Generator):
+        return key
+    words = np.asarray(key.cpu() if torch.is_tensor(key) else key)
+    seed = 0
+    for w in words.astype(np.uint64).ravel():
+        seed = (seed * (1 << 32) + int(w)) % (1 << 63)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+@register("sampling.greedy", "sampling", differentiable=False)
 def greedy(logits):
     """Greedy token selection: argmax over the last axis -> int32."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+@register("sampling.categorical", "sampling", differentiable=False)
 def categorical(logits, generator, temperature=1.0):
     """Temperature softmax sampling by the Gumbel-max trick:
     ``argmax(logits / T + G)`` with ``G = -log(E)``, ``E ~ Exp(1)`` drawn
-    from ``generator``, is a draw from ``softmax(logits / T)``."""
+    from ``generator`` (a ``torch.Generator``, or a key to seed one), is a
+    draw from ``softmax(logits / T)``."""
+    generator = _generator(generator, logits.device)
     t = max(float(temperature), _TEMP_FLOOR)
     e = torch.empty(logits.shape, dtype=torch.float32,
                     device=logits.device).exponential_(generator=generator)
@@ -48,6 +73,7 @@ def categorical(logits, generator, temperature=1.0):
     return torch.argmax(logits.float() / t + g, dim=-1).to(torch.int32)
 
 
+@register("sampling.top_k", "sampling", differentiable=False)
 def top_k(logits, generator, k, temperature=1.0):
     """Top-k filtered temperature sampling: logits below the k-th largest
     of their row are set to ``finfo.min`` before :func:`categorical`."""

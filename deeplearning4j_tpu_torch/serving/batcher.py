@@ -48,10 +48,20 @@ correction is emitted, and the rollback truncates the lengths. The
 emitted stream is the target's own greedy stream whatever the draft.
 ``stats()`` then carries ``page_pool`` and ``speculative`` blocks.
 
+A paged front also takes prompts prefilled in another pool
+(:meth:`ContinuousBatcher.submit_prefilled`, the JAX module's :1264, for
+disaggregated serving, ``serving/disagg.py``): admission ADOPTS the
+shipment's pages into this engine's pool (``_adopt_admit``, :1595)
+instead of prefilling, a registry hit on the shipped prompt key maps the
+pages an earlier migration adopted, and the first token comes from the
+shipped logits. ``migrate_buckets=`` warms the page export and import for
+those page counts; ``pool_label=`` names the pool in ``stats()``.
+
 Divergences: no ``serving.decode`` or ``serving.page_pool`` fault site,
-retries, SLO or request trace (the runtime slice); ``submit_prefilled``,
-``migrate_buckets=``, ``quantize=`` and ``kv_cache=`` raise
-``NotImplementedError`` naming their slices (``ROADMAP.md`` Queue 1); the
+retries, SLO or request trace (the runtime slice), so a migrated request
+carries no trace phases; ``quantize=`` and ``kv_cache=`` raise
+``NotImplementedError`` naming their slice (``ROADMAP.md`` Queue 1 item
+7); the
 draft's k proposals read back one step at a time and the verify's logits
 once per window (the JAX batcher does the same through its executables);
 stochastic sampling draws from a ``torch.Generator`` seeded with
@@ -359,9 +369,7 @@ class ParallelInference:
 # Continuous batching for autoregressive decode
 # ===========================================================================
 
-_DISAGG = ("the disaggregated-serving slice of the port (ROADMAP.md "
-           "Queue 1)")
-_INT8 = "the int8-serving slice of the port (ROADMAP.md Queue 1)"
+_INT8 = "the int8-serving slice of the port (ROADMAP.md Queue 1 item 7)"
 
 
 def _percentile(values, q):
@@ -406,9 +414,9 @@ class GenerationHandle:
 class _GenRequest:
     __slots__ = ("x", "plen", "max_new", "eos_id", "handle", "t_enqueue",
                  "deadline", "t_admitted", "tokens", "emitted",
-                 "t_first_token")
+                 "t_first_token", "shipment")
 
-    def __init__(self, x, plen, max_new, eos_id, deadline):
+    def __init__(self, x, plen, max_new, eos_id, deadline, shipment=None):
         self.x = x                    # [T, F] prompt features (host)
         self.plen = int(plen)
         self.max_new = int(max_new)
@@ -420,6 +428,11 @@ class _GenRequest:
         self.tokens: List[int] = []
         self.emitted = 0
         self.t_first_token = None
+        # a migrated prompt (serving.disagg.KVShipment): admission adopts
+        # its pages in place of a prefill; the deadline above was re-armed
+        # at submit_prefilled, and t_enqueue is back-dated by the
+        # shipment's origin-side elapsed time, so TTFT spans both pools
+        self.shipment = shipment
 
     def expired(self, now=None) -> bool:
         return self.deadline is not None and \
@@ -460,13 +473,12 @@ class ContinuousBatcher:
                  speculate_k: int = 4, migrate_buckets: Sequence[int] = (),
                  max_horizon: int = 8,
                  sampling: Optional[_smp.SamplingSpec] = None,
-                 seed: int = 0, device=None):
+                 seed: int = 0, pool_label: str = "default", device=None):
         if quantize is not None or kv_cache is not None:
             raise NotImplementedError(f"quantize=/kv_cache= come with "
                                       f"{_INT8}")
-        if any(int(n) for n in migrate_buckets):
-            raise NotImplementedError(f"migrate_buckets= (KV-page "
-                                      f"migration) comes with {_DISAGG}")
+        self.pool_label = str(pool_label)
+        self._migrate_buckets = tuple(int(n) for n in migrate_buckets)
         if engine is not None and (paged or pages is not None):
             raise ValueError("pass the paged config on the engine you build "
                              "(PagedGenerativeEngine), not alongside "
@@ -484,9 +496,11 @@ class ContinuousBatcher:
                     1 + int(slots) * max(1, self.max_cache_len // psz)
                 engine = PagedGenerativeEngine(
                     model, slots=slots, pages=n_pages, page_size=psz,
-                    max_cache_len=self.max_cache_len, device=device)
+                    max_cache_len=self.max_cache_len, device=device,
+                    pool_label=self.pool_label)
             else:
-                engine = GenerativeEngine(model, slots=slots, device=device)
+                engine = GenerativeEngine(model, slots=slots, device=device,
+                                          pool_label=self.pool_label)
         self.engine = engine
         self.paged = isinstance(engine, PagedGenerativeEngine)
         if self.paged and self.max_cache_len > engine.max_cache_len:
@@ -545,7 +559,8 @@ class ContinuousBatcher:
                 raise ValueError("speculate_k must be >= 2 (k=1 is plain "
                                  "decode)")
             self.draft = GenerativeEngine(draft_model, slots=self.slots,
-                                          device=self.engine.device)
+                                          device=self.engine.device,
+                                          pool_label=self.pool_label)
             if self.draft._feature_dim() != self._f:
                 raise ValueError(
                     f"draft model feature dim {self.draft._feature_dim()} "
@@ -564,6 +579,7 @@ class ContinuousBatcher:
                 self.engine.warmup(
                     cb, pb, speculate=(self.speculate_k,)
                     if self.draft is not None else (),
+                    migrate_buckets=self._migrate_buckets,
                     horizons=horizons, sampling=self._sampling)
             else:
                 self.engine.warmup(cb, pb, horizons=horizons,
@@ -659,6 +675,16 @@ class ContinuousBatcher:
                 f"prompt ({plen}) + max_new_tokens ({max_new})"
                 + (f" + speculative slack ({slack})" if slack else "")
                 + f" exceeds max_cache_len {self.max_cache_len}")
+        self._shed_check()
+        dl = self.deadline_ms if deadline_ms is None else deadline_ms
+        deadline = None if dl is None else time.perf_counter() + dl / 1e3
+        req = _GenRequest(prompt, plen, max_new,
+                          self.eos_id if eos_id is None else eos_id,
+                          deadline)
+        return self._enqueue(req)
+
+    def _shed_check(self) -> None:
+        """Reject in the caller's thread at the shedding threshold."""
         if self.shed_queue_depth is not None and \
                 self._q.qsize() >= self.shed_queue_depth:
             self._bump("shed")
@@ -666,11 +692,8 @@ class ContinuousBatcher:
             raise QueueFull(f"generation queue depth {self._q.qsize()} "
                             f"at/above shedding threshold "
                             f"{self.shed_queue_depth}")
-        dl = self.deadline_ms if deadline_ms is None else deadline_ms
-        deadline = None if dl is None else time.perf_counter() + dl / 1e3
-        req = _GenRequest(prompt, plen, max_new,
-                          self.eos_id if eos_id is None else eos_id,
-                          deadline)
+
+    def _enqueue(self, req: _GenRequest) -> GenerationHandle:
         self._bump("requests")
         self._q.put(req)
         if self._shutdown.is_set() and not req.handle.future.done():
@@ -682,12 +705,57 @@ class ContinuousBatcher:
         """Blocking convenience over :meth:`submit`."""
         return self.submit(prompt=prompt, tokens=tokens, **kw).result()
 
-    def submit_prefilled(self, *args, **kwargs):
-        raise NotImplementedError(f"submit_prefilled (a migrated prompt) "
-                                  f"comes with {_DISAGG}")
+    def submit_prefilled(self, shipment,
+                         max_new_tokens: Optional[int] = None,
+                         deadline_ms: Optional[float] = None,
+                         eos_id: Optional[int] = None) -> GenerationHandle:
+        """Enqueue a generation whose prompt was prefilled in ANOTHER pool:
+        the request carries a :class:`~.disagg.KVShipment`, admission
+        adopts its pages into this engine's pool in place of a prefill,
+        and the first token comes from the shipped logits. The shipment is
+        checked against this pool (``validate_for``) before it queues.
+
+        ``deadline_ms`` RE-ARMS here: it bounds decode-pool enqueue ->
+        admission from this call, never from the origin submit, so a slow
+        handoff cannot expire prefill work the other pool already paid
+        for. TTFT still spans the whole request: ``t_enqueue`` is
+        back-dated by the shipment's origin-side ``elapsed_s``."""
+        if self._shutdown.is_set():
+            raise ShutdownError("ContinuousBatcher is shut down")
+        if not self.paged:
+            raise ValueError("submit_prefilled needs a paged engine: KV "
+                             "pages migrate, contiguous buckets do not")
+        if self.draft is not None:
+            raise ValueError("speculative decoding cannot adopt a migrated "
+                             "prompt: the draft engine has no KV for it "
+                             "(route speculative traffic to a colocated "
+                             "replica)")
+        shipment.validate_for(self.engine)
+        plen = int(shipment.plen)
+        max_new = int(max_new_tokens) if max_new_tokens is not None \
+            else self.max_new_tokens
+        if next_bucket(plen + max_new) > self.max_cache_len:
+            raise ValueError(
+                f"prompt ({plen}) + max_new_tokens ({max_new}) exceeds "
+                f"max_cache_len {self.max_cache_len}")
+        self._shed_check()
+        dl = self.deadline_ms if deadline_ms is None else deadline_ms
+        # re-armed: from now (the decode-pool submit), not from the
+        # back-dated origin enqueue below
+        deadline = None if dl is None else time.perf_counter() + dl / 1e3
+        x = shipment.x if shipment.x is not None \
+            else np.zeros((plen, self._f), np.float32)
+        req = _GenRequest(x, plen, max_new,
+                          self.eos_id if eos_id is None else eos_id,
+                          deadline, shipment=shipment)
+        req.t_enqueue = time.perf_counter() - float(shipment.elapsed_s)
+        return self._enqueue(req)
 
     def active_slots(self) -> int:
         return sum(1 for r in self._slot_req if r is not None)
+
+    def queue_depth(self) -> int:
+        return self._q.qsize()
 
     def stats(self) -> dict:
         """Counters, TTFT/TPOT percentiles (ms), the windowed token rate
@@ -704,7 +772,8 @@ class ContinuousBatcher:
             return None if p is None else p * 1e3
 
         out = {
-            "slots": self.slots, "health": self.health(), "slots_active": self.active_slots(),
+            "slots": self.slots, "pool": self.pool_label,
+            "health": self.health(), "slots_active": self.active_slots(),
             "queue_depth": self._q.qsize(), "requests": c["requests"],
             "tokens_generated": c["tokens_generated"],
             "failures": c["failures"], "shed": c["shed"],
@@ -846,7 +915,9 @@ class ContinuousBatcher:
         if need_c > self._state.cache_len:
             self._state = self.engine.grow(self._state, need_c)
         req.t_admitted = time.perf_counter()
-        if self.paged:
+        if req.shipment is not None:
+            logits = self._adopt_admit(req, slot)
+        elif self.paged:
             logits = self._paged_admit(req, slot)
         else:
             self._state, logits = self.engine.prefill(self._state, req.x,
@@ -895,6 +966,38 @@ class ContinuousBatcher:
         if key is not None:
             eng.pool.register_prefix(key, pages, req.plen, logits)
             # the registry keeps `logits`; the caller gets its own copy
+            return logits.copy()
+        return logits
+
+    def _adopt_admit(self, req: _GenRequest, slot: int) -> np.ndarray:
+        """Admission of a migrated request: a registry hit on the shipped
+        key maps pages already resident here (the same prompt migrated
+        here before, or was prefilled here); a miss adopts fresh pages,
+        imports the shipped payload into them and registers the prefix,
+        so the next identical prompt on this pool hits without migrating
+        again."""
+        sh = req.shipment
+        eng = self.engine
+        if self.prefix_cache and sh.prefix_key is not None:
+            hit = eng.pool.lookup_prefix(sh.prefix_key)
+            if hit is not None:
+                eng.map_pages(self._state, slot, hit.pages)
+                self._state.lengths[slot] = req.plen
+                return hit.logits.copy()
+        pages = eng.pool.adopt(len(sh.pages))
+        try:
+            self._state = eng.import_pages(self._state, pages, sh.payload)
+            eng.map_pages(self._state, slot, pages)
+            self._state.lengths[slot] = req.plen
+        except BaseException:
+            # reclaim the pages once: clear the row before releasing so
+            # _reset_slot cannot release them again
+            self._state.page_table[slot, :] = 0
+            eng.pool.release(pages)
+            raise
+        logits = np.asarray(sh.logits)
+        if self.prefix_cache and sh.prefix_key is not None:
+            eng.pool.register_prefix(sh.prefix_key, pages, req.plen, logits)
             return logits.copy()
         return logits
 

@@ -60,14 +60,23 @@ prompt through the slot's page-table row, ``decode`` / ``verify`` /
 ``pdecode_multi`` run one token, a speculative window of k tokens (K10 in
 each attention layer on the card) or a horizon over the pool, ``grow``
 widens the table on the host, and ``prepare_write`` / ``fork`` make a
-shared page private before it is written. Its KV-page export and import
-(disaggregated serving) raise ``NotImplementedError`` naming their
-slice.
+shared page private before it is written. ``export_pages`` /
+``import_pages`` (the JAX module's :2027-2242) move whole pages between
+two pools for disaggregated serving (``serving/disagg.py``): one gather
+or one gated scatter per page-count bucket and layer leaf, one host copy
+per leaf, chunked over the warmed ``migrate_buckets`` as the JAX engine
+chunks over its compiled ones.
+
+``pool_label`` names the engine's pool (``"prefill"``, ``"decode"``,
+``"default"``) in ``stats()``; the JAX engines label their telemetry
+cells with it, and the port has no telemetry registry yet.
 """
 
 from __future__ import annotations
 
 import threading
+import time
+from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -75,7 +84,32 @@ import torch
 
 from .. import dtypes as _dt
 from .. import environment as _env
+from ..ops import flash_attention as _fa
 from ..ops import sampling as _smp
+from ..utils.convert import tensor_from_numpy
+
+
+def _dtype_name(a) -> str:
+    """The numpy-style name of a payload leaf's dtype (``"float32"``,
+    ``"bfloat16"``), for a torch tensor or a numpy array alike."""
+    if isinstance(a.dtype, torch.dtype):
+        return str(a.dtype).replace("torch.", "")
+    return np.dtype(a.dtype).name
+
+
+def _layout(tree) -> dict:
+    """``{layer: [leaf names]}`` of a payload or pool spec, for messages."""
+    if not isinstance(tree, dict):
+        return type(tree).__name__
+    return {k: sorted(v) if isinstance(v, dict) else type(v).__name__
+            for k, v in tree.items()}
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """A payload leaf as a CPU tensor: a tensor moves to the host, a numpy
+    array is copied in (a numpy bfloat16, as the JAX package holds it,
+    from its raw 2-byte words)."""
+    return a.cpu() if torch.is_tensor(a) else tensor_from_numpy(a)
 
 
 def next_bucket(n: int, minimum: int = 1) -> int:
@@ -293,8 +327,8 @@ class InferenceEngine:
 # Autoregressive decode: GenerativeEngine
 # ===========================================================================
 
-_INT8 = "the int8-serving slice of the port (ROADMAP.md Queue 1)"
-_PARALLEL = "the parallel slice of the port (ROADMAP.md Queue 1)"
+_INT8 = "the int8-serving slice of the port (ROADMAP.md Queue 1 item 7)"
+_PARALLEL = "the parallel slice of the port (ROADMAP.md Queue 1 item 8)"
 
 
 class DecodeState:
@@ -384,7 +418,8 @@ class GenerativeEngine:
     ``cpu``)."""
 
     def __init__(self, model, slots: int = 8, quantize: Optional[str] = None,
-                 kv_cache: Optional[str] = None, mesh=None, device=None):
+                 kv_cache: Optional[str] = None, mesh=None, device=None,
+                 pool_label: str = "default"):
         if quantize is not None:
             raise NotImplementedError(f"quantize={quantize!r} comes with "
                                       f"{_INT8}")
@@ -404,6 +439,7 @@ class GenerativeEngine:
         self.model = model
         self.device = device
         self.slots = int(slots)
+        self.pool_label = str(pool_label)
         self._lock = threading.Lock()
         self._warmed: set = set()
         self._calls = 0
@@ -684,16 +720,13 @@ class GenerativeEngine:
                     "warmed_buckets": len(self._warmed),
                     "prefill_runs": self.prefill_runs,
                     "decode_steps": self.decode_steps,
-                    "slots": self.slots, "kv_cache": "off"}
+                    "slots": self.slots, "kv_cache": "off",
+                    "pool": self.pool_label}
 
 
 # ===========================================================================
 # Paged KV pool, prefix sharing and speculative verify
 # ===========================================================================
-
-_DISAGG = ("KV-page migration comes with the disaggregated-serving slice of "
-           "the port (ROADMAP.md Queue 1)")
-
 
 class PagedDecodeState:
     """The live state of one paged decode batch: the per-layer page POOLS
@@ -741,19 +774,21 @@ class PagedGenerativeEngine(GenerativeEngine):
 
     Divergences from the JAX engine: eager, so ``warmup`` runs each
     (table-width bucket, window), each prompt bucket's prefill and the
-    fork once on a scratch state, and ``cold_calls`` stands in for
-    ``compiles``; the pools are updated IN PLACE; ``export_pages`` /
-    ``import_pages`` and ``warmup(migrate_buckets=)`` (disaggregated
-    serving), ``mesh=`` and ``warmup(checkpoint=)`` raise
-    ``NotImplementedError`` naming their slices."""
+    fork and each ``migrate_buckets`` page count's export and import once
+    on a scratch state, and ``cold_calls`` stands in for ``compiles``;
+    the pools are updated IN PLACE, by ``import_pages`` too; ``mesh=`` and
+    ``warmup(checkpoint=)`` raise ``NotImplementedError`` naming their
+    slices."""
 
     def __init__(self, model, slots: int = 8, pages: int = 64,
                  page_size: int = 16, max_cache_len: int = 256,
                  quantize: Optional[str] = None,
-                 kv_cache: Optional[str] = None, mesh=None, device=None):
+                 kv_cache: Optional[str] = None, mesh=None, device=None,
+                 pool_label: str = "default"):
         from .kv_pool import PagedKVPool
         super().__init__(model, slots=slots, quantize=quantize,
-                         kv_cache=kv_cache, mesh=mesh, device=device)
+                         kv_cache=kv_cache, mesh=mesh, device=device,
+                         pool_label=pool_label)
         self.page_size = next_bucket(page_size)
         self.max_cache_len = max(next_bucket(max_cache_len), self.page_size)
         self.max_pages_per_slot = self.max_cache_len // self.page_size
@@ -763,6 +798,15 @@ class PagedGenerativeEngine(GenerativeEngine):
         #: attention layer launches K10 once per verify on the card
         self.verify_steps = 0
         self.fork_calls = 0
+        #: page-count buckets each migration family has run (warmed or
+        #: not): the JAX engine chunks over its compiled executables, and
+        #: a cold bucket stays compiled there
+        self._mig_ran = {"pexport": set(), "pimport": set()}
+        #: host seconds of each export_pages and import_pages call (the
+        #: JAX engine's kv export/import histograms); on the card an
+        #: import's scatter may still run after its call returns
+        self.migrate_s = {"export": deque(maxlen=4096),
+                          "import": deque(maxlen=4096)}
 
     # ------------------------------------------------------------ state
     def _pool_spec(self):
@@ -882,13 +926,14 @@ class PagedGenerativeEngine(GenerativeEngine):
                ) -> "PagedGenerativeEngine":
         """Run each table-width bucket's single-token decode (or one
         horizon per capacity in ``horizons``), a ``Tq = k`` verify per
-        ``speculate`` window, each prompt bucket's prefill and the page
-        fork once on a scratch state, outside traffic."""
+        ``speculate`` window, each prompt bucket's prefill, the page fork
+        and, per page count in ``migrate_buckets`` (rounded up to a power
+        of two), one page export and one page import once on a scratch
+        state, outside traffic. Disaggregated replicas pass the page
+        counts their prompt buckets imply."""
         if checkpoint is not None:
             raise NotImplementedError(f"warmup(checkpoint=) comes with "
                                       f"{_PARALLEL}")
-        if any(int(n) for n in migrate_buckets):
-            raise NotImplementedError(f"warmup(migrate_buckets=): {_DISAGG}")
         mps = sorted({self._mp_bucket(c) for c in cache_buckets})
         tps = sorted({next_bucket(t) for t in prompt_buckets})
         hs = sorted({int(h) for h in horizons if int(h) >= 1})
@@ -921,6 +966,17 @@ class PagedGenerativeEngine(GenerativeEngine):
             self._warmed.add(("pprefill", tp))
         self._fork_into(scratch, [(0, 0)])
         self._warmed.add(("pfork",))
+        for npg in sorted({next_bucket(max(1, int(n)))
+                           for n in migrate_buckets}):
+            ids = np.zeros((npg,), np.int64)
+            self._export_chunk(scratch, ids, 0)
+            self._import_chunk(scratch, ids, {
+                si: {n: torch.zeros((npg * self.page_size,)
+                                    + tuple(a.shape[1:]), dtype=a.dtype)
+                     for n, a in leaves.items()}
+                for si, leaves in scratch.caches.items()})
+            self._warmed.add(("pexport", npg))
+            self._warmed.add(("pimport", npg))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
@@ -1086,11 +1142,151 @@ class PagedGenerativeEngine(GenerativeEngine):
         self._fork_into(state, pairs)
         return state
 
-    def export_pages(self, *args, **kwargs):
-        raise NotImplementedError(f"export_pages: {_DISAGG}")
+    # ------------------------------------------------ KV-page migration
+    def _migrate_chunks(self, kind: str, n: int):
+        """Chunk an ``n``-page migration over the page-count buckets of
+        ``kind`` (``"pexport"`` or ``"pimport"``) that were warmed or have
+        run: ``(bucket, take)`` pairs, one device call each and never one
+        a page; ``next_bucket`` of the rest when there are none (the JAX
+        engine's rule over its compiled executables)."""
+        with self._lock:
+            known = sorted({k[1] for k in self._warmed if k[0] == kind}
+                           | self._mig_ran[kind])
+        i = 0
+        while i < n:
+            rem = n - i
+            if known:
+                fits = [b for b in known if b >= rem]
+                bucket = fits[0] if fits else known[-1]
+            else:
+                bucket = next_bucket(rem)
+            take = min(bucket, rem)
+            yield bucket, take
+            i += take
 
-    def import_pages(self, *args, **kwargs):
-        raise NotImplementedError(f"import_pages: {_DISAGG}")
+    def _migrated_pages(self, pages) -> List[int]:
+        """``pages`` as ints; raises unless there is at least one and each
+        is an allocatable page (not the zero page, inside the pool)."""
+        pages = [int(p) for p in pages]
+        if not pages or any(p <= 0 or p >= self.pages for p in pages):
+            raise ValueError(f"a migration takes one or more page ids in "
+                             f"[1, {self.pages}); got {pages}")
+        return pages
+
+    def _export_chunk(self, state, ids, take):
+        """ONE gather of the pages ``ids`` (``[bucket]``, padded with page
+        0) per pool leaf; the first ``take`` pages' rows stay on the
+        device."""
+        P = self.page_size
+        with torch.inference_mode():
+            rows = _fa.page_rows(self._tensor(ids), P)
+            return {si: {n: _fa.page_export(pool, rows)[:take * P]
+                         for n, pool in leaves.items()}
+                    for si, leaves in state.caches.items()}
+
+    def _import_chunk(self, state, ids, blocks):
+        """ONE host-to-device copy and ONE gated scatter per pool leaf of
+        the host ``blocks`` (``[bucket * P, H, d]``) into the pages
+        ``ids``; rows of padding entries (page 0) are gated off."""
+        P = self.page_size
+        with torch.inference_mode():
+            ids_t = self._tensor(ids)
+            rows = _fa.page_rows(ids_t, P)
+            gate = torch.repeat_interleave(ids_t > 0, P)
+            for si, leaves in state.caches.items():
+                for n, pool in leaves.items():
+                    _fa.page_import(pool, rows,
+                                    blocks[si][n].to(self.device), gate)
+
+    def export_pages(self, state: PagedDecodeState,
+                     pages: Sequence[int]) -> Dict[str, Dict[str,
+                                                             torch.Tensor]]:
+        """Whole pages as HOST payload blocks (the sending side of a
+        migration): ``{layer: {name: [len(pages) * page_size, H, d]}}``,
+        CPU tensors in the pool's dtype (bfloat16 included, which numpy
+        cannot hold), rows in page order. One gather per chunk and leaf,
+        then one device-to-host copy per leaf."""
+        pages = self._migrated_pages(pages)
+        t0 = time.perf_counter()
+        chunks, i = [], 0
+        for bucket, take in self._migrate_chunks("pexport", len(pages)):
+            ids = np.zeros((bucket,), np.int64)
+            ids[:take] = pages[i:i + take]
+            self._count(("pexport", bucket))
+            chunks.append(self._export_chunk(state, ids, take))
+            with self._lock:
+                self._mig_ran["pexport"].add(bucket)
+            i += take
+        with torch.inference_mode():
+            out = {si: {n: (torch.cat([c[si][n] for c in chunks])
+                            if len(chunks) > 1 else chunks[0][si][n]).cpu()
+                        for n in leaves}
+                   for si, leaves in chunks[0].items()}
+        self.migrate_s["export"].append(time.perf_counter() - t0)
+        return out
+
+    def check_payload(self, payload, n_pages: int) -> None:
+        """Raise ValueError unless ``payload`` matches this engine's pool
+        layout for ``n_pages`` pages: the same layers (the pool spec's
+        string keys) and leaf names, ``[n_pages * page_size, H, d]``
+        blocks and the pool's dtype."""
+        spec = self._pool_spec()
+        if not (isinstance(payload, dict) and set(payload) == set(spec)
+                and all(isinstance(payload[si], dict)
+                        and set(payload[si]) == set(spec[si])
+                        for si in spec)):
+            raise ValueError(
+                "migrated payload layer tree does not match the receiving "
+                f"pool's cache layout: {_layout(payload)} vs "
+                f"{_layout(spec)}")
+        rows = int(n_pages) * self.page_size
+        for si, leaves in spec.items():
+            for n, a in leaves.items():
+                blk = payload[si][n]
+                shape = (rows,) + tuple(a.shape[1:])
+                if tuple(blk.shape) != shape:
+                    raise ValueError(
+                        f"migrated payload block {tuple(blk.shape)} != "
+                        f"{shape} (page_size/head-count/head-dim mismatch "
+                        "between pools)")
+                if _dtype_name(blk) != _dtype_name(a):
+                    raise ValueError(
+                        f"migrated payload dtype {_dtype_name(blk)} != pool "
+                        f"dtype {_dtype_name(a)}")
+
+    def import_pages(self, state: PagedDecodeState, pages: Sequence[int],
+                     payload) -> PagedDecodeState:
+        """Install migrated payload blocks into freshly allocated pages
+        (the receiving side), IN PLACE; returns ``state``. The payload's
+        structure is checked against this engine's pool layout before any
+        device work (:meth:`check_payload`); then each chunk takes one
+        host-to-device copy and one gated scatter per leaf."""
+        pages = self._migrated_pages(pages)
+        self.check_payload(payload, len(pages))
+        t0 = time.perf_counter()
+        P = self.page_size
+        host = {si: {n: _host_tensor(b) for n, b in leaves.items()}
+                for si, leaves in payload.items()}
+        i = 0
+        for bucket, take in self._migrate_chunks("pimport", len(pages)):
+            ids = np.zeros((bucket,), np.int64)
+            ids[:take] = pages[i:i + take]
+            blocks = {}
+            for si, leaves in host.items():
+                blocks[si] = {}
+                for n, b in leaves.items():
+                    b = b[i * P:(i + take) * P]
+                    if bucket > take:
+                        b = torch.cat([b, b.new_zeros(
+                            ((bucket - take) * P,) + tuple(b.shape[1:]))])
+                    blocks[si][n] = b
+            self._count(("pimport", bucket))
+            self._import_chunk(state, ids, blocks)
+            with self._lock:
+                self._mig_ran["pimport"].add(bucket)
+            i += take
+        self.migrate_s["import"].append(time.perf_counter() - t0)
+        return state
 
     # ---------------------------------------------------------------- admin
     def stats(self) -> dict:

@@ -29,10 +29,7 @@ Divergences from the JAX module: the counters are plain integers (the
 port has no telemetry registry yet, so there are no ``serving.page_pool.*``
 gauges or counters to scrape, and no ``engine_id`` / ``pool_label`` to
 label them with); there is no ``serving.page_pool`` fault site
-(``runtime/faults.py`` comes with the runtime slice, ROADMAP.md Queue 1);
-``adopt`` (page import for disaggregated serving) raises
-``NotImplementedError`` naming its slice, so ``adoptions`` stays 0, and
-the disaggregated router's ``peek_prefix`` comes with that slice too.
+(``runtime/faults.py`` comes with the runtime slice, ROADMAP.md Queue 1).
 
 Thread-safety: one decode worker owns admission and release; ``stats()``
 may be read from any thread; all state mutates under one lock.
@@ -90,6 +87,7 @@ class PagedKVPool:
         self._prefix: "OrderedDict[str, _PrefixEntry]" = OrderedDict()
         self.pages_peak = 0
         self._hits = self._misses = self._evictions = self._forks = 0
+        self._adoptions = 0
 
     # ----------------------------------------------------------- allocator
     def _note_free(self):
@@ -159,9 +157,15 @@ class PagedKVPool:
             self._forks += int(n)
 
     def adopt(self, n: int = 1) -> List[int]:
-        raise NotImplementedError(
-            "adopting migrated pages comes with the disaggregated-serving "
-            "slice of the port (ROADMAP.md Queue 1)")
+        """Fresh pages for MIGRATED contents: allocated as :meth:`alloc`
+        allocates (refcount 1, the adopting stream's reference; the caller
+        registers a migrated prefix for the registry's own reference), but
+        counted apart so the pool's stats split locally prefilled pages
+        from adopted ones."""
+        out = self.alloc(n)
+        with self._lock:
+            self._adoptions += len(out)
+        return out
 
     # ------------------------------------------------------ prefix registry
     def lookup_prefix(self, key: str) -> Optional[_PrefixEntry]:
@@ -178,6 +182,14 @@ class PagedKVPool:
                 self._ref[p] += 1
             self._hits += 1
             return e
+
+    def peek_prefix(self, key: str) -> bool:
+        """True when ``key`` is registered here. Bumps no refcount or LRU
+        recency and counts no hit or miss: the disaggregated router probes
+        every decode replica for every prompt, and a counted miss per
+        probe would poison the pool's hit rate."""
+        with self._lock:
+            return key in self._prefix
 
     def register_prefix(self, key: str, pages: Sequence[int], plen: int,
                         logits) -> None:
@@ -227,5 +239,5 @@ class PagedKVPool:
                 "prefix_misses": self._misses,
                 "evictions": self._evictions,
                 "forks": self._forks,
-                "adoptions": 0,
+                "adoptions": self._adoptions,
             }

@@ -78,7 +78,8 @@ def test_scan_covers_the_package():
             "nnops.py", "lenet.py", "training.py", "mnist.py",
             "normalizers.py", "evaluation.py", "compare_kernels.py",
             "count_kernels.py", "hdf5.py", "keras.py", "conv_extra.py",
-            "vertices.py", "make_keras_config.py"} <= names
+            "vertices.py", "make_keras_config.py", "disagg.py",
+            "decode.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -176,7 +176,9 @@ _OPS = st.lists(st.one_of(
     st.tuples(st.just("retain"), st.integers(0, 7)),
     st.tuples(st.just("register"), st.integers(0, 3), st.integers(0, 7)),
     st.tuples(st.just("lookup"), st.integers(0, 3)),
-    st.tuples(st.just("fork"), st.integers(0, 2))), min_size=1, max_size=40)
+    st.tuples(st.just("fork"), st.integers(0, 2)),
+    st.tuples(st.just("adopt"), st.integers(1, 3)),
+    st.tuples(st.just("peek"), st.integers(0, 3))), min_size=1, max_size=40)
 
 
 _POOL_IDS = itertools.count()
@@ -194,15 +196,18 @@ def test_pool_matches_jax(ops):
     theirs = JPool(7, P, engine_id=f"torch-port-parity-{next(_POOL_IDS)}")
     held = []  # page lists a caller holds a reference on (both pools)
     for op in ops:
-        if op[0] == "alloc":
+        if op[0] in ("alloc", "adopt"):
             try:
-                a = ours.alloc(op[1])
+                a = getattr(ours, op[0])(op[1])
             except PoolExhausted:
                 with pytest.raises(JExhausted):
-                    theirs.alloc(op[1])
+                    getattr(theirs, op[0])(op[1])
                 continue
-            assert theirs.alloc(op[1]) == a
+            assert getattr(theirs, op[0])(op[1]) == a
             held.append(a)
+        elif op[0] == "peek":
+            assert ours.peek_prefix(f"k{op[1]}") == \
+                theirs.peek_prefix(f"k{op[1]}")
         elif op[0] == "release" and held:
             pages = held.pop(op[1] % len(held))
             ours.release(pages)
@@ -254,8 +259,20 @@ def test_pool_eviction_under_pressure():
     assert pool.pages_free() == 2
     with pytest.raises(ValueError, match="zero page"):
         PagedKVPool(1, 8)
-    with pytest.raises(NotImplementedError, match="disaggregated"):
-        pool.adopt(1)
+    # adopt allocates as alloc does (evicting under pressure, all or
+    # nothing) and counts the adopted pages apart; peek_prefix counts
+    # nothing
+    pool.register_prefix("p1", got, 10, np.zeros(4))
+    pool.release(got)
+    hits = dict(pool.stats())
+    assert pool.peek_prefix("p1") and not pool.peek_prefix("p0")
+    assert pool.stats() == hits
+    adopted = pool.adopt(3)       # the 2 free pages and "p1"'s, evicted
+    assert len(set(adopted)) == 3 and pool.stats()["adoptions"] == 3
+    assert pool.stats()["evictions"] == 2 and not pool.peek_prefix("p1")
+    with pytest.raises(PoolExhausted):
+        pool.adopt(2)
+    assert pool.stats()["adoptions"] == 3 and pool.pages_free() == 1
 
 
 def test_prompt_key_is_the_jax_key():
@@ -367,12 +384,51 @@ def test_grow_copies_nothing_and_fork_copies_the_pairs(nets):
     assert pe.fork(st, []) is st and pe.stats()["fork_calls"] == calls + 1
     with pytest.raises(ValueError, match="max_cache_len"):
         pe.prepare_write(st, 0, 33)
-    for call in (lambda: pe.export_pages(st, [1]),
-                 lambda: pe.import_pages(st, [1], None),
-                 lambda: fa.page_export(leaves[0], None),
-                 lambda: fa.page_import(leaves[0], None, None, None)):
-        with pytest.raises(NotImplementedError, match="disaggregated"):
-            call()
+    # page export and import: whole pages in page order, one gather a
+    # chunk and leaf, bucketed as the JAX engine buckets (3 pages over no
+    # warmed bucket: one call of 4; then 6 pages over the bucket 4 that
+    # ran: 4 + 2)
+    now = [t.clone() for t in leaves]
+    calls = pe.stats()["calls"]
+    payload = pe.export_pages(st, [5, 7, 1])
+    assert pe.stats()["calls"] == calls + 1
+    flat = [t for lv in payload.values() for t in lv.values()]
+    for t, b in zip(flat, now):
+        assert t.device.type == "cpu" and t.dtype == b.dtype
+        assert torch.equal(t, torch.cat([b[5 * P:6 * P], b[7 * P:8 * P],
+                                         b[P:2 * P]]))
+    pe.import_pages(st, [2, 9, 4], payload)
+    assert pe.stats()["calls"] == calls + 2
+    for t, b in zip(leaves, now):
+        want = b.clone()
+        want[2 * P:3 * P] = b[5 * P:6 * P]
+        want[9 * P:10 * P] = b[7 * P:8 * P]
+        want[4 * P:5 * P] = b[P:2 * P]
+        assert torch.equal(t, want)          # the zero page untouched
+    six = pe.export_pages(st, [1, 2, 3, 4, 5, 6])
+    assert pe.stats()["calls"] == calls + 4
+    assert all(torch.equal(t[:P], b[P:2 * P]) for t, b in zip(
+        [t for lv in six.values() for t in lv.values()], leaves))
+    with pytest.raises(ValueError, match="one or more page ids"):
+        pe.export_pages(st, [0])
+    with pytest.raises(ValueError, match="head-count"):
+        pe.import_pages(st, [2], payload)   # 3 pages of rows for 1 page
+    # the ops against JAX's, bit for bit: padding rows (page 0) gated off
+    pool = leaves[0].clone()
+    rows = fa.page_rows(torch.tensor([3, 0, 0]), P)
+    gate = torch.repeat_interleave(torch.tensor([True, False, False]), P)
+    pay = torch.randn((3 * P,) + tuple(pool.shape[1:]),
+                      generator=torch.Generator().manual_seed(3))
+    np.testing.assert_array_equal(
+        fa.page_export(pool, rows).numpy(),
+        np.asarray(jfa.page_export(jnp.asarray(pool.numpy()),
+                                   jnp.asarray(rows.numpy()))))
+    want = np.asarray(jfa.page_import(
+        jnp.asarray(pool.numpy()), jnp.asarray(rows.numpy()),
+        jnp.asarray(pay.numpy()), jnp.asarray(gate.numpy())))
+    assert fa.page_import(pool, rows, pay, gate) is pool   # in place
+    np.testing.assert_array_equal(pool.numpy(), want)
+    assert torch.equal(pool[:P], leaves[0][:P])      # page 0 as it was
 
 
 def test_paged_engine_equals_the_contiguous_one_bit_for_bit(nets):
@@ -571,8 +627,17 @@ def test_config_refusals(nets):
                 tokens=[1, 2, 3], max_new_tokens=4)
     finally:
         cb.shutdown()
-    with pytest.raises(NotImplementedError, match="disaggregated"):
-        ContinuousBatcher(pn, paged=True, migrate_buckets=[1], **base)
+    # migrate_buckets warms each page count's export and import, rounded
+    # up to a power of two
+    cb = ContinuousBatcher(pn, paged=True, migrate_buckets=[1, 3],
+                           max_cache_len=16, min_cache_len=16,
+                           **dict(base, warmup=True))
+    try:
+        assert {("pexport", 1), ("pimport", 1), ("pexport", 4),
+                ("pimport", 4)} <= cb.engine._warmed
+        assert cb.stats()["pool"] == "default"
+    finally:
+        cb.shutdown()
 
 
 def test_learned_attention_refuses_a_verify_window():

@@ -57,6 +57,13 @@ SEG = np.array([0, 2, 2, -1, 0, 7], np.int32)  # segment 1 stays empty
 Q = _R.standard_normal((2, 2, 5, 4)).astype(np.float32)
 KB = np.where(np.arange(5) < np.array([[3], [5]]), 0.0, -1e9).astype(
     np.float32)[:, None, None, :]
+# a paged pool of 7 pages of 2 token rows (page 0 zero) and a table of 3
+# pages a row, for the paged decode op
+POOL = np.random.default_rng(21).standard_normal((14, 2, 4)).astype(
+    np.float32)
+POOL[:2] = 0.0
+PT = np.array([[1, 2, 3], [6, 5, 4]], np.int32)
+KEY = np.array([0, 7], np.uint32)
 # one LSTM step: x [3, 5], h and c [3, 4], W [5, 16], RW [4, 16], b [16]
 LSTM_ARGS = tuple(_R.standard_normal(s).astype(np.float32) for s in (
     (3, 5), (3, 4), (3, 4), (5, 16), (4, 16), (16,)))
@@ -229,6 +236,24 @@ CASES = [
     # attention
     ("attention.fused_sdpa", (Q, Q, Q), {"scale": 0.5}),
     ("attention.fused_sdpa", (Q, Q, Q, KB), {"scale": 0.5}),
+    # the decode graphs' ops: a cached step, a paged step and a paged
+    # window of 2 rows (lengths before the step; page 0 is the zero page)
+    ("attention.cached_sdpa", (Q[:, :, :1], Q[:, :, 1:2], Q[:, :, 2:3], Q,
+                               Q[:, ::-1], np.array([1, 4], np.int32)),
+     {"scale": 0.5}),
+    ("attention.paged_sdpa", (Q[:, :, :1], Q[:, :, 1:2], Q[:, :, 2:3],
+                              POOL, POOL[::-1], PT,
+                              np.array([2, 5], np.int32)),
+     {"scale": 0.5, "page_size": 2}),
+    ("attention.paged_sdpa", (Q[:, :, :2], Q[:, :, 1:3], Q[:, :, 2:4],
+                              POOL, POOL[::-1], PT,
+                              np.array([0, 4], np.int32)),
+     {"scale": 0.5, "page_size": 2}),
+    # sampling: greedy, and draws a cold temperature or k = 1 makes
+    # certain (the two packages' random streams differ)
+    ("sampling.greedy", (A,), {}),
+    ("sampling.categorical", (A, KEY), {"temperature": 1e-6}),
+    ("sampling.top_k", (A, KEY), {"k": 1, "temperature": 1.0}),
     # losses (labels, logits)
     ("loss.softmax_ce_logits", (np.eye(4, dtype=np.float32)[[0, 3, 1]],
                                 A), {}),
