@@ -1,6 +1,6 @@
 """Drive the PyTorch/H100 port's serving, training, recurrent, generative
-(disaggregated too), fused-epilogue, import and SameDiff paths on one
-NVIDIA card.
+(disaggregated too), fused-epilogue, import, SameDiff and int8 serving
+paths on one NVIDIA card.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -381,7 +381,46 @@ Phases, in order; any failure exits non-zero:
     paged_sdpa`` (12 K10); every output within 1e-4 of the base graph
     recomputed over the full prefix on the card, and of the CPU plain
     path's decode graphs;
-35. summary: a ``{"kernels": [...]}`` line (K1-K10), the ``nvidia-smi``
+35. int8-mm: ``torch._int_mm``'s shape rules read off the card (raw
+    probes), then the int8 contraction (``ops/quantize.py``) at every
+    distinct convolution shape of ResNet-50 at batch 32 (im2col + the
+    int8 GEMM), at BERT-base's dense shapes at 32 x 128 and at the
+    generative model's decode rows (8 slots): each int32 accumulator bit
+    for bit with the plain float64 contraction on the card, each
+    ``int8_conv`` / ``int8_matmul`` on float32 input the CPU's bit for bit
+    on its first rows, the contraction's and the int8 call's times beside
+    the float32 ``F.conv2d`` / ``torch.matmul`` and the int8 bound;
+36. int8-resnet50: zoo ResNet-50 (uncut, seed 0) through
+    ``InferenceEngine(quantize="int8")`` warmed at [1, 8, 32]: batch-32
+    requests with exactly 53 K1 launches a forward (the JAX package's
+    epilogue count for the quantized conf) and no other kernel, one
+    ``conv`` decision a convolution and one ``dot`` a forward, no quantize
+    fallback, no cold bucket; the batch-2 output against the port's int8
+    CPU path (``INT8_CPU_REL_TOL``); ``quantization_gate`` (int8 vs f32,
+    label-free) on 256 seeded images at JAX's default bound 0.01; weight
+    bytes, wall and device ms, the busy share, and f32 and int8 requests
+    in turns;
+37. int8-generate: phase 18's generative model through
+    ``ContinuousBatcher(quantize="int8", kv_cache="int8")`` on the bench
+    mix (3 K3 a prefill, 3 K9 a step) and on the paged prefix mix with
+    speculation (3 K10 a verify window, the f32 draft's 3 K9 a step): an
+    engine walk of 8 streams x 24 steps whose every step's logits lie
+    within 0.05 of the f32 full-prefix recompute (JAX's bound) and whose
+    tokens are the port's int8 CPU path's wherever its top-2 margin
+    exceeds that bound, the card's logits within the same bound of the
+    CPU int8 path's, ``cache_bytes`` and the pool under half of f32's,
+    one int8 ``KVShipment`` through a socketpair and imported into a
+    fresh int8 pool bit for bit; tokens/s, TTFT and TPOT beside the f32
+    mix's;
+38. int8-bert: BERT-base in the ``"fusable"`` spelling after
+    ``fuse_epilogues``, then ``quantize_weights``: 72 sites matched (6 a
+    layer, the JAX pass's count on the tiny graph), 0 skipped, no site's
+    shape changed; requests of 32 x 128 with exactly 12 K3, 25 K6 and 12
+    K1 launches a forward and ``dot`` decisions only; the batch-2 output
+    against the port's int8 CPU path and both int8 outputs against f32
+    within JAX's int8 bound 0.05 (``INT8_KV_REL``), the weight bytes saved
+    and the times beside the f32 graph's;
+39. summary: a ``{"kernels": [...]}`` line (K1-K10), the ``nvidia-smi``
     name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 The serving path (phases 4-5), the training path, the NCHW block,
@@ -398,8 +437,10 @@ each workspace mode's steps (phase 28), ``evaluate`` (phase 29), the
 Keras imports (phase 30), the Keras golden replay (phase 31), the
 Keras ResNet-50's requests and fine-tune steps (phase 32), each window
 of the mixed load and each router pass (phase 33) and each prefill,
-decode step and window of the decode graphs (phase 34) are each driven
-with the launch counts set to 0 just before and read just after.
+decode step and window of the decode graphs (phase 34), the int8
+ResNet-50 requests (phase 36), the two int8 generative mixes (phase 37)
+and the int8 BERT requests (phase 38) are each driven with the launch
+counts set to 0 just before and read just after.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -6375,6 +6416,652 @@ def phase_keras_resnet50(kmods, fe, env, graph) -> dict:
             "grad_worst": rows[0], "import_s": import_s}
 
 
+# ---------------------------------------------------------------------------
+# int8 serving: [int8-mm], [int8-resnet50], [int8-generate], [int8-bert]
+# ---------------------------------------------------------------------------
+
+#: NVIDIA's published dense int8 peak of one H100 SXM (operations/s)
+H100_INT8_OPS_PER_S = 1979e12
+INT8_BATCH = 32
+#: BERT-base's dense contractions at 32 x 128 tokens, (M, K, N)
+INT8_BERT_SHAPES = ((4096, 768, 768), (4096, 768, 3072), (4096, 3072, 768))
+#: the generative model's decode-step contractions at 8 slots: the
+#: attention projections, the two dense layers, the output layer
+INT8_GEN_SHAPES = ((8, 256, 256), (8, 256, 512), (8, 512, 256))
+#: the rows (examples) each card call is held against the CPU's on:
+#: per-example scales make rows independent
+INT8_CPU_ROWS = 2
+#: raw torch._int_mm shapes whose refusals are logged as the card's rules
+INT8_RULE_PROBES = ((8, 64, 64), (17, 64, 64), (24, 147, 64),
+                    (24, 64, 60), (32, 64, 64))
+INT8_RESNET_BUCKETS = (1, 8, 32)
+INT8_GATE_IMAGES = 256
+#: JAX's default gate bound (eval/quantization.py:121)
+INT8_GATE_MAX_DELTA = 0.01
+#: ResNet-50's card int8 output against the port's int8 CPU path
+#: (norm-relative): both contract exactly, so they differ only where a
+#: float32 epilogue one ulp apart (K1 against the CPU's plain BN) moves an
+#: activation across a rounding midpoint of its int8 step; a flip moves one
+#: input of one row by one step (1/254 of the row's range), a few in a
+#: million elements, far below 1e-3 of the output's norm
+INT8_CPU_REL_TOL = 1e-3
+#: JAX's own bound of int8 decode against the f32 full recompute
+#: (tests/test_quantized_serving.py:357-394); also the bound of BERT's
+#: card int8 output against the CPU's int8 path and against f32: there
+#: K3, K6 and K1 round a few values one ulp off the CPU's plain versions,
+#: a quantizer turns such an ulp at a rounding midpoint into a whole int8
+#: step, and over 12 layers the two int8 runs drift apart to the level of
+#: the int8 noise itself (ResNet-50's K1 agrees with the CPU bit for bit,
+#: and its int8 runs agree exactly)
+INT8_KV_REL = 0.05
+#: decode steps of the engine walk held to the recompute, per stream
+INT8_WALK_STEPS = 24
+#: the bench mix's runs through the int8 batcher
+INT8_RUNS = 2
+#: one K9 a decode step's attention layer, one K3 a prefill's, one K10 a
+#: verify window's: GEN_LAYERS of each
+INT8_BERT_SITES_PER_LAYER = 6
+INT8_SEED = 31
+
+
+def int8_rules(q) -> dict:
+    """The card's rules for ``torch._int_mm``, read off the card: each
+    probe shape's result ("ok" or the refusal's first line) with ``b``
+    row-major and column-major. A probe that raises is the rule being
+    read, not a failure; the wrapper ``q.int_mm`` must then give the plain
+    contraction's int32 bit for bit at every probe."""
+    gen = torch.Generator(device="cuda").manual_seed(INT8_SEED)
+    rules = {}
+    for m, k, n in INT8_RULE_PROBES:
+        a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        for layout, bb in (("row", b), ("col", b.t().contiguous().t())):
+            try:
+                torch._int_mm(a, bb)
+                torch.cuda.synchronize()
+                rules[(m, k, n, layout)] = "ok"
+            except RuntimeError as e:
+                rules[(m, k, n, layout)] = str(e).strip().splitlines()[0][:90]
+        if not torch.equal(q.int_mm(a, b), q.int_mm_plain(a, b)):
+            raise AssertionError(f"int_mm at {(m, k, n)} differs from the "
+                                 "plain contraction")
+    return rules
+
+
+def resnet_conv_shapes(net, batch: int) -> dict:
+    """``{(batch, H, W, C, O, kh, kw, stride, mode, padding, dilation):
+    count}`` of the ConvolutionLayer vertices of ``net`` (NHWC) at
+    ``batch``."""
+    from deeplearning4j_tpu_torch.nn.layers.conv import ConvolutionLayer
+    from deeplearning4j_tpu_torch.nn.vertices import LayerVertex
+    from deeplearning4j_tpu_torch.ops.nnops import _pair
+    out = {}
+    for name in net._topo:
+        v, ins = net._vertex_map[name]
+        if not (isinstance(v, LayerVertex)
+                and isinstance(v.layer, ConvolutionLayer)):
+            continue
+        L = v.layer
+        h, w, c = net._shapes[ins[0]]
+        key = (batch, h, w, c, L.n_out, *_pair(L.kernel), _pair(L.stride),
+               L.mode, _pair(L.padding), _pair(L.dilation))
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def int8_mm_bound(m: int, k: int, n: int) -> tuple:
+    """(ms, "bytes" | "operations"): int8 operands read once, the int32
+    result written once, over 3.35 TB/s; 2 M N K operations over the int8
+    peak."""
+    t_bytes = (m * k + k * n + 4 * m * n) / 3.35e12 * 1e3
+    t_ops = 2.0 * m * n * k / H100_INT8_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_int8_conv(q, key) -> dict:
+    """One ResNet-50 conv shape: the card's int32 accumulator (im2col +
+    ``q.int_mm``) against the plain float64 contraction on the card bit
+    for bit; the card's ``int8_conv`` on float32 input against the CPU's
+    bit for bit on the first rows; times beside the float32 conv."""
+    from deeplearning4j_tpu_torch.ops import nnops
+    b, h, w, c, o, kh, kw, st, mode, padding, dl = key
+    k_eff = ((kh - 1) * dl[0] + 1, (kw - 1) * dl[1] + 1)
+    pads = nnops._spatial_pads(mode, padding, (h, w), k_eff, st)
+    gen = torch.Generator(device="cuda").manual_seed(INT8_SEED + h + c + o)
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda")
+    wf = torch.randn((o, c, kh, kw), generator=gen, device="cuda") * 0.05
+    bias = torch.randn((o,), generator=gen, device="cuda")
+    wq = q.quantize_per_channel(wf, 0)
+    xq, _ = q.quantize_per_example(x)
+    wk = wq.q.permute(2, 3, 1, 0).reshape(kh * kw * c, o)
+
+    def contract():
+        return q.int_mm(q._im2col(xq, kh, kw, st, dl, pads)[0], wk)
+    acc = contract()
+    cols, _ = q._im2col(xq, kh, kw, st, dl, pads)
+    if not torch.equal(acc, q.int_mm_plain(cols, wk)):
+        raise AssertionError(f"[int8-mm] conv {key}: the int32 accumulator "
+                             "differs from the plain contraction")
+    peak = int(acc.abs().max())
+    kw_args = dict(stride=st, padding=padding, dilation=dl, mode=mode,
+                   data_format="NHWC")
+    y = q.int8_conv(x, wq, bias, **kw_args)
+    y_cpu = q.int8_conv(x[:INT8_CPU_ROWS].cpu(), wq.to("cpu"), bias.cpu(),
+                        **kw_args)
+    if not torch.equal(y[:INT8_CPU_ROWS].cpu(), y_cpu):
+        raise AssertionError(f"[int8-mm] conv {key}: the card's epilogue "
+                             "differs from the CPU's")
+    ms_acc = time_ms(contract, reps=15)[0]
+    ms_int8 = time_ms(lambda: q.int8_conv(x, wq, bias, **kw_args),
+                      reps=15)[0]
+    ms_f32 = time_ms(lambda: nnops.conv2d(x, wf, bias, **kw_args),
+                     reps=15)[0]
+    m, kk = cols.shape
+    bound, by = int8_mm_bound(m, kk, o)
+    return {"m": m, "k": kk, "n": o, "acc_ms": ms_acc, "int8_conv_ms": ms_int8,
+            "f32_conv_ms": ms_f32, "bound_ms": bound, "bound_by": by,
+            "acc_abs_max": peak}
+
+
+def check_int8_matmul(q, m: int, k: int, n: int) -> dict:
+    """One dense shape: the int32 accumulator against the plain float64
+    contraction bit for bit, ``int8_matmul`` against the CPU's on the
+    first rows, times beside the float32 ``torch.matmul``."""
+    gen = torch.Generator(device="cuda").manual_seed(INT8_SEED + m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    acc = q.int_mm(a, b)
+    if not torch.equal(acc, q.int_mm_plain(a, b)):
+        raise AssertionError(f"[int8-mm] ({m}, {k}, {n}): the int32 "
+                             "accumulator differs from the plain one")
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    wf = torch.randn((k, n), generator=gen, device="cuda") * 0.05
+    bias = torch.randn((n,), generator=gen, device="cuda")
+    wq = q.quantize_per_channel(wf, 1)
+    y = q.int8_matmul(x, wq.q, wq.scale, bias)
+    rows = min(m, 256)
+    y_cpu = q.int8_matmul(x[:rows].cpu(), wq.q.cpu(), wq.scale.cpu(),
+                          bias.cpu())
+    if not torch.equal(y[:rows].cpu(), y_cpu):
+        raise AssertionError(f"[int8-mm] ({m}, {k}, {n}): the card's "
+                             "epilogue differs from the CPU's")
+    ms_acc = time_ms(lambda: q.int_mm(a, b), reps=15)[0]
+    ms_int8 = time_ms(lambda: q.int8_matmul(x, wq.q, wq.scale, bias),
+                      reps=15)[0]
+    ms_f32 = time_ms(lambda: torch.matmul(x, wf), reps=15)[0]
+    bound, by = int8_mm_bound(m, k, n)
+    return {"m": m, "k": k, "n": n, "acc_ms": ms_acc,
+            "int8_matmul_ms": ms_int8, "f32_matmul_ms": ms_f32,
+            "bound_ms": bound, "bound_by": by,
+            "acc_abs_max": int(acc.abs().max())}
+
+
+def phase_int8_mm(env, models) -> dict:
+    """[int8-mm]: the int8 contraction at every ResNet-50 conv shape at
+    batch 32, BERT-base's dense shapes and the generative decode rows."""
+    from deeplearning4j_tpu_torch.ops import quantize as q
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t0 = time.perf_counter()
+    rules = int8_rules(q)
+    log("[int8-mm] torch._int_mm on the card, raw (M, K, N, b layout): "
+        + "; ".join(f"{s}: {r}" for s, r in rules.items()))
+    q.reset_counters()
+    net = models.resnet50(seed=0)
+    net.init(device="cpu")  # the shapes only
+    shapes = resnet_conv_shapes(net, INT8_BATCH)
+    del net
+    rows = {}
+    with env.precision("cuda"):
+        for key, count in shapes.items():
+            r = check_int8_conv(q, key)
+            r["count"] = count
+            rows[f"conv{key[1:]}"] = r
+        for m, k, n in INT8_BERT_SHAPES + INT8_GEN_SHAPES:
+            rows[f"mm{(m, k, n)}"] = check_int8_matmul(q, m, k, n)
+    for tag, r in rows.items():
+        log(f"[int8-mm] {tag}: M {r['m']} K {r['k']} N {r['n']}: int32 "
+            f"accumulator bit for bit with the plain float64 one (|acc| up to"
+            f" {r['acc_abs_max']}), the epilogue the CPU's bit for bit; "
+            f"contraction {r['acc_ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+            f"{r['bound_by']}), int8 call "
+            f"{r.get('int8_conv_ms', r.get('int8_matmul_ms')):.4f} ms, "
+            f"float32 {r.get('f32_conv_ms', r.get('f32_matmul_ms')):.4f} ms")
+    big = max((r["acc_abs_max"] for r in rows.values()), default=0)
+    log(f"[int8-mm] {len(shapes)} distinct ResNet-50 conv shapes, "
+        f"{len(INT8_BERT_SHAPES)} BERT-base and {len(INT8_GEN_SHAPES)} decode"
+        f" shapes; largest |acc| {big} (2^24 = {2 ** 24}); padded calls "
+        f"{q.pad_counters()}; {smi_line()}; {time.perf_counter() - t0:.1f} s")
+    return {"rows": rows, "rules": {str(k): v for k, v in rules.items()},
+            "pads": q.pad_counters()}
+
+
+def cpu_graph(net):
+    """``net``'s weights and state in a ComputationGraph on the CPU."""
+    from deeplearning4j_tpu_torch.nn import graph
+    cpu = graph.ComputationGraph(net.conf).init(device="cpu")
+    cpu.params = {v: {k: t.cpu() for k, t in p.items()}
+                  for v, p in net.params.items()}
+    cpu.state = {v: {k: t.cpu() for k, t in p.items()}
+                 for v, p in net.state.items()}
+    return cpu
+
+
+def phase_int8_resnet50(kmods, fe, env, models) -> dict:
+    """[int8-resnet50]: zoo ResNet-50, uncut, through
+    ``InferenceEngine(quantize="int8")``."""
+    from deeplearning4j_tpu_torch.eval.quantization import quantization_gate
+    from deeplearning4j_tpu_torch.ops import quantize as q
+    from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
+    from deeplearning4j_tpu_torch.tools.profile_serving import device_us
+    from deeplearning4j_tpu_torch.utils.tree import leaves
+    env.Environment.instance().f32_matmul_precision = "highest"
+    net = models.resnet50(seed=0).init(device="cuda")
+    f32_bytes = sum(t.numel() * t.element_size() for t in leaves(net.params))
+    eng = InferenceEngine(net, quantize="int8")
+    t0 = time.perf_counter()
+    eng.warmup(INT8_RESNET_BUCKETS)
+    warm_s = time.perf_counter() - t0
+    total, qbytes = q.quantized_bytes(eng._serving_params())
+    rep = eng._q_report
+    k1_per_forward = len(k1_path_calls(net, 1))
+    convs = sum(resnet_conv_shapes(net, 1).values())
+    log(f"[int8-resnet50] zoo ResNet-50 on cuda: {net.num_params()} params; "
+        f"InferenceEngine(quantize='int8') warmed at "
+        f"{list(INT8_RESNET_BUCKETS)} in {warm_s:.1f} s: {rep.sites} weights "
+        f"quantized; weight bytes f32 {f32_bytes}, int8 tree {total} "
+        f"({qbytes} int8 values, {total - qbytes} scales and the rest)")
+    rng = np.random.default_rng(INT8_SEED)
+    x = rng.standard_normal((INT8_BATCH, 224, 224, 3), dtype=np.float32)
+
+    # ---- the int8 serving path: counts from 0, read after ----
+    zero_launches(kmods)
+    fe.reset_counters()
+    q.reset_counters()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = eng.output(x)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        eng.output(x)
+    forwards = 6
+    torch.cuda.synchronize()
+    launches = kernel_launches(kmods)
+    dev = sum(device_us(e) for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    want = {k: 0 for k in launches}
+    want["k1"] = forwards * k1_per_forward
+    decisions = q.counters()
+    if launches != want or fe.counters()["fused"] != want["k1"] \
+            or sum(fe.counters().values()) != want["k1"] \
+            or decisions != {"conv": forwards * convs, "dot": forwards} \
+            or eng.q_fallbacks or eng.stats()["cold_calls"]:
+        raise AssertionError(
+            f"[int8-resnet50] launches {launches} (want {want}), epilogue "
+            f"decisions {fe.counters()}, quantize decisions {decisions}, "
+            f"fallbacks {eng.q_fallbacks}, stats {eng.stats()}")
+    if y.shape != (INT8_BATCH, 1000) or not np.isfinite(y).all() or \
+            not np.allclose(y.sum(axis=1), 1.0, atol=1e-4):
+        raise AssertionError(f"[int8-resnet50] bad output {y.shape}")
+    wall = statistics.median(walls)
+    log(f"[int8-resnet50] batch-{INT8_BATCH} request: wall {wall:.3f} ms "
+        f"(median of 5), {INT8_BATCH * 1e3 / wall:.1f} images/s; device "
+        f"{dev:.3f} ms (busy share {dev / wall:.3f}); {k1_per_forward} K1 a "
+        f"forward (the JAX package's epilogue count for the quantized conf, "
+        f"tests/test_torch_quantize.py), quantize decisions {decisions}, "
+        f"no fallback, padded calls {q.pad_counters()}")
+    # the card against the port's int8 CPU path, same weights
+    t0 = time.perf_counter()
+    cpu = cpu_graph(net)
+    y_cpu = InferenceEngine(cpu, device="cpu", quantize="int8").output(
+        x[:INT8_CPU_ROWS])
+    rel = rel_err(y[:INT8_CPU_ROWS], y_cpu)
+    del cpu
+    log(f"[int8-resnet50] card vs the port's int8 CPU path, batch "
+        f"{INT8_CPU_ROWS}: rel err {rel:.3g} (tolerance {INT8_CPU_REL_TOL}; "
+        f"CPU {time.perf_counter() - t0:.1f} s)")
+    if not rel <= INT8_CPU_REL_TOL:
+        raise AssertionError("[int8-resnet50] the card's int8 output "
+                             "disagrees with the CPU's int8 path")
+    f32_eng = InferenceEngine(net).warmup([INT8_BATCH])
+    f32_rep = f32_eng.memory_report(INT8_BATCH)
+    q_rep = eng.memory_report(INT8_BATCH)
+    # f32 and int8 requests in turns (f32, int8, int8, f32; 5 each)
+    turns = {"f32": [], "int8": []}
+    for tag in ("f32", "int8", "int8", "f32"):
+        e = f32_eng if tag == "f32" else eng
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e.output(x)
+            turns[tag].append((time.perf_counter() - t0) * 1e3)
+    turns = {k: statistics.median(v) for k, v in turns.items()}
+    log(f"[int8-resnet50] batch-{INT8_BATCH} request in turns (median of "
+        f"10): f32 {turns['f32']:.3f} ms, int8 {turns['int8']:.3f} ms")
+    # the gate: int8 against f32, top-1 agreement on 256 seeded images
+    t0 = time.perf_counter()
+    grng = np.random.default_rng(INT8_SEED + 1)
+    batches = [grng.standard_normal((INT8_BATCH, 224, 224, 3),
+                                    dtype=np.float32)
+               for _ in range(INT8_GATE_IMAGES // INT8_BATCH)]
+    # gated: the card met JAX's default bound on random weights
+    res = quantization_gate(net, batches, max_delta=INT8_GATE_MAX_DELTA)
+    log(f"[int8-resnet50] quantization_gate (int8 vs f32 engine, label-free "
+        f"top-1 disagreement) on {res.examples} seeded images: delta "
+        f"{res.delta:.4f} against JAX's default max_delta "
+        f"{INT8_GATE_MAX_DELTA}: met ({time.perf_counter() - t0:.1f} s); "
+        f"memory at batch "
+        f"{INT8_BATCH}: params f32 {f32_rep['params_bytes']} vs int8 "
+        f"{q_rep['params_bytes']} ({q_rep['quantized_weight_bytes']} int8), "
+        f"peak {f32_rep['peak_bytes']} vs {q_rep['peak_bytes']}")
+    return {"launches": launches, "forwards": forwards,
+            "k1_per_forward": k1_per_forward, "wall_ms": wall,
+            "device_ms": dev, "busy_share": dev / wall, "rel_err": rel,
+            "turns_ms": turns,
+            "gate_delta": res.delta, "gate_passed": res.passed,
+            "weight_bytes_f32": f32_bytes, "weight_bytes_int8": total,
+            "int8_value_bytes": qbytes, "sites": rep.sites,
+            "peak_bytes": {"f32": f32_rep["peak_bytes"],
+                           "int8": q_rep["peak_bytes"]},
+            "pads": q.pad_counters()}
+
+
+def int8_walk(net, cpu, prompts, steps: int) -> dict:
+    """The bench's prompts through ``GenerativeEngine(quantize="int8",
+    kv_cache="int8")`` on the card, greedy, one prompt a slot, and the
+    same tokens through the same engine on the CPU (teacher-forced): each
+    step's card logits against the f32 full-prefix recompute on the card
+    (``INT8_KV_REL``), and the card's token the CPU's argmax wherever the
+    CPU's top-2 margin exceeds that bound."""
+    from deeplearning4j_tpu_torch.serving.engine import GenerativeEngine
+    from deeplearning4j_tpu_torch.tools import profile_generate as pg
+    S, V = len(prompts), pg.VOCAB
+    cache = next_pow2(max(len(p) for p in prompts) + steps + 1)
+    pb = [next_pow2(max(len(p) for p in prompts))]
+    engs = [GenerativeEngine(m, slots=S, quantize="int8", kv_cache="int8",
+                             device=d).warmup([cache], pb)
+            for m, d in ((net, "cuda"), (cpu, "cpu"))]
+    states = [e.new_state(cache) for e in engs]
+    eye = np.eye(V, dtype=np.float32)
+    logits = [np.zeros((steps + 1, S, V), np.float32) for _ in engs]
+    for i, p in enumerate(prompts):
+        for j, e in enumerate(engs):
+            states[j], lg = e.prefill(states[j], p, len(p), i)
+            logits[j][0, i] = lg
+    toks = [logits[0][0].argmax(-1)]
+    for t in range(1, steps + 1):
+        x_t = eye[toks[-1]][:, None, :]
+        for j, e in enumerate(engs):
+            states[j], lg = e.decode(states[j], x_t, np.ones(S, np.int32))
+            logits[j][t] = lg
+        toks.append(logits[0][t].argmax(-1))
+    # the f32 full-prefix recompute on the card, greedy stream teacher-fed
+    T = max(len(p) for p in prompts) + steps
+    seq = np.zeros((S, T, V), np.float32)
+    plens = np.array([len(p) for p in prompts])
+    for i, p in enumerate(prompts):
+        seq[i, :len(p)] = p
+        for t in range(steps):
+            seq[i, len(p) + t] = eye[toks[t][i]]
+    with torch.inference_mode():
+        full = net._full_context(
+            net.params, torch.from_numpy(seq).cuda(), net.state,
+            torch.from_numpy(plens).cuda(),
+            torch.from_numpy(plens + steps).cuda()).float().cpu().numpy()
+    worst_rec, worst_cpu, checked, mism = 0.0, 0.0, 0, 0
+    for t in range(steps + 1):
+        for i in range(S):
+            ref = full[i, plens[i] - 1 + t]
+            worst_rec = max(worst_rec, float(
+                np.abs(logits[0][t, i] - ref).max() / np.abs(ref).max()))
+            c = logits[1][t, i]
+            worst_cpu = max(worst_cpu, float(
+                np.abs(logits[0][t, i] - c).max() / np.abs(c).max()))
+            top2 = np.sort(c)[-2:]
+            if (top2[1] - top2[0]) / abs(top2[1]) > INT8_KV_REL:
+                checked += 1
+                mism += int(toks[t][i] != c.argmax())
+    return {"rel_err_vs_recompute": worst_rec, "rel_err_vs_cpu": worst_cpu,
+            "margin_steps": checked,
+            "token_mismatches": mism, "steps": steps, "streams": S,
+            "cache_bytes_int8": engs[0].cache_bytes(cache),
+            "cache_len": cache}
+
+
+def next_pow2(n: int) -> int:
+    return 1 << (int(n) - 1).bit_length()
+
+
+def phase_int8_generate(counters, gen) -> dict:
+    """[int8-generate]: the bench's generative model through
+    ``ContinuousBatcher(quantize="int8", kv_cache="int8")``."""
+    from deeplearning4j_tpu_torch.ops import quantize as q
+    from deeplearning4j_tpu_torch.serving.batcher import ContinuousBatcher
+    from deeplearning4j_tpu_torch.serving.disagg import PrefillReplica
+    from deeplearning4j_tpu_torch.serving.engine import (
+        GenerativeEngine, PagedGenerativeEngine)
+    from deeplearning4j_tpu_torch.tools import profile_generate as pg
+    net, cpu = gen["net"], gen["cpu"]
+    int8 = dict(quantize="int8", kv_cache="int8")
+    rows = {}
+    q.reset_counters()
+    # the bench mix (contiguous): K3 a prefill, K9 a step
+    t0 = time.perf_counter()
+    cb = ContinuousBatcher(net, **pg.BENCH, **int8)
+    log(f"[int8-generate] ContinuousBatcher({pg.BENCH}, quantize='int8', "
+        f"kv_cache='int8') built and warmed in {time.perf_counter() - t0:.1f}"
+        f" s")
+    mix = pg.prompts(*pg.BENCH_PROMPTS)
+    try:
+        row = generate_path(cb, mix, INT8_RUNS, counters)
+        est = cb.engine.stats()
+        cache_q = cb.engine.cache_bytes(pg.BENCH["max_cache_len"])
+    finally:
+        cb.shutdown()
+    cache_f = GenerativeEngine(net, slots=pg.BENCH["slots"]).cache_bytes(
+        pg.BENCH["max_cache_len"])
+    if est["quantize_fallbacks"] or est["quantize"] != "int8" \
+            or est["kv_cache"] != "int8" or not cache_q * 2 < cache_f:
+        raise AssertionError(f"[int8-generate] engine stats {est}, cache "
+                             f"bytes {cache_q} vs f32 {cache_f}")
+    f32 = gen["rows"]["bench"]
+    log(f"[int8-generate] bench mix, {INT8_RUNS} runs + 1 profiled: "
+        f"{row['tokens_per_s']:.1f} tokens/s (f32 {f32['tokens_per_s']:.1f}),"
+        f" TTFT p50 {row['ttft_ms_p50']:.3f} ms (f32 "
+        f"{f32['ttft_ms_p50']:.3f}), TPOT p50 {row['tpot_ms_p50']:.3f} ms "
+        f"(f32 {f32['tpot_ms_p50']:.3f}); launches {row['launches']} for "
+        f"{row['prefills']} prefills and {row['decode_steps']} decode steps;"
+        f" device {row['device_ms']} ms (busy share "
+        f"{row['device_busy_share']}); cache bytes {cache_q} vs f32 "
+        f"{cache_f}")
+    row.pop("streams")
+    row.pop("last_logits")
+    rows["bench"] = row
+    # each step's logits against the f32 recompute, tokens against the CPU
+    t0 = time.perf_counter()
+    walk = int8_walk(net, cpu, mix, INT8_WALK_STEPS)
+    log(f"[int8-generate] engine walk, {walk['streams']} streams x "
+        f"{walk['steps']} steps: max|int8 - f32 recompute|/max|f32| "
+        f"{walk['rel_err_vs_recompute']:.4g}, against the CPU's int8 path "
+        f"{walk['rel_err_vs_cpu']:.4g} (bound {INT8_KV_REL} each); "
+        f"{walk['margin_steps']} steps with a CPU top-2 margin above the "
+        f"bound, {walk['token_mismatches']} card tokens off the CPU int8 "
+        f"path's argmax there ({time.perf_counter() - t0:.1f} s)")
+    if not walk["rel_err_vs_recompute"] <= INT8_KV_REL \
+            or not walk["rel_err_vs_cpu"] <= INT8_KV_REL \
+            or walk["token_mismatches"]:
+        raise AssertionError("[int8-generate] int8 decode outside JAX's bound"
+                             " or off the CPU's tokens")
+    # the paged prefix mix with speculation: K10 a verify window
+    sysmix = pg.system_prompt_mix()
+    kw = dict(pg.PAGED, draft_model=net, speculate_k=pg.SPECULATE_K, **int8)
+    cb = ContinuousBatcher(net, **kw)
+    try:
+        srow = spec_path(cb, sysmix, INT8_RUNS, counters)
+        pool_q = cb.engine.pool_bytes()
+    finally:
+        cb.shutdown()
+    pool_f = PagedGenerativeEngine(
+        net, slots=pg.PAGED["slots"], pages=cb.engine.pages,
+        page_size=pg.PAGED["page_size"],
+        max_cache_len=pg.PAGED["max_cache_len"]).pool_bytes()
+    srow["check"] = {
+        "last_rel_err_vs_f32": max(pg.teacher_forced(
+            cpu, sysmix[i], srow["streams"][i],
+            srow["last_logits"][i])["last_rel_err"]
+            for i in range(len(sysmix)))}
+    if not srow["verify_steps"] or not pool_q * 2 < pool_f \
+            or not srow["check"]["last_rel_err_vs_f32"] <= INT8_KV_REL:
+        raise AssertionError(f"[int8-generate] speculative paged mix: "
+                             f"{srow['verify_steps']} verify steps, pool "
+                             f"{pool_q} vs {pool_f}, {srow['check']}")
+    log(f"[int8-generate] paged prefix mix with speculation (k "
+        f"{pg.SPECULATE_K}): {srow['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{srow['ttft_ms_p50']:.3f} ms, TPOT p50 {srow['tpot_ms_p50']:.3f} "
+        f"ms; launches {srow['launches']} for {srow['verify_steps']} verify "
+        f"steps, {srow['decode_steps']} + {srow['draft_steps']} decode steps"
+        f", {srow['prefills']} + {srow['draft_prefills']} prefills; last "
+        f"step vs the f32 recompute {srow['check']['last_rel_err_vs_f32']:.4g}"
+        f"; pool bytes {pool_q} vs f32 {pool_f}")
+    srow.pop("streams")
+    srow.pop("last_logits")
+    rows["spec"] = srow
+    # one int8 shipment: exported, through the socket, imported bit for bit
+    P = pg.PAGED["page_size"]
+    prompt = sysmix[0]
+    n_pages = -(-len(prompt) // P)
+    pre = PrefillReplica(net, pages=2 * n_pages + 1, page_size=P,
+                         max_cache_len=pg.PAGED["max_cache_len"],
+                         prompt_buckets=[len(prompt)], **int8)
+    ship = pre.prefill(prompt)
+    back, nbytes, wire = ship_over_socket(ship)
+    dst = PagedGenerativeEngine(net, slots=1, pages=2 * n_pages + 1,
+                                page_size=P,
+                                max_cache_len=pg.PAGED["max_cache_len"],
+                                **int8).warmup(
+        [pg.PAGED["max_cache_len"]], [next_pow2(len(prompt))],
+        migrate_buckets=[n_pages])
+    st = dst.new_state(pg.PAGED["max_cache_len"])
+    pages = dst.pool.alloc(n_pages)
+    dst.import_pages(st, pages, back.payload)
+    again = dst.export_pages(st, pages)
+    same = back.kv_quant and set(again) == set(ship.payload) and all(
+        set(again[l]) == {"k", "v", "k_scale", "v_scale"}
+        and all(torch.equal(again[l][n], t) for n, t in lv.items())
+        for l, lv in ship.payload.items())
+    if not same:
+        raise AssertionError("[int8-generate] the int8 shipment did not "
+                             "import bit for bit")
+    log(f"[int8-generate] one int8 KVShipment ({n_pages} pages, {nbytes} "
+        f"bytes, int8 values and f32 scale leaves) through a socketpair in "
+        f"{wire * 1e3:.3f} ms and imported into a fresh int8 pool bit for "
+        f"bit")
+    return {"rows": rows, "walk": walk, "cache_bytes": (cache_q, cache_f),
+            "pool_bytes": (pool_q, pool_f), "shipment_bytes": nbytes,
+            "launches": {"bench": row["launches"],
+                         "spec": srow["launches"]},
+            "pads": q.pad_counters()}
+
+
+def phase_int8_bert(kmods, fa, fe, env) -> dict:
+    """[int8-bert]: BERT-base, ``"fusable"`` spelling, after
+    ``fuse_epilogues``, then ``quantize_weights``."""
+    from deeplearning4j_tpu_torch.autodiff.quantize import quantize_weights
+    from deeplearning4j_tpu_torch.models.bert import OUTPUT
+    from deeplearning4j_tpu_torch.ops import quantize as q
+    from deeplearning4j_tpu_torch.tools.profile_bert import (
+        build, launch_counts, profile, request)
+    from deeplearning4j_tpu_torch.utils.convert import samediff_from_numpy
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t0 = time.perf_counter()
+    sd, reports = build("fusable", seed=0, seq_len=BERT_SEQ)
+    feeds = request(np.random.default_rng(INT8_SEED), INT8_BATCH, BERT_SEQ)
+    parity = request(np.random.default_rng(INT8_SEED + 1), INT8_CPU_ROWS,
+                     BERT_SEQ)
+    y_f32 = sd.output(feeds, [OUTPUT])[OUTPUT]
+    y_f32_parity = sd.output(parity, [OUTPUT])[OUTPUT]
+    f32_row = profile(sd, feeds, walls=5)
+    mm_sites = [r.output for r in sd._ops if r.op == "linalg.mmul"
+                and sd._vars[r.inputs[1]].kind in ("VARIABLE", "CONSTANT")]
+    shapes_f32 = {n: v.shape for n, v in sd.output(parity, mm_sites).items()}
+    q.reset_counters()
+    rep = quantize_weights(sd)
+    want_sites = INT8_BERT_SITES_PER_LAYER * BERT_LAYERS
+    shapes_q = {n: v.shape for n, v in sd.output(parity, mm_sites).items()}
+    log(f"[int8-bert] bert_base(spelling='fusable') fused "
+        f"({reports['epilogues']}), then {rep}: sites {rep.matched} (JAX's "
+        f"pass on the tiny graph: {INT8_BERT_SITES_PER_LAYER} a layer, "
+        f"tests/test_torch_quantize_samediff.py), skipped {rep.skipped}, "
+        f"rewrite counters {q.rewrite_counters()}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if (rep.matched, rep.skipped) != (want_sites, 0) \
+            or sorted(rep.sites) != sorted(mm_sites) \
+            or shapes_q != shapes_f32:
+        raise AssertionError(f"[int8-bert] rewrite {rep} {rep.reasons}, "
+                             "or a site changed shape")
+    per_forward = {"k6": LN_SITES, "k1": BERT_LAYERS, "k3": BERT_LAYERS}
+    sd.output(feeds, [OUTPUT])  # warm-up of the int8 path
+    # ---- the int8 BERT serving path: counts from 0, read after ----
+    zero_launches(kmods)
+    fa.reset_counters()
+    fe.reset_counters()
+    q.reset_counters()
+    for _ in range(3):
+        before = launch_counts()
+        y_q = sd.output(feeds, [OUTPUT])[OUTPUT]
+        got = {k: v - before[k] for k, v in launch_counts().items()
+               if v - before[k]}
+        if got != per_forward:
+            raise AssertionError(f"[int8-bert] launches {got}, expected "
+                                 f"{per_forward}")
+    row = profile(sd, feeds, walls=5)
+    got_cpu = sd.output(parity, [OUTPUT])[OUTPUT]
+    forwards = 3 + 5 + 1 + 3 + 1
+    launches = kernel_launches(kmods)
+    want = {k: forwards * per_forward.get(k, 0) for k in launches}
+    decisions = q.counters()
+    if launches != want or not only_fused(fa, fe) \
+            or decisions != {"dot": forwards * want_sites}:
+        raise AssertionError(f"[int8-bert] launches {launches} (want {want})"
+                             f", decisions {decisions}, "
+                             f"{fa.counters()} {fe.counters()}")
+    t0 = time.perf_counter()
+    values = {n: sd.get_value(n) for n in sd._values}
+    cpu = samediff_from_numpy(sd.to_json(), values, "cpu")
+    want_cpu = cpu.output(parity, [OUTPUT])[OUTPUT]
+    del cpu
+    rel_cpu = rel_err(got_cpu, want_cpu)
+    rel_f32 = rel_err(y_q, y_f32)
+    rel_cpu_f32 = rel_err(want_cpu, y_f32_parity)
+    log(f"[int8-bert] batch {INT8_BATCH} x {BERT_SEQ}: wall "
+        f"{row['wall_ms_median']:.3f} ms (f32 {f32_row['wall_ms_median']:.3f}"
+        f"), device {row['device_ms']:.3f} ms (f32 {f32_row['device_ms']:.3f},"
+        f" busy share {row['device_busy_share']:.3f}); per forward "
+        f"{per_forward}, quantize decisions {decisions}; int8 vs f32 rel err"
+        f" {rel_f32:.4g}; card vs the port's int8 CPU path at batch "
+        f"{INT8_CPU_ROWS} rel err {rel_cpu:.3g}, the CPU's int8 path vs f32 "
+        f"{rel_cpu_f32:.4g} (tolerance {INT8_KV_REL} each; CPU "
+        f"{time.perf_counter() - t0:.1f} s); weight bytes {rep.bytes_f32} ->"
+        f" {rep.bytes_q} ({rep.bytes_saved} saved)")
+    if not (rel_cpu <= INT8_KV_REL and rel_f32 <= INT8_KV_REL
+            and rel_cpu_f32 <= INT8_KV_REL):
+        raise AssertionError("[int8-bert] the card's int8 output lies "
+                             "outside the int8 bound of the CPU's int8 path "
+                             "or of f32")
+    return {"launches": launches, "forwards": forwards, "row": row,
+            "f32_row": f32_row, "rel_err_vs_cpu": rel_cpu,
+            "rel_err_vs_f32": rel_f32, "cpu_rel_err_vs_f32": rel_cpu_f32,
+            "sites": rep.matched,
+            "bytes": (rep.bytes_f32, rep.bytes_q)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -6493,6 +7180,30 @@ def main() -> int:
     keras_rn50 = phase_keras_resnet50(kmods, fe, env, graph)
     disagg = phase_disagg(counters, gen)
     sd_dec = phase_sd_decode(counters, env)
+    int8_mm = phase_int8_mm(env, models)
+    int8_rn = phase_int8_resnet50(kmods, fe, env, models)
+    int8_gen = phase_int8_generate(counters, gen)
+    int8_bert = phase_int8_bert(kmods, fa, fe, env)
+    # the launches of the int8 paths, by kernel key of kernel_launches
+    int8_paths = {"int8_resnet50": int8_rn["launches"],
+                  "int8_generate_bench": int8_gen["launches"]["bench"],
+                  "int8_generate_spec": int8_gen["launches"]["spec"],
+                  "int8_bert": int8_bert["launches"]}
+
+    def int8_counts(k):
+        return {p: c.get(k, 0) for p, c in int8_paths.items()}
+    log("[int8] " + json.dumps({
+        "mm": int8_mm, "resnet50": {k: v for k, v in int8_rn.items()
+                                    if k != "launches"},
+        "generate": {k: int8_gen[k] for k in (
+            "walk", "cache_bytes", "pool_bytes", "shipment_bytes", "pads")},
+        "generate_rows": {t: {k: r[k] for k in (
+            "tokens_per_s", "wall_ms_median", "ttft_ms_p50", "ttft_ms_p99",
+            "tpot_ms_p50", "tpot_ms_p99", "device_ms", "device_busy_share",
+            "k3_device_ms", "k9_device_ms", "k10_device_ms")}
+            for t, r in int8_gen["rows"].items()},
+        "bert": {k: v for k, v in int8_bert.items() if k != "launches"},
+        "launches": int8_paths}, default=str))
     # the launches of the Keras paths, by kernel key of kernel_launches
     keras_paths = {"keras_import": keras_imp["launches"],
                    "keras_golden": keras_gold["launches"],
@@ -6722,7 +7433,7 @@ def main() -> int:
         + lenet_row["launches"][0] + lenet_row["eval_launches"][0]
         + center["launches"][0] + ln_l["k1"] + fit_ln["k1"]
         + sum(v[0] for v in modes_k.values()) + sum(sd_counts("k1").values())
-        + sum(keras_counts("k1").values()),
+        + sum(keras_counts("k1").values()) + sum(int8_counts("k1").values()),
         "launches_by_path": {"serve": serve_launches,
                              "train": trained["launches"][0],
                              "train_eval": train_eval["launches"][0],
@@ -6735,7 +7446,12 @@ def main() -> int:
                              "bert_serve": 0, "bert_fit": 0,
                              **lstm_paths("k1"), **ln_paths("k1"),
                              **{k: v[0] for k, v in modes_k.items()},
-                             **sd_counts("k1"), **keras_counts("k1")},
+                             **sd_counts("k1"), **keras_counts("k1"),
+                             **int8_counts("k1")},
+        "int8_resnet50": {k: int8_rn[k] for k in (
+            "k1_per_forward", "wall_ms", "device_ms", "busy_share",
+            "rel_err", "gate_delta", "gate_passed", "weight_bytes_f32",
+            "weight_bytes_int8")},
         "max_abs_err": max(*kern["max_err"].values(),
                            bf16["path_k1_max_err"]),
         "max_abs_err_float32": kern["max_err"][torch.float32],
@@ -6782,7 +7498,7 @@ def main() -> int:
         + nchw["launches"][1] + lenet_row["launches"][1]
         + center["launches"][1] + fit_ln["k2"]
         + sum(v[1] for v in modes_k.values()) + sum(sd_counts("k2").values())
-        + sum(keras_counts("k2").values()),
+        + sum(keras_counts("k2").values()) + sum(int8_counts("k2").values()),
         "launches_by_path": {"serve": 0, "train": trained["launches"][1],
                              "train_eval": 0,
                              "transfer_fit": transfer["launches"][1],
@@ -6794,7 +7510,8 @@ def main() -> int:
                              "bert_serve": 0, "bert_fit": 0,
                              **lstm_paths("k2"), **ln_paths("k2"),
                              **{k: v[1] for k, v in modes_k.items()},
-                             **sd_counts("k2"), **keras_counts("k2")},
+                             **sd_counts("k2"), **keras_counts("k2"),
+                             **int8_counts("k2")},
         "max_abs_err": max(kbwd["max_err"]["dx_float32"],
                            kbwd["max_err"]["dx_bfloat16"],
                            kbwd["max_err"]["dx_float16"],
@@ -6854,13 +7571,18 @@ def main() -> int:
         "replaces": "deeplearning4j_tpu/ops/flash_attention.py:114",
         "launches": served_bert["launches"] + fit_l[0]
         + sum(k3_gen.values()) + ln_l["k3"] + fit_ln["k3"]
-        + sum(sd_counts("k3").values()),
+        + sum(sd_counts("k3").values()) + sum(int8_counts("k3").values()),
         "launches_by_path": {"serve": 0, "train": 0,
                              "bert_serve": served_bert["launches"],
                              "bert_fit": fit_l[0], "lstm_serve": 0,
                              "lstm_stream": 0, **rnn_paths("k3"), **k3_gen,
                              **ln_paths("k3"), **sd_counts("k3"),
-                             **keras_counts("k3")},
+                             **keras_counts("k3"), **int8_counts("k3")},
+        "int8_bert": {"k3_per_forward": BERT_LAYERS,
+                      "wall_ms": int8_bert["row"]["wall_ms_median"],
+                      "f32_wall_ms": int8_bert["f32_row"]["wall_ms_median"],
+                      "rel_err_vs_cpu": int8_bert["rel_err_vs_cpu"],
+                      "rel_err_vs_f32": int8_bert["rel_err_vs_f32"]},
         "max_abs_err": katt["max_err"]["float32"],
         "max_abs_err_float32": katt["max_err"]["float32"],
         "max_ulp_bfloat16": katt["max_err"]["ulp_bfloat16"],
@@ -6883,12 +7605,14 @@ def main() -> int:
         "source": "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu",
         "replaces": f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
         "launches": fit_l[i] + fit_ln[f"k{i + 2}"]
-        + sum(sd_counts(f"k{i + 2}").values()),
+        + sum(sd_counts(f"k{i + 2}").values())
+        + sum(int8_counts("k4k5").values()),
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
                              "bert_fit": fit_l[i], **lstm_paths("k4k5"),
                              "bert_ln_fit": fit_ln[f"k{i + 2}"],
                              **sd_counts(f"k{i + 2}"),
-                             **keras_counts("k4k5")},
+                             **keras_counts("k4k5"),
+                             **int8_counts("k4k5")},
         "fused_launches": fit_l[1] + fit_ln["bwd"]
         + sum(sd_counts("bwd").values()),
         "bert_bf16_fit": bf16_rows["bwd"],
@@ -6927,13 +7651,14 @@ def main() -> int:
         "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:55",
         "launches": served_lstm["serve_launches"]
         + served_lstm["stream_launches"] + sum(rnn_paths("k8").values())
-        + sum(keras_counts("k8").values()),
+        + sum(keras_counts("k8").values()) + sum(int8_counts("k8").values()),
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
                              "bert_fit": 0,
                              "lstm_serve": served_lstm["serve_launches"],
                              "lstm_stream": served_lstm["stream_launches"],
                              **rnn_paths("k8"), **no_gen, **no_ln,
-                             **no_sd, **keras_counts("k8")},
+                             **no_sd, **keras_counts("k8"),
+                             **int8_counts("k8")},
         "max_abs_err": klstm["max_err"]["float32"],
         "max_abs_err_float32": klstm["max_err"]["float32"],
         "max_tolerance_share_bfloat16": klstm["max_err"]["ulp_bfloat16"],
@@ -6970,11 +7695,18 @@ def main() -> int:
         "name": "K9 decode_attn", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/decode_attn.cu",
         "replaces": "deeplearning4j_tpu/ops/flash_attention.py:576",
-        "launches": sum(k9_gen.values()),
+        "launches": sum(k9_gen.values()) + sum(int8_counts("k9").values()),
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
                              "bert_fit": 0, "lstm_serve": 0,
                              "lstm_stream": 0, **rnn_paths("k9"), **k9_gen,
-                             **no_ln, **no_sd, **keras_counts("k9")},
+                             **no_ln, **no_sd, **keras_counts("k9"),
+                             **int8_counts("k9")},
+        "int8_generate": {"bench": {k: int8_gen["rows"]["bench"][k] for k in (
+            "tokens_per_s", "ttft_ms_p50", "tpot_ms_p50", "device_ms",
+            "device_busy_share")},
+            "rel_err_vs_f32_recompute":
+            int8_gen["walk"]["rel_err_vs_recompute"],
+            "cache_bytes_int8_f32": list(int8_gen["cache_bytes"])},
         "launches_per_decode_step": GEN_LAYERS,
         "decode_steps_by_path": {
             "generate": rows["bench"]["decode_steps"],
@@ -7021,11 +7753,15 @@ def main() -> int:
         "name": "K10 mq_decode_attn", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/mq_decode_attn.cu",
         "replaces": "deeplearning4j_tpu/ops/flash_attention.py:220",
-        "launches": sum(k10_gen.values()),
+        "launches": sum(k10_gen.values()) + sum(int8_counts("k10").values()),
         "launches_by_path": {"serve": 0, "train": 0, "bert_serve": 0,
                              "bert_fit": 0, "lstm_serve": 0,
                              "lstm_stream": 0, **rnn_paths("k10"), **k10_gen,
-                             **no_ln, **no_sd, **keras_counts("k10")},
+                             **no_ln, **no_sd, **keras_counts("k10"),
+                             **int8_counts("k10")},
+        "int8_generate_spec": {k: int8_gen["rows"]["spec"][k] for k in (
+            "tokens_per_s", "ttft_ms_p50", "tpot_ms_p50", "verify_steps",
+            "device_ms", "device_busy_share")},
         "launches_per_verify_step": GEN_LAYERS,
         "verify_steps_by_path": {
             "generate_spec": srows["spec"]["verify_steps"]
@@ -7072,10 +7808,12 @@ def main() -> int:
         "name": "K6 layer_norm_act", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/layer_norm_act.cu",
         "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:215",
-        "launches": ln_l["k6"] + fit_ln["k6"] + sum(sd_counts("k6").values()),
+        "launches": ln_l["k6"] + fit_ln["k6"] + sum(sd_counts("k6").values())
+        + sum(int8_counts("k6").values()),
         "launches_by_path": {**{k: 0 for k in kernel_paths},
                              **rnn_paths("k6"), **ln_paths("k6"),
-                             **sd_counts("k6"), **keras_counts("k6")},
+                             **sd_counts("k6"), **keras_counts("k6"),
+                             **int8_counts("k6")},
         "bert_bf16_fit": bf16_rows["k6"],
         "launches_per_forward": LN_SITES,
         "max_abs_err": kln["max_err"]["y_abs_float32"],
@@ -7107,10 +7845,12 @@ def main() -> int:
         "name": "K7 layer_norm_act_bwd", "checked": True, "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/layer_norm_act_bwd.cu",
         "replaces": "deeplearning4j_tpu/ops/fused_epilogues.py:231",
-        "launches": fit_ln["k7"] + sum(sd_counts("k7").values()),
+        "launches": fit_ln["k7"] + sum(sd_counts("k7").values())
+        + sum(int8_counts("k7").values()),
         "launches_by_path": {**{k: 0 for k in kernel_paths},
                              **rnn_paths("k7"), **ln_paths("k7"),
-                             **sd_counts("k7"), **keras_counts("k7")},
+                             **sd_counts("k7"), **keras_counts("k7"),
+                             **int8_counts("k7")},
         "bert_bf16_fit": bf16_rows["k7"],
         "launches_per_step": LN_SITES,
         "max_abs_err": kln["max_err"]["dx_abs_float32"],

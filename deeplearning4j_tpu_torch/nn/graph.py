@@ -758,6 +758,18 @@ class ComputationGraph:
                                        fold_epilogues=False)
         return acts
 
+    def quantize_params(self, mode: str = "int8") -> dict:
+        """Post-training per-channel int8 quantization of the opted-in
+        layer vertices' weights (``quantize_spec``): a NEW params tree; the
+        merge, norm and embedding vertices stay as they are, and the
+        model's own params are untouched."""
+        if mode != "int8":
+            raise ValueError(f"unknown quantization mode {mode!r} "
+                             "(expected 'int8')")
+        from ..ops import quantize as _q
+        self._require_init()
+        return _q.quantize_model_params(self)[0]
+
     def inference_engine(self, **kwargs):
         """The model's serving engine, created lazily on the model's device;
         ``output()`` routes through it."""

@@ -29,10 +29,16 @@ With ``page_table`` / ``page_size`` the cache is one layer's paged pool
 (in place, write-gated) and gathers the per-slot ``[S, H, MP*P, d]``
 caches the attention kernels read with ``paged_gather``.
 
-Divergences: the caches and pools are updated in place (the JAX engines
-donate theirs); the int8 KV cache (``kv_quant``, int8 pools included)
-raises ``NotImplementedError`` naming the int8-serving slice
-(``ROADMAP.md`` Queue 1).
+Every projection goes through ``ops.quantize.qdot``: a quantized
+params tree (int8 serving) takes the int8 matmul with no change here.
+With ``kv_quant`` the caches (contiguous or paged) hold int8 values and
+per-row f32 scales (``k_scale``, ``v_scale``: ``[B, H, C, 1]``, or ``[NP *
+P, H, 1]`` in a pool) that append through ``cache_insert`` /
+``paged_insert`` as ``d = 1`` caches; the window quantizes on append and
+the kernels read the dequantized cache (the JAX module's :83-170).
+
+Divergence: the caches and pools are updated in place (the JAX engines
+donate theirs).
 """
 
 from __future__ import annotations
@@ -43,11 +49,10 @@ import torch
 
 from ...ops import activations as _act
 from ...ops import flash_attention as _fa
+from ...ops import quantize as _q
 from .. import weights as _winit
 from .base import CacheSpec, Layer, layer
 
-_INT8 = ("the int8 KV cache comes with the int8-serving slice of the port "
-         "(ROADMAP.md Queue 1)")
 _NEG = float(torch.finfo(torch.float32).min)
 
 
@@ -71,8 +76,12 @@ def _key_mask(mask):
 
 
 def _proj(x, w, b=None):
-    y = torch.matmul(x, w)
-    return y if b is None else y + b
+    return _q.qdot(x, w, b)
+
+
+#: the four projection weights each multi-head layer quantizes (per output
+#: channel, axis 1); the learned queries and the biases stay as they are
+_MHA_QUANT_SPEC = {"Wq": 1, "Wk": 1, "Wv": 1, "Wo": 1}
 
 
 def _qkv(x_q, x_kv, params, n_heads):
@@ -89,16 +98,25 @@ def _mha(x_q, x_kv, params, n_heads, mask):
 
 
 def _kv_cache_spec(params, n_heads, batch, cache_len, dtype, kv_quant):
-    if kv_quant:
-        raise NotImplementedError(_INT8)
     proj = params["Wk"].shape[1]
     shape = (int(batch), int(n_heads), int(cache_len), proj // n_heads)
+    if kv_quant:
+        scale = shape[:3] + (1,)
+        return {"k": CacheSpec(shape, torch.int8),
+                "v": CacheSpec(shape, torch.int8),
+                "k_scale": CacheSpec(scale, torch.float32),
+                "v_scale": CacheSpec(scale, torch.float32)}
     return {"k": CacheSpec(shape, dtype), "v": CacheSpec(shape, dtype)}
 
 
 def _cache_fill_prompt(cache, k, v):
-    """Write the prompt's k/v into cache positions ``[0, T)``, in place."""
+    """Write the prompt's k/v into cache positions ``[0, T)``, in place,
+    quantized per row when the cache is int8."""
     T = k.shape[2]
+    if "k_scale" in cache:
+        (k, ks), (v, vs) = _q.quantize_rows(k), _q.quantize_rows(v)
+        cache["k_scale"][:, :, :T] = ks
+        cache["v_scale"][:, :, :T] = vs
     cache["k"][:, :, :T] = k
     cache["v"][:, :, :T] = v
     return cache
@@ -108,9 +126,20 @@ def _paged_cache_append(cache, k_new, v_new, lengths, write, page_table,
                         page_size):
     """Scatter the window's k/v rows into the pool leaves through the page
     table (in place, write-gated), then gather the per-slot ``[B, H, C,
-    d]`` caches for the attention kernel; returns ``(cache, k, v)``."""
+    d]`` caches for the attention kernel; returns ``(cache, k, v)``. An
+    int8 pool quantizes the rows on the way in and hands back the gathered
+    caches dequantized to the window's dtype."""
     if "k_scale" in cache:
-        raise NotImplementedError(_INT8)
+        (kq, ks), (vq, vs) = _q.quantize_rows(k_new), _q.quantize_rows(v_new)
+        full = []
+        for name, new in (("k", kq), ("v", vq), ("k_scale", ks),
+                          ("v_scale", vs)):
+            pool = _fa.paged_insert(cache[name], new, lengths, page_table,
+                                    page_size, write)
+            full.append(_fa.paged_gather(pool, page_table, page_size))
+        dt = k_new.dtype
+        return (cache, _q.dequantize_rows(full[0], full[2], dt),
+                _q.dequantize_rows(full[1], full[3], dt))
     kc = _fa.paged_insert(cache["k"], k_new, lengths, page_table, page_size,
                           write)
     vc = _fa.paged_insert(cache["v"], v_new, lengths, page_table, page_size,
@@ -122,12 +151,20 @@ def _paged_cache_append(cache, k_new, v_new, lengths, write, page_table,
 def _cache_append(cache, k_new, v_new, lengths, write, page_table=None,
                   page_size=0):
     """Append one window's k/v (in place); returns ``(cache, k, v)``: the
-    contiguous caches themselves, or the paged pool's gathered ones."""
+    contiguous caches themselves (dequantized when int8), or the paged
+    pool's gathered ones."""
     if page_table is not None:
         return _paged_cache_append(cache, k_new, v_new, lengths, write,
                                    page_table, page_size)
     if "k_scale" in cache:
-        raise NotImplementedError(_INT8)
+        (kq, ks), (vq, vs) = _q.quantize_rows(k_new), _q.quantize_rows(v_new)
+        kc = _fa.cache_insert(cache["k"], kq, lengths, write)
+        vc = _fa.cache_insert(cache["v"], vq, lengths, write)
+        ksc = _fa.cache_insert(cache["k_scale"], ks, lengths, write)
+        vsc = _fa.cache_insert(cache["v_scale"], vs, lengths, write)
+        dt = k_new.dtype
+        return (cache, _q.dequantize_rows(kc, ksc, dt),
+                _q.dequantize_rows(vc, vsc, dt))
     kc = _fa.cache_insert(cache["k"], k_new, lengths, write)
     vc = _fa.cache_insert(cache["v"], v_new, lengths, write)
     return cache, kc, vc
@@ -143,6 +180,7 @@ class SelfAttentionLayer(Layer):
     input projections; output ``[B, T, n_out]``. ``n_out=0`` resolves to
     the input feature size at init; ``has_bias`` adds a bias to each
     projection (DL4J's layer has none, the default)."""
+    quantizable = True
     n_out: int = 0
     n_heads: int = 1
     head_size: Optional[int] = None
@@ -176,6 +214,9 @@ class SelfAttentionLayer(Layer):
         if mask is not None:
             y = y * mask[..., None]  # masked steps emit zeros (DL4J)
         return y, state, mask
+
+    def quantize_spec(self, params):
+        return dict(_MHA_QUANT_SPEC)
 
     def decode_cache_spec(self, params, batch, cache_len, dtype,
                           kv_quant=False):
@@ -219,6 +260,7 @@ class SelfAttentionLayer(Layer):
 class LearnedSelfAttentionLayer(Layer):
     """DL4J LearnedSelfAttentionLayer: ``n_queries`` learned query vectors
     attend over the sequence; output ``[B, n_queries, n_out]``."""
+    quantizable = True
     n_out: int = 0
     n_heads: int = 1
     n_queries: int = 1
@@ -250,6 +292,9 @@ class LearnedSelfAttentionLayer(Layer):
 
     # the query bank re-attends over the growing cache each step; the
     # learned queries are not positions, so only key validity masks apply
+    def quantize_spec(self, params):
+        return dict(_MHA_QUANT_SPEC)
+
     def decode_cache_spec(self, params, batch, cache_len, dtype,
                           kv_quant=False):
         return _kv_cache_spec(params, self.n_heads, batch, cache_len,

@@ -57,6 +57,18 @@ class Layer:
     #: walk raises). Default False: a layer opts in.
     decode_pointwise = False
 
+    #: True when the layer's matmul/conv weights may be quantized to
+    #: per-channel int8 for serving (dense, output, conv and the attention
+    #: projections, as in the JAX package); norms, embeddings and recurrent
+    #: cells stay as they are
+    quantizable = False
+
+    def quantize_spec(self, params):
+        """``{param_name: output_channel_axis}`` for the weights the
+        post-training quantization walk (``ops/quantize.py``) turns into
+        ``QuantizedTensor``; consulted only when ``quantizable``."""
+        return {}
+
     def initialize(self, gen, input_shape, dtype, device):
         """-> (params: dict, state: dict, output_shape: tuple)"""
         return {}, {}, tuple(input_shape)

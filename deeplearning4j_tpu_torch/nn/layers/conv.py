@@ -7,7 +7,9 @@ Port of ``ConvolutionLayer``, ``SubsamplingLayer``, ``BatchNormalization``,
 Weights are OIHW (``W``) plus ``b`` for every ``data_format``, as in the
 JAX package. The convolution is ``F.conv2d``; its bias + activation tail
 and the batch-norm normalize + activation run through
-``ops.fused_epilogues`` (kernel K1 on the card).
+``ops.fused_epilogues`` (kernel K1 on the card). A quantized ``W`` (int8
+serving) takes ``ops.quantize.int8_conv``, bias in its epilogue, then the
+catalog activation: no ``bias_act``, as in the JAX layer.
 
 Batch norm normalizes with the running statistics at inference and with
 the batch's (one-pass f32 moments, mask-aware) in training, where it also
@@ -21,8 +23,10 @@ from typing import Optional, Tuple
 import torch
 
 from ... import dtypes as _dt
+from ...ops import activations as _act
 from ...ops import fused_epilogues as _fe
 from ...ops import nnops
+from ...ops import quantize as _q
 from .. import weights as _winit
 from .base import Layer, layer
 
@@ -40,6 +44,7 @@ def _conv_out(size, k, s, p, mode):
 @layer("conv2d")
 class ConvolutionLayer(Layer):
     """DL4J ConvolutionLayer (2D). W: [nOut, nIn, kH, kW] (OIHW)."""
+    quantizable = True
     n_out: int = 0
     kernel: Tuple[int, int] = (3, 3)
     stride: Tuple[int, int] = (1, 1)
@@ -82,7 +87,16 @@ class ConvolutionLayer(Layer):
                    _conv_out(wd, ke_w, sw, pw, self.mode), self.n_out)
         return params, {}, out
 
+    def quantize_spec(self, params):
+        return {"W": 0}  # OIHW: one scale per output channel
+
     def apply(self, params, x, state, *, train=False, mask=None):
+        if _q.is_quantized(params["W"]):
+            y = _q.int8_conv(x, params["W"], params.get("b"),
+                             stride=self.stride, padding=self.padding,
+                             dilation=self.dilation, mode=self.mode,
+                             data_format=self.data_format)
+            return _act.get(self.activation)(y), state, mask
         y = nnops.conv2d(x, params["W"], None, stride=self.stride,
                          padding=self.padding, dilation=self.dilation,
                          mode=self.mode, data_format=self.data_format)

@@ -26,19 +26,17 @@ from ... import dtypes as _dt
 from ...ops import activations as _act
 from ...ops import losses as _loss
 from ...ops import nnops
+from ...ops.quantize import qdot as _dense
 from .. import weights as _winit
 from .base import Layer, layer
 
 
-def _dense(x, w, b):
-    y = torch.matmul(x, w)
-    return y if b is None else y + b
-
-
 @layer("dense")
 class DenseLayer(Layer):
-    """Fully connected layer (DL4J DenseLayer). W:[nIn,nOut] b:[nOut]."""
+    """Fully connected layer (DL4J DenseLayer). W:[nIn,nOut] b:[nOut]; a
+    quantized ``W`` takes the int8 matmul (``ops.quantize.qdot``)."""
     decode_pointwise = True  # y_t depends only on x_t
+    quantizable = True
     n_out: int = 0
     n_in: Optional[int] = None  # inferred from input_shape when None
     activation: str = "identity"
@@ -55,6 +53,9 @@ class DenseLayer(Layer):
         b = torch.full((self.n_out,), self.bias_init, dtype=dtype,
                        device=device)
         return {"W": w, "b": b}, {}, tuple(input_shape[:-1]) + (self.n_out,)
+
+    def quantize_spec(self, params):
+        return {"W": 1}  # [nIn, nOut]: one scale per output channel
 
     def apply(self, params, x, state, *, train=False, mask=None):
         y = _dense(x, params["W"], params["b"])
@@ -269,6 +270,7 @@ class OutputLayer(Layer, _BaseOutput):
     """DenseLayer + loss head (DL4J OutputLayer). Inference applies the
     activation to the logits; training returns the logits."""
     decode_pointwise = True
+    quantizable = True
     n_out: int = 0
     n_in: Optional[int] = None
     loss: str = "mcxent"
@@ -287,6 +289,9 @@ class OutputLayer(Layer, _BaseOutput):
         b = torch.full((self.n_out,), self.bias_init, dtype=dtype,
                        device=device)
         return {"W": w, "b": b}, {}, tuple(input_shape[:-1]) + (self.n_out,)
+
+    def quantize_spec(self, params):
+        return {"W": 1}
 
     def apply(self, params, x, state, *, train=False, mask=None):
         y = _dense(x, params["W"], params["b"])

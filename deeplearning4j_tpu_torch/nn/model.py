@@ -55,10 +55,13 @@ epoch) and the solver path (``optimization_algo("LBFGS" |
 "CONJUGATE_GRADIENT" | "LINE_GRADIENT_DESCENT")``, ``optimize/
 solvers.py``).
 
+``quantize_params`` (int8 serving) returns a new params tree with every
+opted-in weight quantized per output channel (``ops/quantize.py``); the
+decode caches take ``kv_quant`` (int8 values and per-row f32 scales).
+
 Not in this slice (each raises ``NotImplementedError`` naming the
 ``ROADMAP.md`` Queue 1 slice that ports it): ``fit(resilience=...)`` and
-the training listeners (the runtime slice, item 9); ``quantize_params``
-and the int8 KV cache (int8 serving, item 7).
+the training listeners (the runtime slice, item 9).
 """
 
 from __future__ import annotations
@@ -79,7 +82,6 @@ from . import training as _training
 from .config import MultiLayerConfiguration
 
 _RUNTIME = "the runtime slice of the port (ROADMAP.md Queue 1 item 9)"
-_INT8 = "the int8-serving slice of the port (ROADMAP.md Queue 1 item 7)"
 
 
 class MultiLayerNetwork:
@@ -649,9 +651,18 @@ class MultiLayerNetwork:
     def add_listener(self, listener):
         raise NotImplementedError(f"training listeners come with {_RUNTIME}")
 
-    # ------------------------------------------------ not in this slice
-    def quantize_params(self, mode: str = "int8"):
-        raise NotImplementedError(f"quantize_params comes with {_INT8}")
+    # ------------------------------------------------------ int8 serving
+    def quantize_params(self, mode: str = "int8") -> dict:
+        """Post-training per-channel int8 quantization of the opted-in
+        weights (``quantize_spec``): a NEW params tree with those leaves
+        as ``ops.quantize.QuantizedTensor``; the model's own params are
+        untouched, so training and f32 serving go on as before."""
+        if mode != "int8":
+            raise ValueError(f"unknown quantization mode {mode!r} "
+                             "(expected 'int8')")
+        from ..ops import quantize as _q
+        self._ensure_init()
+        return _q.quantize_model_params(self)[0]
 
     # ------------------------------------------- autoregressive decode walk
     # Prefill and one-token decode walks over the layer stack, threading
@@ -685,7 +696,8 @@ class MultiLayerNetwork:
     def decode_cache_spec(self, batch: int, cache_len: int,
                           kv_quant: bool = False) -> dict:
         """``{layer_index: {"k": CacheSpec, "v": CacheSpec}}`` for the
-        KV-cached layers, in the compute dtype."""
+        KV-cached layers, in the compute dtype; with ``kv_quant`` int8
+        ``k``/``v`` and f32 ``k_scale``/``v_scale`` ``[B, H, C, 1]``."""
         self._ensure_init()
         dt = _dt.resolve(self.conf.dtype)
         spec = {}

@@ -82,3 +82,4 @@ from . import nnops  # noqa: E402,F401  (conv2d, layer_norm, lstm_cell, ...)
 from . import random  # noqa: E402,F401  (image.resize_*)
 from . import fused_epilogues  # noqa: E402,F401  (epilogue.*)
 from . import sampling  # noqa: E402,F401  (sampling.*)
+from . import quantize  # noqa: E402,F401  (quantize.int8_mmul)

@@ -57,11 +57,13 @@ pages an earlier migration adopted, and the first token comes from the
 shipped logits. ``migrate_buckets=`` warms the page export and import for
 those page counts; ``pool_label=`` names the pool in ``stats()``.
 
+``quantize="int8"`` and ``kv_cache="int8"`` pass to the engine the front
+builds (int8 weights, int8 KV cache); beside ``engine=`` they raise
+``ValueError``, as in the JAX package. The draft engine serves f32.
+
 Divergences: no ``serving.decode`` or ``serving.page_pool`` fault site,
 retries, SLO or request trace (the runtime slice), so a migrated request
-carries no trace phases; ``quantize=`` and ``kv_cache=`` raise
-``NotImplementedError`` naming their slice (``ROADMAP.md`` Queue 1 item
-7); the
+carries no trace phases; the
 draft's k proposals read back one step at a time and the verify's logits
 once per window (the JAX batcher does the same through its executables);
 stochastic sampling draws from a ``torch.Generator`` seeded with
@@ -132,24 +134,33 @@ class ParallelInference:
     ``device`` follows the port's rule (``cuda`` unless the caller asks for
     ``cpu``) and must be the model's device; the front then shares the
     model's engine, so ``net.output()`` and the front hit the same warmed
-    buckets."""
+    buckets. ``quantize="int8"`` builds the front its own int8 engine."""
 
     def __init__(self, model, mode: str = InferenceMode.BATCHED,
                  max_batch_size: int = 32, max_wait_ms: float = 5.0,
                  queue_limit: int = 256,
                  engine: Optional[InferenceEngine] = None,
-                 warmup: bool = False, device=None):
+                 warmup: bool = False, quantize: Optional[str] = None,
+                 device=None):
         if mode != InferenceMode.BATCHED:
             raise NotImplementedError(
                 f"inference mode {mode!r}: the port serves BATCHED only "
                 "until the runtime slice")
+        if engine is not None and quantize is not None:
+            # a dropped quantize= would serve f32 while the deploy config
+            # believes it is int8
+            raise ValueError("pass quantize= on the engine you build "
+                             "(InferenceEngine(model, quantize=...)), "
+                             "not alongside engine=")
         if engine is None:
             device = _env.resolve_device(device)
             if model.device is None or \
                     torch.device(model.device).type != device.type:
                 raise ValueError(f"the model lives on {model.device}; this "
                                  f"front was asked for {device}")
-            engine = model.inference_engine()
+            engine = InferenceEngine(model, device=device,
+                                     quantize=quantize) \
+                if quantize is not None else model.inference_engine()
         self.model = model
         self.mode = mode
         self.engine = engine
@@ -369,7 +380,6 @@ class ParallelInference:
 # Continuous batching for autoregressive decode
 # ===========================================================================
 
-_INT8 = "the int8-serving slice of the port (ROADMAP.md Queue 1 item 7)"
 
 
 def _percentile(values, q):
@@ -474,14 +484,14 @@ class ContinuousBatcher:
                  max_horizon: int = 8,
                  sampling: Optional[_smp.SamplingSpec] = None,
                  seed: int = 0, pool_label: str = "default", device=None):
-        if quantize is not None or kv_cache is not None:
-            raise NotImplementedError(f"quantize=/kv_cache= come with "
-                                      f"{_INT8}")
         self.pool_label = str(pool_label)
         self._migrate_buckets = tuple(int(n) for n in migrate_buckets)
-        if engine is not None and (paged or pages is not None):
-            raise ValueError("pass the paged config on the engine you build "
-                             "(PagedGenerativeEngine), not alongside "
+        if engine is not None and (quantize is not None
+                                   or kv_cache is not None
+                                   or paged or pages is not None):
+            raise ValueError("pass quantize=/kv_cache=/paged config on "
+                             "the engine you build (GenerativeEngine / "
+                             "PagedGenerativeEngine), not alongside "
                              "engine=")
         self.model = model
         self.max_cache_len = next_bucket(max_cache_len)
@@ -496,10 +506,13 @@ class ContinuousBatcher:
                     1 + int(slots) * max(1, self.max_cache_len // psz)
                 engine = PagedGenerativeEngine(
                     model, slots=slots, pages=n_pages, page_size=psz,
-                    max_cache_len=self.max_cache_len, device=device,
+                    max_cache_len=self.max_cache_len, quantize=quantize,
+                    kv_cache=kv_cache, device=device,
                     pool_label=self.pool_label)
             else:
-                engine = GenerativeEngine(model, slots=slots, device=device,
+                engine = GenerativeEngine(model, slots=slots,
+                                          quantize=quantize,
+                                          kv_cache=kv_cache, device=device,
                                           pool_label=self.pool_label)
         self.engine = engine
         self.paged = isinstance(engine, PagedGenerativeEngine)

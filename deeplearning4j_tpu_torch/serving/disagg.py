@@ -33,7 +33,10 @@ header and the raw buffers (:meth:`KVShipment.to_bytes` /
 is read by the other. Payload leaves are CPU tensors in the pool's dtype;
 a bfloat16 pool (which numpy cannot hold) travels as its raw 2-byte words
 under the header dtype ``"bfloat16"``, the name the JAX package's
-``ml_dtypes`` arrays carry.
+``ml_dtypes`` arrays carry. An int8 pool (``kv_cache="int8"``) ships its
+int8 value leaves and its f32 per-row ``k_scale``/``v_scale`` leaves, with
+``kv_quant`` in the header; a pool of the other mode refuses the shipment
+in :meth:`KVShipment.validate_for`.
 
 Divergences from the JAX module:
 
@@ -161,11 +164,11 @@ class KVShipment:
             raise ValueError(
                 f"page-size mismatch: shipment pages are {self.page_size} "
                 f"tokens, receiving pool uses {engine.page_size}")
-        if self.kv_quant:
+        if self.kv_quant != bool(engine._kv_quant):
             raise ValueError(
                 "kv_cache quantization modes disagree across pools: "
-                "shipment int8=True, receiving engine int8=False (int8 "
-                "pools come with ROADMAP.md Queue 1 item 7)")
+                f"shipment int8={self.kv_quant}, receiving engine "
+                f"int8={bool(engine._kv_quant)}")
         engine.check_payload(self.payload, len(self.pages))
         if -(-self.plen // self.page_size) != len(self.pages):
             raise ValueError(
@@ -365,7 +368,8 @@ class PrefillReplica:
             self._inflight -= 1
         return KVShipment(
             P, plen, pages, payload, logits, prefix_key=key,
-            x=prompt if self.ship_features else None, kv_quant=False,
+            x=prompt if self.ship_features else None,
+            kv_quant=bool(eng._kv_quant),
             trace_id=_new_trace_id(), elapsed_s=time.perf_counter() - origin,
             phase_total_s=sum(phases.values()))
 

@@ -15,11 +15,19 @@ float mask (1 for a real step, 0 for padding and padded rows), from
 ``lengths`` when the caller gives each row's true length. Per-timestep
 outputs are sliced back to T exactly (``_unpad``).
 
+``quantize="int8"`` serves a per-channel int8 twin of the params
+(``parallel/placement.QuantizedParamsMixin``): quantized once at
+``warmup``, again after any change to the model's params, with the
+activations quantized per example inside each forward (``ops/quantize.py``:
+``torch._int_mm`` on the card). ``eval.quantization.quantization_gate``
+holds it against the f32 engine.
+
 Divergences from the JAX engine: there is no ahead-of-time compile, so
 ``warmup`` runs one eager forward per bucket and the counter the JAX
 engine calls ``compiles`` is ``cold_calls`` here (requests that landed on
-a bucket not warmed). Meshes, tensor parallelism and int8 quantization
-wait for their slices.
+a bucket not warmed); ``memory_report`` measures one forward (its peak on
+the card) instead of reading a compiled program. Meshes and tensor
+parallelism wait for their slice.
 
 :class:`GenerativeEngine` is the port of the JAX module's
 ``GenerativeEngine`` (:921) with :class:`DecodeState` (:848) and
@@ -47,9 +55,8 @@ Divergences from the JAX engine, by design:
   state: the continuous batcher rebuilds a fresh one.
 - A ``torch.Generator`` on the engine's device takes the place of the
   threaded PRNG key (stochastic sampling agrees in distribution only).
-- ``quantize=``, ``kv_cache="int8"``, ``mesh=`` and
-  ``warmup(checkpoint=)`` raise ``NotImplementedError`` naming their
-  slices (``ROADMAP.md`` Queue 1); ``attribution_report`` and
+- ``mesh=`` and ``warmup(checkpoint=)`` raise ``NotImplementedError``
+  naming their slice (``ROADMAP.md`` Queue 1); ``attribution_report`` and
   ``decode_multi_traceable`` (the MFU attribution and the static-check
   probe) come with the runtime slice.
 
@@ -66,6 +73,11 @@ two pools for disaggregated serving (``serving/disagg.py``): one gather
 or one gated scatter per page-count bucket and layer leaf, one host copy
 per leaf, chunked over the warmed ``migrate_buckets`` as the JAX engine
 chunks over its compiled ones.
+
+``quantize="int8"`` runs every prefill and decode over the int8 params
+twin; ``kv_cache="int8"`` keeps the caches (pools too) as int8 values with
+per-row f32 scales beside them, quantized on append and read dequantized
+by K9/K10, which halves ``cache_bytes``.
 
 ``pool_label`` names the engine's pool (``"prefill"``, ``"decode"``,
 ``"default"``) in ``stats()``; the JAX engines label their telemetry
@@ -85,8 +97,11 @@ import torch
 from .. import dtypes as _dt
 from .. import environment as _env
 from ..ops import flash_attention as _fa
+from ..ops import quantize as _q
 from ..ops import sampling as _smp
+from ..parallel.placement import QuantizedParamsMixin
 from ..utils.convert import tensor_from_numpy
+from ..utils.tree import leaves as _leaves
 
 
 def _dtype_name(a) -> str:
@@ -129,7 +144,7 @@ def default_buckets(max_batch: int = 64, minimum: int = 1) -> List[int]:
     return out
 
 
-class InferenceEngine:
+class InferenceEngine(QuantizedParamsMixin):
     """Bucketed ``output()`` for one ComputationGraph or
     MultiLayerNetwork.
 
@@ -142,9 +157,11 @@ class InferenceEngine:
         eng.stats()                        # calls / hits / padded rows
 
     ``device`` must be the model's device (``cuda`` unless the caller asks
-    for ``cpu``; raises without CUDA)."""
+    for ``cpu``; raises without CUDA). ``quantize="int8"`` serves the int8
+    params twin (quantized at ``warmup``)."""
 
-    def __init__(self, model, device=None, min_bucket: int = 1):
+    def __init__(self, model, device=None, min_bucket: int = 1,
+                 quantize: Optional[str] = None):
         device = _env.resolve_device(device)
         if model.device is None:
             raise RuntimeError("the model is not initialized; call "
@@ -174,6 +191,7 @@ class InferenceEngine:
         self._cold = 0
         self._padded = 0
         self._bucket_hits: Dict[str, int] = {}
+        self._init_quantize(quantize)
 
     def _label(self, key: Tuple) -> str:
         b, t = key
@@ -182,16 +200,31 @@ class InferenceEngine:
 
     def _run(self, xs: List[torch.Tensor], masks: List[Optional[torch.Tensor]]):
         model = self.model
+        params = self._serving_params()
         with torch.inference_mode(), _env.precision(self.device):
             if not self._is_graph:
-                out, _, _ = model._forward(model.params, xs[0], model.state,
+                out, _, _ = model._forward(params, xs[0], model.state,
                                            train=False, mask=masks[0])
                 return [out]
             acts, _, _ = model._forward(
-                model.params, dict(zip(self._names, xs)), model.state,
+                params, dict(zip(self._names, xs)), model.state,
                 train=False, masks={n: m for n, m in zip(self._names, masks)
                                     if m is not None})
         return [acts[o] for o in model.conf.outputs]
+
+    def _zero_batch(self, b: int, t: Optional[int]):
+        """Zero inputs (and full masks) at batch bucket ``b`` and sequence
+        bucket ``t``, in the network's floating dtype."""
+        dt = _dt.resolve(self.model.conf.dtype)
+        if not dt.is_floating_point:
+            dt = torch.float32
+        xs, masks = [], []
+        for s, q in zip(self._input_shapes, self._seq_input):
+            xs.append(torch.zeros((b,) + ((t,) + s[1:] if q else s),
+                                  dtype=dt, device=self.device))
+            masks.append(torch.ones((b, t), device=self.device)
+                         if q else None)
+        return xs, masks
 
     def _seq_buckets(self, seq_buckets) -> List[Optional[int]]:
         if not any(self._seq_input):
@@ -216,20 +249,10 @@ class InferenceEngine:
         if not buckets:
             buckets = default_buckets(max(64, self.min_bucket),
                                       minimum=self.min_bucket)
-        dt = _dt.resolve(self.model.conf.dtype)
-        if not dt.is_floating_point:
-            dt = torch.float32
         for b in sorted(set(next_bucket(b, self.min_bucket)
                             for b in buckets)):
             for t in self._seq_buckets(seq_buckets):
-                xs, masks = [], []
-                for s, q in zip(self._input_shapes, self._seq_input):
-                    shape = (b,) + ((t,) + s[1:] if q else s)
-                    xs.append(torch.zeros(shape, dtype=dt,
-                                          device=self.device))
-                    masks.append(torch.ones((b, t), device=self.device)
-                                 if q else None)
-                self._run(xs, masks)
+                self._run(*self._zero_batch(b, t))
                 with self._lock:
                     self._warmed.add((b, t))
         if self.device.type == "cuda":
@@ -309,9 +332,45 @@ class InferenceEngine:
             out = out.float()
         return out.cpu().numpy()
 
+    def memory_report(self, bucket: int, seq_buckets=None) -> dict:
+        """The bytes of ONE serving bucket: the params split (``params_bytes``
+        and the int8 ``quantized_weight_bytes`` of the tree the forward
+        runs), what a forward is fed (``argument_bytes``: params, state and
+        inputs) and returns, and on the card the peak allocation of one
+        measured forward (``peak_bytes``; None on the CPU). The JAX engine
+        reads these from its compiled program; here one forward runs."""
+        b = next_bucket(int(bucket), self.min_bucket)
+        t = self._seq_buckets(seq_buckets)[0]
+        params = self._serving_params()
+        total, qbytes = _q.quantized_bytes(params)
+        state_bytes = sum(a.numel() * a.element_size()
+                          for a in _leaves(self.model.state))
+        xs, masks = self._zero_batch(b, t)
+        in_bytes = sum(x.numel() * x.element_size() for x in xs)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            base = torch.cuda.memory_allocated(self.device)
+        outs = self._run(xs, masks)
+        out_bytes = sum(o.numel() * o.element_size() for o in outs)
+        peak = None
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            peak = torch.cuda.max_memory_allocated(self.device)
+        arg = total + state_bytes + in_bytes
+        return {"bucket": b, "seq_len": t,
+                "quantize": self.quantize or "off",
+                "params_bytes": total, "params_bytes_per_device": total,
+                "quantized_weight_bytes": qbytes,
+                "argument_bytes": arg, "output_bytes": out_bytes,
+                "peak_bytes": peak,
+                "temp_bytes": None if peak is None
+                else max(0, peak - base - out_bytes)}
+
     def stats(self) -> dict:
         with self._lock:
-            return {
+            out = {
                 "calls": self._calls,
                 "hits": self._hits,
                 "cold_calls": self._cold,
@@ -321,13 +380,14 @@ class InferenceEngine:
                                               if t is not None}),
                 "bucket_hits": dict(self._bucket_hits),
             }
+        out.update(self._quantize_stats())
+        return out
 
 
 # ===========================================================================
 # Autoregressive decode: GenerativeEngine
 # ===========================================================================
 
-_INT8 = "the int8-serving slice of the port (ROADMAP.md Queue 1 item 7)"
 _PARALLEL = "the parallel slice of the port (ROADMAP.md Queue 1 item 8)"
 
 
@@ -397,7 +457,7 @@ class HorizonResult:
         return self._cached
 
 
-class GenerativeEngine:
+class GenerativeEngine(QuantizedParamsMixin):
     """Bucketed KV-cached autoregressive decode for one MultiLayerNetwork
     (the JAX package's ``GenerativeEngine``), eager.
 
@@ -414,18 +474,16 @@ class GenerativeEngine:
     - :meth:`grow`: a larger power-of-two cache bucket by zero padding,
       entries preserved bit for bit.
 
-    ``device`` must be the model's (``cuda`` unless the caller asks for
-    ``cpu``)."""
+    ``quantize="int8"`` runs over the int8 params twin; ``kv_cache="int8"``
+    keeps int8 caches with per-row f32 scales. ``device`` must be the
+    model's (``cuda`` unless the caller asks for ``cpu``)."""
 
     def __init__(self, model, slots: int = 8, quantize: Optional[str] = None,
                  kv_cache: Optional[str] = None, mesh=None, device=None,
                  pool_label: str = "default"):
-        if quantize is not None:
-            raise NotImplementedError(f"quantize={quantize!r} comes with "
-                                      f"{_INT8}")
-        if kv_cache is not None:
-            raise NotImplementedError(f"kv_cache={kv_cache!r} comes with "
-                                      f"{_INT8}")
+        if kv_cache not in (None, "int8"):
+            raise ValueError(f"unknown kv_cache mode {kv_cache!r} "
+                             "(expected None or 'int8')")
         if mesh is not None:
             raise NotImplementedError(f"a tensor-parallel mesh comes with "
                                       f"{_PARALLEL}")
@@ -450,8 +508,18 @@ class GenerativeEngine:
         #: and K9 once per decode step on the card
         self.prefill_runs = 0
         self.decode_steps = 0
+        self._init_quantize(quantize)
+        # the DL4J_TPU_QUANT=off pin turns the int8 cache off with the
+        # weights, counted; frozen here: the cache layout must not flap
+        self.kv_cache = kv_cache
+        self._kv_quant = kv_cache == "int8" and _q.mode() != "off"
+        if kv_cache == "int8" and not self._kv_quant:
+            self.q_fallbacks += 1
+        #: decode-cache bytes of the newest state (the JAX engine's
+        #: serving.quantize.kv_bytes gauge)
+        self.kv_bytes = 0
         # an un-decodable stack fails here, not at the first request
-        model.decode_cache_spec(1, 8)
+        model.decode_cache_spec(1, 8, kv_quant=self._kv_quant)
 
     # ----------------------------------------------------------- state
     def _feature_dim(self) -> int:
@@ -465,9 +533,11 @@ class GenerativeEngine:
         return _dt.resolve(self.model.conf.dtype)
 
     def cache_bytes(self, cache_len: int) -> int:
-        """Decode-cache bytes at one bucket for the full slot batch."""
+        """Decode-cache bytes at one bucket for the full slot batch (the
+        quantity ``kv_cache="int8"`` halves)."""
         spec = self.model.decode_cache_spec(self.slots,
-                                            next_bucket(cache_len))
+                                            next_bucket(cache_len),
+                                            kv_quant=self._kv_quant)
         return sum(int(np.prod(a.shape)) * a.dtype.itemsize
                    for leaves in spec.values() for a in leaves.values())
 
@@ -476,14 +546,17 @@ class GenerativeEngine:
         ``cache_len``."""
         c = next_bucket(cache_len)
         with torch.inference_mode():
-            caches = self.model.init_decode_cache(self.slots, c)
+            caches = self.model.init_decode_cache(self.slots, c,
+                                                  kv_quant=self._kv_quant)
             lengths = torch.zeros((self.slots,), dtype=torch.int32,
                                   device=self.device)
+        self.kv_bytes = self.cache_bytes(c)
         return DecodeState(caches, lengths, c)
 
     def grow(self, state: DecodeState, cache_len: int) -> DecodeState:
         """Re-bucket the caches to the larger power-of-two length of
-        ``cache_len`` by zero padding along the cache axis (axis 2); the
+        ``cache_len`` by zero padding along the cache axis (axis 2), int8
+        values and their scales alike (zeros, as the JAX engine pads); the
         existing entries are preserved bit for bit. A bucket that is not
         larger returns ``state``."""
         c2 = next_bucket(cache_len)
@@ -497,6 +570,7 @@ class GenerativeEngine:
                     g = a.new_zeros(a.shape[:2] + (c2,) + a.shape[3:])
                     g[:, :, :a.shape[2]] = a
                     caches[si][name] = g
+        self.kv_bytes = self.cache_bytes(c2)
         return DecodeState(caches, state.lengths, c2)
 
     # ---------------------------------------------------------- warm-up
@@ -565,7 +639,8 @@ class GenerativeEngine:
                     for si, leaves in state.caches.items()}
             plen_t = torch.full((1,), int(plen), dtype=torch.int32,
                                 device=self.device)
-            y, _ = m._prefill(m.params, x, m.state, mini, plen_t)
+            y, _ = m._prefill(self._serving_params(), x, m.state, mini,
+                              plen_t)
             self.prefill_runs += 1
             state.lengths[slot] = int(plen)
             logits = y[0, int(plen) - 1]
@@ -602,8 +677,8 @@ class GenerativeEngine:
         with torch.inference_mode(), _env.precision(self.device):
             x = self._tensor(x_t, self._dtype())
             a = self._tensor(np.asarray(active, np.int32))
-            y, _ = m._decode_step(m.params, x, m.state, state.caches,
-                                  state.lengths, write=a)
+            y, _ = m._decode_step(self._serving_params(), x, m.state,
+                                  state.caches, state.lengths, write=a)
             self.decode_steps += 1
             state.lengths += a
             logits = y[:, 0]
@@ -631,8 +706,9 @@ class GenerativeEngine:
         emitted = torch.zeros((kmax, S), dtype=torch.int32,
                               device=self.device)
         logits_buf = None
+        params = self._serving_params()
         for i in range(int(k)):
-            y, _ = m._decode_step(m.params, x, m.state, caches, lengths,
+            y, _ = m._decode_step(params, x, m.state, caches, lengths,
                                   write=a, page_table=page_table,
                                   page_size=page_size)
             self.decode_steps += 1
@@ -720,8 +796,10 @@ class GenerativeEngine:
                     "warmed_buckets": len(self._warmed),
                     "prefill_runs": self.prefill_runs,
                     "decode_steps": self.decode_steps,
-                    "slots": self.slots, "kv_cache": "off",
-                    "pool": self.pool_label}
+                    "slots": self.slots,
+                    "kv_cache": self.kv_cache if self._kv_quant else "off",
+                    "kv_bytes": self.kv_bytes,
+                    "pool": self.pool_label, **self._quantize_stats()}
 
 
 # ===========================================================================
@@ -810,7 +888,8 @@ class PagedGenerativeEngine(GenerativeEngine):
 
     # ------------------------------------------------------------ state
     def _pool_spec(self):
-        return self.model.paged_cache_spec(self.pages, self.page_size)
+        return self.model.paged_cache_spec(self.pages, self.page_size,
+                                           kv_quant=self._kv_quant)
 
     def pool_bytes(self) -> int:
         """Device bytes of the paged KV pool: the FIXED number a per-GB
@@ -826,7 +905,9 @@ class PagedGenerativeEngine(GenerativeEngine):
         """A fresh zeroed pool and an empty page table; ``cache_len`` picks
         the first table-width bucket (one page by default)."""
         with torch.inference_mode():
-            caches = self.model.init_paged_cache(self.pages, self.page_size)
+            caches = self.model.init_paged_cache(self.pages, self.page_size,
+                                                 kv_quant=self._kv_quant)
+        self.kv_bytes = self.pool_bytes()
         return PagedDecodeState(
             caches, np.zeros((self.slots,), np.int64),
             np.zeros((self.slots, self.max_pages_per_slot), np.int32),
@@ -999,10 +1080,11 @@ class PagedGenerativeEngine(GenerativeEngine):
         rows = np.where(pages > 0, pages * P + pos % P, 0)
         with torch.inference_mode(), _env.precision(self.device):
             xt = self._tensor(x, self._dtype())
-            mini = m.init_decode_cache(1, tp)
+            mini = m.init_decode_cache(1, tp, kv_quant=self._kv_quant)
             plen_t = torch.full((1,), int(plen), dtype=torch.int32,
                                 device=self.device)
-            y, mini = m._prefill(m.params, xt, m.state, mini, plen_t)
+            y, mini = m._prefill(self._serving_params(), xt, m.state, mini,
+                                 plen_t)
             self.prefill_runs += 1
             rows_t = self._tensor(rows)
             gate = (torch.arange(tp, device=self.device)
@@ -1046,7 +1128,8 @@ class PagedGenerativeEngine(GenerativeEngine):
             xt = self._tensor(x, self._dtype())
             a = self._tensor(np.asarray(active, np.int32))
             ln = self._tensor(state.lengths.astype(np.int32))
-            y, _ = m._decode_step(m.params, xt, m.state, state.caches, ln,
+            y, _ = m._decode_step(self._serving_params(), xt, m.state,
+                                  state.caches, ln,
                                   write=a, page_table=self._table(state),
                                   page_size=self.page_size)
             if xt.shape[1] == 1:

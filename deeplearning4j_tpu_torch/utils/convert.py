@@ -11,9 +11,17 @@ it carries the updater state tree too (``net.updater_state``, keyed by
 slot and then the same way), so both packages can start from the same
 Adam m and v. :func:`samediff_from_numpy` does the same for a SameDiff
 graph: its ``graph.json`` and its values by graph name.
+
+A quantized weight of the JAX package (its ``ops.quantize.QuantizedTensor``,
+or anything with ``q``, ``scale`` and ``axis`` and the
+``__quantized_tensor__`` marker, such as :class:`QuantizedArrays`) becomes
+the port's ``QuantizedTensor``; :func:`to_numpy` carries the port's trees
+back as numpy, a quantized weight as :class:`QuantizedArrays`.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,10 +43,40 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C", copy=True)).to(device)
 
 
+class QuantizedArrays(NamedTuple):
+    """A quantized weight as host arrays: int8 ``q``, f32 ``scale`` along
+    ``axis``; the JAX package builds its own ``QuantizedTensor(q, scale,
+    axis)`` from these three."""
+    q: np.ndarray
+    scale: np.ndarray
+    axis: int
+
+    __quantized_tensor__ = True
+
+
 def _tree(node, device):
     if isinstance(node, dict):
         return {k: _tree(v, device) for k, v in node.items()}
+    if getattr(node, "__quantized_tensor__", False):
+        from ..ops.quantize import QuantizedTensor
+        return QuantizedTensor(tensor_from_numpy(node.q, device),
+                               tensor_from_numpy(node.scale, device),
+                               int(node.axis))
     return tensor_from_numpy(node, device)
+
+
+def to_numpy(tree):
+    """The port's tree of tensors as numpy arrays (a 16-bit tensor as
+    float32), each quantized weight as :class:`QuantizedArrays`."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if getattr(tree, "__quantized_tensor__", False):
+        return QuantizedArrays(to_numpy(tree.q), to_numpy(tree.scale),
+                               int(tree.axis))
+    t = tree.detach().cpu()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.numpy()
 
 
 def from_numpy(params: dict, state: dict, device=None, *,

@@ -1,7 +1,17 @@
 """Nested dicts of tensors: the port's params, state, gradient and
-updater-state trees (the JAX package's pytrees)."""
+updater-state trees (the JAX package's pytrees).
+
+A quantized weight (``ops.quantize.QuantizedTensor``, duck-typed by its
+``__quantized_tensor__`` marker) is one leaf pair, as in the JAX package's
+pytree: :func:`leaves` yields its ``q`` and ``scale``, the flat view walks
+the two in that order, and :func:`tmap` hands it to ``fn`` whole (its
+``to(device)`` moves both)."""
 
 from __future__ import annotations
+
+
+def _quantized(node) -> bool:
+    return getattr(node, "__quantized_tensor__", False)
 
 
 def tmap(fn, *trees):
@@ -18,6 +28,9 @@ def leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from leaves(v)
+    elif _quantized(tree):
+        yield tree.q
+        yield tree.scale
     else:
         yield tree
 
@@ -31,7 +44,10 @@ _PARAM_ORDER = {"W": 0, "RW": 1, "PW": 2, "b": 3, "gamma": 4, "beta": 5,
 
 def param_paths(node, prefix=()):
     """Depth-first paths to the leaves of one layer's or vertex's
-    parameter dict, in DL4J's name order at each level."""
+    parameter dict, in DL4J's name order at each level (a quantized
+    weight: its ``q``, then its ``scale``)."""
+    if _quantized(node):
+        return [prefix + ("q",), prefix + ("scale",)]
     if not isinstance(node, dict):
         return [prefix]
     out = []
@@ -42,13 +58,17 @@ def param_paths(node, prefix=()):
 
 def get_path(tree, path):
     for p in path:
-        tree = tree[p]
+        tree = getattr(tree, p) if _quantized(tree) else tree[p]
     return tree
 
 
 def set_path(tree, path, value):
     """``tree`` with the leaf at ``path`` replaced, the dicts along the
     path copied."""
+    if _quantized(tree):
+        parts = {"q": tree.q, "scale": tree.scale}
+        parts[path[0]] = value
+        return type(tree)(parts["q"], parts["scale"], tree.axis)
     new = dict(tree)
     new[path[0]] = value if len(path) == 1 else \
         set_path(tree[path[0]], path[1:], value)

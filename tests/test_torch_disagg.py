@@ -20,7 +20,8 @@ package and loaded by the port.
   before anything queues; the deadline re-arms after a slow handoff but
   still expires a queued migrated request; the router migrates once,
   then routes the repeat to the resident replica; per-pool health;
-  ``kv_cache="int8"`` raises naming ROADMAP Queue 1 item 7."""
+  an int8 replica's shipment is refused by an f32 decode pool and the
+  other way round (int8 shipments: ``tests/test_torch_quantize.py``)."""
 
 import socket
 import threading
@@ -388,11 +389,21 @@ def test_only_a_plain_paged_front_adopts(nets):
 
 
 def test_int8_raises_naming_its_item(nets):
+    """int8 pools are ported (item 7): a shipment crosses only between
+    pools of the same kv mode, refused before anything queues."""
     pn = nets["port"]
-    for call in (lambda: _replica(pn, kv_cache="int8"),
-                 lambda: _decoder(pn, kv_cache="int8")):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            call()
+    ship8 = _replica(pn, kv_cache="int8").prefill(_prompt([1, 2, 3]))
+    ship = _replica(pn).prefill(_prompt([1, 2, 3]))
+    assert ship8.kv_quant and not ship.kv_quant
+    dec8 = _decoder(pn, kv_cache="int8", warmup=False)
+    dec = _decoder(pn, warmup=False)
+    try:
+        for d, s in ((dec, ship8), (dec8, ship)):
+            with pytest.raises(ValueError, match="quantization modes"):
+                d.submit_prefilled(s)
+    finally:
+        dec8.shutdown()
+        dec.shutdown()
 
 
 # ------------------------------------------------------------- deadlines

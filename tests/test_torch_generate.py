@@ -250,17 +250,23 @@ def test_decode_token_features_equal_the_host_one_hot(nets):
 
 
 def test_paged_and_int8_raise(nets):
-    """The int8 KV cache, contiguous or paged, comes with its slice (the
-    paged pool and speculative decoding are ported:
-    ``tests/test_torch_paged_kv.py``)."""
+    """The int8 KV cache, contiguous or paged, is ported (int8 values and
+    f32 per-row scales, ``tests/test_torch_quantize.py``); an unknown kv
+    mode raises, as in the JAX package."""
     pn = nets[1]
-    for call in (lambda: pn.paged_cache_spec(4, 8, kv_quant=True),
-                 lambda: pn.init_paged_cache(4, 8, kv_quant=True),
-                 lambda: pn.decode_cache_spec(2, 8, kv_quant=True),
-                 lambda: GenerativeEngine(pn, kv_cache="int8", device="cpu"),
-                 lambda: ContinuousBatcher(pn, paged=True, kv_cache="int8",
+    spec = pn.decode_cache_spec(2, 8, kv_quant=True)
+    for leaves in spec.values():
+        assert leaves["k"].dtype == torch.int8
+        assert leaves["k_scale"].dtype == torch.float32
+        assert tuple(leaves["k_scale"].shape) == \
+            tuple(leaves["k"].shape[:3]) + (1,)
+    pool = pn.init_paged_cache(4, 8, kv_quant=True)
+    assert all(tuple(t["v_scale"].shape)[-1] == 1 for t in pool.values())
+    assert pn.paged_cache_spec(4, 8, kv_quant=True).keys() == pool.keys()
+    for call in (lambda: GenerativeEngine(pn, kv_cache="int4", device="cpu"),
+                 lambda: ContinuousBatcher(pn, paged=True, kv_cache="fp8",
                                            device="cpu")):
-        with pytest.raises(NotImplementedError, match="slice"):
+        with pytest.raises(ValueError, match="kv_cache"):
             call()
 
 

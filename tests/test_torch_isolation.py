@@ -79,7 +79,10 @@ def test_scan_covers_the_package():
             "normalizers.py", "evaluation.py", "compare_kernels.py",
             "count_kernels.py", "hdf5.py", "keras.py", "conv_extra.py",
             "vertices.py", "make_keras_config.py", "disagg.py",
-            "decode.py"} <= names
+            "decode.py", "quantize.py", "placement.py",
+            "quantization.py"} <= names
+    # both quantize modules: the ops' and the SameDiff rewrite's
+    assert sum(p.name == "quantize.py" for p in _port_sources()) == 2
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -140,7 +143,9 @@ def test_init_without_device_raises(no_cuda):
 
 def test_fronts_without_device_raise(no_cuda, cpu_net):
     for make in (lambda: InferenceEngine(cpu_net),
+                 lambda: InferenceEngine(cpu_net, quantize="int8"),
                  lambda: ParallelInference(cpu_net),
+                 lambda: ParallelInference(cpu_net, quantize="int8"),
                  lambda: JsonModelServer(cpu_net)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

@@ -218,14 +218,20 @@ def test_what_the_slice_leaves_out_raises(nets):
     """What later slices bring raises, naming the slice (``fit``,
     ``score``, ``evaluate`` and training-mode ``output`` came with the
     LeNet slice, ``tests/test_torch_lenet.py``; ``fit_on_device`` and
-    accumulation with the training-modes slice)."""
+    accumulation with the training-modes slice; ``quantize_params`` with
+    the int8-serving slice, ``tests/test_torch_quantize.py``)."""
     _, pn = nets
     x = _seqs(7)
     for call in (lambda: pn.fit(x, x, resilience=object()),
-                 lambda: pn.set_listeners(object()),
-                 lambda: pn.quantize_params()):
+                 lambda: pn.set_listeners(object())):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             call()
+    # int8 serving is ported: the output head's W is quantized, the LSTM
+    # layers (not quantizable, as in the JAX package) keep theirs
+    qp = pn.quantize_params()
+    last = str(len(pn.layers) - 1)
+    assert type(qp[last]["W"]).__name__ == "QuantizedTensor"
+    assert qp["0"]["W"] is pn.params["0"]["W"]
     # on-device epochs and accumulation are ported (the training-modes
     # slice): a ragged dataset still raises before anything moves
     assert callable(pn._build_train_step(accum_steps=4))

@@ -86,6 +86,12 @@ IMG = _R.standard_normal((2, 3, 7, 5)).astype(np.float32)
 IMG_NHWC = np.ascontiguousarray(IMG.transpose(0, 2, 3, 1))
 W_CONV = _R.standard_normal((4, 3, 3, 2)).astype(np.float32)
 W_DW = _R.standard_normal((6, 1, 3, 3)).astype(np.float32)
+# an int8 [in, out] weight and its per-output-channel f32 scales, for the
+# quantized matmul the SameDiff weight rewrite records
+_RQ = np.random.default_rng(22)
+W_Q8 = _RQ.integers(-127, 128, (4, 5)).astype(np.int8)
+W_Q8_SCALE = (np.abs(_RQ.standard_normal(5)) / 127 + 1e-3).astype(
+    np.float32)
 
 
 def _onnx_rnn_args(d, gates):
@@ -299,6 +305,8 @@ CASES = [
     ("epilogue.layer_norm_act", (A, VEC, B[1]), {"act": "identity"}),
     ("epilogue.bias_act", (X3, VEC), {"act": "gelu_exact"}),
     ("epilogue.bias_act", (A, B[2]), {"act": "sigmoid"}),
+    ("quantize.int8_mmul", (A, W_Q8, W_Q8_SCALE), {}),
+    ("quantize.int8_mmul", (X3 * 50.0, W_Q8, W_Q8_SCALE), {}),
     # the nn ops the importers record ([N, C, H, W] images 2 x 3 x 7 x 5)
     ("conv2d", (IMG, W_CONV, VEC), {"stride": (2, 1), "mode": "same"}),
     ("conv2d", (IMG_NHWC, W_CONV), {"padding": (1, 0), "dilation": (2, 1),
