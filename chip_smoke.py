@@ -420,7 +420,28 @@ Phases, in order; any failure exits non-zero:
     against the port's int8 CPU path and both int8 outputs against f32
     within JAX's int8 bound 0.05 (``INT8_KV_REL``), the weight bytes saved
     and the times beside the f32 graph's;
-39. summary: a ``{"kernels": [...]}`` line (K1-K10), the ``nvidia-smi``
+39. data-parallel training (ResNet-50 from the zoo, uncut, seed 0,
+    Adam(1e-3), float32, TF32 off; ranks spawned through
+    ``parallel/multihost_sim.py`` after the build, a float64 CPU
+    reference of the same steps running beside them): [dp-resnet50] 3
+    batch-32 steps on 2 ranks sharing the card over gloo (16 rows each)
+    and on 1 rank over NCCL, params and BN running statistics (their
+    change from the initial state) against float64 within max(1e-3, 2 x
+    the single-process card ``fit``'s own error), the ranks bit-identical
+    after every step, 53 K1 and 53 K2 a step on every rank with only
+    fused decisions, a ragged global batch of 31 against the unpadded
+    single-process ``fit`` the same way, step ms, collective ms and bytes
+    a step; [dp-zero1] ``shard_update=True, overlap_grads=True`` on 2
+    ranks bit for bit the replicated 2-rank run, the per-rank Adam state
+    half of it, ``accum_steps=2`` within the gate; [dp-tp] the
+    ``[2048, 1000]`` head column-sharded over a (1, 2) mesh within the
+    gate; [dp-checkpoint] 4 ZeRO-1 steps on 2 ranks saving asynchronously
+    at steps 2 and 4 (and a ZIP at step 2), step 2 restored in one rank
+    and continued 2 steps bit for bit against the ZIP's continuation, the
+    newest step torn and the restore falling back, and an
+    ``InferenceEngine`` warmed from the directory serving a batch of 32
+    bit for bit the restored net's output (53 K1); save latency and bytes;
+40. summary: a ``{"kernels": [...]}`` line (K1-K10), the ``nvidia-smi``
     name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 The serving path (phases 4-5), the training path, the NCHW block,
@@ -438,15 +459,17 @@ Keras imports (phase 30), the Keras golden replay (phase 31), the
 Keras ResNet-50's requests and fine-tune steps (phase 32), each window
 of the mixed load and each router pass (phase 33) and each prefill,
 decode step and window of the decode graphs (phase 34), the int8
-ResNet-50 requests (phase 36), the two int8 generative mixes (phase 37)
-and the int8 BERT requests (phase 38) are each driven with the launch
-counts set to 0 just before and read just after.
+ResNet-50 requests (phase 36), the two int8 generative mixes (phase 37),
+the int8 BERT requests (phase 38) and each data-parallel step of every
+rank (phase 39) are each driven with the launch counts set to 0 just
+before and read just after.
 
 The script imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import math
 import os
@@ -2111,6 +2134,26 @@ def spread_check_many(refs, c, where) -> dict:
                              f"reference run by {d_c:.3g}, the runs from "
                              f"each other by up to {d_ref:.3g} ({rule})")
     return {"rule": rule, "reference_spread": d_ref, "candidate_diff": d_c}
+
+
+class Deterministic:
+    """cuDNN's deterministic algorithms inside the block, restored after."""
+
+    def __enter__(self):
+        self.old = (torch.backends.cudnn.deterministic,
+                    torch.backends.cudnn.benchmark,
+                    torch.are_deterministic_algorithms_enabled(),
+                    torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        return self
+
+    def __exit__(self, *exc):
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = self.old[:2]
+        torch.use_deterministic_algorithms(self.old[2],
+                                           warn_only=self.old[3])
 
 
 def clone_tree(tree):
@@ -5938,7 +5981,11 @@ def bert_bf16_bounds(k1, k3, k6) -> dict:
 def phase_bert_remat(kmods, fa, fe, env, sd) -> dict:
     """[bert-remat]: the same fused BERT-base, float32, under workspace
     modes "none" (three times), "full" and "every_4", each BERT_REMAT_STEPS fit
-    steps from the same weights and 0-set counts: the K1, K3 and K6
+    steps from the same weights and 0-set counts, under deterministic
+    algorithms (the embedding gradient's atomics otherwise move the last
+    bits from run to run, and three runs' spread is too small a sample
+    of that noise: the rule failed on a candidate 8x a spread of 2.3e-10
+    where the usual spread is 7.5e-9): the K1, K3 and K6
     launches twice a forward's under remat (every segment is recomputed in
     the backward), K2, K4+K5 and K7 a step's, only ``fused`` decisions;
     the losses and new values of each mode against the "none" runs by the
@@ -5953,47 +6000,50 @@ def phase_bert_remat(kmods, fa, fe, env, sd) -> dict:
     start, it0 = clone_tree(sd._values), sd.iteration
     feed = fine_tune_feeds(np.random.default_rng(8), FIT_BATCH, BERT_SEQ)
     rows, runs = {}, {}
-    for tag, mode in (("none", "none"), ("none_2", "none"),
-                      ("none_3", "none"), ("full", "full"),
-                      ("every_4", "every_4")):
-        sd._values.update(clone_tree(start))
-        sd.iteration = it0
-        sd.set_workspace_mode(mode)
-        zero_launches(kmods)
-        fa.reset_counters()
-        fe.reset_counters()
-        hist = []
-        peak = peak_bytes(lambda: hist.append(
-            sd.fit(feed, epochs=BERT_REMAT_STEPS).losses))
-        launches = launch_counts()
-        fused = only_fused(fa, fe)
-        runs[tag] = flat(torch.tensor(hist[0]),
-                         {n: sd._values[n] for n in sd.variables()})
-        rep = sd.memory_report(feed)
-        policy = memory.resolve_policy(mode)
-        segments = len(remat.segment_bounds(sd, policy)) \
-            if policy.remat else 0
-        twice = 2 if policy.remat else 1
-        want = {"k1": twice * BERT_LAYERS, "k2": BERT_LAYERS,
-                "k3": twice * BERT_LAYERS, "bwd": BERT_LAYERS,
-                "k4": BERT_LAYERS, "k5": BERT_LAYERS,
-                "k6": twice * LN_SITES, "k7": LN_SITES}
-        rows[tag] = {"mode": mode, "peak_bytes": peak,
-                     "residual_bytes": rep["residual_bytes"],
-                     "activation_bytes": rep["activation_bytes"],
-                     "segments": segments, "losses": hist[0],
-                     "launches": launches}
-        log(f"[bert-remat] {tag}: losses " + " ".join(
-            f"{v:.6f}" for v in hist[0]) + f"; peak {peak / 2**20:.1f} MiB "
-            f"over {BERT_REMAT_STEPS} fit steps; memory_report residual "
-            f"{rep['residual_bytes'] / 2**20:.1f} MiB (activations "
-            f"{rep['activation_bytes'] / 2**20:.1f}), {segments} segments; "
-            f"launches {launches}")
-        if launches != {k: BERT_REMAT_STEPS * v for k, v in want.items()} \
-                or not fused:
-            raise AssertionError(f"[bert-remat] {tag}: launches {launches}, "
-                                 f"expected {want} a step; decisions "
-                                 f"{fa.counters()} {fe.counters()}")
+    modes = (("none", "none"), ("none_2", "none"), ("none_3", "none"),
+             ("full", "full"), ("every_4", "every_4"))
+    with Deterministic():
+        for tag, mode in modes:
+            sd._values.update(clone_tree(start))
+            sd.iteration = it0
+            sd.set_workspace_mode(mode)
+            zero_launches(kmods)
+            fa.reset_counters()
+            fe.reset_counters()
+            hist = []
+            peak = peak_bytes(lambda: hist.append(
+                sd.fit(feed, epochs=BERT_REMAT_STEPS).losses))
+            launches = launch_counts()
+            fused = only_fused(fa, fe)
+            runs[tag] = flat(torch.tensor(hist[0]),
+                             {n: sd._values[n] for n in sd.variables()})
+            rep = sd.memory_report(feed)
+            policy = memory.resolve_policy(mode)
+            segments = len(remat.segment_bounds(sd, policy)) \
+                if policy.remat else 0
+            twice = 2 if policy.remat else 1
+            want = {"k1": twice * BERT_LAYERS, "k2": BERT_LAYERS,
+                    "k3": twice * BERT_LAYERS, "bwd": BERT_LAYERS,
+                    "k4": BERT_LAYERS, "k5": BERT_LAYERS,
+                    "k6": twice * LN_SITES, "k7": LN_SITES}
+            rows[tag] = {"mode": mode, "peak_bytes": peak,
+                         "residual_bytes": rep["residual_bytes"],
+                         "activation_bytes": rep["activation_bytes"],
+                         "segments": segments, "losses": hist[0],
+                         "launches": launches}
+            log(f"[bert-remat] {tag}: losses "
+                + " ".join(f"{v:.6f}" for v in hist[0])
+                + f"; peak {peak / 2**20:.1f} MiB over {BERT_REMAT_STEPS} "
+                f"fit steps; memory_report residual "
+                f"{rep['residual_bytes'] / 2**20:.1f} MiB (activations "
+                f"{rep['activation_bytes'] / 2**20:.1f}), {segments} "
+                f"segments; launches {launches}")
+            per_fit = {k: BERT_REMAT_STEPS * v for k, v in want.items()}
+            if launches != per_fit or not fused:
+                raise AssertionError(
+                    f"[bert-remat] {tag}: launches {launches}, expected "
+                    f"{want} a step; decisions {fa.counters()} "
+                    f"{fe.counters()}")
     refs = [runs[t] for t in ("none", "none_2", "none_3")]
     checks = {m: spread_check_many(refs, runs[m],
                                    f"[bert-remat] {m} losses and values")
@@ -7062,6 +7112,444 @@ def phase_int8_bert(kmods, fa, fe, env) -> dict:
             "bytes": (rep.bytes_f32, rep.bytes_q)}
 
 
+# data-parallel training: [dp-resnet50], [dp-zero1], [dp-tp], [dp-checkpoint]
+#: zoo ResNet-50 (seed 0, Adam(1e-3)), global batch 32, 3 steps; 4 batches
+#: (the checkpoint run's 4 steps) of seeded images; a ragged batch of 31
+DP_BATCH, DP_STEPS, DP_CKPT_STEPS, DP_RAGGED = 32, 3, 4, 31
+DP_SAVE_AT = 2
+#: the Adam gate: the change of the params (and of the BN running
+#: statistics) from the initial state against the float64 CPU run's,
+#: rel_err within max(DP_GATE_FLOOR, DP_GATE_FACTOR x the single-process
+#: card fit's own). Adam's float32 change reads about 0.49 of float64's
+#: (ill-conditioned small gradients take full steps), and every sound path
+#: read 0.99-1.06 x the single fit, so a state left unchanged (1.0) fails
+DP_GATE_FLOOR, DP_GATE_FACTOR = 1e-3, 1.25
+#: the SGD gate: one SGD step (learning rate DP_SGD_LR) of each path against
+#: the single-process card step on the same rows, rel_err of the params'
+#: change within DP_SGD_GATE. Summing a ResNet-50 step's float32 terms in
+#: another order moves it 2-3% (the gate's control: the single-process
+#: step on its rows permuted, re-measured in every run, which must read
+#: under the gate); SGD's step is linear in the gradient, so a fault of
+#: its scale (a loss over the rank's own label count: twice the step) or of
+#: its BatchNorm moments (each rank's own rows: the mean of the two halves'
+#: single-process steps) reads near 1, and the phase checks that both
+#: faults, computed so, fail the gate
+DP_SGD_LR, DP_SGD_GATE = 1.0, 0.1
+#: torch threads of the float64 CPU reference process, which starts right
+#: after the build and runs beside the earlier phases on one core
+DP_REF_THREADS = 1
+DP_TIMEOUT = 600.0
+#: the runs compared bit for bit (ZeRO-1 against replicated, a restored
+#: state's continuation against the ZIP's) use cuDNN's deterministic
+#: algorithms: its default convolution backward adds with atomics, and
+#: [train]'s fit does not repeat bit for bit without them
+DP_DETERMINISTIC_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+
+def dp_data(root):
+    """The batches, and the same batches reordered so that a one-process
+    ``accum_steps=2`` step splits each into the microbatches the 2-rank
+    run's (each rank's half in two) make: microbatch i holds rows
+    [8i, 8i + 8) of both ranks' halves."""
+    rng = np.random.default_rng(11)
+    n = DP_BATCH * DP_CKPT_STEPS
+    x = rng.standard_normal((n, 224, 224, 3), dtype=np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, n)]
+    h, q = DP_BATCH // 2, DP_BATCH // 4
+    order = np.concatenate([np.r_[0:q, h:h + q, q:h, h + q:DP_BATCH] + i
+                            for i in range(0, n, DP_BATCH)])
+    path = os.path.join(root, "dp_data.npz")
+    np.savez(path, x=x, y=y, x_acc=x[order], y_acc=y[order])
+    return path, x, y
+
+
+def dp_check_steps(rec, where, per_step=(LAUNCHES_PER_FORWARD,) * 2):
+    """Every call of a scenario launched ``per_step`` (K1, K2) with only
+    fused decisions."""
+    for i, (got, dec) in enumerate(zip(rec["launches"], rec["decisions"])):
+        if tuple(got) != tuple(per_step) or dec["fused"] != got[0] or \
+                dec["fallback_act"] or dec["fallback_platform"]:
+            raise AssertionError(f"[{where}] step {i + 1}: {got} K1/K2 "
+                                 f"launches, decisions {dec} (expected "
+                                 f"{per_step}, fused only)")
+
+
+def dp_errors(got, ref, init) -> dict:
+    """rel_err of the change from ``init`` of the params and of the BN
+    state against the float64 run's."""
+    return {k: rel_err(np.asarray(got[k], np.float64) - init[k],
+                       np.asarray(ref[k], np.float64) - init[k])
+            for k in ("params", "state")}
+
+
+def dp_row(rec) -> dict:
+    c = rec.get("counters", {})
+    n = max(1, len(rec["step_ms"]))
+    by = c.get("bytes", {})
+    return {"step_ms": rec["step_ms"],
+            "step_ms_median": statistics.median(rec["step_ms"]),
+            "collective_ms_per_step": 1e3 * c.get("collective_s", 0) / n,
+            "bytes_reduced_per_step": (by.get("all_reduce", 0)
+                                       + by.get("reduce_scatter", 0)) / n,
+            "calls": c.get("calls"), "backend": c.get("backend"),
+            "fit_calls": rec.get("fit_calls")}
+
+
+def dp_reference_start(models) -> dict:
+    """Start the float64 CPU reference of the data-parallel phases (the
+    same steps from the same initial weights, one process on
+    ``DP_REF_THREADS`` cores) beside the phases before them: its inputs
+    are the seeded batches, written here."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.parallel import multihost_sim as sim
+    root = tempfile.mkdtemp(prefix="dl4j_dp_")
+    data, x, y = dp_data(root)
+    b, steps = DP_BATCH, list(range(DP_STEPS))
+    run = sim.run_scenarios(
+        {"data": data, "model": {"zoo": "resnet50", "seed": 0,
+                                 "dtype": "DOUBLE"},
+         "scenarios": [
+             {"name": "ref", "batch": b, "steps": steps},
+             {"name": "ref_ragged", "batch": DP_RAGGED, "rows": DP_RAGGED,
+              "steps": [0]},
+             {"name": "ref_acc2", "batch": b, "steps": steps, "x": "x_acc",
+              "y": "y_acc", "wrapper": {"accum_steps": 2}}]},
+        os.path.join(root, "ref"), 1, timeout=DP_TIMEOUT + 900,
+        threads=DP_REF_THREADS, wait=False, tag="ref")
+    return {"root": root, "data": data, "x": x, "y": y, "run": run,
+            "t0": time.perf_counter()}
+
+
+def phase_dp(kmods, fe, env, models, dp_ref) -> dict:
+    import shutil
+
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+    from deeplearning4j_tpu_torch.parallel import multihost_sim as sim
+    from deeplearning4j_tpu_torch.parallel.checkpoint import \
+        TrainingCheckpointer
+    from deeplearning4j_tpu_torch.parallel.data_parallel import \
+        ParallelWrapper
+    from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
+    from deeplearning4j_tpu_torch.utils.serializer import load_model
+    k1 = kmods["k1"]
+    env.Environment.instance().f32_matmul_precision = "highest"
+    t0 = time.perf_counter()
+    clock = {}
+
+    def mark(name):
+        clock[name] = round(time.perf_counter() - t0, 1)
+    root, data, x, y = (dp_ref[k] for k in ("root", "data", "x", "y"))
+    ref = dp_ref["run"]
+    two = one = None
+    try:
+        ck, zip2 = os.path.join(root, "ckpt"), os.path.join(root, "s2.zip")
+        zoo = {"zoo": "resnet50", "seed": 0}
+        zoo_sgd = {**zoo, "kwargs": {"updater": Sgd(
+            learning_rate=DP_SGD_LR).to_dict()}}
+        b = DP_BATCH
+        steps = list(range(DP_STEPS))
+        torch.cuda.empty_cache()
+        two = sim.run_scenarios(
+            {"data": data, "model": zoo, "precision": "highest",
+             "deterministic": True, "scenarios": [
+                 {"name": "ckpt", "batch": b,
+                  "steps": list(range(DP_CKPT_STEPS)),
+                  "wrapper": {"shard_update": True, "overlap_grads": True},
+                  "checkpoint": {"dir": ck, "async": True,
+                                 "save_at": [DP_SAVE_AT, DP_CKPT_STEPS],
+                                 "zip_at": DP_SAVE_AT, "zip": zip2}},
+                 {"name": "dp2", "batch": b, "steps": steps,
+                  "wrapper": {"time_collectives": True}},
+                 {"name": "dp2_ragged", "batch": DP_RAGGED,
+                  "rows": DP_RAGGED, "steps": [0], "wrapper": {}},
+                 {"name": "zero1", "batch": b, "steps": steps,
+                  "wrapper": {"shard_update": True,
+                              "overlap_grads": True}},
+                 {"name": "zero1_acc2", "batch": b, "steps": steps,
+                  "wrapper": {"shard_update": True, "overlap_grads": True,
+                              "accum_steps": 2}},
+                 {"name": "tp", "batch": b, "steps": steps,
+                  "wrapper": {"mesh": [1, 2], "model_axis": "model"}},
+                 {"name": "sgd_dp2", "model": zoo_sgd, "batch": b,
+                  "steps": [0], "wrapper": {}},
+                 {"name": "sgd_ragged", "model": zoo_sgd,
+                  "batch": DP_RAGGED, "rows": DP_RAGGED, "steps": [0],
+                  "wrapper": {}},
+                 {"name": "sgd_zero1_acc2", "model": zoo_sgd, "batch": b,
+                  "steps": [0], "wrapper": {"shard_update": True,
+                                            "overlap_grads": True,
+                                            "accum_steps": 2}},
+                 {"name": "sgd_tp", "model": zoo_sgd, "batch": b,
+                  "steps": [0], "wrapper": {"mesh": [1, 2],
+                                            "model_axis": "model"}}]},
+            os.path.join(root, "two"), 2, timeout=DP_TIMEOUT,
+            device="cuda", backend="gloo", wait=False, tag="two",
+            extra_env=DP_DETERMINISTIC_ENV)
+        one = sim.run_scenarios(
+            {"data": data, "model": zoo, "precision": "highest",
+             "scenarios": [{"name": "dp1", "batch": b, "steps": steps,
+                            "wrapper": {"time_collectives": True}},
+                           {"name": "sgd_dp1", "model": zoo_sgd,
+                            "batch": b, "steps": [0], "wrapper": {}}]},
+            os.path.join(root, "one"), 1, timeout=DP_TIMEOUT,
+            device="cuda", backend="nccl", wait=False, tag="one")
+
+        # the single-process card fits (no wrapper): the gates' scale
+        def single(rows, n_steps):
+            net = models.resnet50(seed=0).init(device="cuda")
+            rec = {"launches": [], "decisions": []}
+            for i in range(n_steps):
+                k1.launches = k1.bwd_launches = 0
+                fe.reset_counters()
+                net.fit(DataSet(x[i * b:i * b + rows], y[i * b:i * b + rows]))
+                torch.cuda.synchronize()
+                rec["launches"].append([k1.launches, k1.bwd_launches])
+                rec["decisions"].append(fe.counters())
+            dp_check_steps(rec, "dp-resnet50 single")
+            out = {"params": sim._flat(net.params),
+                   "state": sim._flat(net.state)}
+            del net
+            return out, rec
+        single_fit, single_rec = single(b, DP_STEPS)
+        single_rag, rag_rec = single(DP_RAGGED, 1)
+
+        # one SGD step of the same rows in this process: the SGD gate's
+        # truth, and the halves the BatchNorm fault is computed from
+        def sgd_step(lo, hi, xs=x, ys=y, accum=1):
+            net = models.resnet50(seed=0, updater=Sgd(
+                learning_rate=DP_SGD_LR)).init(device="cuda")
+            fit = ParallelWrapper(net, accum_steps=accum).fit \
+                if accum > 1 else net.fit
+            fit(DataSet(xs[lo:hi], ys[lo:hi]))
+            out = sim._flat(net.params).astype(np.float64)
+            del net, fit
+            return out
+        xa, ya = (np.load(data)[k] for k in ("x_acc", "y_acc"))
+        swap = np.r_[b // 2:b, 0:b // 2]  # the rows in another order
+        sgd = {"full": sgd_step(0, b), "ragged": sgd_step(0, DP_RAGGED),
+               "acc2": sgd_step(0, b, xa, ya, accum=2),
+               "half0": sgd_step(0, b // 2), "half1": sgd_step(b // 2, b),
+               "reordered": sgd_step(0, b, x[swap], y[swap])}
+        del xa, ya
+        init_net = models.resnet50(seed=0).init(device="cpu")
+        init = {"params": sim._flat(init_net.params).astype(np.float64),
+                "state": sim._flat(init_net.state).astype(np.float64)}
+        del init_net
+        mark("single")
+
+        # ---- [dp-checkpoint], the 1-rank half, in this process, as soon
+        # as the 2-rank run (its first scenario) has both steps verified
+        deadline = time.monotonic() + DP_TIMEOUT
+        while TrainingCheckpointer(ck).verified_steps() != \
+                [DP_CKPT_STEPS, DP_SAVE_AT]:
+            if time.monotonic() > deadline or any(
+                    p.poll() not in (None, 0) for p in two.procs):
+                two.wait()  # raises with the failing rank's output
+                raise AssertionError("[dp-checkpoint] no verified steps "
+                                     f"{DP_CKPT_STEPS} and {DP_SAVE_AT}")
+            time.sleep(0.5)
+        mark("checkpoint_written")
+        ck_rec = {"launches": [], "decisions": []}
+
+        def continue_from(net):
+            pw = ParallelWrapper(net)
+            for i in range(DP_SAVE_AT, DP_CKPT_STEPS):
+                k1.launches = k1.bwd_launches = 0
+                fe.reset_counters()
+                pw.fit(DataSet(x[i * b:(i + 1) * b], y[i * b:(i + 1) * b]))
+                torch.cuda.synchronize()
+                ck_rec["launches"].append([k1.launches, k1.bwd_launches])
+                ck_rec["decisions"].append(fe.counters())
+            return sim._digest(net.params, net.state, net.updater_state)
+        with TrainingCheckpointer(ck) as ckp:
+            verified = ckp.verified_steps()
+            resumed = models.resnet50(seed=1).init(device="cuda")
+            if ckp.restore(resumed, step=DP_SAVE_AT) != DP_SAVE_AT:
+                raise AssertionError("[dp-checkpoint] restore of step 2")
+        with Deterministic():
+            d_resume = continue_from(resumed)
+            del resumed
+            d_zip = continue_from(load_model(zip2, device="cuda"))
+        dp_check_steps(ck_rec, "dp-checkpoint")
+        if d_resume != d_zip:
+            raise AssertionError("[dp-checkpoint] the restored step-2 state "
+                                 "continued differs from the ZIP's")
+        newest = max(verified)
+        victim = os.path.join(ck, str(newest), "params.npz")
+        with open(victim, "r+b") as f:
+            f.truncate(os.path.getsize(victim) // 2)
+        with TrainingCheckpointer(ck) as ckp:
+            scan = ckp.scan_steps()
+            back = models.resnet50(seed=1).init(device="cuda")
+            got = ckp.restore(back)
+            fallbacks = ckp.restore_fallbacks
+        if got != DP_SAVE_AT or fallbacks != 1 or scan["torn"] != [newest]:
+            raise AssertionError(f"[dp-checkpoint] fallback: restored {got}"
+                                 f", {fallbacks} fallbacks, scan {scan}")
+        eng = InferenceEngine(models.resnet50(seed=2).init(device="cuda"),
+                              device="cuda")
+        eng.warmup([b], checkpoint=ck)
+        k1.launches = 0
+        served = eng.output(x[:b])
+        torch.cuda.synchronize()
+        eng_k1 = k1.launches
+        want = back.output(x[:b])
+        if eng_k1 != LAUNCHES_PER_FORWARD or not np.array_equal(served,
+                                                                want):
+            raise AssertionError(f"[dp-checkpoint] engine warmed from the "
+                                 f"checkpoint: {eng_k1} K1, bit-equal "
+                                 f"{np.array_equal(served, want)}")
+        del back, eng
+        mark("checkpoint")
+        two_raw = two.wait()
+        two_res = [r["scenarios"] for r in two_raw]
+        mark("two_ranks")
+        one_res = one.wait()[0]["scenarios"]
+        mark("one_rank")
+        ref_res = ref.wait()[0]["scenarios"]
+        mark("reference")
+
+        def params_state(d, n):  # the gates read no other member
+            with np.load(os.path.join(root, d, f"scn_{n}.npz")) as z:
+                return {k: z[k] for k in ("params", "state")}
+        flat = {n: params_state("two", n) for n in two_res[0]}
+        flat.update({n: params_state("one", n) for n in one_res})
+        truth = {n: params_state("ref", n)
+                 for n in ("ref", "ref_ragged", "ref_acc2")}
+    finally:
+        for run in (ref, two, one):
+            if run is not None:
+                run.kill()  # a no-op for ranks that ended
+        shutil.rmtree(root, ignore_errors=True)
+
+    # ---- what was measured, then the gates ----
+    t_wall = time.time()
+    smi = smi_line()
+    r0 = two_res[0]
+    rows = {"gloo_2ranks": dp_row(r0["dp2"]),
+            "nccl_1rank": dp_row(one_res["dp1"]),
+            "zero1_overlap_2ranks": dp_row(r0["zero1"]),
+            "zero1_acc2_2ranks": dp_row(r0["zero1_acc2"]),
+            "tp_1x2": dp_row(r0["tp"]),
+            "checkpoint_2ranks": dp_row(r0["ckpt"])}
+    for k, v in rows.items():
+        log(f"[dp-resnet50] {smi}: {k}: " + json.dumps(v))
+    t_wall0 = t_wall - (time.perf_counter() - t0)
+    spans = {n: (round(r["t_begin"] - t_wall0, 1),
+                 round(r["t_end"] - t_wall0, 1)) for n, r in r0.items()}
+    log(f"[dp] {smi}: the 2-rank spawn (s from the phase's start): torch "
+        f"imported at {two_raw[0]['t_worker'] - t_wall0:.1f}, scenarios "
+        f"{spans}")
+    log(f"[dp] {smi}: phase clock (s from its start) {clock}; the float64 "
+        f"reference ended {clock['reference']:.1f} s in (started "
+        f"{t0 - dp_ref['t0']:.1f} s before the phase), its steps (ms) "
+        + json.dumps({n: r["step_ms"] for n, r in ref_res.items()}))
+    e1 = dp_errors(single_fit, truth["ref"], init)
+    e1r = dp_errors(single_rag, truth["ref_ragged"], init)
+    against = {"dp2": "ref", "dp1": "ref", "zero1": "ref",
+               "zero1_acc2": "ref_acc2", "tp": "ref",
+               "dp2_ragged": "ref_ragged"}
+    src = {**flat}
+    errs = {n: dp_errors(src[n], truth[t], init) for n, t in against.items()}
+    log(f"[dp-resnet50] {smi}: change from init against float64 on the "
+        f"CPU, rel_err (params, BN state): single-process card fit {e1}, "
+        f"ragged {e1r}; " + json.dumps(errs))
+    for n, t in against.items():
+        scale = e1r if t == "ref_ragged" else e1
+        allowed = {k: max(DP_GATE_FLOOR, DP_GATE_FACTOR * scale[k])
+                   for k in scale}
+        if any(errs[n][k] > allowed[k] for k in allowed):
+            raise AssertionError(f"[dp {n}] against float64 on the CPU: "
+                                 f"{errs[n]}, allowed {allowed}")
+    p0 = init["params"]
+    sgd_against = {"sgd_dp2": "full", "sgd_dp1": "full", "sgd_tp": "full",
+                   "sgd_ragged": "ragged", "sgd_zero1_acc2": "acc2"}
+    sgd_errs = {n: rel_err(flat[n]["params"].astype(np.float64) - p0,
+                           sgd[t] - p0) for n, t in sgd_against.items()}
+    faults = {"local_count": rel_err(2 * (sgd["full"] - p0),
+                                     sgd["full"] - p0),
+              "local_bn": rel_err((sgd["half0"] + sgd["half1"]) / 2 - p0,
+                                  sgd["full"] - p0)}
+    reorder = rel_err(sgd["reordered"] - p0, sgd["full"] - p0)
+    log(f"[dp-resnet50] {smi}: one SGD step (lr {DP_SGD_LR}) against the "
+        f"single-process card step, rel_err of the params' change: "
+        f"{json.dumps(sgd_errs)}; its rows reordered in one process (the "
+        f"control) {reorder}; the faults read {json.dumps(faults)} (gate "
+        f"{DP_SGD_GATE})")
+    if reorder > DP_SGD_GATE or any(v > DP_SGD_GATE
+                                    for v in sgd_errs.values()):
+        raise AssertionError(f"[dp SGD] against the single-process step: "
+                             f"{sgd_errs}, the control {reorder}, allowed "
+                             f"{DP_SGD_GATE}")
+    if any(v <= DP_SGD_GATE for v in faults.values()):
+        raise AssertionError(f"[dp SGD] the gate passes a fault: {faults}")
+    for name, rec in list(r0.items()) + [("dp1", one_res["dp1"]),
+                                         ("sgd_dp1", one_res["sgd_dp1"])]:
+        per = (2 * LAUNCHES_PER_FORWARD,) * 2 if name.endswith(
+            "zero1_acc2") else (LAUNCHES_PER_FORWARD,) * 2
+        dp_check_steps(rec, f"dp {name}", per)
+    for name in r0:
+        if r0[name]["digests"] != two_res[1][name]["digests"]:
+            raise AssertionError(f"[dp] {name}: the two ranks' params "
+                                 "differ after a step")
+    # the Adam shards stay on their ranks between steps: a ZeRO-1 fit
+    # gathers only the params' chunks (one all-gather a bucket), a TP fit
+    # only the head's columns
+    zero_ag = [c["all_gather"] for c in r0["zero1"]["fit_calls"]]
+    tp_ag = [c["all_gather"] for c in r0["tp"]["fit_calls"]]
+    if not all(r0["zero1"]["held"]) or any(r0["dp2"]["held"]) or \
+            zero_ag != [r0["zero1"]["counters"]["buckets"]] * DP_STEPS or \
+            tp_ag != [1] * DP_STEPS:
+        raise AssertionError(f"[dp-zero1] the shards were not kept between "
+                             f"steps: held {r0['zero1']['held']}, a fit's "
+                             f"all-gathers {zero_ag} (TP {tp_ag})")
+    if r0["zero1"]["digests"] != r0["dp2"]["digests"]:
+        raise AssertionError("[dp-zero1] params differ from the replicated "
+                             "2-rank run's")
+    c_rep, c_zero = r0["dp2"]["counters"], r0["zero1"]["counters"]
+    adam_rep = c_rep["updater_state_bytes_per_rank"]
+    adam_zero = c_zero["updater_state_bytes_per_rank"]
+    if not 0.45 <= adam_zero / adam_rep <= 0.55:
+        raise AssertionError(f"[dp-zero1] per-rank Adam state {adam_zero} "
+                             f"against the replicated {adam_rep}")
+    tp_c = r0["tp"]["counters"]
+    log(f"[dp-resnet50] {smi}: every gate held; 53 K1 + 53 K2 a step on "
+        "every rank, fused only; the ranks bit-identical after every step")
+    log(f"[dp-zero1] {smi}: bit for bit the replicated 2-rank run; Adam "
+        f"state per rank {adam_zero} B against {adam_rep} B replicated "
+        f"({adam_zero / adam_rep:.4f}), kept between steps; buckets "
+        f"{c_zero['buckets']}, all-gathers a fit {zero_ag}")
+    log(f"[dp-tp] {smi}: the [2048, 1000] head over the model axis: "
+        f"all-gathers a fit {tp_ag} (the harness's reads of the params "
+        f"gather the rest: {tp_c['calls']['all_gather']} in all), error "
+        f"{errs['tp']}")
+    sv = r0["ckpt"]
+    log(f"[dp-checkpoint] {smi}: async saves at steps {DP_SAVE_AT} and "
+        f"{DP_CKPT_STEPS}: {sv['save_bytes']} B a step, save latency (to "
+        f"the manifest) {sv['save_latency_s']} s, the step loop's save "
+        f"calls {sv.get('save_call_ms')} ms; verified {verified}; 2 -> 1 "
+        f"rank restore continued bit for bit; newest torn -> fell back "
+        f"to step {got}; InferenceEngine warmed from the directory: batch "
+        f"{b} bit-equal, {eng_k1} K1")
+
+    def k12(recs):
+        return [sum(step[j] for r in recs for step in r["launches"])
+                for j in (0, 1)]
+    return {"launches": {
+        "dp_resnet50": k12([r0["dp2"], r0["dp2_ragged"], one_res["dp1"],
+                            single_rec, rag_rec, r0["sgd_dp2"],
+                            r0["sgd_ragged"], one_res["sgd_dp1"]]),
+        "dp_zero1": k12([r0["zero1"], r0["zero1_acc2"],
+                         r0["sgd_zero1_acc2"]]),
+        "dp_tp": k12([r0["tp"], r0["sgd_tp"]]),
+        "dp_checkpoint": [a + c for a, c in zip(k12([r0["ckpt"], ck_rec]),
+                                                (eng_k1, 0))]},
+        "errors": errs, "sgd_errors": sgd_errs, "sgd_faults": faults,
+        "rows": rows, "clock": clock}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -7085,6 +7573,10 @@ def main() -> int:
 
     phase_toolchain(build)
     phase_build(build)
+    dp_ref = dp_reference_start(models)
+    # the reference process must not outlive a phase that fails before
+    # phase_dp reads it
+    atexit.register(dp_ref["run"].kill)
     lenet_calls = lenet_epilogue_calls(models, LENET_BATCH)
     kern = phase_kernel(k1, lenet_calls)
     kbwd = phase_kernel_bwd(k1, lenet_calls)
@@ -7184,6 +7676,10 @@ def main() -> int:
     int8_rn = phase_int8_resnet50(kmods, fe, env, models)
     int8_gen = phase_int8_generate(counters, gen)
     int8_bert = phase_int8_bert(kmods, fa, fe, env)
+    dp_paths = phase_dp(kmods, fe, env, models, dp_ref)["launches"]
+
+    def dp_counts(k):
+        return {p: c[0 if k == "k1" else 1] for p, c in dp_paths.items()}
     # the launches of the int8 paths, by kernel key of kernel_launches
     int8_paths = {"int8_resnet50": int8_rn["launches"],
                   "int8_generate_bench": int8_gen["launches"]["bench"],
@@ -7433,7 +7929,8 @@ def main() -> int:
         + lenet_row["launches"][0] + lenet_row["eval_launches"][0]
         + center["launches"][0] + ln_l["k1"] + fit_ln["k1"]
         + sum(v[0] for v in modes_k.values()) + sum(sd_counts("k1").values())
-        + sum(keras_counts("k1").values()) + sum(int8_counts("k1").values()),
+        + sum(keras_counts("k1").values()) + sum(int8_counts("k1").values())
+        + sum(dp_counts("k1").values()),
         "launches_by_path": {"serve": serve_launches,
                              "train": trained["launches"][0],
                              "train_eval": train_eval["launches"][0],
@@ -7447,7 +7944,7 @@ def main() -> int:
                              **lstm_paths("k1"), **ln_paths("k1"),
                              **{k: v[0] for k, v in modes_k.items()},
                              **sd_counts("k1"), **keras_counts("k1"),
-                             **int8_counts("k1")},
+                             **int8_counts("k1"), **dp_counts("k1")},
         "int8_resnet50": {k: int8_rn[k] for k in (
             "k1_per_forward", "wall_ms", "device_ms", "busy_share",
             "rel_err", "gate_delta", "gate_passed", "weight_bytes_f32",
@@ -7498,7 +7995,8 @@ def main() -> int:
         + nchw["launches"][1] + lenet_row["launches"][1]
         + center["launches"][1] + fit_ln["k2"]
         + sum(v[1] for v in modes_k.values()) + sum(sd_counts("k2").values())
-        + sum(keras_counts("k2").values()) + sum(int8_counts("k2").values()),
+        + sum(keras_counts("k2").values()) + sum(int8_counts("k2").values())
+        + sum(dp_counts("k2").values()),
         "launches_by_path": {"serve": 0, "train": trained["launches"][1],
                              "train_eval": 0,
                              "transfer_fit": transfer["launches"][1],
@@ -7511,7 +8009,7 @@ def main() -> int:
                              **lstm_paths("k2"), **ln_paths("k2"),
                              **{k: v[1] for k, v in modes_k.items()},
                              **sd_counts("k2"), **keras_counts("k2"),
-                             **int8_counts("k2")},
+                             **int8_counts("k2"), **dp_counts("k2")},
         "max_abs_err": max(kbwd["max_err"]["dx_float32"],
                            kbwd["max_err"]["dx_bfloat16"],
                            kbwd["max_err"]["dx_float16"],

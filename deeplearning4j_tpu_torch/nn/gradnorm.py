@@ -9,6 +9,14 @@ tiny epsilon, as in the JAX package.
 ``clip_events`` is a 0-dim int32 tensor on the gradients' device (1 when
 any clip engaged this step), so computing it makes no host sync; the
 divergence sentinel accumulates it.
+
+A ``reducer`` (the ZeRO-1 / tensor-parallel gradient sync of a
+``ParallelWrapper`` step, whose ranks each hold a part of the gradient)
+gives the global sum of squares of each leaf (``reducer.ssq(tree)``) and
+the global "any" of a flag (``reducer.any(flag)``): every norm and every
+engaged-flag is then the whole gradient's, as in the JAX package's step,
+where GSPMD reduces them over the shards. Without one, each rank's
+gradients are whole and everything is local.
 """
 
 from __future__ import annotations
@@ -43,13 +51,20 @@ def _device(grads):
     return torch.device("cpu")
 
 
-def _l2(g):
-    return torch.sqrt(torch.sum(torch.square(g)))
+def _ssq(tree, reducer=None):
+    """Per leaf, its sum of squares (global under a ``reducer``)."""
+    if reducer is not None:
+        return reducer.ssq(tree)
+    return _tmap(lambda g: torch.sum(torch.square(g)), tree)
 
 
-def _tree_l2(tree):
-    return torch.sqrt(sum(torch.sum(torch.square(g))
-                          for g in _leaves(tree)) + 0.0)
+def _tree_l2(sq):
+    """The L2 norm of a tree from its leaves' sums of squares."""
+    return torch.sqrt(sum(_leaves(sq)) + 0.0)
+
+
+def _any(flag, reducer=None):
+    return flag if reducer is None else reducer.any(flag)
 
 
 def _flag(hit, device):
@@ -60,7 +75,8 @@ def _flag(hit, device):
     return hit.to(device=device, dtype=torch.int32)
 
 
-def clip_engaged(mode: Optional[str], threshold: float, grads):
+def clip_engaged(mode: Optional[str], threshold: float, grads,
+                 reducer=None):
     """0/1 int32: did this mode's clip engage on ``grads`` (some norm or
     element above the threshold)? The Renormalize modes rescale always and
     never count; mode None is 0."""
@@ -69,22 +85,24 @@ def clip_engaged(mode: Optional[str], threshold: float, grads):
         return _flag(False, dev)
     t = float(threshold)
     if mode == "ClipElementWiseAbsoluteValue":
-        return value_clip_engaged(grads, t)
+        return value_clip_engaged(grads, t, reducer)
     if mode == "ClipL2PerLayer":
-        hits = [_tree_l2(v) > t for v in grads.values()]
+        sq = _ssq(grads, reducer)
+        hits = [_tree_l2(v) > t for v in sq.values()]
         return _flag(torch.stack(hits).any() if hits else False, dev)
     if mode == "ClipL2PerParamType":
-        hits = [_l2(g) > t for g in _leaves(grads)]
+        hits = [torch.sqrt(s) > t for s in _leaves(_ssq(grads, reducer))]
         return _flag(torch.stack(hits).any() if hits else False, dev)
     validate(mode)
     return _flag(False, dev)
 
 
-def value_clip_engaged(grads, clip_value: float):
+def value_clip_engaged(grads, clip_value: float, reducer=None):
     """0/1 int32: would clipping at ``clip_value`` change any element?"""
     t = float(clip_value)
     hits = [torch.any(torch.abs(g) > t) for g in _leaves(grads)]
-    return _flag(torch.stack(hits).any() if hits else False, _device(grads))
+    return _any(_flag(torch.stack(hits).any() if hits else False,
+                      _device(grads)), reducer)
 
 
 def l2_clip_engaged(norm, clip_l2: float):
@@ -94,18 +112,18 @@ def l2_clip_engaged(norm, clip_l2: float):
 
 def clip_with_events(mode: Optional[str], threshold: float,
                      clip_value: Optional[float], clip_l2: Optional[float],
-                     grads):
+                     grads, reducer=None):
     """Normalize, then clip by value, then clip the global L2 norm;
     returns ``(grads, clip_events)``."""
-    events = clip_engaged(mode, threshold, grads)
-    grads = apply(mode, threshold, grads)
+    events = clip_engaged(mode, threshold, grads, reducer)
+    grads = apply(mode, threshold, grads, reducer)
     if clip_value:
-        events = torch.maximum(events, value_clip_engaged(grads, clip_value))
+        events = torch.maximum(events, value_clip_engaged(grads, clip_value,
+                                                          reducer))
         grads = _tmap(lambda g: torch.clamp(g, -clip_value, clip_value),
                       grads)
     if clip_l2:
-        norm = torch.sqrt(sum(torch.sum(torch.square(g))
-                              for g in _leaves(grads)))
+        norm = torch.sqrt(sum(_leaves(_ssq(grads, reducer))))
         events = torch.maximum(events, l2_clip_engaged(norm, clip_l2))
         scale = torch.clamp(clip_l2 / (norm + 1e-12), max=1.0)
         grads = _tmap(lambda g: g * scale, grads)
@@ -113,26 +131,27 @@ def clip_with_events(mode: Optional[str], threshold: float,
 
 
 def apply(mode: Optional[str], threshold: float,
-          grads: Dict[str, Any]) -> Dict[str, Any]:
+          grads: Dict[str, Any], reducer=None) -> Dict[str, Any]:
     """Normalize the gradient tree ``{layer_key: {param: tensor}}``."""
     if mode is None:
         return grads
     if mode == "RenormalizeL2PerLayer":
-        out = {}
+        sq, out = _ssq(grads, reducer), {}
         for k, v in grads.items():
-            n = torch.clamp(_tree_l2(v), min=_EPS)
+            n = torch.clamp(_tree_l2(sq[k]), min=_EPS)
             out[k] = _tmap(lambda g, n=n: g / n, v)
         return out
     if mode == "RenormalizeL2PerParamType":
-        return _tmap(lambda g: g / torch.clamp(_l2(g), min=_EPS), grads)
+        return _tmap(lambda g, s: g / torch.clamp(torch.sqrt(s), min=_EPS),
+                     grads, _ssq(grads, reducer))
     if mode == "ClipElementWiseAbsoluteValue":
         t = float(threshold)
         return _tmap(lambda g: torch.clamp(g, -t, t), grads)
     if mode == "ClipL2PerLayer":
         t = float(threshold)
-        out = {}
+        sq, out = _ssq(grads, reducer), {}
         for k, v in grads.items():
-            n = _tree_l2(v)
+            n = _tree_l2(sq[k])
             scale = torch.where(n > t, t / torch.clamp(n, min=_EPS),
                                 torch.ones_like(n))
             out[k] = _tmap(lambda g, s=scale: g * s, v)
@@ -140,10 +159,10 @@ def apply(mode: Optional[str], threshold: float,
     if mode == "ClipL2PerParamType":
         t = float(threshold)
 
-        def clip_one(g):
-            n = _l2(g)
+        def clip_one(g, s):
+            n = torch.sqrt(s)
             return g * torch.where(n > t, t / torch.clamp(n, min=_EPS),
                                    torch.ones_like(n))
-        return _tmap(clip_one, grads)
+        return _tmap(clip_one, grads, _ssq(grads, reducer))
     validate(mode)
     return grads

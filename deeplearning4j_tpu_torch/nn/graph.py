@@ -59,6 +59,7 @@ from .. import environment as _env
 from ..data.dataset import (DataSet, DataSetIterator, MultiDataSet,
                             MultiDataSetIterator, NumpyMultiDataSetIterator)
 from ..ops import losses as _loss
+from ..parallel.collectives import HeldShards
 from ..runtime import sentinel as _sent
 from ..utils import tree as _tree
 from . import constraints as _constraints
@@ -272,7 +273,7 @@ class GraphBuilder:
             workspace_mode=b._workspace_mode if b else "none")
 
 
-class ComputationGraph:
+class ComputationGraph(HeldShards):
     """DAG network engine (DL4J ``ComputationGraph``)."""
 
     def __init__(self, conf: ComputationGraphConfiguration):

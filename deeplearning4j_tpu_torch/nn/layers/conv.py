@@ -180,15 +180,22 @@ class BatchNormalization(Layer):
         """One-pass f32 moments ``E[x^2] - mean^2`` over every axis but the
         channel axis, as the JAX package computes them (one sweep of x for
         both sums); with a ``[B]`` or ``[B, T]`` mask, over the unmasked
-        positions only."""
+        positions only.
+
+        In a data-parallel step the moments are the GLOBAL batch's (the
+        JAX step's ``jnp.mean`` over the sharded batch): ``(s1, s2, cnt)``
+        are summed over the data group in one differentiable all-reduce
+        (its backward is the same all-reduce), and the count is clamped
+        after the sum (a rank whose rows are all padding counts 0)."""
+        from ...parallel import collectives as _coll
+        dp = _coll.data_parallel()
         xs = _dt.upcast_16(x)
         dims = tuple(i for i in range(x.ndim) if i != axis % x.ndim)
         if mask is not None:
             m = mask.to(xs.dtype)
             while m.ndim < xs.ndim:
                 m = m[..., None]
-            cnt = torch.clamp(torch.sum(m.expand(xs.shape), dim=dims),
-                              min=1.0)
+            cnt = torch.sum(m.expand(xs.shape), dim=dims)
             s1 = torch.sum(xs * m, dim=dims)
             s2 = torch.sum(torch.square(xs) * m, dim=dims)
         else:
@@ -197,6 +204,14 @@ class BatchNormalization(Layer):
                 cnt *= x.shape[i]
             s1 = torch.sum(xs, dim=dims)
             s2 = torch.sum(torch.square(xs), dim=dims)
+        if dp is not None:
+            c = s1.shape[0]
+            cnt_t = cnt if torch.is_tensor(cnt) else torch.full(
+                (c,), float(cnt), dtype=s1.dtype, device=s1.device)
+            tot = _coll.all_reduce_sum(torch.cat([s1, s2, cnt_t]), dp.data)
+            s1, s2, cnt = tot[:c], tot[c:2 * c], tot[2 * c:]
+        if torch.is_tensor(cnt):
+            cnt = torch.clamp(cnt, min=1.0)
         mean = s1 / cnt
         var = torch.clamp(s2 / cnt - torch.square(mean), min=0.0)
         return mean, var

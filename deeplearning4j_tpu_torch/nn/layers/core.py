@@ -58,8 +58,26 @@ class DenseLayer(Layer):
         return {"W": 1}  # [nIn, nOut]: one scale per output channel
 
     def apply(self, params, x, state, *, train=False, mask=None):
-        y = _dense(x, params["W"], params["b"])
+        y = _tp_dense(x, params["W"], params["b"], self.n_out)
         return _act.get(self.activation)(y), state, mask
+
+
+def _tp_dense(x, w, b, n_out: int):
+    """``x @ w + b``; when this rank's kernel holds a model-axis shard of
+    the columns (tensor parallelism in a ``ParallelWrapper`` step,
+    ``placement.tp_param_spec``) the product runs on the shard and every
+    model rank's columns are gathered."""
+    from ...parallel import collectives as _coll
+    ctx = _coll.current()
+    cols = w.shape[-1]
+    if ctx is None or ctx.model_size == 1 or cols == n_out:
+        return _dense(x, w, b)
+    if cols * ctx.model_size != n_out:
+        raise ValueError(f"dense kernel of {cols} columns is neither the "
+                         f"layer's {n_out} nor a 1/{ctx.model_size} "
+                         "model-axis shard of them")
+    y = _dense(_coll.model_region(x, ctx.model), w, b)
+    return _coll.gather_columns(y, ctx.model)
 
 
 @layer("activation")
@@ -294,7 +312,7 @@ class OutputLayer(Layer, _BaseOutput):
         return {"W": 1}
 
     def apply(self, params, x, state, *, train=False, mask=None):
-        y = _dense(x, params["W"], params["b"])
+        y = _tp_dense(x, params["W"], params["b"], self.n_out)
         if train:
             return y, state, mask  # the loss consumes the logits
         return _act.get(self.activation)(y), state, mask

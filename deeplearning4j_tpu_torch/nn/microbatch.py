@@ -44,6 +44,10 @@ Recorded divergences (approximate, not exact), as in the JAX package:
 
 The regularization term is added inside every microbatch loss; the
 weighted MEAN counts it exactly once in the loss and the gradient.
+
+In a ``ParallelWrapper`` step each rank accumulates over its rows of the
+microbatches, and a microbatch's weight is its label count summed over
+the data group, so the ranks' weighted means add up to the global one.
 """
 
 from __future__ import annotations
@@ -87,10 +91,15 @@ def accumulate_gradients(value_and_grad_fn, params, state, k: int, batch,
     threading through), returning ``(loss, grads, final_state)``: the same
     contract as one call on the whole batch. ``weight_fn(*microbatch)``
     gives a microbatch's weight, or None (equal weights)."""
+    from ..parallel import collectives as _coll
+    dp = _coll.data_parallel()
     g_acc, l_acc, w_acc = None, 0.0, 0.0
     for mb in split_microbatches(batch, k):
         loss, g, state = value_and_grad_fn(params, state, *mb)
         w_val = None if weight_fn is None else weight_fn(*mb)
+        if dp is not None and w_val is not None:
+            # a data-parallel step weighs a microbatch by its GLOBAL count
+            w_val = _coll.global_sum(w_val, dp.data)
         w = 1.0 if w_val is None else w_val
         if g_acc is None:
             g_acc = _tmap(lambda a: torch.zeros(a.shape, dtype=_acc_dtype(a),

@@ -76,6 +76,7 @@ from .. import dtypes as _dt
 from .. import environment as _env
 from ..data.dataset import DataSet, DataSetIterator, NumpyDataSetIterator
 from ..ops import losses as _loss
+from ..parallel.collectives import HeldShards
 from ..runtime import sentinel as _sent
 from ..utils import tree as _tree
 from . import training as _training
@@ -84,7 +85,7 @@ from .config import MultiLayerConfiguration
 _RUNTIME = "the runtime slice of the port (ROADMAP.md Queue 1 item 9)"
 
 
-class MultiLayerNetwork:
+class MultiLayerNetwork(HeldShards):
     """Sequential network engine (DL4J ``MultiLayerNetwork``)."""
 
     def __init__(self, conf: MultiLayerConfiguration):

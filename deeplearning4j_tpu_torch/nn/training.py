@@ -28,6 +28,16 @@ The training modes of ``fit`` meet here too:
   sentinel's verdict stays a device bool and selects between the new and
   the old trees with ``torch.where``, bit for bit what the host verdict
   applies.
+- **a data-parallel step** (inside a ``ParallelWrapper`` step, whose
+  context ``parallel.collectives.current()`` returns): each rank's loss is
+  its masked sum over the GLOBAL label count (``ops/losses.py``), the
+  l1/l2 term is added on data rank 0 only (so it counts once), the
+  gradients go through the context's ``sync`` (the bucketed all-reduce, or
+  the ZeRO-1 reduce-scatter that leaves each rank its chunk of each
+  sharded leaf), clipping and the sentinel reduce their norms over the
+  shards, and under ZeRO-1 the updater runs on this rank's chunks of the
+  parameters and the updater state, the new parameters all-gathered
+  after it.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import torch
 
 from .. import dtypes as _dt
 from .. import environment as _env
+from ..parallel import collectives as _coll
 from ..utils import tree as _tree
 from . import constraints as _constraints
 from . import gradnorm as _gn
@@ -77,8 +88,12 @@ def regularization(conf, pairs):
     """The l1/l2 penalty over ``(layer, params)`` pairs: each pair's ``W``
     with the layer's own coefficient, else the network's (DL4J regularizes
     W, not b); ``layer`` may be None (the network's coefficients), and a
-    frozen layer has none."""
+    frozen layer has none. In a data-parallel step only data rank 0 adds
+    it (the ranks' losses and gradients are summed)."""
     total = 0.0
+    ctx = _coll.current()
+    if ctx is not None and ctx.data_rank != 0:
+        return total
     for layer, params in pairs:
         if getattr(layer, "frozen", False):
             continue
@@ -94,27 +109,38 @@ def regularization(conf, pairs):
     return total
 
 
-def clip(conf, grads):
-    """Gradient normalization and clipping: ``(grads, clip_events)``."""
+def clip(conf, grads, reducer=None):
+    """Gradient normalization and clipping: ``(grads, clip_events)``;
+    ``reducer`` gives the norms of sharded gradients (see
+    ``gradnorm.clip_with_events``)."""
     return _gn.clip_with_events(
         conf.gradient_normalization, conf.gradient_normalization_threshold,
-        conf.gradient_clip_value, conf.gradient_clip_l2, grads)
+        conf.gradient_clip_value, conf.gradient_clip_l2, grads,
+        reducer=reducer)
 
 
 def value_and_grad(params, loss_fn):
     """``(loss, grads, aux)`` of ``loss_fn(params) -> (loss, aux)`` at
     ``params``: one forward and ``torch.autograd.grad``. ``grads`` is keyed
-    like ``params``; a parameter the loss does not reach gets zeros."""
+    like ``params``; a parameter the loss does not reach gets zeros. In a
+    wrapper step whose context has a ``grad_hook`` (the overlapped
+    gradient collectives), each parameter's gradient is handed to it, with
+    the parameter's path, as soon as autograd makes it."""
+    from ..parallel.placement import map_paths
     leaves = []
+    ctx = _coll.current()
+    hook = None if ctx is None else ctx.grad_hook
 
-    def track(t):
+    def track(path, t):
         t = t.detach()
         if t.is_floating_point():
             t.requires_grad_(True)
             leaves.append(t)
+            if hook is not None:
+                t.register_hook(lambda g, _p=path: hook(_p, g))
         return t
 
-    tracked = _tree.tmap(track, params)
+    tracked = map_paths(track, params)
     loss, aux = loss_fn(tracked)
     found = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
 
@@ -174,6 +200,8 @@ def train_step(net, vg, params_c=None, on_device=False):
     the next one. ``on_device``: the sentinel's verdict is not read on the
     host. Returns ``(loss, params_c)`` (the loss a device tensor)."""
     conf = net.conf
+    ctx = _coll.current()
+    sync = None if ctx is None else ctx.sync
     with _env.precision(net.device):
         loss, grads, new_state = vg(net.params if params_c is None
                                     else params_c)
@@ -181,12 +209,23 @@ def train_step(net, vg, params_c=None, on_device=False):
             # 16-bit gradients (the fused step's, the hoisted accumulation's)
             # upcast exactly to the masters' dtype
             grads = _dt.cast_floating(grads, _dt.param_dtype(conf.dtype))
-            grads, clip_events = clip(conf, grads)
+            if sync is not None:
+                loss, grads = sync.reduce(loss, grads)
+            reducer = sync if sync is not None and sync.sharded else None
+            grads, clip_events = clip(conf, grads, reducer)
             ok = net._sentinel.verdict(loss, grads, clip_events,
-                                       on_device=on_device)
+                                       on_device=on_device, reducer=reducer)
             if ok is False:
                 return loss, params_c
-            if params_c is None:
+            if params_c is None and sync is not None and sync.zero:
+                # ZeRO-1: the updater on this rank's chunks, then the new
+                # parameters all-gathered
+                shards, upd_state = apply_updater(
+                    conf.updater, grads, net.updater_state,
+                    sync.shard_tree(net.params), net.iteration, net._frozen)
+                params = sync.gather_tree(shards)
+                new_c = None
+            elif params_c is None:
                 params, upd_state = apply_updater(
                     conf.updater, grads, net.updater_state, net.params,
                     net.iteration, net._frozen)

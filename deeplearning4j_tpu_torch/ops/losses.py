@@ -18,6 +18,11 @@ catalog's ``loss.ctc`` is :func:`ctc_loss`, the JAX package's
 ``ops/random.py`` op in optax's convention (logits, labels and 1.0-where-
 padded paddings), which replaces the first in its registry once every
 ops module is imported. Both run ``F.ctc_loss``.
+
+In a ``ParallelWrapper`` step each rank's mean divides by the GLOBAL
+count (:func:`_per_example`). Divergence: :func:`fmeasure`, a batch-level
+loss, is evaluated on each rank's rows, and the ranks' values add up
+(the JAX step computes one F-beta over the sharded batch).
 """
 
 from __future__ import annotations
@@ -46,14 +51,26 @@ def _per_example(value, mask):
     """Mean over (unmasked) examples of ``value`` ([batch] or [batch,
     time]). DL4J averages over the count of unmasked entries, not the
     batch size. A masked entry contributes 0 even when its loss is not
-    finite (``where``, not a product: NaN * 0 is NaN)."""
+    finite (``where``, not a product: NaN * 0 is NaN).
+
+    In a data-parallel step (``parallel.collectives.data_parallel()``) a
+    rank holds its rows of the global batch: the loss is its masked sum
+    over the GLOBAL count (summed over the data group, clamped after the
+    sum), so the ranks' losses and gradients add up to the global ones."""
+    from ..parallel import collectives as _coll
+    dp = _coll.data_parallel()
     if mask is not None:
         mask = torch.as_tensor(mask, dtype=value.dtype,
                                device=value.device).expand(value.shape)
         masked = torch.where(mask > 0, value * mask,
                              torch.zeros((), dtype=value.dtype,
                                          device=value.device))
-        return torch.sum(masked) / torch.clamp(torch.sum(mask), min=1.0)
+        count = torch.sum(mask)
+        if dp is not None:
+            count = _coll.global_sum(count, dp.data).to(count.dtype)
+        return torch.sum(masked) / torch.clamp(count, min=1.0)
+    if dp is not None:
+        return torch.sum(value) / (value.numel() * dp.data_size)
     return torch.mean(value)
 
 

@@ -28,11 +28,16 @@ from ..utils.tree import leaves as _leaves
 COUNTERS = ("bad_total", "bad_consec", "clip_events")
 
 
-def finite_ok(loss, grads):
+def finite_ok(loss, grads, reducer=None):
     """A 0-dim bool tensor: are the loss and the global gradient sum of
     squares (accumulated in f32) both finite? An f32 overflow of the sum
-    flags the step bad, which is the intended reading."""
-    gss = sum(torch.sum(torch.square(g.float())) for g in _leaves(grads))
+    flags the step bad, which is the intended reading. A ``reducer`` (a
+    ``ParallelWrapper`` step whose ranks each hold part of the gradient)
+    sums the parts over the ranks, so every rank reads the same verdict."""
+    if reducer is not None:
+        gss = sum(_leaves(reducer.ssq(grads)))
+    else:
+        gss = sum(torch.sum(torch.square(g.float())) for g in _leaves(grads))
     return torch.isfinite(loss) & torch.isfinite(torch.as_tensor(gss))
 
 
@@ -44,11 +49,12 @@ class Sentinel:
         self.bad_consec = 0
         self.clip_events = 0  # an int, or a 0-dim device tensor
 
-    def verdict(self, loss, grads, clip_events=None, on_device=False):
+    def verdict(self, loss, grads, clip_events=None, on_device=False,
+                reducer=None):
         """Whether this step may be applied (reads one bool from the
         device; with ``on_device`` a 0-dim device bool, read by no one);
         counts the verdict and the clip events."""
-        ok = finite_ok(loss, grads)
+        ok = finite_ok(loss, grads, reducer)
         if on_device:
             bad = (~ok).to(torch.int64)
             self.bad_total = self.bad_total + bad

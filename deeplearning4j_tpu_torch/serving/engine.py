@@ -55,8 +55,10 @@ Divergences from the JAX engine, by design:
   state: the continuous batcher rebuilds a fresh one.
 - A ``torch.Generator`` on the engine's device takes the place of the
   threaded PRNG key (stochastic sampling agrees in distribution only).
-- ``mesh=`` and ``warmup(checkpoint=)`` raise ``NotImplementedError``
-  naming their slice (``ROADMAP.md`` Queue 1); ``attribution_report`` and
+- ``mesh=`` raises ``NotImplementedError`` naming its slice (item 8b of
+  ``ROADMAP.md`` Queue 1, tensor-parallel serving); ``warmup(checkpoint=dir)``
+  restores the model from a ``TrainingCheckpointer`` directory first
+  (``parallel.placement.load_checkpoint``); ``attribution_report`` and
   ``decode_multi_traceable`` (the MFU attribution and the static-check
   probe) come with the runtime slice.
 
@@ -99,6 +101,7 @@ from .. import environment as _env
 from ..ops import flash_attention as _fa
 from ..ops import quantize as _q
 from ..ops import sampling as _smp
+from ..parallel import placement as _pl
 from ..parallel.placement import QuantizedParamsMixin
 from ..utils.convert import tensor_from_numpy
 from ..utils.tree import leaves as _leaves
@@ -238,14 +241,18 @@ class InferenceEngine(QuantizedParamsMixin):
         return sorted(set(next_bucket(t) for t in ts))
 
     def warmup(self, buckets: Optional[Sequence[int]] = None,
-               seq_buckets: Optional[Sequence[int]] = None
-               ) -> "InferenceEngine":
+               seq_buckets: Optional[Sequence[int]] = None,
+               checkpoint: Optional[str] = None) -> "InferenceEngine":
         """Run one forward at every (batch bucket x sequence bucket) now
         (zeros in, full masks), so the first request that lands on it meets
         warm library state (cuDNN algorithm choice, the kernel libraries
         built). ``seq_buckets`` applies to sequence inputs; it defaults to
         the configured T when that is static and is required when it is
-        dynamic (-1)."""
+        dynamic (-1). ``checkpoint=<dir>``: restore the model from a
+        ``TrainingCheckpointer`` directory first (the JAX engine's
+        :425-443)."""
+        if checkpoint is not None:
+            _pl.load_checkpoint(self.model, checkpoint, device=self.device)
         if not buckets:
             buckets = default_buckets(max(64, self.min_bucket),
                                       minimum=self.min_bucket)
@@ -388,7 +395,8 @@ class InferenceEngine(QuantizedParamsMixin):
 # Autoregressive decode: GenerativeEngine
 # ===========================================================================
 
-_PARALLEL = "the parallel slice of the port (ROADMAP.md Queue 1 item 8)"
+_PARALLEL = ("tensor-parallel serving, the serving part of the parallel "
+             "slice (ROADMAP.md Queue 1 item 8b)")
 
 
 class DecodeState:
@@ -592,10 +600,10 @@ class GenerativeEngine(QuantizedParamsMixin):
         cache bucket's decode once on a scratch state, outside traffic;
         with ``horizons``, one horizon per (cache bucket x capacity)
         under ``sampling`` in place of the single-step decode (a horizon
-        front never runs it)."""
+        front never runs it). ``checkpoint=<dir>``: restore the model from
+        a ``TrainingCheckpointer`` directory first."""
         if checkpoint is not None:
-            raise NotImplementedError(f"warmup(checkpoint=) comes with "
-                                      f"{_PARALLEL}")
+            _pl.load_checkpoint(self.model, checkpoint, device=self.device)
         cs = sorted(set(next_bucket(c) for c in cache_buckets))
         tps = sorted(set(next_bucket(t) for t in prompt_buckets))
         hs = sorted({int(h) for h in horizons if int(h) >= 1})
@@ -854,9 +862,9 @@ class PagedGenerativeEngine(GenerativeEngine):
     (table-width bucket, window), each prompt bucket's prefill and the
     fork and each ``migrate_buckets`` page count's export and import once
     on a scratch state, and ``cold_calls`` stands in for ``compiles``;
-    the pools are updated IN PLACE, by ``import_pages`` too; ``mesh=`` and
-    ``warmup(checkpoint=)`` raise ``NotImplementedError`` naming their
-    slices."""
+    the pools are updated IN PLACE, by ``import_pages`` too; ``mesh=``
+    raises ``NotImplementedError`` naming its slice, and
+    ``warmup(checkpoint=)`` restores the model first."""
 
     def __init__(self, model, slots: int = 8, pages: int = 64,
                  page_size: int = 16, max_cache_len: int = 256,
@@ -1011,10 +1019,10 @@ class PagedGenerativeEngine(GenerativeEngine):
         and, per page count in ``migrate_buckets`` (rounded up to a power
         of two), one page export and one page import once on a scratch
         state, outside traffic. Disaggregated replicas pass the page
-        counts their prompt buckets imply."""
+        counts their prompt buckets imply. ``checkpoint=<dir>``: restore
+        the model from a ``TrainingCheckpointer`` directory first."""
         if checkpoint is not None:
-            raise NotImplementedError(f"warmup(checkpoint=) comes with "
-                                      f"{_PARALLEL}")
+            _pl.load_checkpoint(self.model, checkpoint, device=self.device)
         mps = sorted({self._mp_bucket(c) for c in cache_buckets})
         tps = sorted({next_bucket(t) for t in prompt_buckets})
         hs = sorted({int(h) for h in horizons if int(h) >= 1})

@@ -80,7 +80,9 @@ def test_scan_covers_the_package():
             "count_kernels.py", "hdf5.py", "keras.py", "conv_extra.py",
             "vertices.py", "make_keras_config.py", "disagg.py",
             "decode.py", "quantize.py", "placement.py",
-            "quantization.py"} <= names
+            "quantization.py", "launcher.py", "data_parallel.py",
+            "overlap.py", "checkpoint.py", "multihost_sim.py",
+            "collectives.py"} <= names
     # both quantize modules: the ops' and the SameDiff rewrite's
     assert sum(p.name == "quantize.py" for p in _port_sources()) == 2
 
@@ -186,6 +188,32 @@ def test_samediff_entry_points_without_device_raise(no_cuda, tmp_path):
             make()
     assert SameDiff.load(path, device="cpu").device.type == "cpu"
     assert bert(tiny, seq_len=4, device="cpu").device.type == "cpu"
+
+
+def test_parallel_entry_points_without_device_raise(no_cuda, tmp_path):
+    """ParallelWrapper, launcher.initialize and TrainingCheckpointer.restore
+    run on cuda unless asked for cpu, and raise without a card (the
+    wrapper for an uninitialized model, restore into one)."""
+    from deeplearning4j_tpu_torch.parallel import launcher
+    from deeplearning4j_tpu_torch.parallel.checkpoint import \
+        TrainingCheckpointer
+    from deeplearning4j_tpu_torch.parallel.data_parallel import \
+        ParallelWrapper
+    cpu = resnet(18, input_shape=(8, 8, 3), num_classes=3).init(
+        device="cpu")
+    with TrainingCheckpointer(str(tmp_path / "ck")) as ck:
+        ck.save(cpu, step=1)
+        fresh = resnet(18, input_shape=(8, 8, 3), num_classes=3)
+        for make in (lambda: ParallelWrapper(fresh),
+                     lambda: ParallelWrapper(cpu, device="cuda"),
+                     launcher.initialize,
+                     lambda: launcher.initialize("127.0.0.1:9", 2, 1),
+                     lambda: ck.restore(fresh)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+        assert ParallelWrapper(cpu).device.type == "cpu"
+        assert ck.restore(fresh, device="cpu") == 1
+    assert fresh.device.type == "cpu"
 
 
 def test_importer_entry_points_without_device_raise(no_cuda):
